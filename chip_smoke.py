@@ -11,19 +11,33 @@ shapes the main path gives it, drives the stream orchestrator's main
 path on the card, and checks what comes out. Phases:
 
 1. device (``nvidia-smi`` name and power limit) and the kernel build;
-2. each kernel vs its plain version: max error against the stated
-   tolerance, the kernel's median time, the plain version's time, and
-   the least time the card could take (``bound_ms``);
+2. each slice-1 kernel vs its plain version: max error against the
+   stated tolerance, the kernel's median time, the plain version's
+   time, and the least time the card could take (``bound_ms``);
 3. the orchestrator on a dense 256-wide drifting stream, 12 batches of
    65,536 events, once with the ``int8_ef`` uplink codec and once with
    ``topk_int8_ef``, plus a small run compared with the same job on the
    CPU (the kernels' plain versions);
 4. the orchestrator on a hashed sparse stream (hash -> pca -> sketch);
 5. edge preprocessing (``preprocess_batch``) over the dense batches with
-   NaNs injected.
+   NaNs injected;
+6. the serving path's two kernels vs their plain versions, as in
+   phase 2 (flash attention at three shapes, with ``library_ms`` from
+   SDPA, and its fp32 build checked untimed; WKV at two), then model
+   serving (``ServeEngine``, ``impl="kernel"``) at full width,
+   bf16, random weights from a seed: seamless-m4t-medium (flash
+   attention in cross-attention), rwkv6-1.6b (the WKV kernel) and
+   qwen2-1.5b (no kernel on its path), each with 16 requests of
+   512-token prompts, 32 greedy new tokens, ``batch_size=8``,
+   ``max_len=1024``; tokens, finite logits and prefill logits against
+   ``impl="chunked"`` are checked;
+7. rwkv6's ``serving_graph`` placed by ``place_frontier`` on the edge
+   serving example's cluster and run at the ``{decode}`` frontier: its
+   tokens must be the engine's, bitwise.
 
-The launch counts are set to 0 just before phase 3 and read after phase
-5; every kernel must have launched there. A line ``{"kernels": [...]}``
+The launch counts are set to 0 just before each main path (phases 3-5
+as one, each model of phase 6, phase 7) and read just after it; every
+kernel must have launched on a main path. A line ``{"kernels": [...]}``
 reports each kernel, the line before the last gives the card's name and
 power limit, and the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and the script exits non-zero without that line. It also
@@ -44,13 +58,14 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# HBM bytes/s and fp32 (non-tensor) flop/s by H100/H200 variant, from
-# NVIDIA's data sheets; matched on the name nvidia-smi reports.
+# HBM bytes/s, fp32 (non-tensor) flop/s and dense bf16 tensor-core
+# flop/s by H100/H200 variant, from NVIDIA's data sheets; matched on the
+# name nvidia-smi reports.
 CARD_PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H200", 4.8e12, 67e12),
-    ("H100", 3.35e12, 67e12),          # SXM, "H100 80GB HBM3"
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H200", 4.8e12, 67e12, 989e12),
+    ("H100", 3.35e12, 67e12, 989e12),          # SXM, "H100 80GB HBM3"
 )
 
 N_EVENTS = 65_536      # events per batch on the main path
@@ -59,15 +74,26 @@ HASH_F = 32            # sparse features per event
 HASH_DIM = 1024        # hashed width
 N_BATCHES = 12
 
+SERVE_MODELS = ("seamless-m4t-medium", "rwkv6-1.6b", "qwen2-1.5b")
+N_REQUESTS = 16        # requests per served model
+PROMPT = 512           # prompt tokens per request
+NEW_TOKENS = 32        # greedy new tokens per request
+SERVE_BATCH = 8        # requests per wave
+MAX_LEN = 1024
+SERVE_PLACE_RATE = 0.1  # requests/s: the pod alone serves rwkv6 feasibly
+# prefill logits of impl="kernel" against impl="chunked" on the card, in
+# bf16: max |difference| <= LOGITS_RTOL * max |chunked logits|
+LOGITS_RTOL = 5e-2
+
 
 def log(*a):
     print(*a, flush=True)
 
 
 def card_peaks(name: str):
-    for key, bw, flops in CARD_PEAKS:
+    for key, bw, flops, tensor in CARD_PEAKS:
         if key in name:
-            return bw, flops
+            return bw, flops, tensor
     raise RuntimeError(f"no memory/flop peaks known for card {name!r}")
 
 
@@ -79,52 +105,69 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int, warmup: int = 1) -> float:
+def median_ms(fn, reps: int, warmup: int = 1, trials: int = 3) -> float:
+    """Median over ``trials`` of the mean ms of ``reps`` back-to-back
+    calls between two CUDA events: the host enqueues ahead of the card,
+    so a short kernel's time is not its launch overhead."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(trials):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
-# phase 2: every kernel against its plain version on the card
+# phase 2 (slice 1's kernels) and the start of phase 6 (the serving
+# kernels): every kernel against its plain version on the card
 # ---------------------------------------------------------------------------
 
-def kernel_checks(dev, bw: float, flops: float) -> dict:
+def recorder(rows: dict, bw: float, flops: float, tensor: float):
+    """``record(...)``: check one kernel against its tolerance, log it with
+    its bound, and keep its row in ``rows``."""
+
+    def bound(nbytes, nops, tensor_ops=0.0):
+        # fp32 operations at the CUDA-core peak, matrix products at the
+        # bf16 tensor-core peak
+        t_b = nbytes / bw * 1e3
+        t_o = (nops / flops + tensor_ops / tensor) * 1e3
+        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+    def record(name, source, replaces, err, tol, ms, plain_ms, nbytes, nops,
+               tensor_ops=0.0, library_ms=None, row=None):
+        b_ms, b_by = bound(nbytes, nops, tensor_ops)
+        log(f"  {row or name}: max_abs_err={err!r} tol={tol!r} "
+            f"kernel_ms={ms!r} plain_ms={plain_ms!r} bound_ms={b_ms!r} "
+            f"({b_by}) library_ms={library_ms!r}")
+        if not err <= tol:
+            raise AssertionError(f"{row or name}: kernel disagrees with its "
+                                 f"plain version: {err!r} > {tol!r}")
+        rows[row or name] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
+
+    return record
+
+
+def kernel_checks(dev, g, record) -> None:
+    """Slice 1's kernels at the orchestrator's shapes."""
     import torch
     from repro_torch.kernels import (detector_scan as ds, ef_codec,
                                      preprocess, ref)
     from repro_torch.streams import drift
 
-    g = torch.Generator(device=dev).manual_seed(1234)
     n_el = N_EVENTS * DIM
-    rows = {}
-
-    def bound(nbytes, nops):
-        t_b, t_o = nbytes / bw * 1e3, nops / flops * 1e3
-        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-    def record(name, source, replaces, err, tol, ms, plain_ms, nbytes, nops):
-        b_ms, b_by = bound(nbytes, nops)
-        log(f"  {name}: max_abs_err={err!r} tol={tol!r} kernel_ms={ms!r} "
-            f"plain_ms={plain_ms!r} bound_ms={b_ms!r} ({b_by})")
-        if not err <= tol:
-            raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 f"version: {err!r} > {tol!r}")
-        rows[name] = {"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "max_abs_err": err, "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": None}
 
     # -- EF codecs: (65536 x 256) f32 with a non-zero residual, k = 10% ----
     x = torch.randn((N_EVENTS, DIM), generator=g, device=dev)
@@ -234,7 +277,105 @@ def kernel_checks(dev, bw: float, flops: float) -> dict:
            "src/repro/core/pipeline.py:687", max(diffs), 0.0,
            median_ms(lambda: ds.detector_scan_cuda("ddm", init, err), 20),
            plain_ms, N_EVENTS * 4 + 48, N_EVENTS * 20)
-    return rows
+
+
+def serving_kernel_checks(dev, g, record):
+    """The serving path's two kernels against their plain versions at the
+    path's shapes, in bf16 (the served configurations' dtype)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_wkv as wkv
+
+    bf16_eps = float(torch.finfo(torch.bfloat16).eps)
+    # -- flash attention: seamless cross-attention (B*H = 128, D = 64) ----
+    BH, T, D = SERVE_BATCH * 16, PROMPT, 64
+    cases = (("flash_attention", PROMPT, False),            # prefill
+             ("flash_attention/decode", 1, False),           # decode step
+             ("flash_attention/causal", PROMPT, True))       # S = T causal
+    k = torch.randn((BH, T, D), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((BH, T, D), generator=g, device=dev).to(torch.bfloat16)
+    for row, S, causal in cases:
+        q = torch.randn((BH, S, D), generator=g, device=dev).to(torch.bfloat16)
+        got = fa.flash_attention_bhsd_cuda(q, k, v, causal=causal)
+        want = fa.flash_attention_bhsd_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{row}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        # one bf16 ulp of the largest output: both accumulate in fp32 and
+        # round once to bf16
+        tol = bf16_eps * float(want.float().abs().max())
+        pairs = S * T if not causal else S * (S + 1) // 2
+        record("flash_attention",
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:77", err, tol,
+               median_ms(lambda: fa.flash_attention_bhsd_cuda(
+                   q, k, v, causal=causal), 20),
+               median_ms(lambda: fa.flash_attention_bhsd_plain(
+                   q, k, v, causal=causal), 5),
+               2 * BH * D * (2 * S + 2 * T), 5 * BH * pairs,
+               tensor_ops=4 * BH * pairs * D,
+               library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal), 20),
+               row=row)
+    # the fp32 build of the kernel (no served model reaches it): held to
+    # its plain version, fp32 on both sides, within 1e-4 of the largest
+    # output; logged, not timed
+    for S, causal in ((PROMPT, False), (1, False), (PROMPT, True)):
+        q32, k32, v32 = (torch.randn((BH, n, D), generator=g, device=dev)
+                         for n in (S, T, T))
+        got = fa.flash_attention_bhsd_cuda(q32, k32, v32, causal=causal)
+        want = fa.flash_attention_bhsd_plain(q32, k32, v32, causal=causal)
+        err = float((got - want).abs().max())
+        tol = 1e-4 * float(want.abs().max())
+        log(f"  flash_attention fp32 S={S} causal={causal}: "
+            f"max_abs_err={err!r} tol={tol!r}")
+        if not err <= tol:
+            raise AssertionError(f"flash_attention fp32: {err!r} > {tol!r}")
+    del q, k, v, got, want, q32, k32, v32
+
+    # -- RWKV6 WKV: rwkv6-1.6b prefill (B=8, S=512, H=32, hs=64) and decode -
+    H, hs, chunk = 32, 64, 32
+    BH = SERVE_BATCH * H
+    for row, S in (("rwkv6_wkv", PROMPT), ("rwkv6_wkv/decode", 1)):
+        r, kk, vv = (torch.randn((BH, S, hs), generator=g, device=dev
+                                 ).to(torch.bfloat16) for _ in range(3))
+        lw = -torch.exp(-2.0 + 0.5 * torch.randn((BH, S, hs), generator=g,
+                                                   device=dev))
+        u = 0.5 * torch.randn((BH, hs), generator=g, device=dev)
+        h0 = torch.randn((BH, hs, hs), generator=g, device=dev) * (S == 1)
+        o, h = wkv.rwkv6_wkv_bh_cuda(r, kk, vv, lw, u, h0, chunk=chunk)
+        po, ph = wkv.rwkv6_wkv_bh_plain(r, kk, vv, lw, u, h0, chunk=chunk)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(o.float()).all() and torch.isfinite(h).all()):
+            raise AssertionError(f"{row}: non-finite output")
+        herr = float((h - ph).abs().max())
+        htol = 1e-4 * float(ph.abs().max())     # fp32, other summation order
+        log(f"  {row}: h_last max_abs_err={herr!r} tol={htol!r}")
+        if not herr <= htol:
+            raise AssertionError(f"{row}: h_last disagrees: {herr!r} > {htol!r}")
+        err = float((o.float() - po.float()).abs().max())
+        # one bf16 ulp of the largest output, plus the fp32 difference of
+        # the chunked and the per-step sums
+        tol = bf16_eps * float(po.float().abs().max()) + htol
+        n_chunks = -(-S // min(chunk, S))
+        lc = min(chunk, S)
+        pairs = lc * (lc - 1) // 2
+        per_chunk_tensor = 4 * lc * hs * hs + 2 * pairs * hs
+        per_chunk_fp32 = 6 * pairs * hs + 4 * lc * hs
+        record("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+               "src/repro/kernels/rwkv6_wkv.py:71", err, tol,
+               median_ms(lambda: wkv.rwkv6_wkv_bh_cuda(
+                   r, kk, vv, lw, u, h0, chunk=chunk), 20),
+               median_ms(lambda: wkv.rwkv6_wkv_bh_plain(
+                   r, kk, vv, lw, u, h0, chunk=chunk), 3),
+               BH * S * hs * (2 * 3 + 4 + 2) + BH * hs * 4
+               + 2 * BH * hs * hs * 4,
+               BH * n_chunks * per_chunk_fp32,
+               tensor_ops=BH * n_chunks * per_chunk_tensor, row=row)
+    del r, kk, vv, lw, u, h0, o, h, po, ph
+    torch.cuda.empty_cache()     # phase 3 starts from an empty cache
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +410,130 @@ def run_dense(batches, codec: str, budget: float, device: str,
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return orch, m, secs
+
+
+def edge_serving_cluster():
+    """The cluster of ``examples/edge_serving.py``: one modest edge box
+    and one narrow cloud pod (copied; the example imports the JAX
+    package)."""
+    from repro_torch.core import costmodel as cm
+    edge = cm.Resource("edge0", "edge", chips=1, flops=4e9, mem_bw=5e9,
+                       mem_cap=4e9, net_bw=1e9)
+    cloud = cm.Resource("cloud0", "cloud", chips=1, flops=1e13,
+                        mem_bw=2.5e9, mem_cap=64e9, net_bw=100e9)
+    return cm.ClusterSpec(
+        pools=[edge, cloud],
+        links=[cm.Link("edge0", "cloud0", bw=1e9, latency=5e-3),
+               cm.Link("cloud0", "edge0", bw=2e7, latency=5e-3)])
+
+
+def serving_phases(dev) -> dict:
+    """Phase 6 (each model served) and phase 7 (rwkv6's serving graph at
+    the {decode} frontier). Returns the launch counts of each path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement import Objective, place_frontier
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve.engine import Request, ServeEngine, wave_inputs
+    from repro_torch.serve.ops import serve_wave_batch, serving_graph
+
+    paths = {}
+    for arch in SERVE_MODELS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = zoo.init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = zoo.param_count(cfg)
+        log(f"phase 6: serving {arch} ({n_params} parameters, "
+            f"{cfg.param_dtype}), weights drawn in "
+            f"{time.perf_counter() - t0:.2f} s")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, size=PROMPT
+                                ).astype(np.int32) for _ in range(N_REQUESTS)]
+        # a short wave first, so the rates do not carry the first use of
+        # the card's libraries at these shapes
+        ServeEngine(cfg, params, batch_size=SERVE_BATCH, max_len=MAX_LEN
+                    ).run([Request(0, prompts[0][:64], max_new_tokens=2)])
+        ops.reset_launch_counts()
+        eng = ServeEngine(cfg, params, batch_size=SERVE_BATCH,
+                          max_len=MAX_LEN, impl="kernel", seed=0)
+        reqs = [Request(i, p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+        eng.run(reqs)
+        paths[f"serve/{arch}"] = ops.launch_counts()
+        tp = eng.throughput()
+        launched = {k: v for k, v in paths[f"serve/{arch}"].items() if v}
+        log(f"  prefill_tok_per_s={tp['prefill_tok_per_s']!r} "
+            f"decode_tok_per_s={tp['decode_tok_per_s']!r} "
+            f"prefill_s={eng.metrics['prefill_s']!r} "
+            f"decode_s={eng.metrics['decode_s']!r} launches={launched}")
+        for r in reqs:
+            if len(r.out_tokens) != NEW_TOKENS or not all(
+                    0 <= t < cfg.vocab_size for t in r.out_tokens):
+                raise AssertionError(f"{arch}: request {r.rid} got "
+                                     f"{r.out_tokens}")
+
+        # logits: finite, and impl="kernel" against impl="chunked"
+        batch = wave_inputs(cfg, prompts[:SERVE_BATCH], dev)
+        lk, caches = zoo.prefill(params, cfg, batch, MAX_LEN, impl="kernel")
+        lc, _ = zoo.prefill(params, cfg, batch, MAX_LEN, impl="chunked")
+        nxt = torch.argmax(lk[:, 0, :cfg.vocab_size], -1)[:, None]
+        ld, _ = zoo.decode_step(params, cfg, caches, nxt, impl="kernel")
+        real = slice(0, cfg.vocab_size)
+        for what, t in (("prefill", lk), ("decode", ld)):
+            if not torch.isfinite(t[..., real]).all():
+                raise AssertionError(f"{arch}: non-finite {what} logits")
+        diff = float((lk[..., real] - lc[..., real]).abs().max())
+        scale = float(lc[..., real].abs().max())
+        same_argmax = int((lk[:, 0, real].argmax(-1)
+                           == lc[:, 0, real].argmax(-1)).sum())
+        log(f"  prefill logits kernel vs chunked: max_abs_diff={diff!r} "
+            f"max_abs={scale!r} rel={diff / scale!r} (tol {LOGITS_RTOL}) "
+            f"argmax agree {same_argmax}/{SERVE_BATCH}")
+        if not diff <= LOGITS_RTOL * scale:
+            raise AssertionError(f"{arch}: kernel and chunked prefill logits "
+                                 f"differ by {diff!r}")
+        del lk, lc, ld, caches
+
+        if arch == "rwkv6-1.6b":
+            log("phase 7: rwkv6 serving graph at the {decode} frontier")
+            geng = ServeEngine(cfg, params, batch_size=SERVE_BATCH,
+                               max_len=MAX_LEN, impl="kernel", seed=0)
+            graph = serving_graph(geng, prompt_len=PROMPT,
+                                  max_new_tokens=NEW_TOKENS)
+            # The plan is only logged, not used. At full width the
+            # example's edge box (4 GFLOP/s) decodes a request in ~24 s,
+            # so no rate saturates the pod while the edge keeps up: the
+            # plan stays on the pod. The graph is run at the {decode}
+            # split all the same, the split the example forces at smoke
+            # width.
+            plan, frontier = place_frontier(graph, edge_serving_cluster(),
+                                            SERVE_PLACE_RATE, Objective(),
+                                            method="dp")
+            log(f"  place_frontier at {SERVE_PLACE_RATE} requests/s: "
+                f"{plan.assignment} frontier={sorted(frontier)} "
+                f"feasible={plan.feasible}; running at frontier ['decode']")
+            states = graph.init_states(dev)
+            gbatch = serve_wave_batch(geng, prompts[:SERVE_BATCH], seed=0)
+            ops.reset_launch_counts()
+            states, out = graph.run(states, gbatch, frontier={"decode"})
+            torch.cuda.synchronize()
+            paths["serve_graph/rwkv6-1.6b"] = ops.launch_counts()
+            got = out["out_tokens"].tolist()
+            want = [r.out_tokens for r in reqs[:SERVE_BATCH]]
+            launched = {k: v for k, v in
+                        paths["serve_graph/rwkv6-1.6b"].items() if v}
+            log(f"  graph tokens equal the engine's: {got == want} "
+                f"launches={launched}")
+            if got != want:
+                raise AssertionError("rwkv6 serving graph at {decode} "
+                                     "differs from the engine")
+            del graph, geng, states, out
+        del params, eng
+        torch.cuda.empty_cache()
+    return paths
 
 
 def check_no_nan(states, what: str):
@@ -309,7 +574,7 @@ def main() -> int:
     # -- phase 1 ------------------------------------------------------------
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
-    bw, flops = card_peaks(name)
+    bw, flops, tensor = card_peaks(name)
     log(f"phase 1: card {name!r}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -318,8 +583,11 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- phase 2 ------------------------------------------------------------
+    rows = {}
+    record = recorder(rows, bw, flops, tensor)
+    kg = torch.Generator(device=dev).manual_seed(1234)  # phases 2 and 6
     log("phase 2: kernels vs plain versions at the main path's shapes")
-    rows = kernel_checks(dev, bw, flops)
+    kernel_checks(dev, kg, record)
 
     # -- phases 3-5 drive the main path with the counts from 0 ----------------
     batches = dense_batches(N_BATCHES, N_EVENTS, DIM)
@@ -397,10 +665,20 @@ def main() -> int:
     if float(state.n) != len(batches) * N_EVENTS:
         raise AssertionError("preprocess_batch: wrong running count")
 
-    counts = ops.launch_counts()
+    path_counts = {"orchestrator": ops.launch_counts()}
+
+    # -- phases 6-7: model serving, each model one main path ------------------
+    # the serving kernels are checked here, not in phase 2, so that
+    # phases 3-5 follow the same phase 2 as before they were added
+    log("phase 6: serving kernels vs plain versions at the serving "
+        "path's shapes")
+    serving_kernel_checks(dev, kg, record)
+    path_counts.update(serving_phases(dev))
+    counts = {k: sum(c[k] for c in path_counts.values())
+              for k in ops.launch_counts()}
     missing = sorted(k for k, v in counts.items() if v <= 0)
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on a main path: {missing}")
 
     # -- small input: the card's path against the CPU's plain path -----------
     # sample_rate=1.0 keeps every event, so the two generators' draws
@@ -422,6 +700,8 @@ def main() -> int:
 
     kernels = []
     for k, row in rows.items():
+        if k != row["name"]:
+            continue        # a further shape of a kernel: logged above
         kernels.append({"name": row["name"], "route": row["route"],
                         "source": row["source"], "replaces": row["replaces"],
                         "launches": counts[k],
@@ -431,6 +711,7 @@ def main() -> int:
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
     log(f"launches by phase: {json.dumps(phase_counts, sort_keys=True)}")
+    log(f"launches by main path: {json.dumps(path_counts, sort_keys=True)}")
     log(f"total seconds: {time.perf_counter() - t_all:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(smi)

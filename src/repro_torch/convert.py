@@ -1,11 +1,15 @@
-"""Carry op states from the JAX package into the port.
+"""Carry op states and model weights from the JAX package into the port.
 
 For a stream system the op states are what weights are for a model: a
 normalizer's running moments, a reservoir, a learner, a detector. Given
 the JAX package's states as numpy trees (``{op name: state}``, e.g.
 ``jax.tree.map(np.asarray, orchestrator.states)``), :func:`states_from_numpy`
 builds the port's states for the same pipeline on a device, so both
-packages can continue from the same point.
+packages can continue from the same point. :func:`params_from_numpy`
+does the same for a model's parameter tree.
+
+Every entry point defaults to ``device="cuda"`` and raises where CUDA is
+not available; pass ``device="cpu"`` to build on the CPU.
 """
 
 from __future__ import annotations
@@ -15,7 +19,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch._tree import tree_flatten_with_path, tree_unflatten
+from repro_torch.models import model_zoo as zoo
+from repro_torch.models.layers import dtype_of
 from repro_torch.streams.sampling import SEED_MASK
 
 
@@ -37,9 +44,10 @@ def _leaf(template: torch.Tensor, value, path: str, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device).to(template.dtype)
 
 
-def state_from_numpy(template, state_np, device="cpu") -> Any:
+def state_from_numpy(template, state_np, device="cuda") -> Any:
     """One op's state: ``state_np`` must have the structure (same fields,
     in the same order) of the port's ``template`` state."""
+    device = resolve_device(device)
     want, treedef = tree_flatten_with_path(template)
     have, _ = tree_flatten_with_path(state_np)
     if [p for p, _ in want] != [p for p, _ in have]:
@@ -50,7 +58,7 @@ def state_from_numpy(template, state_np, device="cpu") -> Any:
 
 
 def states_from_numpy(pipeline, states_np: Dict[str, Any],
-                      device="cpu") -> Dict[str, Any]:
+                      device="cuda") -> Dict[str, Any]:
     """The port's states ``{op name: state}`` for ``pipeline`` on
     ``device``, from the JAX package's states as numpy trees."""
     missing = sorted(set(pipeline.names) - set(states_np))
@@ -59,3 +67,29 @@ def states_from_numpy(pipeline, states_np: Dict[str, Any],
     templates = pipeline.init_states("cpu")
     return {name: state_from_numpy(templates[name], states_np[name], device)
             for name in pipeline.names}
+
+
+def params_from_numpy(cfg, params_np, device="cuda"):
+    """The port's parameter tree for ``cfg`` on ``device``, leaf for leaf
+    from the JAX package's (``jax.tree.map(np.asarray, params)``), in the
+    configuration's parameter dtype. Raises on a missing, extra or
+    misshaped leaf."""
+    device = resolve_device(device)
+    want, treedef = tree_flatten_with_path(zoo.param_shapes(cfg))
+    have = dict(tree_flatten_with_path(params_np)[0])
+    paths = [p for p, _ in want]
+    missing = sorted(set(paths) - set(have))
+    extra = sorted(set(have) - set(paths))
+    if missing or extra:
+        raise ValueError(f"parameter tree differs: missing {missing}, "
+                         f"extra {extra}")
+    dtype = dtype_of(cfg.param_dtype)
+    leaves = []
+    for p, t in want:
+        a = np.asarray(have[p])
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"parameter {p}: shape {a.shape} where the port "
+                             f"has {tuple(t.shape)}")
+        leaves.append(torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=device, dtype=dtype))
+    return tree_unflatten(treedef, leaves)

@@ -49,6 +49,7 @@ from typing import (Any, Callable, Dict, FrozenSet, Iterable, Iterator, List,
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch._tree import tree_flatten, tree_map
 from repro_torch.core.costmodel import OperatorCost
 from repro_torch.kernels import ops as kops
@@ -298,8 +299,10 @@ class OpGraph:
                           downlink_ok=self.op(name).cost.downlink_ok)
             for name, c in costs.items()}
 
-    def init_states(self, device="cpu") -> Dict[str, Any]:
-        """Every op's initial state, placed on ``device``."""
+    def init_states(self, device="cuda") -> Dict[str, Any]:
+        """Every op's initial state, placed on ``device`` (raises where
+        CUDA is not available; pass ``"cpu"`` to run on the CPU)."""
+        device = resolve_device(device)
         return {op.name: tree_map(lambda t: _to(t, device), op.init())
                 for op in self.ops}
 

@@ -8,11 +8,13 @@ library name carries a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
-Flags: ``sm_90a`` (Hopper), ``-O3``, no fast math, and ``-fmad=false``,
-so no multiply-add is contracted: the kernels repeat their plain
-versions' roundings operation by operation. ``-Xptxas -v`` writes each
-kernel's registers and shared memory into ``<name>.log`` beside the
-library.
+Flags: ``sm_90a`` (Hopper), ``-O3`` and no fast math for every source.
+The sources in :data:`EXACT` add ``-fmad=false``, so no multiply-add is
+contracted: they repeat their plain versions' roundings operation by
+operation and are held to them bitwise or within an ulp. The others
+(attention and the WKV scan, held to a bf16 tolerance) keep nvcc's
+default of fused multiply-adds. ``-Xptxas -v`` writes each kernel's
+registers and shared memory into ``<name>.log`` beside the library.
 """
 
 from __future__ import annotations
@@ -27,10 +29,16 @@ import threading
 from typing import Dict, Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ef_codec", "preprocess", "detector_scan")
+SOURCES = ("ef_codec", "preprocess", "detector_scan", "flash_attention",
+           "rwkv6_wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+EXACT = ("ef_codec", "preprocess", "detector_scan")
+
+
+def nvcc_flags(name: str) -> tuple:
+    return NVCC_FLAGS + (("-fmad=false",) if name in EXACT else ())
+
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -54,7 +62,7 @@ def nvcc() -> str:
 def library_path(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(nvcc_flags(name)).encode()).hexdigest()
     return build_dir() / f"lib{name}_{digest[:16]}.so"
 
 
@@ -75,7 +83,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, pathlib.Path]:
         tmp = out[n].with_name(f".{out[n].name}.{os.getpid()}.tmp")
         log = open(d / f"{n}.log", "w")
         procs[n] = (subprocess.Popen(
-            [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            [exe, *nvcc_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")],
             stdout=log, stderr=subprocess.STDOUT), tmp, log)
     failed = []
     for n, (p, tmp, log) in procs.items():

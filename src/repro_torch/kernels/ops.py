@@ -12,18 +12,40 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels import _build
 from repro_torch.kernels import detector_scan as _ds
 from repro_torch.kernels import ef_codec as _ef
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import preprocess as _pp
+from repro_torch.kernels import rwkv6_wkv as _wkv
 
 fused_normalize = _pp.fused_normalize
 hash_features = _pp.fused_hash_features
 ef_int8_roundtrip = _ef.ef_int8_roundtrip
 ef_topk_int8_roundtrip = _ef.ef_topk_int8_roundtrip
 detector_scan = _ds.detector_scan
+flash_attention = _fa.flash_attention
+rwkv6_wkv = _wkv.rwkv6_wkv
 
-_COUNTERS = (_pp.LAUNCHES, _ef.LAUNCHES, _ds.LAUNCHES)
+_COUNTERS = (_pp.LAUNCHES, _ef.LAUNCHES, _ds.LAUNCHES, _fa.LAUNCHES,
+             _wkv.LAUNCHES)
+
+
+def flash_supported(q, k, v, causal, q_offset, kv_len) -> bool:
+    """The JAX package's rule (``kernels/ops.py::flash_supported``) for
+    when ``attention(impl=...)`` takes the flash kernel: plain causal or
+    full attention with no query offset and no KV length. A tensor
+    offset, even a zero one, refuses it: ``self_attention`` always passes
+    one, so only cross-attention reaches the kernel. The reference's
+    other condition, that Pallas is available, is the caller's choice of
+    ``impl="kernel"`` here."""
+    if kv_len is not None:
+        return False
+    if isinstance(q_offset, torch.Tensor) or q_offset:
+        return False
+    return q.shape[-1] == k.shape[-1]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,5 +1,5 @@
 """Plain-torch twins of the JAX package's kernel oracles
-(``repro/kernels/ref.py``) for the kernels on the port's current path.
+(``repro/kernels/ref.py``) for the kernels on the port's paths so far.
 
 Each is the plain version its CUDA kernel is held against: the kernel
 wrappers run these for tensors on the CPU, the tests hold them to the
@@ -8,6 +8,8 @@ card. They run on any device.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -97,3 +99,48 @@ def ef_topk_int8_roundtrip_ref(residual, x, k: int):
     dec = torch.where(kept, q * scale, zero)
     shape = x.shape
     return dec.reshape(shape).to(x.dtype), (xc - dec).reshape(shape)
+
+
+def attention_ref(q, k, v, *, causal: bool = True):
+    """Materialized-softmax attention. q: (B,S,H,D); k,v: (B,T,KV,D)
+    (GQA expanded here). Scores, softmax and the product in fp32, the
+    result in q's dtype.
+
+    The causal mask is the flash kernel's: ``kpos <= qpos`` with both
+    counted from 0 (start-aligned). The JAX package's oracle
+    (``repro/kernels/ref.py::attention_ref``) aligns the mask to the end
+    (``tril(k=T-S)``) while its Pallas kernel aligns it to the start; the
+    two agree only at S = T. This twin takes the kernel's semantics, so
+    that the wrapper computes the same function on either device."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if KV != H:
+        k = torch.repeat_interleave(k, H // KV, dim=2)
+        v = torch.repeat_interleave(v, H // KV, dim=2)
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(D)
+    if causal:
+        mask = torch.tril(torch.ones((S, T), dtype=torch.bool,
+                                     device=q.device))
+        s = torch.where(mask[None, None], s,
+                        torch.tensor(-1e30, dtype=s.dtype, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhst,bthd->bshd", p, v.float())
+    return o.to(q.dtype)
+
+
+def rwkv6_wkv_ref(r, k, v, lw, u, h0):
+    """Naive per-timestep RWKV6 WKV recurrence. r,k,v,lw: (B,S,H,hs);
+    u: (H,hs); h0: (B,H,hs,hs). Returns (o, h_last) in fp32."""
+    B, S, H, hs = r.shape
+    rf, kf, vf = (t.float() for t in (r, k, v))
+    w = torch.exp(lw.float())                    # decay in (0,1]
+    uf = u.float()
+    h = h0.float()
+    outs = []
+    for t in range(S):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], w[:, t]
+        kv = torch.einsum("bhi,bhj->bhij", kt, vt)
+        outs.append(torch.einsum("bhi,bhij->bhj", rt,
+                                 h + uf[None, :, :, None] * kv))
+        h = wt[..., None] * h + kv
+    return torch.stack(outs, dim=1), h           # (B,S,H,hs), (B,H,hs,hs)

@@ -1,4 +1,5 @@
-"""Chip constants of the analytic cost model.
+"""Chip constants of the analytic cost model, and the roofline flops
+rules that declare a DL op's cost.
 
 These are the modelled-cluster numbers the placement cost model prices
 plans with (``core/costmodel.py``'s ``Resource`` defaults and the
@@ -13,3 +14,50 @@ from __future__ import annotations
 PEAK_FLOPS = 197e12        # modelled flop/s per chip
 HBM_BW = 819e9             # modelled memory bytes/s per chip
 LINK_BW = 50e9             # modelled link bytes/s per link
+
+
+def model_flops(cfg, shape) -> float:
+    """6*N*D for train (N=active params, D=tokens); 2*N*D for inference."""
+    counts = cfg.param_counts()
+    n_active = counts["active"]
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n_active * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n_active * tokens
+    # decode: one token per sequence
+    return 2.0 * n_active * shape.global_batch
+
+
+def dl_operator_cost(name: str, cfg, *, phase: str, batch: int,
+                     seq_len: int, new_tokens: int = 1,
+                     param_bytes: float = 0.0, state_bytes: float = 0.0,
+                     out_bytes_per_event: float = 0.0,
+                     edge_capable: bool = True, downlink_ok: bool = False):
+    """Declared :class:`~repro_torch.core.costmodel.OperatorCost` for a DL
+    op from the roofline flops rules (6ND train, 2ND prefill, 2N per
+    generated token), copied from the JAX package. An *event* is one
+    request/sequence. ``bytes_per_event`` models the weight stream:
+    parameters are read once per step and amortize over the ``batch``
+    sequences sharing it, except decode, which re-reads the weights for
+    every generated token."""
+    from repro_torch.core.costmodel import OperatorCost
+    if phase not in ("train", "prefill", "decode"):
+        raise ValueError(f"phase {phase!r} not in ('train', 'prefill', "
+                         "'decode')")
+    n_active = float(cfg.param_counts()["active"])
+    b = max(int(batch), 1)
+    if phase == "train":
+        flops = 6.0 * n_active * seq_len
+        hbm = 3.0 * param_bytes / b          # fwd read + grad + update
+    elif phase == "prefill":
+        flops = 2.0 * n_active * seq_len
+        hbm = param_bytes / b
+    else:
+        flops = 2.0 * n_active * new_tokens
+        hbm = param_bytes * new_tokens / b   # weight re-read per token
+    return OperatorCost(name, flops_per_event=flops, bytes_per_event=hbm,
+                        out_bytes_per_event=out_bytes_per_event,
+                        state_bytes=state_bytes, edge_capable=edge_capable,
+                        downlink_ok=downlink_ok)

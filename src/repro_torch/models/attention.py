@@ -1,0 +1,276 @@
+"""Attention: GQA self-attention with a KV cache, and cross-attention.
+
+The JAX package's ``models/attention.py`` in PyTorch. Three execution
+paths, numerically equivalent (the tests hold each to the reference):
+
+* ``dense``   — materialized scores.
+* ``chunked`` — online softmax over KV blocks; O(S * chunk) memory.
+* ``kernel``  — the flash-attention kernel (:mod:`repro_torch.kernels.
+                flash_attention`), the counterpart of the reference's
+                ``pallas``. Taken exactly where the reference takes its
+                Pallas kernel (:func:`repro_torch.kernels.ops.
+                flash_supported`): with no query offset and no KV length.
+                ``self_attention`` always derives its offset from the
+                positions tensor, so only ``cross_attention`` reaches the
+                kernel, as in the reference.
+
+Without a device mesh the reference repeats no KV heads
+(``kv_repeat_factor`` is 1) and its sharding annotations are no-ops;
+both are left out. MLA (DeepSeek latent attention) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import apply_rope, cast_like_xla
+from repro_torch.models.params import Spec
+
+NEG_INF = -1e30
+
+MLA_TODO = ("MLA (multi-head latent attention) is not ported yet: see "
+            "ROADMAP.md, 'Modules to port', item 8 (the moe/ssm/hybrid/vlm "
+            "families and MLA)")
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+def attn_specs(cfg: ArchConfig, cross: bool = False):
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    sp = {
+        "wq": Spec((d, H, Dh), ("embed", "heads", "head_dim")),
+        "wk": Spec((d, KV, Dh), ("embed", "kv_heads", "head_dim")),
+        "wv": Spec((d, KV, Dh), ("embed", "kv_heads", "head_dim")),
+        "wo": Spec((H, Dh, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        sp["bq"] = Spec((H, Dh), ("heads", "head_dim"), "zeros")
+        sp["bk"] = Spec((KV, Dh), ("kv_heads", "head_dim"), "zeros")
+        sp["bv"] = Spec((KV, Dh), ("kv_heads", "head_dim"), "zeros")
+    return sp
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+def _group(q: torch.Tensor, n_kv: int):
+    B, S, H, Dh = q.shape
+    return q.reshape(B, S, n_kv, H // n_kv, Dh)
+
+
+def _make_mask(S, T, causal, q_offset, kv_len, B, device):
+    """(B, S, T) bool validity mask."""
+    ar_s = torch.arange(S, device=device)
+    kpos = torch.arange(T, device=device)[None, :]
+    if isinstance(q_offset, torch.Tensor) and q_offset.dim() > 0:
+        qpos = ar_s[None, :, None] + q_offset.to(device).reshape(-1, 1, 1)
+        kpos = kpos[None]
+    else:
+        off = q_offset.to(device) if isinstance(q_offset, torch.Tensor) \
+            else q_offset
+        qpos = ar_s[:, None] + off                     # (S,1)
+    if causal:
+        m = kpos <= qpos
+    else:
+        m = torch.ones((S, T), dtype=torch.bool, device=device)
+    if m.dim() == 2:
+        m = m[None].expand(B, S, T)
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len).to(device).reshape(-1, 1, 1)
+        m = m & (torch.arange(T, device=device)[None, None, :] < kl)
+    return m
+
+
+def dense_attention(q, k, v, *, causal: bool, q_offset=0,
+                    kv_len=None) -> torch.Tensor:
+    """Materialized-scores attention. q:(B,S,H,Dh) k,v:(B,T,KV,Dh)."""
+    B, S, H, Dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qg = _group(q, KV)
+    scale = 1.0 / math.sqrt(Dh)
+    s = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    mask = _make_mask(S, T, causal, q_offset, kv_len, B, q.device)
+    s = torch.where(mask[:, None, None], s,
+                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal: bool, chunk: int = 512, q_offset=0,
+                      kv_len=None) -> torch.Tensor:
+    """Online-softmax attention over KV blocks; O(S*chunk) memory."""
+    B, S, H, Dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KV
+    dev = q.device
+    chunk = min(chunk, T)
+    nblk = -(-T // chunk)
+    Tp = nblk * chunk
+    if Tp != T:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, Tp - T))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, Tp - T))
+    qg = _group(q, KV).float()
+    scale = 1.0 / math.sqrt(Dh)
+
+    qoff = torch.as_tensor(q_offset).to(dev)
+    if qoff.dim() == 0:
+        qpos_b = (torch.arange(S, device=dev)[None] + qoff).expand(B, S)
+    else:
+        qpos_b = torch.arange(S, device=dev)[None] + qoff.reshape(-1, 1)
+    kl = None if kv_len is None else torch.as_tensor(kv_len).to(dev).reshape(-1)
+
+    m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, S, Dv), dtype=torch.float32, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    for blk in range(nblk):
+        kb = k[:, blk * chunk:(blk + 1) * chunk]
+        vb = v[:, blk * chunk:(blk + 1) * chunk]
+        kpos = blk * chunk + torch.arange(chunk, device=dev)
+        s = torch.einsum("bskgd,bckd->bkgsc", qg, kb.float()) * scale
+        valid = (kpos[None, None, :] < T).expand(B, S, chunk)
+        if causal:
+            valid = valid & (kpos[None, None, :] <= qpos_b[:, :, None])
+        if kl is not None:
+            valid = valid & (kpos[None, None, :] < kl[:, None, None])
+        s = torch.where(valid[:, None, None], s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgsc,bckd->bkgsd", p, vb.float())
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    o = torch.movedim(o, 3, 1)                           # (B,S,KV,G,Dv)
+    return o.reshape(B, S, H, Dv).to(q.dtype)
+
+
+def attention(q, k, v, *, causal: bool, impl: str = "dense", chunk: int = 512,
+              q_offset=0, kv_len=None) -> torch.Tensor:
+    if impl not in ("dense", "chunked", "kernel"):
+        raise ValueError(f"attention impl {impl!r} not in "
+                         "('dense', 'chunked', 'kernel')")
+    if impl == "kernel":
+        from repro_torch.kernels import ops as kops
+        if kops.flash_supported(q, k, v, causal, q_offset, kv_len):
+            return kops.flash_attention(q, k, v, causal=causal)
+        impl = "chunked"
+    if impl == "chunked" and k.shape[1] > chunk:
+        return chunked_attention(q, k, v, causal=causal, chunk=chunk,
+                                 q_offset=q_offset, kv_len=kv_len)
+    return dense_attention(q, k, v, causal=causal, q_offset=q_offset,
+                           kv_len=kv_len)
+
+
+# ---------------------------------------------------------------------------
+# Self-attention block (GQA)
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, T, KV, Dh)
+    v: torch.Tensor
+    length: torch.Tensor     # () int32 — filled prefix; kept on the CPU
+
+
+def _project(p, cfg, x, name):
+    w = p["w" + name]
+    y = torch.einsum("bsd,dhe->bshe", x, w.to(x.dtype))
+    if cfg.qkv_bias and ("b" + name) in p:
+        y = y + p["b" + name].to(x.dtype)
+    return y
+
+
+def _write_cache(buf: torch.Tensor, new: torch.Tensor, start: int):
+    """Write ``new`` into ``buf[:, start:start+S]`` IN PLACE (the reference
+    donates the cache to its decode step and updates it with
+    ``dynamic_update_slice``). Where the reference clamps a start that
+    would run past the end, this raises: a request's prompt plus its new
+    tokens must fit ``max_len``."""
+    S, T = new.shape[1], buf.shape[1]
+    if start < 0 or start + S > T:
+        raise ValueError(f"KV cache overflow: writing {S} positions at "
+                         f"{start} into a cache of length {T}")
+    buf[:, start:start + S] = cast_like_xla(new, buf.dtype)
+    return buf
+
+
+def self_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
+                   cache: Optional[KVCache] = None, causal: bool = True,
+                   impl: str = "chunked"):
+    """x: (B,S,D). Returns (out, new_cache); a given cache is updated in
+    place."""
+    q = _project(p, cfg, x, "q")
+    k = _project(p, cfg, x, "k")
+    v = _project(p, cfg, x, "v")
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    kv_len = None
+    if isinstance(positions, torch.Tensor):
+        q_offset = positions[:, 0] if positions.dim() == 2 else positions[0]
+    else:
+        q_offset = positions
+    if cache is not None:
+        start = int(cache.length)
+        k_all = _write_cache(cache.k, k, start)
+        v_all = _write_cache(cache.v, v, start)
+        new_cache = KVCache(k_all, v_all, cache.length + k.shape[1])
+        k, v = k_all.to(x.dtype), v_all.to(x.dtype)
+        kv_len = cache.length + q.shape[1]
+        q_offset = cache.length
+
+    o = attention(q, k, v, causal=causal, impl=impl, chunk=cfg.attn_chunk,
+                  q_offset=q_offset, kv_len=kv_len)
+    out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
+    return out, new_cache
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                  device="cpu") -> KVCache:
+    KV, Dh = cfg.n_kv_heads, cfg.d_head
+    return KVCache(
+        k=torch.zeros((batch, max_len, KV, Dh), dtype=dtype, device=device),
+        v=torch.zeros((batch, max_len, KV, Dh), dtype=dtype, device=device),
+        length=torch.zeros((), dtype=torch.int32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+class CrossCache(NamedTuple):
+    k: torch.Tensor          # (B, T_src, KV, Dh) — precomputed from memory
+    v: torch.Tensor
+
+
+def cross_attention(p, cfg: ArchConfig, x: torch.Tensor,
+                    memory: Optional[torch.Tensor] = None,
+                    cache: Optional[CrossCache] = None,
+                    impl: str = "chunked"):
+    """K/V from `memory` (encoder output) or from `cache`."""
+    q = _project(p, cfg, x, "q")
+    if cache is None:
+        if memory is None:
+            raise ValueError("cross_attention needs memory or a cache")
+        k = _project(p, cfg, memory, "k")
+        v = _project(p, cfg, memory, "v")
+        new_cache = CrossCache(k, v)
+    else:
+        k, v = cache.k.to(x.dtype), cache.v.to(x.dtype)
+        new_cache = cache
+    o = attention(q, k, v, causal=False, impl=impl, chunk=cfg.attn_chunk)
+    out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
+    return out, new_cache

@@ -1,0 +1,198 @@
+"""Core layers: norms, rotary/sinusoidal positions, MLPs, embeddings.
+
+The JAX package's ``models/layers.py`` in PyTorch, with its casts kept
+operation for operation (reductions in fp32, results dropped to the
+activation dtype where the reference drops them). All functions are
+pure; parameters are plain dicts materialized from Spec trees
+(:mod:`repro_torch.models.params`). The reference's sharding annotations
+are no-ops without a device mesh and are left out; its ``cot_cast``
+(a backward-only cast) is the identity here, since this path computes no
+gradients.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.params import Spec
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "int8": torch.int8}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def cot_cast(x: torch.Tensor) -> torch.Tensor:
+    """The reference's backward-only cotangent cast: the identity in a
+    forward pass."""
+    return x
+
+
+def cast_like_xla(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.astype(dtype)`` as XLA converts: a float going to an integer
+    type saturates at the type's range and then truncates toward zero
+    (torch's ``.to`` wraps instead: 200.7 -> -56 in int8)."""
+    if x.is_floating_point() and not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        x = torch.clamp(x.float(), info.min, info.max)
+    return x.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_specs(cfg: ArchConfig):
+    d = cfg.d_model
+    if cfg.norm_type == "layernorm":
+        return {"scale": Spec((d,), ("embed",), "ones"),
+                "bias": Spec((d,), ("embed",), "zeros")}
+    return {"scale": Spec((d,), ("embed",), "ones")}
+
+
+def apply_norm(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Reductions in fp32; the normalized product drops to x.dtype BEFORE
+    the scale multiply, as in the reference."""
+    xf = x.float()
+    if cfg.norm_type == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = ((xf - mu) * torch.rsqrt(var + cfg.norm_eps)).to(x.dtype)
+        y = y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+    else:  # rmsnorm
+        ms = torch.square(xf).mean(-1, keepdim=True)
+        y = (xf * torch.rsqrt(ms + cfg.norm_eps)).to(x.dtype)
+        y = y * p["scale"].to(x.dtype)
+    return y
+
+
+def groupnorm_heads(scale, bias, x: torch.Tensor, n_heads: int,
+                    eps: float) -> torch.Tensor:
+    """GroupNorm with one group per head over (..., H, hs) flattened input."""
+    *lead, d = x.shape
+    hs = d // n_heads
+    xf = x.float().reshape(*lead, n_heads, hs)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y.reshape(*lead, d) * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Positional encodings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, d_head, 2, dtype=np.float32) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) or (S,)."""
+    d = x.shape[-1]
+    freqs = torch.from_numpy(rope_freqs(d, theta)).to(x.device)   # (d/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions.to(x.device)[..., None].float() * freqs      # (B,S,d/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sincos_pos_embed(seq: int, d: int, device="cpu") -> torch.Tensor:
+    """(seq, d) fp32 sinusoidal embedding of positions 0..seq-1."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-np.log(10000.0) / d))
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense feed-forward)
+# ---------------------------------------------------------------------------
+
+def mlp_specs(cfg: ArchConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_act.endswith("_glu"):
+        return {
+            "w_gate": Spec((d, f), ("embed", "ff")),
+            "w_up": Spec((d, f), ("embed", "ff")),
+            "w_down": Spec((f, d), ("ff", "embed")),
+        }
+    return {
+        "w_up": Spec((d, f), ("embed", "ff")),
+        "b_up": Spec((f,), ("ff",), "zeros"),
+        "w_down": Spec((f, d), ("ff", "embed")),
+        "b_down": Spec((d,), ("embed",), "zeros"),
+    }
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name.startswith("silu"):
+        return F.silu(x)
+    if name.startswith("gelu"):
+        # jax.nn.gelu defaults to the tanh approximation
+        return F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu(x)
+    if name == "relu2":
+        r = F.relu(x)
+        return r * r
+    raise ValueError(name)
+
+
+def apply_mlp(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D)."""
+    if cfg.mlp_act.endswith("_glu"):
+        h = _act(cfg.mlp_act, x @ p["w_gate"]) * (x @ p["w_up"])
+        return h @ p["w_down"]
+    h = _act(cfg.mlp_act, x @ p["w_up"] + p["b_up"].to(x.dtype))
+    return h @ p["w_down"] + p["b_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embeddings / LM head
+# ---------------------------------------------------------------------------
+
+def embed_specs(cfg: ArchConfig):
+    V, d = cfg.padded_vocab, cfg.d_model
+    sp = {"tok": Spec((V, d), ("vocab", "embed"), scale=1.0)}
+    if not cfg.tie_embeddings:
+        sp["head"] = Spec((d, V), ("embed", "vocab"))
+    return sp
+
+
+def embed_tokens(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    tok = p["tok"]
+    return tok.to(dtype_of(cfg.compute_dtype))[tokens.to(tok.device).long()]
+
+
+def lm_logits(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final-norm'ed hidden -> (B, S, padded_vocab) fp32 logits (pads
+    masked)."""
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, p["tok"].to(x.dtype))
+    else:
+        logits = x @ p["head"]
+    logits = logits.float()
+    if cfg.logits_softcap:
+        c = cfg.logits_softcap
+        logits = c * torch.tanh(logits / c)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = cfg.padded_vocab - cfg.vocab_size
+        mask = torch.cat([
+            torch.zeros((cfg.vocab_size,), dtype=torch.float32),
+            torch.full((pad,), -1e30, dtype=torch.float32)]).to(logits.device)
+        logits = logits + mask
+    return logits

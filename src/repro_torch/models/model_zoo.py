@@ -1,0 +1,220 @@
+"""Public model API of the port: build/init an architecture of the
+ported families (dense, rwkv, encdec) and run eval / prefill / decode,
+as the JAX package's ``models/model_zoo.py``.
+
+Cache layout mirrors the layer plan: ``{"prefix": [slot_cache...],
+"stack": stacked_slot_caches}`` (+ ``"memory"`` for enc-dec), with the
+reference's NamedTuples (``KVCache``, ``CrossCache``, ``RWKVState``) as
+leaves' parents. The reference donates the cache to its jitted decode
+step; here :func:`decode_step` (and :func:`prefill`, on the cache it
+allocates) update the given cache IN PLACE and return it. Each
+``KVCache.length`` is a CPU int32 tensor, so reading the cache's length
+costs no device sync.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch._tree import tree_map
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import params as pmod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import apply_norm, dtype_of, embed_tokens, lm_logits
+from repro_torch.models.transformer import (
+    Slot, check_family, forward_lm, layer_plan, lm_loss, model_specs,
+    run_prefix, run_stack,
+)
+from repro_torch.models.transformer import encode as _encode
+
+__all__ = [
+    "model_specs", "init_params", "param_shapes", "param_count",
+    "forward_lm", "lm_loss", "init_caches", "prefill", "decode_step",
+]
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
+    """Random parameters from ``seed``, materialized on ``device``."""
+    check_family(cfg)
+    return pmod.materialize(model_specs(cfg), seed, dtype_of(cfg.param_dtype),
+                            resolve_device(device))
+
+
+def param_shapes(cfg: ArchConfig):
+    """The parameter tree as ``meta`` tensors (no storage)."""
+    check_family(cfg)
+    return pmod.shape_tree(model_specs(cfg), dtype_of(cfg.param_dtype))
+
+
+def param_count(cfg: ArchConfig) -> int:
+    check_family(cfg)
+    return pmod.param_count(model_specs(cfg))
+
+
+def params_device(params) -> torch.device:
+    return params["embed"]["tok"].device
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def _cross(cfg, batch, src_len, dtype, device):
+    shape = (batch, src_len, cfg.n_kv_heads, cfg.d_head)
+    return attn_mod.CrossCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _slot_cache(cfg: ArchConfig, slot: Slot, batch: int, max_len: int,
+                src_len: int, dtype, device):
+    if slot.mixer == "attn":
+        return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len, dtype,
+                                             device)}
+    if slot.mixer == "attn_cross":
+        return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len, dtype,
+                                             device),
+                "cross": _cross(cfg, batch, src_len, dtype, device)}
+    if slot.mixer == "rwkv":
+        return {"rwkv": rwkv_mod.init_rwkv_state(cfg, batch, device)}
+    raise ValueError(slot.mixer)
+
+
+def _stack_cache(cfg, pattern, rep, batch, max_len, src_len, dtype, device):
+    per_slot = [_slot_cache(cfg, s, batch, max_len, src_len, dtype, device)
+                for s in pattern]
+    return tree_map(
+        lambda x: x[None].expand((rep,) + tuple(x.shape)).clone(), per_slot)
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int,
+                src_len: int = 0, dtype=None, device="cpu"):
+    """A zeroed cache tree; ``device="meta"`` gives shapes only. Lengths
+    stay on the CPU."""
+    check_family(cfg)
+    dtype = dtype or dtype_of(cfg.kv_cache_dtype)
+    if cfg.family == "encdec":
+        pre, rep, pat = layer_plan(cfg, cfg.dec_layers, decoder=True)
+    else:
+        pre, rep, pat = layer_plan(cfg, cfg.n_layers)
+    out = {
+        "prefix": [_slot_cache(cfg, s, batch, max_len, src_len, dtype, device)
+                   for s in pre],
+        "stack": (_stack_cache(cfg, pat, rep, batch, max_len, src_len, dtype,
+                               device) if rep else []),
+    }
+    if cfg.family == "encdec":
+        out["memory"] = torch.zeros((batch, src_len, cfg.d_model),
+                                    dtype=dtype_of(cfg.compute_dtype),
+                                    device=device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Cached forward (prefill and decode share this)
+# ---------------------------------------------------------------------------
+
+def _sincos_at(cfg, S, offset, device):
+    """The reference's ``_sincos_at`` (its log is taken in fp32, unlike
+    ``sincos_pos_embed``'s)."""
+    pos = (torch.arange(S, device=device) + offset).float()[:, None]
+    d = cfg.d_model
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-torch.log(torch.tensor(10000.0, device=device)) / d))
+    pe = torch.zeros((S, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def forward_cached(params, cfg: ArchConfig, tokens, caches, *, offset,
+                   memory=None, impl: str = "chunked"):
+    """tokens: (B,S) starting at absolute position `offset` (an int or a
+    0-dim tensor). Updates ``caches`` in place; returns (last-token
+    logits, caches)."""
+    B, S = tokens.shape
+    x = embed_tokens(params["embed"], cfg, tokens)
+    off = int(offset)
+    if cfg.pos_embed == "sincos":
+        x = x + _sincos_at(cfg, S, off, x.device).to(x.dtype)[None]
+    positions = tfm._positions(B, S, off, device=x.device)
+    if cfg.family == "encdec":
+        pre, rep, pat = layer_plan(cfg, cfg.dec_layers, decoder=True)
+        prefix_params, stack_params = params["dec"]["prefix"], params["dec"]["stack"]
+    else:
+        pre, rep, pat = layer_plan(cfg, cfg.n_layers)
+        prefix_params, stack_params = params["prefix"], params["stack"]
+    new = dict(caches)
+    x, pc = run_prefix(prefix_params, cfg, pre, x, positions=positions,
+                       memory=memory, caches=caches["prefix"], impl=impl)
+    new["prefix"] = pc
+    if rep:
+        x, sc = run_stack(stack_params, cfg, pat, x, positions=positions,
+                          memory=memory, caches=caches["stack"] or None,
+                          impl=impl)
+        new["stack"] = sc
+    x = apply_norm(params["final_norm"], cfg, x)
+    return lm_logits(params["embed"], cfg, x[:, -1:, :]), new
+
+
+def _clear_cross(caches):
+    def clear(tree):
+        if isinstance(tree, dict):
+            return {k: (None if k == "cross" else clear(v)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [clear(v) for v in tree]
+        return tree
+    return clear(caches)
+
+
+def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
+            impl: str = "chunked"):
+    """Fill caches from a prompt. Returns (last-token logits, caches)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
+    dev = params_device(params)
+    memory = None
+    src_len = 0
+    if cfg.family == "encdec":
+        memory = _encode(params, cfg, batch, impl)
+        src_len = memory.shape[1]
+    caches = init_caches(cfg, B, max_len, src_len, device=dev)
+    # cross caches start empty -> computed from memory on first pass
+    caches = _clear_cross(caches)
+    logits, caches = forward_cached(params, cfg, tokens, caches, offset=0,
+                                    memory=memory, impl=impl)
+    if memory is not None:
+        caches["memory"] = memory
+    return logits, caches
+
+
+def decode_step(params, cfg: ArchConfig, caches, tokens, *,
+                impl: str = "chunked"):
+    """One decode step. tokens: (B,1). Offset derives from cache lengths;
+    the cache is updated in place."""
+    offset = _cache_length(caches)
+    memory = caches.get("memory")
+    return forward_cached(params, cfg, tokens, caches, offset=offset,
+                          memory=memory, impl=impl)
+
+
+def _cache_length(caches) -> torch.Tensor:
+    leaves = []
+
+    def visit(t):
+        if isinstance(t, dict):
+            [visit(v) for v in t.values()]
+        elif isinstance(t, list):
+            [visit(v) for v in t]
+        elif isinstance(t, attn_mod.KVCache):
+            leaves.append(t.length)
+    visit({k: v for k, v in caches.items() if k != "memory"})
+    if not leaves:
+        return torch.zeros((), dtype=torch.int32)
+    l0 = leaves[0]
+    return l0.reshape(-1)[0] if l0.dim() else l0

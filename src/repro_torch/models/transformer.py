@@ -1,0 +1,366 @@
+"""Unified LM assembly, ported from the JAX package's
+``models/transformer.py`` for the dense, RWKV6 and encoder-decoder
+families.
+
+A config compiles to a *layer plan*: a short prefix plus a periodic
+pattern of per-layer "slots" over stacked parameters (every leaf of the
+pattern's parameters carries a leading ``layers`` dimension). The
+reference scans over that dimension; here :func:`run_stack` is a Python
+loop over it, and the reference's gather barrier (``_diff_barrier``) and
+rematerialisation have no counterpart. Slot mixers ported: ``attn``,
+``attn_cross``, ``rwkv``; slot MLPs: ``dense``, ``rwkv_cm``. The moe,
+ssm, hybrid and vlm families and MLA raise ``NotImplementedError``.
+
+Families:
+  dense          -> decoder-only stack
+  rwkv           -> recurrent mixers, O(1) decode state
+  encdec         -> bidirectional encoder stack + decoder with cross-attn
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch._tree import tree_flatten_with_path, tree_map, tree_unflatten
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models.layers import (
+    apply_mlp, apply_norm, cot_cast, dtype_of, embed_specs, embed_tokens,
+    lm_logits, mlp_specs, norm_specs, sincos_pos_embed,
+)
+from repro_torch.models.params import Spec, stack_specs
+
+PORTED_FAMILIES = ("dense", "rwkv", "encdec")
+
+FAMILY_TODO = ("the {} family is not ported yet: see ROADMAP.md, 'Modules "
+               "to port', item 8 (the moe/ssm/hybrid/vlm families and MLA)")
+
+
+def check_family(cfg: ArchConfig) -> None:
+    """Raise for a configuration this port cannot run yet."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(FAMILY_TODO.format(cfg.family))
+    if cfg.mla is not None:
+        raise NotImplementedError(attn.MLA_TODO)
+    if cfg.moe.num_experts:
+        raise NotImplementedError(FAMILY_TODO.format("moe"))
+
+
+# ---------------------------------------------------------------------------
+# Layer plans
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Slot:
+    mixer: str            # attn|attn_cross|rwkv
+    mlp: str              # dense|rwkv_cm
+    causal: bool = True
+
+
+def _slot_list(cfg: ArchConfig, n_layers: int, decoder: bool = True):
+    check_family(cfg)
+    slots = []
+    for _ in range(n_layers):
+        if cfg.family == "rwkv":
+            slots.append(Slot("rwkv", "rwkv_cm"))
+        elif cfg.family == "encdec" and decoder:
+            slots.append(Slot("attn_cross", "dense"))
+        elif cfg.family == "encdec":
+            slots.append(Slot("attn", "dense", causal=False))
+        else:
+            slots.append(Slot("attn", "dense"))
+    return slots
+
+
+def layer_plan(cfg: ArchConfig, n_layers: int, decoder: bool = True):
+    """-> (prefix_slots, repeat, pattern_slots)."""
+    slots = _slot_list(cfg, n_layers, decoder)
+    for prefix in range(0, min(4, n_layers)):
+        rest = slots[prefix:]
+        if not rest:
+            continue
+        for period in range(1, min(len(rest), 16) + 1):
+            if len(rest) % period:
+                continue
+            if all(rest[i] == rest[i % period] for i in range(len(rest))):
+                if len(rest) // period == 1 and period > 1:
+                    continue  # prefer true repetition over one fat block
+                return tuple(slots[:prefix]), len(rest) // period, tuple(rest[:period])
+    return tuple(slots), 0, ()
+
+
+# ---------------------------------------------------------------------------
+# Per-slot specs
+# ---------------------------------------------------------------------------
+
+def _mixer_specs(cfg: ArchConfig, slot: Slot):
+    if slot.mixer == "attn":
+        return attn.attn_specs(cfg)
+    if slot.mixer == "attn_cross":
+        return {"self": attn.attn_specs(cfg), "cross": attn.attn_specs(cfg)}
+    if slot.mixer == "rwkv":
+        return rwkv_mod.rwkv_time_mix_specs(cfg)
+    raise ValueError(slot.mixer)
+
+
+def _mlp_specs(cfg: ArchConfig, slot: Slot):
+    if slot.mlp == "dense":
+        return mlp_specs(cfg)
+    if slot.mlp == "rwkv_cm":
+        return rwkv_mod.rwkv_channel_mix_specs(cfg)
+    raise ValueError(slot.mlp)
+
+
+def slot_specs(cfg: ArchConfig, slot: Slot):
+    sp = {"norm1": norm_specs(cfg), "mixer": _mixer_specs(cfg, slot)}
+    if slot.mixer == "attn_cross":
+        sp["norm_cross"] = norm_specs(cfg)
+    sp["norm2"] = norm_specs(cfg)
+    sp["mlp"] = _mlp_specs(cfg, slot)
+    return sp
+
+
+def model_specs(cfg: ArchConfig):
+    sp: dict = {"embed": embed_specs(cfg), "final_norm": norm_specs(cfg)}
+    if cfg.family == "encdec":
+        pre_e, rep_e, pat_e = layer_plan(cfg, cfg.enc_layers, decoder=False)
+        pre_d, rep_d, pat_d = layer_plan(cfg, cfg.dec_layers, decoder=True)
+        sp["enc"] = {
+            "prefix": [slot_specs(cfg, s) for s in pre_e],
+            "stack": stack_specs([slot_specs(cfg, s) for s in pat_e], rep_e),
+            "final_norm": norm_specs(cfg),
+        }
+        sp["dec"] = {
+            "prefix": [slot_specs(cfg, s) for s in pre_d],
+            "stack": stack_specs([slot_specs(cfg, s) for s in pat_d], rep_d),
+        }
+    else:
+        pre, rep, pat = layer_plan(cfg, cfg.n_layers)
+        sp["prefix"] = [slot_specs(cfg, s) for s in pre]
+        sp["stack"] = stack_specs([slot_specs(cfg, s) for s in pat], rep)
+    if cfg.frontend != "none":
+        sp["frontend_proj"] = Spec((cfg.frontend_dim, cfg.d_model),
+                                   ("embed", None))
+    return sp
+
+
+# ---------------------------------------------------------------------------
+# Slot application
+# ---------------------------------------------------------------------------
+
+def apply_slot(p, cfg: ArchConfig, slot: Slot, x, *, positions, memory,
+               cache, impl: str):
+    """Returns (x, new_cache). The reference also returns an auxiliary
+    loss, which only its MoE MLPs make non-zero."""
+    h = apply_norm(p["norm1"], cfg, x)
+    new_cache = cache
+
+    if slot.mixer == "attn":
+        o, kv = attn.self_attention(
+            p["mixer"], cfg, h, positions=positions,
+            cache=cache.get("kv") if cache else None,
+            causal=slot.causal, impl=impl)
+        new_cache = {"kv": kv} if cache else None
+    elif slot.mixer == "attn_cross":
+        o, kv = attn.self_attention(
+            p["mixer"]["self"], cfg, h, positions=positions,
+            cache=cache.get("kv") if cache else None,
+            causal=slot.causal, impl=impl)
+        x = x + o
+        h2 = apply_norm(p["norm_cross"], cfg, x)
+        o, cc = attn.cross_attention(
+            p["mixer"]["cross"], cfg, h2, memory=memory,
+            cache=cache.get("cross") if cache and cache.get("cross") is not None else None,
+            impl=impl)
+        new_cache = {"kv": kv, "cross": cc} if cache else None
+    elif slot.mixer == "rwkv":
+        st = cache.get("rwkv") if cache else None
+        o, tm_shift, wkv = rwkv_mod.rwkv_time_mix(p["mixer"], cfg, h, st,
+                                                  impl=impl)
+        cm_prev = st.cm_shift if st is not None else None
+    else:
+        raise ValueError(slot.mixer)
+
+    if slot.mixer == "rwkv":
+        x = x + o
+        h = apply_norm(p["norm2"], cfg, x)
+        o2, cm_shift = rwkv_mod.rwkv_channel_mix(
+            p["mlp"], cfg, h,
+            rwkv_mod.RWKVState(tm_shift, cm_prev, wkv) if st is not None else None)
+        x = x + o2
+        if cache:
+            new_cache = {"rwkv": rwkv_mod.RWKVState(tm_shift, cm_shift, wkv)}
+        return cot_cast(x), new_cache
+
+    x = x + o
+    x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["norm2"], cfg, x))
+    return cot_cast(x), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Stack runner (a loop over stacked params / caches)
+# ---------------------------------------------------------------------------
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree: views into the stacked tensors."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def _write_back(stacked, per_layer):
+    """The stacked cache tree after the loop. A leaf the stacked tree
+    already holds is updated IN PLACE, layer by layer (a layer's KV
+    cache was written through its view and is skipped); a leaf it does
+    not hold (the cross-attention K/V that prefill computes where the
+    cache held ``None``) is stacked anew."""
+    old = dict(tree_flatten_with_path(stacked)[0])
+    flat0, treedef = tree_flatten_with_path(per_layer[0])
+    flats = [tree_flatten_with_path(c)[0] for c in per_layer]
+    leaves = []
+    for j, (path, _) in enumerate(flat0):
+        news = [f[j][1] for f in flats]
+        buf = old.get(path)
+        if isinstance(buf, torch.Tensor) and buf.shape[1:] == news[0].shape:
+            for i, t in enumerate(news):
+                dst = buf[i]
+                if t.data_ptr() != dst.data_ptr() or t.dtype != dst.dtype:
+                    dst.copy_(t)
+            leaves.append(buf)
+        else:
+            leaves.append(torch.stack(news))
+    return tree_unflatten(treedef, leaves)
+
+
+def run_stack(params, cfg: ArchConfig, pattern, x, *, positions, memory,
+              caches, impl):
+    """params: stacked slot-param list; caches: stacked cache trees or
+    None (updated in place where given)."""
+    n = len(tree_flatten_with_path(params)[0][0][1])
+    per_layer = []
+    for l in range(n):
+        lp = _layer(params, l)
+        lc = _layer(caches, l) if caches is not None else None
+        new_caches = []
+        for i, slot in enumerate(pattern):
+            c = lc[i] if lc is not None else None
+            x, nc = apply_slot(lp[i], cfg, slot, x, positions=positions,
+                               memory=memory, cache=c, impl=impl)
+            new_caches.append(nc)
+        per_layer.append(new_caches)
+    if caches is None:
+        return x, None
+    return x, _write_back(caches, per_layer)
+
+
+def run_prefix(params, cfg: ArchConfig, slots, x, *, positions, memory,
+               caches, impl):
+    new_caches = []
+    for i, slot in enumerate(slots):
+        c = caches[i] if caches is not None else None
+        x, nc = apply_slot(params[i], cfg, slot, x, positions=positions,
+                           memory=memory, cache=c, impl=impl)
+        new_caches.append(nc)
+    return x, (new_caches if caches is not None else None)
+
+
+# ---------------------------------------------------------------------------
+# Frontend stubs
+# ---------------------------------------------------------------------------
+
+def frontend_memory(params, cfg: ArchConfig, batch: dict):
+    """Project stubbed modality embeddings into d_model memory tokens."""
+    if cfg.frontend == "none":
+        return None
+    key = "frames" if cfg.frontend == "audio_frames" else "patches"
+    cd = dtype_of(cfg.compute_dtype)
+    proj = params["frontend_proj"]
+    return batch[key].to(device=proj.device, dtype=cd) @ proj.to(cd)
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _positions(B, S, offset=0, device="cpu"):
+    off = torch.as_tensor(offset).to(device).reshape(-1, 1)
+    return torch.arange(S, device=device)[None, :] + off
+
+
+def forward_lm(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
+    """Eval forward. Returns (logits, aux_loss); the auxiliary loss is 0
+    for every ported family."""
+    check_family(cfg)
+    if cfg.family == "encdec":
+        return _forward_encdec(params, cfg, batch, impl=impl)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(params["embed"], cfg, tokens)
+    if cfg.pos_embed == "sincos":
+        x = x + sincos_pos_embed(S, cfg.d_model, device=x.device).to(x.dtype)[None]
+    memory = frontend_memory(params, cfg, batch)
+    pre, rep, pat = layer_plan(cfg, cfg.n_layers)
+    positions = _positions(B, S, device=x.device)
+    x, _ = run_prefix(params["prefix"], cfg, pre, x, positions=positions,
+                      memory=memory, caches=None, impl=impl)
+    if rep:
+        x, _ = run_stack(params["stack"], cfg, pat, x, positions=positions,
+                         memory=memory, caches=None, impl=impl)
+    x = apply_norm(params["final_norm"], cfg, x)
+    return lm_logits(params["embed"], cfg, x), _no_aux()
+
+
+def _no_aux():
+    return torch.zeros((), dtype=torch.float32)
+
+
+def encode(params, cfg: ArchConfig, batch: dict, impl: str):
+    """The encoder of an enc-dec model: frontend memory + sincos, the
+    bidirectional stack, the final norm."""
+    mem_in = frontend_memory(params, cfg, batch)        # (B,Se,D)
+    Se = mem_in.shape[1]
+    x = mem_in + sincos_pos_embed(Se, cfg.d_model, device=mem_in.device
+                                  ).to(mem_in.dtype)[None]
+    pre, rep, pat = layer_plan(cfg, cfg.enc_layers, decoder=False)
+    pos = _positions(x.shape[0], Se, device=x.device)
+    x, _ = run_prefix(params["enc"]["prefix"], cfg, pre, x, positions=pos,
+                      memory=None, caches=None, impl=impl)
+    if rep:
+        x, _ = run_stack(params["enc"]["stack"], cfg, pat, x, positions=pos,
+                         memory=None, caches=None, impl=impl)
+    return apply_norm(params["enc"]["final_norm"], cfg, x)
+
+
+def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked"):
+    memory = encode(params, cfg, batch, impl)
+    tgt = batch["tokens"]
+    B, Sd = tgt.shape
+    x = embed_tokens(params["embed"], cfg, tgt)
+    if cfg.pos_embed == "sincos":
+        x = x + sincos_pos_embed(Sd, cfg.d_model, device=x.device).to(x.dtype)[None]
+    pre, rep, pat = layer_plan(cfg, cfg.dec_layers, decoder=True)
+    pos_d = _positions(B, Sd, device=x.device)
+    x, _ = run_prefix(params["dec"]["prefix"], cfg, pre, x, positions=pos_d,
+                      memory=memory, caches=None, impl=impl)
+    if rep:
+        x, _ = run_stack(params["dec"]["stack"], cfg, pat, x, positions=pos_d,
+                         memory=memory, caches=None, impl=impl)
+    x = apply_norm(params["final_norm"], cfg, x)
+    return lm_logits(params["embed"], cfg, x), _no_aux()
+
+
+def lm_loss(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
+    """Next-token cross-entropy (+ aux), forward only. Returns
+    (loss, metrics)."""
+    logits, aux = forward_lm(params, cfg, batch, impl=impl)
+    tokens = batch["tokens"].to(logits.device)
+    labels = tokens[:, 1:].long()
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = (mask[:, 1:].to(device=nll.device, dtype=torch.float32)
+            if mask is not None else torch.ones_like(nll))
+    ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    aux = aux.to(ce.device)
+    return ce + aux, {"ce": ce, "aux": aux}

@@ -178,7 +178,7 @@ def test_job_metrics_match_jax_on_the_hash_job():
     to = torch_orch.Orchestrator(torch_orch.StreamJob(
         "h", pipeline=tp, sla=tsla.SLA(max_latency_s=1e3, error_budget=0.1),
         device="cpu", **kw))
-    to.states = convert.states_from_numpy(tp, _np(jo.states))
+    to.states = convert.states_from_numpy(tp, _np(jo.states), device="cpu")
     jm = jo.run([JBatch(data=dict(d)) for d in data], rate_fn=lambda s: 1e4)
     tm = to.run([TBatch(data=dict(d)) for d in data], rate_fn=lambda s: 1e4)
     _compare_metrics(jm, tm)
@@ -235,7 +235,7 @@ def test_states_from_numpy_round_trips_the_jax_states(detector):
         y = (rng.random(32) < 0.5).astype(np.int32)
         js, _ = jg.run_reference(js, {"x": x, "y": y,
                                       "rng": jax.random.PRNGKey(3)})
-    ts = convert.states_from_numpy(tg, _np(js))
+    ts = convert.states_from_numpy(tg, _np(js), device="cpu")
     for name in tg.names:
         flat_t = tree_flatten_with_path(ts[name])[0]
         flat_j = tree_flatten_with_path(_np(js[name]))[0]
@@ -249,7 +249,8 @@ def test_states_from_numpy_round_trips_the_jax_states(detector):
     ts2, out = tg.run_reference(ts, _batch(rng, n=16))
     assert out["alert"].shape == ()
     with pytest.raises(ValueError):
-        convert.states_from_numpy(tg, {"normalize": _np(js["normalize"])})
+        convert.states_from_numpy(tg, {"normalize": _np(js["normalize"])},
+                                  device="cpu")
 
 
 def test_elastic_rescale_keeps_states_bitwise(tmp_path):

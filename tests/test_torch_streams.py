@@ -77,7 +77,8 @@ def test_moments_update_tracks_jax():
 
 def test_oja_from_the_same_start_tracks_jax():
     js = jprep.oja_init(16, 4, seed=3)
-    ts = convert.state_from_numpy(tprep.oja_init(16, 4), _np(js))
+    ts = convert.state_from_numpy(tprep.oja_init(16, 4), _np(js),
+                                  device="cpu")
     for x in _batches(2, d=16):
         js, jz = jprep.oja_update_project(js, jnp.asarray(x))
         ts, tz = tprep.oja_update_project(ts, _t(x))
@@ -135,7 +136,8 @@ def test_logreg_and_prequential_track_jax():
 
 def test_anomaly_scorer_from_the_same_start_tracks_jax():
     js = jonline.anomaly_init(8, m=4, seed=2)
-    ts = convert.state_from_numpy(tonline.anomaly_init(8, m=4), _np(js))
+    ts = convert.state_from_numpy(tonline.anomaly_init(8, m=4), _np(js),
+                                  device="cpu")
     for x in _batches(6):
         js = jonline.anomaly_update(js, jnp.asarray(x))
         ts = tonline.anomaly_update(ts, _t(x))
@@ -149,7 +151,8 @@ def test_anomaly_scorer_from_the_same_start_tracks_jax():
 
 def test_kmeans_from_the_same_start_tracks_jax():
     js = jonline.kmeans_init(3, 8, seed=1)
-    ts = convert.state_from_numpy(tonline.kmeans_init(3, 8), _np(js))
+    ts = convert.state_from_numpy(tonline.kmeans_init(3, 8), _np(js),
+                                  device="cpu")
     for x in _batches(7):
         js = jonline.kmeans_update(js, jnp.asarray(x))
         ts = tonline.kmeans_update(ts, _t(x))
@@ -206,7 +209,8 @@ def _jax_reservoir_draws(state, n):
 def test_reservoir_update_bitwise_with_injected_draws():
     k, d = 16, 4
     js = jsamp.reservoir_init(k, d, seed=3)
-    ts = convert.state_from_numpy(tsamp.reservoir_init(k, d), _np(js))
+    ts = convert.state_from_numpy(tsamp.reservoir_init(k, d), _np(js),
+                                  device="cpu")
     rng = np.random.default_rng(9)
     for _ in range(6):              # fills, then replaces
         x = rng.normal(size=(40, d)).astype(np.float32)
