@@ -33,16 +33,33 @@ path on the card, and checks what comes out. Phases:
    ``impl="chunked"`` are checked;
 7. rwkv6's ``serving_graph`` placed by ``place_frontier`` on the edge
    serving example's cluster and run at the ``{decode}`` frontier: its
-   tokens must be the engine's, bitwise.
+   tokens must be the engine's, bitwise;
+8. edge summarization: the count-min kernels (widths 1,024 and
+   1,048,576, and a table preloaded at 2^24 + 1) and the Misra-Gries
+   scan against their plain versions, exactly (Misra-Gries on a whole
+   batch against its plain loop on the host CPU, and on a 16,384-id
+   prefix against that loop on the card); then a ``StreamFeeder``
+   of 4 Zipf token shards (vocabulary 2^24) feeds 16 batches of
+   1,048,576 ids to the card, each through ``countmin_add_query`` at
+   both widths, a per-batch window sketch (``countmin_add``) and
+   ``mg_update`` (k = 64). The final tables must be bitwise the plain
+   versions' over the same batches, no estimate may fall below its true
+   count, Misra-Gries after the first batch must be bitwise its plain
+   loop's, and its top key at the end must be the most frequent id;
+9. the Mamba selective scan at jamba-1.5-large-398b's mixer width
+   (d_inner 16,384, 16 states) against its plain version at a prefill
+   shape (B 2, S 4,096), a ragged one (S 4,000) and a decode step
+   (S 1), then through ``kernels.ops.mamba_scan`` as that path.
 
 The launch counts are set to 0 just before each main path (phases 3-5
-as one, each model of phase 6, phase 7) and read just after it; every
-kernel must have launched on a main path. A line ``{"kernels": [...]}``
-reports each kernel, the line before the last gives the card's name and
-power limit, and the last line is ``{"ok": true, "device": {...}}``. Any
-failure raises and the script exits non-zero without that line. It also
-exits non-zero, printing no result, where CUDA is unavailable or the
-port's sources are not beside it.
+as one, each model of phase 6, phases 7, 8 and 9) and read just after
+it; every kernel must have launched on a main path. A line
+``{"kernels": [...]}`` reports each kernel, the line before the last
+gives the card's name and power limit, and the last line is
+``{"ok": true, "device": {...}}``. Any failure raises and the script
+exits non-zero without that line. It also exits non-zero, printing no
+result, where CUDA is unavailable or the port's sources are not beside
+it.
 """
 
 from __future__ import annotations
@@ -81,6 +98,29 @@ NEW_TOKENS = 32        # greedy new tokens per request
 SERVE_BATCH = 8        # requests per wave
 MAX_LEN = 1024
 SERVE_PLACE_RATE = 0.1  # requests/s: the pod alone serves rwkv6 feasibly
+
+# phase 8: edge summarization of a Zipf token stream
+SKETCH_SHARDS = 4
+SKETCH_SEQS = 256      # sequences per shard per batch
+SKETCH_SEQ_LEN = 1024
+SKETCH_VOCAB = 2 ** 24
+SKETCH_ZIPF = 1.3
+SKETCH_BATCHES = 16
+SKETCH_DEPTH = 4
+# the reference's default width, and one with eps = e / w ~ 2.6e-6
+SKETCH_WIDTHS = (1024, 1 << 20)
+MG_K = 64
+MG_PLAIN_N = 16_384    # ids the plain Misra-Gries loop runs on the card
+SKETCH_SAMPLE = 4096   # keys whose estimates are checked, the top 100 included
+
+# phase 9: jamba-1.5-large-398b's Mamba mixer (d_inner = 2 x 8,192, d_state 16)
+MAMBA_DI = 16_384
+MAMBA_N = 16
+MAMBA_B = 2
+MAMBA_CHUNK = 256
+MAMBA_SHAPES = (("mamba_scan", 4096), ("mamba_scan/ragged", 4000),
+                ("mamba_scan/decode", 1))
+MAMBA_TOL = 1e-5       # rtol and atol, fp32 against the per-step plain scan
 # prefill logits of impl="kernel" against impl="chunked" on the card, in
 # bf16: max |difference| <= LOGITS_RTOL * max |chunked logits|
 LOGITS_RTOL = 5e-2
@@ -536,6 +576,315 @@ def serving_phases(dev) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 8: edge summarization (feeder -> count-min -> Misra-Gries)
+# ---------------------------------------------------------------------------
+
+_STREAMS = {}   # shard -> its TokenStream, which draws its permutation once
+
+
+def token_batch(shard: int, idx: int, n_seqs: int):
+    from repro_torch.streams.generators import TokenStream
+    if shard not in _STREAMS:
+        _STREAMS[shard] = TokenStream(
+            vocab_size=SKETCH_VOCAB, seq_len=SKETCH_SEQ_LEN,
+            zipf_a=SKETCH_ZIPF, seed=shard)
+    return _STREAMS[shard].batch(idx, n_seqs)
+
+
+def first_token_batch():
+    """Batch 0 of the feeder, as it concatenates its shards."""
+    out = token_batch(0, 0, SKETCH_SEQS)
+    for s in range(1, SKETCH_SHARDS):
+        out = out.concat(token_batch(s, 0, SKETCH_SEQS))
+    return out.data["tokens"].reshape(-1)
+
+
+def sketch_kernel_checks(dev, record, ids):
+    """Count-min at both widths and with a table at 2^24 + 1, and the
+    Misra-Gries scan, each against its plain version: exactly."""
+    import torch
+    from repro_torch.kernels import countmin as cms
+    from repro_torch.kernels import mg_scan as mgk
+    from repro_torch.kernels import ref
+    from repro_torch.streams import sketches as sk
+
+    n, d = ids.numel(), SKETCH_DEPTH
+    for w in SKETCH_WIDTHS:
+        seeds = sk.countmin_init(d, w, seed=0, device=dev).seeds
+        inc = cms.countmin_update_cuda(ids, d, w, seeds)
+        pinc = ref.countmin_ref(ids, d, w, seeds)
+        table = inc * 3                     # a running table, not zeros
+        got = cms.countmin_update_query_cuda(ids, table, seeds)
+        want = ref.countmin_update_query_ref(ids, table, seeds)
+        big = torch.full((d, w), 2 ** 24 + 1, dtype=torch.int32, device=dev)
+        got_big = cms.countmin_update_query_cuda(ids, big, seeds)
+        want_big = ref.countmin_update_query_ref(ids, big, seeds)
+        torch.cuda.synchronize()
+        same = {"update": torch.equal(inc, pinc),
+                "update_query": all(map(torch.equal, got, want)),
+                "at_2^24+1": all(map(torch.equal, got_big, want_big))}
+        err = max(float((a.long() - b.long()).abs().max())
+                  for a, b in ((inc, pinc), *zip(got, want),
+                               *zip(got_big, want_big)))
+        log(f"  count-min width {w}: bitwise equal to plain {same}; "
+            f"max cell {int(got[0].max())}, at 2^24+1: "
+            f"{int(got_big[0].max())}")
+        if not all(same.values()):
+            raise AssertionError(f"count-min width {w}: kernel differs from "
+                                 f"plain: {same}")
+        src = "src/repro_torch/kernels/csrc/countmin.cu"
+        tag = "" if w == SKETCH_WIDTHS[0] else f"/w{w}"
+        record("countmin_update", src, "src/repro/kernels/countmin.py:59",
+               err, 0.0,
+               median_ms(lambda: cms.countmin_update_cuda(ids, d, w, seeds),
+                         20),
+               median_ms(lambda: ref.countmin_ref(ids, d, w, seeds), 5),
+               4 * n + 4 * d * w, 5 * n * d,
+               row=f"countmin_update{tag}" if tag else None)
+        record("countmin_update_query", src,
+               "src/repro/kernels/countmin.py:131", err, 0.0,
+               median_ms(lambda: cms.countmin_update_query_cuda(
+                   ids, table, seeds), 20),
+               median_ms(lambda: ref.countmin_update_query_ref(
+                   ids, table, seeds), 5),
+               8 * n + 8 * d * w, 10 * n * d,
+               row=f"countmin_update_query{tag}" if tag else None)
+        del inc, pinc, table, got, want, big, got_big, want_big
+
+    keys0 = torch.full((MG_K,), -1, dtype=torch.int32, device=dev)
+    counts0 = torch.zeros((MG_K,), dtype=torch.int32, device=dev)
+    pre = ids[:MG_PLAIN_N]
+    got = mgk.mg_scan_cuda(keys0, counts0, pre)
+    t0 = time.perf_counter()
+    want = ref.mg_update_ref(keys0, counts0, pre)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    if not all(map(torch.equal, got, want)):
+        raise AssertionError("mg_scan differs from its plain loop on the "
+                             "prefix")
+    log(f"  mg_scan on the first {MG_PLAIN_N} ids (k = {MG_K}): bitwise "
+        f"equal to the plain loop on the card ({pre_ms!r} ms, one run)")
+    # the path's shape: one whole batch, the plain loop on a CPU copy (the
+    # host steps it faster than launches on the card would)
+    got = mgk.mg_scan_cuda(keys0, counts0, ids)
+    t0 = time.perf_counter()
+    want = ref.mg_update_ref(keys0.cpu(), counts0.cpu(), ids.cpu())
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = tuple(t.cpu() for t in got)
+    same = all(map(torch.equal, got, want))
+    err = max(float((a.long() - b.long()).abs().max())
+              for a, b in zip(got, want))
+    log(f"  mg_scan on a whole batch of {n} ids (k = {MG_K}): bitwise equal "
+        f"to the plain loop on the host CPU {same} (plain_ms is that loop, "
+        f"one run)")
+    if not same:
+        raise AssertionError("mg_scan differs from its plain loop on a "
+                             "whole batch")
+    record("mg_scan", "src/repro_torch/kernels/csrc/mg_scan.cu",
+           "src/repro/streams/sketches.py:116", err, 0.0,
+           median_ms(lambda: mgk.mg_scan_cuda(keys0, counts0, ids), 3),
+           plain_ms, 4 * n + 16 * MG_K, n * MG_K)
+    return want
+
+
+def summarization_phase(dev, mg_first) -> dict:
+    """Phase 8's path: feeder -> card -> count-min (two widths) and
+    Misra-Gries. ``mg_first`` is the plain loop's (keys, counts) after the
+    first batch, which the path's summary must equal bitwise. Returns the
+    launch counts of the path."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.streams import sketches as sk
+    from repro_torch.streams.feeder import StreamFeeder
+
+    cms = {w: sk.countmin_init(SKETCH_DEPTH, w, seed=0, device=dev)
+           for w in SKETCH_WIDTHS}
+    merged = {w: torch.zeros_like(cm.table) for w, cm in cms.items()}
+    mg = sk.mg_init(MG_K, device=dev)
+    host_ids, card_ids, ests = [], [], {w: [] for w in SKETCH_WIDTHS}
+    ev = {"add_query": [], "window": [], "mg": []}
+
+    def timed(what, fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        ev[what].append((a, b))
+        return out
+
+    feeder = StreamFeeder(token_batch, n_shards=SKETCH_SHARDS,
+                          batch_per_shard=SKETCH_SEQS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    sk.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    feeder.start()
+    try:
+        for _ in range(SKETCH_BATCHES):
+            b = feeder.next(timeout=300.0)
+            ids_np = b.data["tokens"].reshape(-1)
+            ids = torch.from_numpy(ids_np).to(dev)
+            for w in SKETCH_WIDTHS:
+                cms[w], est = timed("add_query", lambda: sk.countmin_add_query(
+                    cms[w], ids))
+                # the window sketch an edge node ships upstream; the cloud
+                # merges the windows by adding their tables
+                win = timed("window", lambda: sk.countmin_add(
+                    cms[w]._replace(table=torch.zeros_like(cms[w].table)),
+                    ids))
+                merged[w] += win.table
+                ests[w].append(est)
+            mg = timed("mg", lambda: sk.mg_update(mg, ids))
+            if not host_ids:
+                mg_after_first = (mg.keys.clone(), mg.counts.clone())
+            host_ids.append(ids_np)
+            card_ids.append(ids)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        feeder.stop()
+        _STREAMS.clear()
+    counts = ops.launch_counts()
+    dispatch = sk.dispatch_counts()
+    n_events = sum(len(x) for x in host_ids)
+    per_batch = {k: sum(a.elapsed_time(b) for a, b in v) / SKETCH_BATCHES
+                 for k, v in ev.items()}
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"  events={n_events} seconds={secs!r} events_per_s="
+        f"{n_events / secs!r} ms_per_batch(card, both widths) "
+        f"add_query={per_batch['add_query']!r} "
+        f"window={per_batch['window']!r} mg={per_batch['mg']!r} "
+        f"feeder: batches={feeder.stats.batches} straggler_rescues="
+        f"{feeder.stats.straggler_rescues} wait_s={feeder.stats.wait_s!r} "
+        f"dispatch={dispatch} launches={launched}")
+    per_batch_ids = SKETCH_SHARDS * SKETCH_SEQS * SKETCH_SEQ_LEN
+    if n_events != SKETCH_BATCHES * per_batch_ids:
+        raise AssertionError(f"summarization: {n_events} events")
+    if dispatch["plain"] or dispatch["kernel"] != 2 * 2 * SKETCH_BATCHES:
+        raise AssertionError(f"summarization: dispatch {dispatch}")
+
+    # the same batches through the plain versions on the card
+    true = np.bincount(np.concatenate(host_ids))
+    top = np.argsort(true)[::-1][:100]
+    rng = np.random.default_rng(0)
+    seen = np.nonzero(true)[0]
+    sample = np.unique(np.concatenate(
+        [top, rng.choice(seen, SKETCH_SAMPLE - len(top), replace=False)]))
+    for w in SKETCH_WIDTHS:
+        table = torch.zeros_like(cms[w].table)
+        same_est = True
+        for ids, est in zip(card_ids, ests[w]):
+            table, pest = ref.countmin_update_query_ref(ids, table,
+                                                        cms[w].seeds)
+            same_est &= torch.equal(est, pest)
+        same = torch.equal(table, cms[w].table)
+        same_merge = torch.equal(merged[w], cms[w].table)
+        q = sk.countmin_query(cms[w], torch.from_numpy(
+            sample.astype(np.int32)).to(dev)).cpu().numpy()
+        under = int((q < true[sample]).sum())
+        over = (q - true[sample]).astype(np.float64)
+        over_mean, over_max = float(over.mean()), float(over.max())
+        log(f"  width {w}: table bitwise plain {same}, every batch's "
+            f"estimates bitwise plain {same_est}, merged windows equal "
+            f"{same_merge}; {len(sample)} keys: below true count {under}, "
+            f"mean overestimate {over_mean!r} max {over_max!r}; top key "
+            f"true {int(true[top[0]])} est {int(q[sample == top[0]][0])}")
+        if not (same and same_est and same_merge) or under:
+            raise AssertionError(f"summarization width {w}: wrong sketch")
+    same_first = all(torch.equal(a.cpu(), b)
+                     for a, b in zip(mg_after_first, mg_first))
+    log(f"  misra-gries after the first batch: bitwise the plain loop's "
+        f"{same_first}")
+    if not same_first:
+        raise AssertionError("misra-gries differs from its plain loop after "
+                             "the first batch")
+    k_top = int(mg.keys[int(torch.argmax(mg.counts))])
+    log(f"  misra-gries top key {k_top} (count "
+        f"{int(mg.counts.max())}); most frequent id {int(top[0])} "
+        f"(count {int(true[top[0]])})")
+    if k_top != int(top[0]):
+        raise AssertionError("misra-gries missed the most frequent id")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the Mamba selective scan at jamba's mixer width
+# ---------------------------------------------------------------------------
+
+def mamba_inputs(g, dev, S: int):
+    """dt, x, B, C, A, h0 built as ``models/ssm.py`` builds them:
+    dt = softplus(. - 4.6) (its dt_bias), A = -exp(A_log) with Mamba's
+    S4D-real A_log = log(1..N)."""
+    import torch
+    import torch.nn.functional as F
+    B, dI, N = MAMBA_B, MAMBA_DI, MAMBA_N
+    dt = F.softplus(torch.randn((B, S, dI), generator=g, device=dev) - 4.6)
+    x = torch.randn((B, S, dI), generator=g, device=dev)
+    Bm = torch.randn((B, S, N), generator=g, device=dev)
+    Cm = torch.randn((B, S, N), generator=g, device=dev)
+    A_log = torch.log(torch.arange(1, N + 1, device=dev, dtype=torch.float32))
+    A = -torch.exp(A_log[None].expand(dI, N)
+                   + 0.1 * torch.randn((dI, N), generator=g, device=dev))
+    h0 = 0.1 * torch.randn((B, dI, N), generator=g, device=dev) * (S == 1)
+    return dt, x, Bm, Cm, A, h0
+
+
+def mamba_phase(dev, g, record) -> dict:
+    """The scan against its plain version at three shapes, then the
+    public wrapper as the path. Returns the launch counts of the path."""
+    import torch
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+
+    B, dI, N = MAMBA_B, MAMBA_DI, MAMBA_N
+    for row, S in MAMBA_SHAPES:
+        ins = mamba_inputs(g, dev, S)
+        y, h = ms.mamba_scan_cuda(*ins, chunk=MAMBA_CHUNK)
+        t0 = time.perf_counter()
+        py, ph = ms.mamba_scan_ref(*ins)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        worst, err = 0.0, 0.0
+        for a, b in ((y, py), (h, ph)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{row}: non-finite output")
+            worst = max(worst, float(((a - b).abs()
+                                      - MAMBA_TOL * (1 + b.abs())).max()))
+            err = max(err, float((a - b).abs().max()))
+        tol = MAMBA_TOL * (1 + float(torch.maximum(py.abs().max(),
+                                                   ph.abs().max())))
+        log(f"  {row} (B {B}, S {S}, dI {dI}, N {N}): elementwise excess "
+            f"over rtol=atol={MAMBA_TOL}: {worst!r}")
+        if worst > 0.0:
+            raise AssertionError(f"{row}: outside rtol=atol={MAMBA_TOL}")
+        nbytes = 4 * (3 * B * S * dI + 2 * B * S * N + dI * N + 2 * B * dI * N)
+        record("mamba_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
+               "src/repro/kernels/mamba_scan.py:70", err, tol,
+               median_ms(lambda: ms.mamba_scan_cuda(*ins, chunk=MAMBA_CHUNK),
+                         20 if S > 1 else 100),
+               plain_ms, nbytes, B * S * dI * (7 * N + 1),
+               row=None if row == "mamba_scan" else row)
+        del ins, y, h, py, ph
+    ins = mamba_inputs(g, dev, MAMBA_SHAPES[0][1])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    y, h = ops.mamba_scan(*ins, chunk=MAMBA_CHUNK)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if y.shape != (B, MAMBA_SHAPES[0][1], dI) or h.shape != (B, dI, N) \
+            or not (torch.isfinite(y).all() and torch.isfinite(h).all()):
+        raise AssertionError("ops.mamba_scan: misshapen or non-finite")
+    log(f"  ops.mamba_scan: y {tuple(y.shape)}, h_last {tuple(h.shape)}, "
+        f"launches={ {k: v for k, v in counts.items() if v} }")
+    del ins, y, h
+    torch.cuda.empty_cache()
+    return counts
+
+
 def check_no_nan(states, what: str):
     import torch
     from repro_torch._tree import tree_leaves
@@ -674,6 +1023,22 @@ def main() -> int:
         "path's shapes")
     serving_kernel_checks(dev, kg, record)
     path_counts.update(serving_phases(dev))
+
+    # -- phases 8-9: edge summarization and the Mamba scan ---------------------
+    log("phase 8: edge summarization (feeder -> count-min -> Misra-Gries): "
+        "kernels vs plain versions")
+    first = torch.from_numpy(first_token_batch()).to(dev)
+    mg_first = sketch_kernel_checks(dev, record, first)
+    del first
+    log(f"phase 8: {SKETCH_SHARDS} shards x {SKETCH_SEQS} x {SKETCH_SEQ_LEN} "
+        f"Zipf({SKETCH_ZIPF}) ids, {SKETCH_BATCHES} batches, depth "
+        f"{SKETCH_DEPTH}, widths {SKETCH_WIDTHS}, k = {MG_K}")
+    path_counts["summarization"] = summarization_phase(dev, mg_first)
+    torch.cuda.empty_cache()
+    log("phase 9: the Mamba selective scan at jamba-1.5-large-398b's mixer "
+        "width")
+    path_counts["mamba"] = mamba_phase(dev, kg, record)
+
     counts = {k: sum(c[k] for c in path_counts.values())
               for k in ops.launch_counts()}
     missing = sorted(k for k, v in counts.items() if v <= 0)

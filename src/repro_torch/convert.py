@@ -5,8 +5,11 @@ normalizer's running moments, a reservoir, a learner, a detector. Given
 the JAX package's states as numpy trees (``{op name: state}``, e.g.
 ``jax.tree.map(np.asarray, orchestrator.states)``), :func:`states_from_numpy`
 builds the port's states for the same pipeline on a device, so both
-packages can continue from the same point. :func:`params_from_numpy`
-does the same for a model's parameter tree.
+packages can continue from the same point. :func:`state_from_numpy`
+carries one state, such as an edge node's ``CountMin`` (table, seeds) or
+``MisraGries`` (keys, counts) sketch, onto the port's template of it
+(``streams/sketches.py``), after which it continues bitwise.
+:func:`params_from_numpy` does the same for a model's parameter tree.
 
 Every entry point defaults to ``device="cuda"`` and raises where CUDA is
 not available; pass ``device="cpu"`` to build on the CPU.

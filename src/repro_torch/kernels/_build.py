@@ -12,8 +12,9 @@ Flags: ``sm_90a`` (Hopper), ``-O3`` and no fast math for every source.
 The sources in :data:`EXACT` add ``-fmad=false``, so no multiply-add is
 contracted: they repeat their plain versions' roundings operation by
 operation and are held to them bitwise or within an ulp. The others
-(attention and the WKV scan, held to a bf16 tolerance) keep nvcc's
-default of fused multiply-adds. ``-Xptxas -v`` writes each kernel's
+(attention and the WKV and Mamba scans, held to a float tolerance, and
+the integer-only count-min and Misra-Gries kernels) keep nvcc's default
+of fused multiply-adds. ``-Xptxas -v`` writes each kernel's
 registers and shared memory into ``<name>.log`` beside the library.
 """
 
@@ -30,7 +31,7 @@ from typing import Dict, Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ef_codec", "preprocess", "detector_scan", "flash_attention",
-           "rwkv6_wkv")
+           "rwkv6_wkv", "countmin", "mg_scan", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 EXACT = ("ef_codec", "preprocess", "detector_scan")

@@ -1,0 +1,117 @@
+"""Count-Min sketch kernels: the CUDA kernels of ``csrc/countmin.cu``
+beside their plain versions in ``kernels/ref.py``.
+
+* :func:`countmin_update` replaces the JAX package's
+  ``kernels/countmin.py::countmin_update`` (``_cms_kernel``): the
+  per-depth histogram of ``((id * a + b) mod (2^31 - 1)) mod width``,
+  ids (n,) -> (depth, width) int32.
+* :func:`countmin_update_query` replaces ``::countmin_update_query``
+  (``_cms_uq_kernel``): fold the batch into the table and estimate each
+  id against the updated table (min over depths). ``table`` is not
+  modified: the kernel adds into a copy, then a second launch on the
+  same stream gathers, so every add lands before any read.
+
+Both count with int32 atomics, so they are bitwise equal to their plain
+versions at any count. The JAX package's fused kernel counts in fp32 and
+is exact only below 2^24 (ROADMAP fault 9); the port is exact
+everywhere. Each wrapper launches its kernel for a CUDA tensor, runs the
+plain version for a CPU tensor, and raises for any other device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import countmin_ref, countmin_update_query_ref
+
+LAUNCHES = {"countmin_update": 0, "countmin_update_query": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+def _lib():
+    lib = _build.library("countmin")
+    if not getattr(lib, "_typed", False):
+        lib.countmin_add.argtypes = [_P, _L, _P, _I, _I, _P, _P]
+        lib.countmin_add.restype = _I
+        lib.countmin_query.argtypes = [_P, _L, _P, _I, _I, _P, _P, _P]
+        lib.countmin_query.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _operands(ids, seeds, depth: int):
+    dev = ids.device
+    if ids.dim() != 1:
+        raise ValueError(f"ids must be (n,), got {tuple(ids.shape)}")
+    sd = torch.as_tensor(seeds).to(device=dev, dtype=torch.int32)
+    if sd.shape != (depth, 2):
+        raise ValueError(f"seeds must be ({depth}, 2), got {tuple(sd.shape)}")
+    return ids.to(torch.int32).contiguous(), sd.contiguous()
+
+
+def _add(ids, sd, table) -> None:
+    depth, width = table.shape
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream(ids.device).cuda_stream
+        rc = _lib().countmin_add(ids.data_ptr(), ids.numel(), sd.data_ptr(),
+                                 depth, width, table.data_ptr(), stream)
+    _build.check(rc, "countmin_add")
+
+
+def countmin_update_cuda(ids, depth: int, width: int, seeds):
+    """The count-min kernel: the (depth, width) int32 increment."""
+    idt, sd = _operands(ids, seeds, depth)
+    out = torch.zeros((depth, width), dtype=torch.int32, device=ids.device)
+    if idt.numel():
+        _add(idt, sd, out)
+        LAUNCHES["countmin_update"] += 1
+    return out
+
+
+def countmin_update_query_cuda(ids, table, seeds):
+    """The add-then-query kernels: ``(new_table, est (n,) int32)``."""
+    depth, width = table.shape
+    idt, sd = _operands(ids, seeds, depth)
+    if table.device != ids.device:
+        raise ValueError(f"ids on {ids.device}, table on {table.device}")
+    new_table = table.to(torch.int32).clone(
+        memory_format=torch.contiguous_format)
+    est = torch.empty(idt.shape, dtype=torch.int32, device=ids.device)
+    if not idt.numel():
+        return new_table, est
+    _add(idt, sd, new_table)
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream(ids.device).cuda_stream
+        rc = _lib().countmin_query(idt.data_ptr(), idt.numel(), sd.data_ptr(),
+                                   depth, width, new_table.data_ptr(),
+                                   est.data_ptr(), stream)
+    _build.check(rc, "countmin_query")
+    LAUNCHES["countmin_update_query"] += 1
+    return new_table, est
+
+
+def countmin_update(ids, depth: int, width: int, seeds):
+    """The count-min increment on the ids' device: kernel on CUDA, plain
+    version on the CPU."""
+    if ids.device.type == "cuda":
+        return countmin_update_cuda(ids, depth, width, seeds)
+    if ids.device.type == "cpu":
+        return countmin_ref(ids, depth, width, seeds)
+    raise ValueError(f"countmin_update: no kernel for device {ids.device}")
+
+
+def countmin_update_query(ids, table, seeds):
+    """Add-then-query on the ids' device: kernel on CUDA, plain version
+    on the CPU. Returns ``(new_table, est)``."""
+    if ids.device.type == "cuda":
+        return countmin_update_query_cuda(ids, table, seeds)
+    if ids.device.type == "cpu":
+        return countmin_update_query_ref(ids, table, seeds)
+    raise ValueError(f"countmin_update_query: no kernel for device "
+                     f"{ids.device}")

@@ -1,0 +1,80 @@
+"""Mamba selective scan: the CUDA kernel of ``csrc/mamba_scan.cu`` beside
+its plain version, ``kernels/ref.py::mamba_scan_ref`` (the per-timestep
+recurrence).
+
+Replaces the JAX package's ``kernels/mamba_scan.py::mamba_scan_bd``
+(``_mamba_kernel``). :func:`mamba_scan` takes dt, x (B, S, dI), Bm, Cm
+(B, S, N), A (dI, N) and h0 (B, dI, N) and returns ``(y (B, S, dI),
+h_last (B, dI, N))``, both fp32 (inputs of another float type are cast).
+``chunk`` (steps of B and C staged at a time) and ``bd`` (channels a
+block) only set the kernel's schedule. S = 1 is a decode step.
+
+It launches the kernel for a CUDA tensor, runs the plain version for a
+CPU tensor, and raises for any other device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import mamba_scan_ref
+
+LAUNCHES = {"mamba_scan": 0}
+
+STATE_SIZES = (4, 16)   # the configs' d_state; the .cu builds these
+MAX_CHUNK = 1024
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib():
+    lib = _build.library("mamba_scan")
+    if not getattr(lib, "_typed", False):
+        lib.mamba_scan.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+        lib.mamba_scan.restype = _I
+        lib._typed = True
+    return lib
+
+
+def mamba_scan_cuda(dt, x, Bm, Cm, A, h0, *, chunk: int = 128,
+                    bd: int = 256):
+    """The selective-scan kernel: ``(y, h_last)`` in fp32."""
+    B, S, dI = dt.shape
+    N = Bm.shape[-1]
+    if (x.shape != dt.shape or Bm.shape != (B, S, N) or Cm.shape != Bm.shape
+            or A.shape != (dI, N) or h0.shape != (B, dI, N)):
+        raise ValueError(f"mamba_scan: dt {tuple(dt.shape)}, x "
+                         f"{tuple(x.shape)}, Bm {tuple(Bm.shape)}, Cm "
+                         f"{tuple(Cm.shape)}, A {tuple(A.shape)}, h0 "
+                         f"{tuple(h0.shape)}")
+    if N not in STATE_SIZES:
+        raise ValueError(f"mamba_scan: state size {N} (built for "
+                         f"{STATE_SIZES})")
+    dev = dt.device
+    chunk = max(1, min(int(chunk), S, MAX_CHUNK))
+    bd = min(1024, 32 * -(-max(1, min(int(bd), dI)) // 32))
+    ins = [t.to(device=dev, dtype=torch.float32).contiguous()
+           for t in (dt, x, Bm, Cm, A, h0)]
+    y = torch.empty((B, S, dI), dtype=torch.float32, device=dev)
+    h_last = torch.empty((B, dI, N), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().mamba_scan(*[t.data_ptr() for t in ins], y.data_ptr(),
+                               h_last.data_ptr(), B, S, dI, N, chunk, bd,
+                               stream)
+    _build.check(rc, "mamba_scan")
+    LAUNCHES["mamba_scan"] += 1
+    return y, h_last
+
+
+def mamba_scan(dt, x, Bm, Cm, A, h0, *, chunk: int = 128, bd: int = 256):
+    """The selective scan on dt's device: kernel on CUDA, plain version
+    on the CPU."""
+    if dt.device.type == "cuda":
+        return mamba_scan_cuda(dt, x, Bm, Cm, A, h0, chunk=chunk, bd=bd)
+    if dt.device.type == "cpu":
+        return mamba_scan_ref(dt, x, Bm, Cm, A, h0)
+    raise ValueError(f"mamba_scan: no kernel for device {dt.device}")

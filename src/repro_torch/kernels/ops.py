@@ -15,9 +15,12 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import countmin as _cms
 from repro_torch.kernels import detector_scan as _ds
 from repro_torch.kernels import ef_codec as _ef
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_scan as _ms
+from repro_torch.kernels import mg_scan as _mg
 from repro_torch.kernels import preprocess as _pp
 from repro_torch.kernels import rwkv6_wkv as _wkv
 
@@ -28,9 +31,13 @@ ef_topk_int8_roundtrip = _ef.ef_topk_int8_roundtrip
 detector_scan = _ds.detector_scan
 flash_attention = _fa.flash_attention
 rwkv6_wkv = _wkv.rwkv6_wkv
+countmin_update = _cms.countmin_update
+countmin_update_query = _cms.countmin_update_query
+mg_scan = _mg.mg_scan
+mamba_scan = _ms.mamba_scan
 
 _COUNTERS = (_pp.LAUNCHES, _ef.LAUNCHES, _ds.LAUNCHES, _fa.LAUNCHES,
-             _wkv.LAUNCHES)
+             _wkv.LAUNCHES, _cms.LAUNCHES, _mg.LAUNCHES, _ms.LAUNCHES)
 
 
 def flash_supported(q, k, v, causal, q_offset, kv_len) -> bool:

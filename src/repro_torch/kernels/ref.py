@@ -1,5 +1,6 @@
 """Plain-torch twins of the JAX package's kernel oracles
-(``repro/kernels/ref.py``) for the kernels on the port's paths so far.
+(``repro/kernels/ref.py``), and of its Misra-Gries scan
+(``streams/sketches.py::mg_update``).
 
 Each is the plain version its CUDA kernel is held against: the kernel
 wrappers run these for tensors on the CPU, the tests hold them to the
@@ -40,12 +41,17 @@ def fused_normalize_ref(x, n0, mean0, m20, *, impute: bool = True):
     return y, n1, mean1, m21
 
 
+def _wrap_int32(h: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor reduced to int32 two's complement (still int64)."""
+    h = h & 0xFFFFFFFF
+    return torch.where(h >= 2 ** 31, h - 2 ** 32, h)
+
+
 def hash_slots(ids: torch.Tensor, dim: int, seed: int = 17):
     """``(slot, sign)`` of signed feature hashing, with jnp's semantics:
     ``id * a + 0x9E37`` wraps in int32, and ``%``/``//`` floor."""
     a = 2 * seed + 1
-    h = (ids.to(torch.int64) * a + HASH_C) & 0xFFFFFFFF
-    h = torch.where(h >= 2 ** 31, h - 2 ** 32, h)          # int32 wrap
+    h = _wrap_int32(ids.to(torch.int64) * a + HASH_C)
     h = torch.remainder(h, HASH_P)
     slot = torch.remainder(h, dim)
     odd = torch.remainder(torch.div(h, dim, rounding_mode="floor"), 2) == 1
@@ -144,3 +150,85 @@ def rwkv6_wkv_ref(r, k, v, lw, u, h0):
                                  h + uf[None, :, :, None] * kv))
         h = wt[..., None] * h + kv
     return torch.stack(outs, dim=1), h           # (B,S,H,hs), (B,H,hs,hs)
+
+
+def mamba_scan_ref(dt, x, Bm, Cm, A, h0):
+    """Naive per-timestep selective scan. dt,x: (B,S,dI); Bm,Cm: (B,S,N);
+    A: (dI,N); h0: (B,dI,N). ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t``,
+    ``y_t = h_t C_t``. Returns (y (B,S,dI), h_last (B,dI,N)) in fp32."""
+    dtf, xf, Bf, Cf = (t.float() for t in (dt, x, Bm, Cm))
+    Af = A.float()
+    h = h0.float()
+    ys = []
+    for t in range(dt.shape[1]):
+        a = torch.exp(dtf[:, t][:, :, None] * Af[None])
+        b = (dtf[:, t] * xf[:, t])[:, :, None] * Bf[:, t][:, None, :]
+        h = a * h + b
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+# ---------------------------------------------------------------------------
+# Count-Min and Misra-Gries: integer paths, bitwise
+# ---------------------------------------------------------------------------
+
+def cms_hash(ids: torch.Tensor, a, b, width: int) -> torch.Tensor:
+    """The count-min hash with jnp's semantics (``kernels/countmin.py::
+    hash_ids``): ``id * a + b`` wraps in int32, then ``% (2^31 - 1)`` and
+    ``% width`` floor, so every slot lies in ``[0, width)`` (int64)."""
+    a = torch.as_tensor(a, device=ids.device).to(torch.int64)
+    b = torch.as_tensor(b, device=ids.device).to(torch.int64)
+    h = _wrap_int32(ids.to(torch.int32).to(torch.int64) * a + b)
+    return torch.remainder(torch.remainder(h, HASH_P), width)
+
+
+def _seeds(seeds, device):
+    return torch.as_tensor(seeds, device=device).to(torch.int64).reshape(-1, 2)
+
+
+def countmin_ref(ids, depth: int, width: int, seeds) -> torch.Tensor:
+    """Scatter-add oracle of the Count-Min increment: ids (n,) ->
+    (depth, width) int32 counts."""
+    sd = _seeds(seeds, ids.device)
+    out = torch.zeros((depth, width), dtype=torch.int32, device=ids.device)
+    for d in range(depth):
+        h = cms_hash(ids, sd[d, 0], sd[d, 1], width)
+        out[d] = torch.bincount(h, minlength=width).to(torch.int32)
+    return out
+
+
+def countmin_update_query_ref(ids, table, seeds):
+    """Fold the batch into the sketch, then estimate each id against the
+    UPDATED table (min over depths): ``(new_table, est (n,))``, int32
+    throughout, so exact at any count (the JAX package's fused kernel
+    counts in fp32: ROADMAP fault 9)."""
+    depth, width = table.shape
+    sd = _seeds(seeds, ids.device)
+    new_table = table.to(torch.int32) + countmin_ref(ids, depth, width, sd)
+    ests = [new_table[d][cms_hash(ids, sd[d, 0], sd[d, 1], width)]
+            for d in range(depth)]
+    return new_table, torch.stack(ests).amin(0)
+
+
+def mg_update_ref(keys, counts, ids):
+    """Misra-Gries over ``ids`` in order, as ``streams/sketches.py::
+    mg_update`` steps it: a hit (over all k slots, stale keys with count
+    0 included; an id of -1 matches an empty slot) adds one to the first
+    hit; otherwise the first slot whose count is 0 takes the id with
+    count 1; otherwise every count drops by one. In both placing cases
+    ``keys[slot] = id`` and ``counts[slot] += 1`` (an empty slot counts
+    0), so each step is one select. Returns ``(keys, counts)`` int32."""
+    keys = keys.to(torch.int32).clone()
+    counts = counts.to(torch.int32).clone()
+    slots = torch.arange(keys.shape[0], device=keys.device)
+    for item in ids.to(device=keys.device, dtype=torch.int32):
+        hit = keys == item
+        empty = counts == 0
+        has = hit.any()
+        place = has | empty.any()
+        slot = torch.where(has, hit.to(torch.uint8).argmax(),
+                           empty.to(torch.uint8).argmax())
+        sel = (slots == slot) & place
+        keys = torch.where(sel, item, keys)
+        counts = torch.where(place, counts + sel.to(torch.int32), counts - 1)
+    return keys, counts

@@ -91,10 +91,12 @@ def _stack_cache(cfg, pattern, rep, batch, max_len, src_len, dtype, device):
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
-                src_len: int = 0, dtype=None, device="cpu"):
-    """A zeroed cache tree; ``device="meta"`` gives shapes only. Lengths
-    stay on the CPU."""
+                src_len: int = 0, dtype=None, device="cuda"):
+    """A zeroed cache tree on ``device`` (the card unless asked
+    otherwise); ``device="meta"`` gives shapes only. Lengths stay on the
+    CPU."""
     check_family(cfg)
+    device = resolve_device(device)
     dtype = dtype or dtype_of(cfg.kv_cache_dtype)
     if cfg.family == "encdec":
         pre, rep, pat = layer_plan(cfg, cfg.dec_layers, decoder=True)

@@ -91,11 +91,22 @@ class TokenStream:
     seed: int = 0
     source_id: int = 0
 
+    def _domain_perm(self) -> np.ndarray:
+        """Domain B's vocabulary permutation, drawn once per stream rather
+        than once per batch (2^24 entries take about a second to draw) and
+        freed with it; int32 holds any token. The batches are the same."""
+        key = (self.seed, self.vocab_size)
+        if getattr(self, "_perm_key", None) != key:
+            self._perm = np.random.default_rng(self.seed + 1).permutation(
+                self.vocab_size).astype(np.int32)
+            self._perm_key = key
+        return self._perm
+
     def batch(self, idx: int, n_seqs: int) -> StreamBatch:
         rng = np.random.default_rng((self.seed, idx))
         mix = _drift_mix(self.drift, idx * n_seqs * self.seq_len, self.horizon)
         # domain B permutes the vocabulary (same marginal, drifted mapping)
-        perm = np.random.default_rng(self.seed + 1).permutation(self.vocab_size)
+        perm = self._domain_perm()
         raw = rng.zipf(self.zipf_a, size=(n_seqs, self.seq_len))
         toks = (raw % self.vocab_size).astype(np.int32)
         use_b = rng.random(n_seqs) < mix

@@ -16,9 +16,12 @@ import jax.numpy as jnp
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.countmin import countmin_update as jx_cms
+from repro.kernels.countmin import countmin_update_query as jx_cms_uq
 from repro.kernels.ef_codec import (ef_int8_roundtrip as jx_ef_int8,
                                     ef_topk_int8_roundtrip as jx_ef_topk)
 from repro.kernels.preprocess import fused_hash_features as jx_hash
+from repro.kernels.mamba_scan import mamba_scan_bd as jx_mamba
 from repro.kernels.preprocess import fused_normalize as jx_normalize
 from repro.streams import drift as jdrift
 
@@ -239,6 +242,208 @@ def test_detector_scan_plain_continues_from_carried_state():
     for a, b in zip(s2, s):
         assert torch.equal(a, b)
     assert bool(f) == (bool(f1) or bool(f2))
+
+
+# ---------------------------------------------------------------------------
+# count-min: bitwise, ids over the whole int32 range
+# ---------------------------------------------------------------------------
+
+def _cms_case(seed, id_range):
+    """``test_kernel_oracles.py``'s sweep of n, depth, width and block."""
+    rng = np.random.default_rng(200 + seed)
+    n = int(rng.integers(5, 2000))
+    depth = int(rng.integers(1, 5))
+    width = int(rng.choice([32, 128, 512]))
+    block = int(rng.choice([64, 1024]))
+    lo, hi = (0, 50_000) if id_range == "small" else (-2 ** 31, 2 ** 31)
+    ids = rng.integers(lo, hi, n, dtype=np.int64).astype(np.int32)
+    seeds = (rng.integers(1, 2**14, (depth, 2)) * 2 + 1).astype(np.int32)
+    table = rng.integers(0, 100, (depth, width)).astype(np.int32)
+    return ids, seeds, table, block
+
+
+@pytest.mark.parametrize("seed", range(5))
+@pytest.mark.parametrize("id_range", ["small", "full_int32"])
+def test_countmin_plain_bitwise_with_jax_kernels(seed, id_range):
+    ids, seeds, table, block = _cms_case(seed, id_range)
+    depth, width = table.shape
+    inc = kops.countmin_update(_t(ids), depth, width, _t(seeds)).numpy()
+    np.testing.assert_array_equal(
+        inc, np.asarray(jref.countmin_ref(jnp.asarray(ids), depth, width,
+                                          seeds)))
+    np.testing.assert_array_equal(
+        inc, np.asarray(jx_cms(jnp.asarray(ids), depth, width,
+                               jnp.asarray(seeds), block=block,
+                               interpret=True)))
+    new, est = kops.countmin_update_query(_t(ids), _t(table), _t(seeds))
+    want_t, want_e = jref.countmin_update_query_ref(
+        jnp.asarray(ids), jnp.asarray(table), jnp.asarray(seeds))
+    np.testing.assert_array_equal(new.numpy(), np.asarray(want_t))
+    np.testing.assert_array_equal(est.numpy(), np.asarray(want_e))
+    pk_t, pk_e = jx_cms_uq(jnp.asarray(ids), jnp.asarray(table),
+                           jnp.asarray(seeds), block=block, interpret=True)
+    np.testing.assert_array_equal(new.numpy(), np.asarray(pk_t))
+    np.testing.assert_array_equal(est.numpy(), np.asarray(pk_e))
+
+
+def test_countmin_hash_wraps_in_int32_and_floors():
+    """Ids whose ``id * a + b`` wraps negative in int32 land in range, on
+    the slot jnp's floor-mod gives."""
+    from repro.kernels.countmin import hash_ids
+    ids = np.array([2 ** 31 - 1, -2 ** 31, -1, 16_777_215, -16_777_216,
+                    123_456_789], np.int32)
+    a, b = 32_767, 30_001
+    assert ((ids.astype(np.int64) * a + b) > 2 ** 31 - 1).any()
+    got = tref.cms_hash(_t(ids), a, b, 1000)
+    want = hash_ids(jnp.asarray(ids), jnp.int32(a), jnp.int32(b), 1000)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got.min()) >= 0 and int(got.max()) < 1000
+
+
+def test_countmin_update_query_exact_above_2_24():
+    """With every cell at 2^24 + 1 the port equals the int32 oracle; the
+    JAX package's fused kernel, which counts in fp32, does not (ROADMAP
+    fault 9)."""
+    rng = np.random.default_rng(9)
+    depth, width = 3, 64
+    ids = rng.integers(0, 5000, 777).astype(np.int32)
+    seeds = (rng.integers(1, 2**14, (depth, 2)) * 2 + 1).astype(np.int32)
+    table = np.full((depth, width), 2 ** 24 + 1, np.int32)
+    new, est = kops.countmin_update_query(_t(ids), _t(table), _t(seeds))
+    want_t, want_e = jref.countmin_update_query_ref(
+        jnp.asarray(ids), jnp.asarray(table), jnp.asarray(seeds))
+    np.testing.assert_array_equal(new.numpy(), np.asarray(want_t))
+    np.testing.assert_array_equal(est.numpy(), np.asarray(want_e))
+    assert int(new.min()) > 2 ** 24
+    pk_t, pk_e = jx_cms_uq(jnp.asarray(ids), jnp.asarray(table),
+                           jnp.asarray(seeds), interpret=True)
+    assert not np.array_equal(np.asarray(pk_t), np.asarray(want_t))
+    assert int(np.abs(np.asarray(pk_e) - np.asarray(want_e)).max()) <= 2
+
+
+def test_countmin_update_query_leaves_the_table_alone():
+    ids, seeds, table, _ = _cms_case(0, "small")
+    t = _t(table)
+    kops.countmin_update_query(_t(ids), t, _t(seeds))
+    np.testing.assert_array_equal(t.numpy(), table)
+
+
+# ---------------------------------------------------------------------------
+# Misra-Gries: the plain loop bitwise against the reference's lax.scan
+# ---------------------------------------------------------------------------
+
+def _mg_stream(kind, seed, n=1500):
+    rng = np.random.default_rng(300 + seed)
+    if kind == "heavy":      # two heavy hitters over a long tail
+        u = rng.random(n)
+        ids = np.where(u < 0.3, 7, np.where(u < 0.45, 11,
+                                            rng.integers(100, 10_000, n)))
+    elif kind == "churn":    # few distinct ids: decrements leave stale keys
+        ids = rng.integers(0, 200, n)
+    else:                    # -1 ids, which match an empty slot's key
+        ids = np.where(rng.random(n) < 0.2, -1, rng.integers(-5, 60, n))
+    return ids.astype(np.int32)
+
+
+def _mg_jax(keys, counts, ids):
+    from repro.streams import sketches as jsk
+    mg = jax.jit(jsk.mg_update)(jsk.MisraGries(jnp.asarray(keys),
+                                               jnp.asarray(counts)),
+                                jnp.asarray(ids))
+    return np.array(mg.keys), np.array(mg.counts)
+
+
+@pytest.mark.parametrize("k", [1, 16, 64])
+@pytest.mark.parametrize("kind", ["heavy", "churn", "negative"])
+def test_mg_plain_bitwise_with_lax_scan(k, kind):
+    ids = _mg_stream(kind, k)
+    keys0 = np.full(k, -1, np.int32)
+    counts0 = np.zeros(k, np.int32)
+    wk, wc = _mg_jax(keys0, counts0, ids)
+    gk, gc = kops.mg_scan(_t(keys0), _t(counts0), _t(ids))
+    np.testing.assert_array_equal(gk.numpy(), wk)
+    np.testing.assert_array_equal(gc.numpy(), wc)
+    # and on from a carried state holding stale keys (count 0) that the
+    # stream hits
+    wk[::3] = np.arange(0, k, 3)
+    wc[::3] = 0
+    more = _mg_stream(kind, k + 100, n=400)
+    wk2, wc2 = _mg_jax(wk, wc, more)
+    gk2, gc2 = tref.mg_update_ref(_t(wk), _t(wc), _t(more))
+    np.testing.assert_array_equal(gk2.numpy(), wk2)
+    np.testing.assert_array_equal(gc2.numpy(), wc2)
+
+
+# ---------------------------------------------------------------------------
+# Mamba selective scan: fp32 within 1e-5
+# ---------------------------------------------------------------------------
+
+def _mamba_case(seed, B, S, dI, N):
+    rng = np.random.default_rng(700 + seed)
+    z = rng.normal(size=(B, S, dI)).astype(np.float32)
+    dt = np.log1p(np.exp(z - 2.0)).astype(np.float32)         # softplus
+    x = rng.normal(size=(B, S, dI)).astype(np.float32)
+    Bm = rng.normal(size=(B, S, N)).astype(np.float32)
+    Cm = rng.normal(size=(B, S, N)).astype(np.float32)
+    A = -np.exp(rng.normal(size=(dI, N)) * 0.5).astype(np.float32)
+    h0 = rng.normal(size=(B, dI, N)).astype(np.float32)
+    return dt, x, Bm, Cm, A, h0
+
+
+@pytest.mark.parametrize("B,S,dI,N,chunk,bd", [
+    (1, 21, 64, 4, 8, 32),       # ragged: S % chunk != 0
+    (2, 32, 64, 16, 16, 32),
+    (2, 1, 32, 16, 8, 32),       # a decode step
+])
+def test_mamba_plain_matches_jax_kernel_and_oracle(B, S, dI, N, chunk, bd):
+    ins = _mamba_case(S, B, S, dI, N)
+    y, h = kops.mamba_scan(*[_t(a) for a in ins], chunk=chunk, bd=bd)
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == (B, S, dI) and h.shape == (B, dI, N)
+    jin = [jnp.asarray(a) for a in ins]
+    for wy, wh in (jref.mamba_scan_ref(*jin),
+                   jx_mamba(*jin, chunk=chunk, bd=bd, interpret=True)):
+        # fp32 per-step recurrences on both sides; only the order of the
+        # sum over N and XLA's contractions differ
+        np.testing.assert_allclose(y.numpy(), np.asarray(wy), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(h.numpy(), np.asarray(wh), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_mamba_scan_continues_from_carried_state():
+    """Two halves with h carried equal one scan (the decode contract)."""
+    dt, x, Bm, Cm, A, h0 = (_t(a) for a in _mamba_case(3, 1, 12, 32, 8))
+    y, h = kops.mamba_scan(dt, x, Bm, Cm, A, h0)
+    y1, h1 = kops.mamba_scan(dt[:, :5], x[:, :5], Bm[:, :5], Cm[:, :5], A, h0)
+    y2, h2 = kops.mamba_scan(dt[:, 5:], x[:, 5:], Bm[:, 5:], Cm[:, 5:], A, h1)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
+
+
+def test_sketch_and_scan_wrappers_run_plain_on_cpu_and_raise_elsewhere():
+    kops.reset_launch_counts()
+    ids = torch.arange(10, dtype=torch.int32)
+    seeds = torch.tensor([[3, 5], [7, 9]], dtype=torch.int32)
+    kops.countmin_update(ids, 2, 16, seeds)
+    kops.countmin_update_query(ids, torch.zeros(2, 16, dtype=torch.int32),
+                               seeds)
+    kops.mg_scan(torch.full((4,), -1, dtype=torch.int32),
+                 torch.zeros(4, dtype=torch.int32), ids)
+    dt, x, Bm, Cm, A, h0 = (_t(a) for a in _mamba_case(0, 1, 3, 32, 4))
+    kops.mamba_scan(dt, x, Bm, Cm, A, h0)
+    counts = kops.launch_counts()
+    for name in ("countmin_update", "countmin_update_query", "mg_scan",
+                 "mamba_scan"):
+        assert counts[name] == 0
+    meta = torch.empty(10, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        kops.countmin_update(meta, 2, 16, seeds)
+    with pytest.raises(ValueError):
+        kops.countmin_update_query(meta, meta[:4].reshape(2, 2), seeds)
+    with pytest.raises(ValueError):
+        kops.mg_scan(meta[:4], meta[:4], meta)
+    with pytest.raises(ValueError):
+        kops.mamba_scan(*(t.to("meta") for t in (dt, x, Bm, Cm, A, h0)))
 
 
 # ---------------------------------------------------------------------------

@@ -102,7 +102,7 @@ def test_int8_kv_cache_serves_the_references_tokens():
     _, want = _serve(jengine, jc, jp, prompts, "chunked", new_tokens=4)
     _, got = _serve(tengine, tc, tp, prompts, "chunked", new_tokens=4)
     assert got == want
-    kv = tzoo.init_caches(tc, 2, 32)["stack"][0]["kv"]
+    kv = tzoo.init_caches(tc, 2, 32, device="cpu")["stack"][0]["kv"]
     assert kv.k.dtype == kv.v.dtype == torch.int8
 
 
