@@ -13,7 +13,11 @@ path on the card, and checks what comes out. Phases:
 1. device (``nvidia-smi`` name and power limit) and the kernel build;
 2. each slice-1 kernel vs its plain version: max error against the
    stated tolerance, the kernel's median time, the plain version's
-   time, and the least time the card could take (``bound_ms``);
+   time, and the least time the card could take (``bound_ms``); the DDM
+   scan also against its serial witness kernel on a many-drift stream
+   and on the errors after the ``int8_ef`` codec, its chain's divide
+   against IEEE ``/`` over random pairs, and EDDM and Page-Hinkley
+   against their plain loops; chain lengths and ns a chained event;
 3. the orchestrator on a dense 256-wide drifting stream, 12 batches of
    65,536 events, once with the ``int8_ef`` uplink codec and once with
    ``topk_int8_ef``, plus a small run compared with the same job on the
@@ -38,14 +42,16 @@ path on the card, and checks what comes out. Phases:
    1,048,576, and a table preloaded at 2^24 + 1) and the Misra-Gries
    scan against their plain versions, exactly (Misra-Gries on a whole
    batch against its plain loop on the host CPU, and on a 16,384-id
-   prefix against that loop on the card); then a ``StreamFeeder``
+   prefix against that loop on the card, and at four more chunk
+   lengths against its serial witness kernel); then a ``StreamFeeder``
    of 4 Zipf token shards (vocabulary 2^24) feeds 16 batches of
    1,048,576 ids to the card, each through ``countmin_add_query`` at
    both widths, a per-batch window sketch (``countmin_add``) and
    ``mg_update`` (k = 64). The final tables must be bitwise the plain
    versions' over the same batches, no estimate may fall below its true
    count, Misra-Gries after the first batch must be bitwise its plain
-   loop's, and its top key at the end must be the most frequent id;
+   loop's and after every batch its serial witness's (replayed over the
+   same ids), and its top key at the end must be the most frequent id;
 9. the Mamba selective scan at jamba-1.5-large-398b's mixer width
    (d_inner 16,384, 16 states) against its plain version at a prefill
    shape (B 2, S 4,096), a ragged one (S 4,000) and a decode step
@@ -60,10 +66,28 @@ gives the card's name and power limit, and the last line is
 exits non-zero without that line. It also exits non-zero, printing no
 result, where CUDA is unavailable or the port's sources are not beside
 it.
+
+Two further modes measure without checking:
+
+    python3 chip_smoke.py --measure [--src DIR]
+    python3 chip_smoke.py --compare ROOT [--runs 3]
+
+``--measure`` drives only the main paths of phases 3 (both codecs, after
+the same warm-up run), 6-7 and 8, as the full run drives them but with
+no kernel check before them, and prints their rates (events/s, prefill
+and decode tok/s, phase 8's card ms a batch per sketch) as its last
+line, one JSON object. ``--src`` names the ``src`` directory whose
+``repro_torch`` it measures. ``--compare`` runs ``--measure`` for
+another checkout's port (``ROOT/src``, for example the parent commit
+unpacked with ``git archive`` into a git-ignored directory) and for
+this one in turns (other, this, this, other, other, this for 3 runs),
+each run a process of its own, and prints one JSON line a run, each
+side's medians and the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import pathlib
@@ -90,6 +114,9 @@ DIM = 256              # dense stream width
 HASH_F = 32            # sparse features per event
 HASH_DIM = 1024        # hashed width
 N_BATCHES = 12
+DENSE_CODECS = (("int8_ef", 0.1), ("topk_int8_ef", 11.0))   # codec, budget
+DETECTOR_PLAIN_N = 16_384   # events the EDDM and PH plain loops check
+DIVIDE_PAIRS = 1 << 24      # pairs per draw for the DDM chain's divide check
 
 SERVE_MODELS = ("seamless-m4t-medium", "rwkv6-1.6b", "qwen2-1.5b")
 N_REQUESTS = 16        # requests per served model
@@ -111,6 +138,7 @@ SKETCH_DEPTH = 4
 SKETCH_WIDTHS = (1024, 1 << 20)
 MG_K = 64
 MG_PLAIN_N = 16_384    # ids the plain Misra-Gries loop runs on the card
+MG_K_CHECKS = (1, 33, 200, 1024)   # further k held to the serial witness
 SKETCH_SAMPLE = 4096   # keys whose estimates are checked, the top 100 included
 
 # phase 9: jamba-1.5-large-398b's Mamba mixer (d_inner = 2 x 8,192, d_state 16)
@@ -304,7 +332,9 @@ def kernel_checks(dev, g, record) -> None:
                     0.1, 0.5)
     err = (torch.rand((N_EVENTS,), generator=g, device=dev) < p).float()
     init = drift.ddm_init(dev)
+    before = ds.chain_stats(dev).clone()
     st, flag = ds.detector_scan_cuda("ddm", init, err)
+    walked, restarts = (ds.chain_stats(dev) - before).tolist()
     t0 = time.perf_counter()
     pst, pflag = ds.detector_scan_plain("ddm", init, err)
     torch.cuda.synchronize()
@@ -313,10 +343,107 @@ def kernel_checks(dev, g, record) -> None:
     diffs.append(float(bool(flag) != bool(pflag)))
     if not bool(flag):
         raise AssertionError("detector scan missed the planted drift")
+    ms = median_ms(lambda: ds.detector_scan_cuda("ddm", init, err), 20)
     record("detector_scan", "src/repro_torch/kernels/csrc/detector_scan.cu",
-           "src/repro/core/pipeline.py:687", max(diffs), 0.0,
-           median_ms(lambda: ds.detector_scan_cuda("ddm", init, err), 20),
+           "src/repro/core/pipeline.py:687", max(diffs), 0.0, ms,
            plain_ms, N_EVENTS * 4 + 48, N_EVENTS * 20)
+    serial_ms = median_ms(
+        lambda: ds.detector_scan_serial_cuda("ddm", init, err), 5)
+    log(f"  detector_scan (DDM): chain walked {walked} events, {restarts} "
+        f"restart(s), {ms * 1e6 / walked!r} ns a chained event; serial "
+        f"witness {serial_ms!r} ms ({serial_ms * 1e6 / N_EVENTS!r} ns an "
+        f"event)")
+    # the chain's split divide against IEEE `/` over random pairs across
+    # its fast range: whole and fractional divisors, dividends of both signs
+    tried = differ = 0
+    for _ in range(4):
+        mag = torch.exp2(torch.rand((DIVIDE_PAIRS,), generator=g, device=dev)
+                         * 80.0 - 40.0)
+        sign = torch.where(torch.rand((DIVIDE_PAIRS,), generator=g,
+                                      device=dev) < 0.5, -1.0, 1.0)
+        whole = torch.floor(torch.exp2(torch.rand(
+            (DIVIDE_PAIRS,), generator=g, device=dev) * 24.0))
+        frac = torch.exp2(torch.rand((DIVIDE_PAIRS,), generator=g,
+                                     device=dev) * 40.0)
+        for a_, b_ in ((sign * mag, whole), (sign * mag, frac),
+                       (torch.rand((DIVIDE_PAIRS,), generator=g, device=dev)
+                        * 2.0 - 1.0, whole)):
+            t, d = ds.divide_check_cuda(a_, b_)
+            tried, differ = tried + t, differ + d
+    log(f"  detector_scan's split divide against IEEE `/`: {differ} of "
+        f"{tried} pairs in its fast range differ")
+    if differ:
+        raise AssertionError("the DDM chain's divide differs from `/`")
+    # many drifts (rates alternating every 500 events) and the errors after
+    # the int8 uplink codec (not 0 or 1): against the serial witness
+    alt = torch.where((torch.arange(N_EVENTS, device=dev) // 500) % 2 == 0,
+                      0.05, 0.6)
+    many = (torch.rand((N_EVENTS,), generator=g, device=dev) < alt).float()
+    res = torch.randn((N_EVENTS,), generator=g, device=dev) * 0.02
+    nonbinary, _ = ef_codec.ef_int8_roundtrip_cuda(res, err)
+    if bool(((nonbinary == 0) | (nonbinary == 1)).all()):
+        raise AssertionError("the codec's errors came out binary")
+    for what, e in (("many drifts", many), ("int8_ef errors", nonbinary)):
+        before = ds.chain_stats(dev).clone()
+        st, flag = ds.detector_scan_cuda("ddm", init, e)
+        walked, restarts = (ds.chain_stats(dev) - before).tolist()
+        wst, wflag = ds.detector_scan_serial_cuda("ddm", init, e)
+        same = bool(flag) == bool(wflag) and all(
+            torch.equal(a.reshape(()), b.reshape(()))
+            for a, b in zip(st, wst))
+        e_ms = median_ms(lambda: ds.detector_scan_cuda("ddm", init, e), 20)
+        w_ms = median_ms(
+            lambda: ds.detector_scan_serial_cuda("ddm", init, e), 5)
+        log(f"  detector_scan (DDM) on {what}: bitwise the serial witness "
+            f"{same}; drifted {bool(flag)}, {restarts} restart(s), chain "
+            f"{walked} events; {e_ms!r} ms ({e_ms * 1e6 / walked!r} ns a "
+            f"chained event), witness {w_ms!r} ms")
+        if not same:
+            raise AssertionError(f"detector scan on {what} differs from its "
+                                 "serial witness")
+    # carried states whose n the chain must step one by one: n0 a little
+    # under 2^24 (past it n + 1 rounds back to 2^24) and a fractional n0
+    # still in the warm-up; (n, p, s_min, p_min) with the pair at p's own
+    for n0, p0 in ((2.0 ** 24 - 1000.0, 0.25), (7.5, 0.3)):
+        s0 = math.sqrt(p0 * (1.0 - p0) / n0)
+        carried = drift.DDMState(*(torch.tensor(v, dtype=torch.float32,
+                                                device=dev)
+                                   for v in (n0, p0, s0, p0)),
+                                 torch.tensor(0, dtype=torch.int32,
+                                              device=dev))
+        for what, e in (("planted drift", err), ("many drifts", many)):
+            before = ds.chain_stats(dev).clone()
+            st, flag = ds.detector_scan_cuda("ddm", carried, e)
+            walked, restarts = (ds.chain_stats(dev) - before).tolist()
+            wst, wflag = ds.detector_scan_serial_cuda("ddm", carried, e)
+            same = bool(flag) == bool(wflag) and all(
+                torch.equal(a.reshape(()), b.reshape(()))
+                for a, b in zip(st, wst))
+            log(f"  detector_scan (DDM) from n0 = {n0!r} on {what}: bitwise "
+                f"the serial witness {same}; drifted {bool(flag)}, "
+                f"{restarts} restart(s), chain {walked} events, final n "
+                f"{float(st.n)!r}")
+            if not same:
+                raise AssertionError(f"detector scan from n0 = {n0!r} on "
+                                     f"{what} differs from its serial "
+                                     "witness")
+    # EDDM and Page-Hinkley (the one-thread kernel) against their plain
+    # loops on a host copy of the planted-drift stream's first part
+    part = err[:DETECTOR_PLAIN_N]
+    for det, init_fn in (("eddm", drift.eddm_init), ("ph", drift.ph_init)):
+        st, flag = ds.detector_scan_cuda(det, init_fn(dev), part)
+        t0 = time.perf_counter()
+        pst, pflag = ds.detector_scan_plain(det, init_fn(), part.cpu())
+        p_ms = (time.perf_counter() - t0) * 1e3
+        same = bool(flag) == bool(pflag) and all(
+            torch.equal(a.cpu().reshape(()), b.reshape(()))
+            for a, b in zip(st, pst))
+        log(f"  detector_scan ({det}) on {DETECTOR_PLAIN_N} events: bitwise "
+            f"the plain loop on the host CPU {same} (drifted "
+            f"{bool(pflag)}; plain {p_ms!r} ms, one run)")
+        if not same:
+            raise AssertionError(f"detector scan ({det}) differs from its "
+                                 "plain loop")
 
 
 def serving_kernel_checks(dev, g, record):
@@ -467,9 +594,10 @@ def edge_serving_cluster():
                cm.Link("cloud0", "edge0", bw=2e7, latency=5e-3)])
 
 
-def serving_phases(dev) -> dict:
+def serving_phases(dev):
     """Phase 6 (each model served) and phase 7 (rwkv6's serving graph at
-    the {decode} frontier). Returns the launch counts of each path."""
+    the {decode} frontier). Returns the launch counts of each path and
+    the prefill and decode tok/s of each model."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -479,7 +607,7 @@ def serving_phases(dev) -> dict:
     from repro_torch.serve.engine import Request, ServeEngine, wave_inputs
     from repro_torch.serve.ops import serve_wave_batch, serving_graph
 
-    paths = {}
+    paths, rates = {}, {}
     for arch in SERVE_MODELS:
         cfg = get_config(arch)
         t0 = time.perf_counter()
@@ -504,6 +632,8 @@ def serving_phases(dev) -> dict:
         eng.run(reqs)
         paths[f"serve/{arch}"] = ops.launch_counts()
         tp = eng.throughput()
+        rates[f"prefill_tok_per_s/{arch}"] = tp["prefill_tok_per_s"]
+        rates[f"decode_tok_per_s/{arch}"] = tp["decode_tok_per_s"]
         launched = {k: v for k, v in paths[f"serve/{arch}"].items() if v}
         log(f"  prefill_tok_per_s={tp['prefill_tok_per_s']!r} "
             f"decode_tok_per_s={tp['decode_tok_per_s']!r} "
@@ -573,7 +703,7 @@ def serving_phases(dev) -> dict:
             del graph, geng, states, out
         del params, eng
         torch.cuda.empty_cache()
-    return paths
+    return paths, rates
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +797,9 @@ def sketch_kernel_checks(dev, record, ids):
         f"equal to the plain loop on the card ({pre_ms!r} ms, one run)")
     # the path's shape: one whole batch, the plain loop on a CPU copy (the
     # host steps it faster than launches on the card would)
+    before = mgk.chain_stats(dev).clone()
     got = mgk.mg_scan_cuda(keys0, counts0, ids)
+    walked = int((mgk.chain_stats(dev) - before)[0])
     t0 = time.perf_counter()
     want = ref.mg_update_ref(keys0.cpu(), counts0.cpu(), ids.cpu())
     plain_ms = (time.perf_counter() - t0) * 1e3
@@ -681,20 +813,50 @@ def sketch_kernel_checks(dev, record, ids):
     if not same:
         raise AssertionError("mg_scan differs from its plain loop on a "
                              "whole batch")
+    ms = median_ms(lambda: mgk.mg_scan_cuda(keys0, counts0, ids), 3)
     record("mg_scan", "src/repro_torch/kernels/csrc/mg_scan.cu",
-           "src/repro/streams/sketches.py:116", err, 0.0,
-           median_ms(lambda: mgk.mg_scan_cuda(keys0, counts0, ids), 3),
+           "src/repro/streams/sketches.py:116", err, 0.0, ms,
            plain_ms, 4 * n + 16 * MG_K, n * MG_K)
+    serial_ms = median_ms(lambda: mgk.mg_scan_serial_cuda(keys0, counts0,
+                                                          ids), 3)
+    log(f"  mg_scan (chunks of {mgk.CHUNK}): chain walked {walked} of {n} "
+        f"ids ({walked / n!r}), {ms * 1e6 / walked!r} ns a chained id; "
+        f"serial witness {serial_ms!r} ms ({serial_ms * 1e6 / n!r} ns an id)")
+    # the kernel's other register layouts (k not a whole 32 per lane, and
+    # up to 1,024): the whole batch from an empty summary, then again,
+    # reversed, from the summary it left; each bitwise the serial witness
+    for k in MG_K_CHECKS:
+        kk = torch.full((k,), -1, dtype=torch.int32, device=dev)
+        cc = torch.zeros((k,), dtype=torch.int32, device=dev)
+        wk, wc = kk, cc
+        for what, x in (("empty", ids), ("carried", ids.flip(0))):
+            before = mgk.chain_stats(dev).clone()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            kk, cc = mgk.mg_scan_cuda(kk, cc, x)
+            b.record()
+            walked = int((mgk.chain_stats(dev) - before)[0])
+            wk, wc = mgk.mg_scan_serial_cuda(wk, wc, x)
+            same = torch.equal(kk, wk) and torch.equal(cc, wc)
+            log(f"  mg_scan k = {k} from the {what} summary: bitwise the "
+                f"serial witness {same}; {a.elapsed_time(b)!r} ms (one run), "
+                f"chain {walked} ids ({walked / n!r})")
+            if not same:
+                raise AssertionError(f"mg_scan at k = {k} from the {what} "
+                                     "summary differs from its serial witness")
     return want
 
 
-def summarization_phase(dev, mg_first) -> dict:
+def summarization_phase(dev, mg_first=None):
     """Phase 8's path: feeder -> card -> count-min (two widths) and
     Misra-Gries. ``mg_first`` is the plain loop's (keys, counts) after the
-    first batch, which the path's summary must equal bitwise. Returns the
-    launch counts of the path."""
+    first batch, which the path's summary must equal bitwise; with None
+    the path is only timed (``--measure``: no check, no chain counter).
+    Returns the launch counts of the path and its rates."""
     import numpy as np
     import torch
+    from repro_torch.kernels import mg_scan as mgk
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
     from repro_torch.streams import sketches as sk
@@ -704,7 +866,10 @@ def summarization_phase(dev, mg_first) -> dict:
            for w in SKETCH_WIDTHS}
     merged = {w: torch.zeros_like(cm.table) for w, cm in cms.items()}
     mg = sk.mg_init(MG_K, device=dev)
+    mg0 = mg
     host_ids, card_ids, ests = [], [], {w: [] for w in SKETCH_WIDTHS}
+    check = mg_first is not None
+    summaries, walked = [], [mgk.chain_stats(dev).clone()] if check else []
     ev = {"add_query": [], "window": [], "mg": []}
 
     def timed(what, fn):
@@ -739,6 +904,9 @@ def summarization_phase(dev, mg_first) -> dict:
                 merged[w] += win.table
                 ests[w].append(est)
             mg = timed("mg", lambda: sk.mg_update(mg, ids))
+            summaries.append(mg)
+            if check:
+                walked.append(mgk.chain_stats(dev).clone())
             if not host_ids:
                 mg_after_first = (mg.keys.clone(), mg.counts.clone())
             host_ids.append(ids_np)
@@ -766,6 +934,10 @@ def summarization_phase(dev, mg_first) -> dict:
         raise AssertionError(f"summarization: {n_events} events")
     if dispatch["plain"] or dispatch["kernel"] != 2 * 2 * SKETCH_BATCHES:
         raise AssertionError(f"summarization: dispatch {dispatch}")
+    rates = {"summarization_events_per_s": n_events / secs,
+             **{f"ms_per_batch/{k}": v for k, v in per_batch.items()}}
+    if not check:
+        return counts, rates
 
     # the same batches through the plain versions on the card
     true = np.bincount(np.concatenate(host_ids))
@@ -802,13 +974,32 @@ def summarization_phase(dev, mg_first) -> dict:
     if not same_first:
         raise AssertionError("misra-gries differs from its plain loop after "
                              "the first batch")
+    # every batch's summary against the serial witness kernel, replayed
+    # over the same ids from the same start
+    per_call = [int(b[0] - a[0]) for a, b in zip(walked, walked[1:])]
+    mg_ms = [a.elapsed_time(b) for a, b in ev["mg"]]
+    w = mg0
+    same_all = []
+    for ids, got in zip(card_ids, summaries):
+        w = sk.MisraGries(*mgk.mg_scan_serial_cuda(w.keys, w.counts, ids))
+        same_all.append(torch.equal(w.keys, got.keys)
+                        and torch.equal(w.counts, got.counts))
+    log(f"  misra-gries: every batch's summary bitwise the serial witness's "
+        f"{all(same_all)} ({sum(same_all)}/{len(same_all)}); chain share "
+        f"per call {[c / per_batch_ids for c in per_call]!r}; chain ids "
+        f"{per_call}; ns a chained id per call "
+        f"{[c and t * 1e6 / c for t, c in zip(mg_ms, per_call)]!r}")
+    if not all(same_all):
+        bad = [i for i, v in enumerate(same_all) if not v]
+        raise AssertionError(f"misra-gries differs from its serial witness "
+                             f"on batches {bad}")
     k_top = int(mg.keys[int(torch.argmax(mg.counts))])
     log(f"  misra-gries top key {k_top} (count "
         f"{int(mg.counts.max())}); most frequent id {int(top[0])} "
         f"(count {int(true[top[0]])})")
     if k_top != int(top[0]):
         raise AssertionError("misra-gries missed the most frequent id")
-    return counts
+    return counts, rates
 
 
 # ---------------------------------------------------------------------------
@@ -894,7 +1085,81 @@ def check_no_nan(states, what: str):
                 raise AssertionError(f"{what}: a NaN in the op states")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# --measure and --compare: the main paths' rates, one tree or two in turns
+# ---------------------------------------------------------------------------
+
+def measure(dev) -> dict:
+    """The main paths of phases 3, 6-7 and 8, timed as the full run times
+    them, with no kernel check before them: their rates."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.build_all()
+    out = {}
+    batches = dense_batches(N_BATCHES, N_EVENTS, DIM)
+    run_dense(batches[:2], "int8_ef", 0.1, "cuda")
+    for codec, budget in DENSE_CODECS:
+        _, m, secs = run_dense(batches, codec, budget, "cuda")
+        out[f"dense_events_per_s/{codec}"] = m.events / secs
+    del batches
+    torch.cuda.empty_cache()
+    out.update(serving_phases(dev)[1])
+    # each shard's stream draws its vocabulary permutation (2^24 ids) at
+    # its first batch; the full run's checks draw them before the path
+    first_token_batch()
+    out.update(summarization_phase(dev)[1])
+    return out
+
+
+def compare(other: pathlib.Path, runs: int) -> int:
+    """``--measure`` for ``other``'s port and this checkout's in turns,
+    each run a process of its own."""
+    trees = {"other": other.resolve() / "src", "this": SRC}
+    order = []
+    for i in range(runs):
+        order += ["other", "this"] if i % 2 == 0 else ["this", "other"]
+    results = {"other": [], "this": []}
+    for tag in order:
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--measure",
+             "--src", str(trees[tag])],
+            cwd=ROOT, capture_output=True, text=True)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode or not lines:
+            raise RuntimeError(f"--measure of {trees[tag]} failed (exit "
+                               f"{proc.returncode}):\n{proc.stdout[-4000:]}"
+                               f"{proc.stderr[-4000:]}")
+        r = json.loads(lines[-1])
+        results[tag].append(r)
+        log(json.dumps({"tree": tag, **r}))
+    for tag, rs in results.items():
+        med = {k: statistics.median(r[k] for r in rs) for k in rs[0]}
+        log(json.dumps({"tree": tag, "src": str(trees[tag]), "runs": len(rs),
+                        "median": med}))
+    log(nvidia_smi_line())
+    return 0
+
+
+def has_port(src: pathlib.Path) -> bool:
+    return (src / "repro_torch" / "kernels" / "csrc").is_dir()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="GPU smoke test of the PyTorch port (see the module "
+                    "docstring).")
+    ap.add_argument("--measure", action="store_true",
+                    help="only time the main paths of phases 3, 6-7 and 8 "
+                         "and print their rates as one JSON line")
+    ap.add_argument("--src", type=pathlib.Path, default=SRC,
+                    help="with --measure: the src directory whose "
+                         "repro_torch is measured (default: this one's)")
+    ap.add_argument("--compare", type=pathlib.Path, metavar="ROOT",
+                    help="--measure ROOT/src and this checkout's src in "
+                         "turns, each run a process of its own")
+    ap.add_argument("--runs", type=int, default=3,
+                    help="with --compare: runs a side")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -904,17 +1169,25 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs a card",
               file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: the port's sources are not under {SRC}",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
+    src = args.src.resolve()
+    for d in (src,) + ((args.compare / "src",) if args.compare else ()):
+        if not has_port(d):
+            print(f"chip_smoke: the port's sources are not under {d}",
+                  file=sys.stderr)
+            return 2
+    if args.compare is not None:
+        return compare(args.compare, args.runs)
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.measure:
+        log(json.dumps(measure(torch.device("cuda"))))
+        return 0
 
     from repro_torch.core.orchestrator import Orchestrator, StreamJob
     from repro_torch.core.pipeline import Pipeline, hash_op, pca_op, sketch_op
     from repro_torch.core.sla import SLA
+    from repro_torch.kernels import detector_scan as ds
     from repro_torch.kernels import ops
     from repro_torch.streams import preprocess as prep
     from repro_torch.streams.events import StreamBatch
@@ -948,14 +1221,17 @@ def main() -> int:
 
     log("phase 3: orchestrator, dense job "
         f"({N_BATCHES} x {N_EVENTS} events, dim {DIM})")
-    for codec, budget in (("int8_ef", 0.1), ("topk_int8_ef", 11.0)):
+    for codec, budget in DENSE_CODECS:
         before = ops.launch_counts()
+        chain0 = ds.chain_stats(dev).clone()
         orch, m, secs = run_dense(batches, codec, budget, "cuda")
         delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        walked, restarts = (ds.chain_stats(dev) - chain0).tolist()
         phase_counts[f"dense/{codec}"] = delta
         log(f"  {codec}: events={m.events} events_per_s={m.events / secs!r} "
             f"drift_alarms={m.drift_alarms} cuts={sorted(set(m.cuts))} "
-            f"codecs={sorted(set(m.codecs))} preq={m.preq} launches={delta}")
+            f"codecs={sorted(set(m.codecs))} preq={m.preq} launches={delta} "
+            f"ddm_chain_events={walked} ddm_restarts={restarts}")
         if m.events != N_BATCHES * N_EVENTS or set(m.codecs) != {codec}:
             raise AssertionError(f"{codec}: wrong events or codec trajectory")
         if m.drift_alarms < 1:
@@ -1022,7 +1298,7 @@ def main() -> int:
     log("phase 6: serving kernels vs plain versions at the serving "
         "path's shapes")
     serving_kernel_checks(dev, kg, record)
-    path_counts.update(serving_phases(dev))
+    path_counts.update(serving_phases(dev)[0])
 
     # -- phases 8-9: edge summarization and the Mamba scan ---------------------
     log("phase 8: edge summarization (feeder -> count-min -> Misra-Gries): "
@@ -1033,7 +1309,7 @@ def main() -> int:
     log(f"phase 8: {SKETCH_SHARDS} shards x {SKETCH_SEQS} x {SKETCH_SEQ_LEN} "
         f"Zipf({SKETCH_ZIPF}) ids, {SKETCH_BATCHES} batches, depth "
         f"{SKETCH_DEPTH}, widths {SKETCH_WIDTHS}, k = {MG_K}")
-    path_counts["summarization"] = summarization_phase(dev, mg_first)
+    path_counts["summarization"] = summarization_phase(dev, mg_first)[0]
     torch.cuda.empty_cache()
     log("phase 9: the Mamba selective scan at jamba-1.5-large-398b's mixer "
         "width")
@@ -1050,7 +1326,7 @@ def main() -> int:
     # (which differ between devices) do not enter the comparison
     log("check: small dense job on the card vs the same job on the CPU")
     small = dense_batches(10, 512, 16)
-    for codec, budget in (("int8_ef", 0.1), ("topk_int8_ef", 11.0)):
+    for codec, budget in DENSE_CODECS:
         _, mg, _ = run_dense(small, codec, budget, "cuda", sample_rate=1.0)
         _, mc, _ = run_dense(small, codec, budget, "cpu", sample_rate=1.0)
         same = (mg.events == mc.events and mg.cuts == mc.cuts

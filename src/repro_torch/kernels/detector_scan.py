@@ -5,11 +5,19 @@
 The JAX package scans DDM, EDDM and Page-Hinkley over a batch's error
 stream with ``jax.lax.scan`` (``core/pipeline.py`` drift_op); it has no
 Pallas kernel for it. A loop of torch steps on the card would launch
-some 25 kernels per event, so the scan is one kernel: one thread walks
-the events in order. It is bound by the latency of the dependent step
-chain, not by bytes or operations. The kernel and the plain loop agree
-level for level: the kernel repeats every step in fp32 without
-contracted multiply-adds.
+some 25 kernels per event, so the scan is one kernel launch a call. It
+is bound by the latency of its dependent chain, not by bytes or
+operations. For DDM the kernel keeps only ``p`` on the chain (one
+thread per tile, with ``n`` and half of each divide computed ahead for
+the tile), computes ``s``, the running ``(p_min, s_min)`` pair and the
+levels for the whole tile in parallel, and restarts the chain after the
+first event at DRIFT
+(``kernels/ref.py::ddm_scan_restart_ref`` spells it out); EDDM and
+Page-Hinkley walk one thread. The kernel and the plain loop agree
+bitwise, level for level: every step is repeated in fp32 without
+contracted multiply-adds. ``detector_scan_serial_cuda`` walks every kind
+on one thread, the DDM kernel's exact witness off every main path, not
+counted.
 
 :func:`detector_scan` launches the kernel for a CUDA tensor, runs the
 plain loop for a CPU tensor, and raises for any other device.
@@ -31,16 +39,29 @@ STEPS = {"ddm": drift_mod.ddm_step, "eddm": drift_mod.eddm_step,
          "ph": drift_mod.ph_step}
 
 _P = ctypes.c_void_p
+_STATS = {}    # device -> int64 (2,): events the DDM chain walked, restarts
 
 
 def _lib():
     lib = _build.library("detector_scan")
     if not getattr(lib, "_typed", False):
         lib.detector_scan.argtypes = [_P, ctypes.c_longlong, ctypes.c_int,
-                                      _P, _P, _P, _P]
+                                      _P, _P, _P, _P, _P]
         lib.detector_scan.restype = ctypes.c_int
+        lib.detector_scan_serial.argtypes = [_P, ctypes.c_longlong,
+                                             ctypes.c_int, _P, _P, _P, _P]
+        lib.detector_scan_serial.restype = ctypes.c_int
+        lib.detector_divide_check.argtypes = [_P, _P, ctypes.c_longlong,
+                                              _P, _P]
+        lib.detector_divide_check.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def chain_stats(device) -> torch.Tensor:
+    """The card's running ``[events the DDM chain walked, restarts]``
+    (int64), summed over the DDM kernel's launches on ``device``."""
+    return _build.device_stats(_STATS, device)
 
 
 def detector_scan_plain(detector: str, state, err: torch.Tensor):
@@ -50,8 +71,7 @@ def detector_scan_plain(detector: str, state, err: torch.Tensor):
     return state, torch.any(levels == drift_mod.DRIFT)
 
 
-def detector_scan_cuda(detector: str, state, err: torch.Tensor):
-    """The detector-scan kernel: ``(final state, any event at DRIFT)``."""
+def _launch(detector: str, state, err: torch.Tensor, serial: bool):
     kind = KINDS[detector]
     dev = err.device
     floats = [t.to(device=dev, dtype=torch.float32).reshape(1)
@@ -61,15 +81,51 @@ def detector_scan_cuda(detector: str, state, err: torch.Tensor):
     level = state.level.to(device=dev, dtype=torch.int32).reshape(1).clone()
     drifted = torch.empty(1, dtype=torch.int32, device=dev)
     e = err.float().contiguous()
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().detector_scan(e.data_ptr(), e.numel(), kind,
-                                  st.data_ptr(), level.data_ptr(),
-                                  drifted.data_ptr(), stream)
-    _build.check(rc, "detector_scan")
-    LAUNCHES["detector_scan"] += 1
+        if serial:
+            rc = lib.detector_scan_serial(e.data_ptr(), e.numel(), kind,
+                                          st.data_ptr(), level.data_ptr(),
+                                          drifted.data_ptr(), stream)
+        else:
+            rc = lib.detector_scan(e.data_ptr(), e.numel(), kind,
+                                   st.data_ptr(), level.data_ptr(),
+                                   drifted.data_ptr(),
+                                   chain_stats(dev).data_ptr(), stream)
+    _build.check(rc, "detector_scan_serial" if serial else "detector_scan")
     new = type(state)(*[st[i] for i in range(len(floats))], level[0])
     return new, drifted[0] != 0
+
+
+def detector_scan_cuda(detector: str, state, err: torch.Tensor):
+    """The detector-scan kernel: ``(final state, any event at DRIFT)``."""
+    out = _launch(detector, state, err, serial=False)
+    LAUNCHES["detector_scan"] += 1
+    return out
+
+
+def detector_scan_serial_cuda(detector: str, state, err: torch.Tensor):
+    """The serial witness kernel (every event on one thread's chain): the
+    same ``(final state, any event at DRIFT)``. Off the main path; not
+    counted."""
+    return _launch(detector, state, err, serial=True)
+
+
+def divide_check_cuda(a: torch.Tensor, b: torch.Tensor):
+    """The DDM chain's split divide against IEEE ``/`` on the card, over
+    the pairs ``(a[i], b[i])`` (fp32, one device) that lie in its fast
+    range: ``(pairs in the range, pairs whose quotients differ)``."""
+    a = a.float().contiguous()
+    b = b.to(device=a.device, dtype=torch.float32).contiguous()
+    out = torch.zeros(2, dtype=torch.int64, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = _lib().detector_divide_check(a.data_ptr(), b.data_ptr(),
+                                          a.numel(), out.data_ptr(), stream)
+    _build.check(rc, "detector_divide_check")
+    tried, differ = out.tolist()
+    return tried, differ
 
 
 def detector_scan(detector: str, state, err: torch.Tensor):

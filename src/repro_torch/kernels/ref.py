@@ -5,7 +5,9 @@
 Each is the plain version its CUDA kernel is held against: the kernel
 wrappers run these for tensors on the CPU, the tests hold them to the
 JAX oracles, and ``chip_smoke.py`` holds each kernel to them on the
-card. They run on any device.
+card. They run on any device. ``mg_update_chunked_ref`` and
+``ddm_scan_restart_ref`` spell out the two chained scans' kernel
+algorithms for the CPU tests only; nothing on a main path calls them.
 """
 
 from __future__ import annotations
@@ -232,3 +234,126 @@ def mg_update_ref(keys, counts, ids):
         keys = torch.where(sel, item, keys)
         counts = torch.where(place, counts + sel.to(torch.int32), counts - 1)
     return keys, counts
+
+
+def _mg_classify(keys, counts, ids, thr: int):
+    """The safe slots of a state for a stretch of ids (the first slot of
+    its key whose count exceeds ``thr``), each one's hits in ``ids``, and
+    the other ids in order: ``(safe (k,) bool, hits (k,), rest)``."""
+    earlier = torch.tril(keys[:, None] == keys[None, :], diagonal=-1)
+    safe = ~earlier.any(1) & (counts > thr)
+    match = (ids[:, None] == keys[None, :]) & safe[None, :]
+    hits = match.sum(0).to(torch.int32)
+    return safe, hits, ids[~match.any(1)]
+
+
+def mg_update_chunked_ref(keys, counts, ids, chunk: int, stats=None):
+    """``mg_update_ref``'s result by the MG kernel's algorithm
+    (``csrc/mg_scan.cu``), spelled out in torch.
+
+    The ids go in chunks of ``chunk``. Chunk c + 1 is classified against
+    the state at the start of chunk c (chunk 0 against the input), with
+    the threshold the ids from that state to chunk c + 1's end: a slot
+    that is the first holding its key K, with a count above it, cannot
+    reach 0 before that end, so every K there is a hit on it and nothing
+    else touches it. Those ids leave the chain. The rest are walked in
+    order by the plain loop, in which the safe slots take part as any
+    slot does (their keys are not among these ids and their counts stay
+    above 0, so each takes exactly the walk's decrements); then each safe
+    slot gains its hits. Bitwise equal to the plain loop. ``stats``, a
+    dict if given, gains ``chained``: the ids walked."""
+    keys = keys.to(torch.int32).clone()
+    counts = counts.to(torch.int32).clone()
+    ids = ids.to(device=keys.device, dtype=torch.int32).reshape(-1)
+    chunks = torch.split(ids, chunk)
+    chained = 0
+    nxt = _mg_classify(keys, counts, chunks[0], len(chunks[0]))
+    for c, cur in enumerate(chunks):
+        safe, hits, rest = nxt
+        if c + 1 < len(chunks):
+            nxt = _mg_classify(keys, counts, chunks[c + 1],
+                               len(cur) + len(chunks[c + 1]))
+        keys, counts = mg_update_ref(keys, counts, rest)
+        if bool((counts[safe] <= 0).any()):
+            raise AssertionError("a safe slot reached 0 in its chunk")
+        counts = counts + hits
+        chained += len(rest)
+    if stats is not None:
+        stats["chained"] = stats.get("chained", 0) + chained
+    return keys, counts
+
+
+# ---------------------------------------------------------------------------
+# DDM: the drift scan's decomposition, bitwise
+# ---------------------------------------------------------------------------
+
+def _first_min_scan(v, pm, sm, ok):
+    """Inclusive prefix of "the later candidate wins only if it is valid
+    and strictly smaller", as a log-step scan of that associative rule:
+    ties keep the earlier pair. Returns ``(v, pm, sm, ok)`` per event."""
+    n, d = v.shape[0], 1
+    while d < n:
+        a = (v[:-d], pm[:-d], sm[:-d], ok[:-d])
+        b = (v[d:], pm[d:], sm[d:], ok[d:])
+        right = b[3] & (~a[3] | (b[0] < a[0]))
+        merged = [torch.where(right, y, x) for x, y in zip(a, b)]
+        v, pm, sm, ok = (torch.cat([t[:d], m]) for t, m in
+                         zip((v, pm, sm, ok), merged))
+        d *= 2
+    return v, pm, sm, ok
+
+
+def ddm_scan_restart_ref(state, err, tile: int):
+    """DDM over ``err`` by the drift-scan kernel's algorithm
+    (``csrc/detector_scan.cu``), spelled out in torch: ``(final state,
+    levels (n,) int32)``, bitwise ``run_detector(ddm_step, ...)``'s.
+
+    Per tile: (1) the chain ``n += 1; p += (e - p) / n`` step by step in
+    fp32, as if nothing reset; (2) per event ``s``, ``q = p + s`` and the
+    running ``(p_min, s_min)``: the first-occurrence strict prefix minimum
+    of ``q`` over events with ``n >= 30`` (and ``q`` not NaN), seeded by
+    the carried pair; then each level as ``ddm_step`` computes it; (3) at
+    the first event at DRIFT the state resets and the next tile starts
+    right after it."""
+    dev = err.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    e = err.to(**f32).reshape(-1)
+    n_, p_, smin_, pmin_ = (torch.as_tensor(t, **f32).reshape(())
+                            for t in state[:4])
+    level = torch.as_tensor(state.level, dtype=torch.int32, device=dev)
+    levels = torch.zeros(e.shape[0], dtype=torch.int32, device=dev)
+    base = 0
+    while base < e.shape[0]:
+        et = e[base:base + tile]
+        m = et.shape[0]
+        P = torch.empty(m, **f32)
+        N = torch.empty(m, **f32)
+        nn, pp = n_, p_
+        for i in range(m):
+            nn = nn + 1.0
+            pp = pp + (et[i] - pp) / nn
+            N[i], P[i] = nn, pp
+        s = torch.sqrt(P * (1 - P) / torch.clamp(N, min=1.0))
+        q = P + s
+        ok = (N >= 30) & ~torch.isnan(q)
+        seed = [t.reshape(1) for t in (pmin_ + smin_, pmin_, smin_)]
+        v, pm, sm, _ = _first_min_scan(
+            *(torch.cat([a, b]) for a, b in zip(seed, (q, P, s))),
+            torch.cat([torch.ones(1, dtype=torch.bool, device=dev), ok]))
+        pm, sm = pm[1:], sm[1:]
+        lv = torch.where(q > pm + 3.0 * sm, 2,
+                         torch.where(q > pm + 2.0 * sm, 1, 0))
+        lv = torch.where(N < 30, 0, lv).to(torch.int32)
+        drift = torch.nonzero(lv == 2)
+        r = int(drift[0, 0]) if len(drift) else m
+        levels[base:base + min(r + 1, m)] = lv[:r + 1]
+        if r < m:
+            n_, p_ = torch.zeros((), **f32), torch.zeros((), **f32)
+            smin_ = pmin_ = torch.full((), 1e9, **f32)
+            level = lv[r]
+            base += r + 1
+        else:
+            n_, p_, smin_, pmin_ = N[-1], P[-1], sm[-1], pm[-1]
+            level = lv[-1]
+            base += m
+    return type(state)(n_, p_, smin_, pmin_, level), levels
