@@ -26,9 +26,16 @@ path on the card, and checks what comes out. Phases:
 5. edge preprocessing (``preprocess_batch``) over the dense batches with
    NaNs injected;
 6. the serving path's two kernels vs their plain versions, as in
-   phase 2 (flash attention at three shapes, with ``library_ms`` from
-   SDPA, and its fp32 build checked untimed; WKV at two), then model
-   serving (``ServeEngine``, ``impl="kernel"``) at full width,
+   phase 2: flash attention in bf16 and fp32 at head dims 64, 16 and 128
+   (prefill S = T = 512, a decode step, causal; B 8, 16 heads) and at
+   llama-3.2-vision-90b's cross-attention (64 heads on 8 KV heads, 1,600
+   image tokens, batch 1 and 2, prefill and decode), on strided
+   model-layout inputs, each call one CUDA kernel by ``torch.profiler``,
+   with ``library_ms`` from the fastest fused SDPA backend on 4-D
+   inputs (flash, memory-efficient, cuDNN; refusals logged); then
+   seamless-m4t-medium's smoke configuration (d_head 16, fp32) served
+   through ``impl="kernel"``, its tokens equal to ``impl="chunked"``'s;
+   WKV at two shapes; then model serving (``ServeEngine``, ``impl="kernel"``) at full width,
    bf16, random weights from a seed: seamless-m4t-medium (flash
    attention in cross-attention), rwkv6-1.6b (the WKV kernel) and
    qwen2-1.5b (no kernel on its path), each with 16 requests of
@@ -124,6 +131,16 @@ PROMPT = 512           # prompt tokens per request
 NEW_TOKENS = 32        # greedy new tokens per request
 SERVE_BATCH = 8        # requests per wave
 MAX_LEN = 1024
+# phase 6's flash checks: the head dims the kernels are built for, and
+# llama-3.2-vision-90b's cross-attention (1,600 image tokens) at two batches
+FLASH_HEAD_DIMS = (64, 16, 128)
+FLASH_VLM_T = 1600
+FLASH_VLM_BATCHES = (1, 2)
+FLASH_LIBRARY_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                          "CUDNN_ATTENTION")
+L2_BYTES = 50 * 2 ** 20             # the H100's L2 cache
+SMOKE_SERVE_REQUESTS = 6            # seamless smoke config served in phase 6
+SMOKE_SERVE_TOKENS = 16
 SERVE_PLACE_RATE = 0.1  # requests/s: the pod alone serves rwkv6 feasibly
 
 # phase 8: edge summarization of a Zipf token stream
@@ -194,6 +211,37 @@ def median_ms(fn, reps: int, warmup: int = 1, trials: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int, trials: int = 3) -> float:
+    """Median over ``trials`` of the mean ms of a call of ``fn`` on the
+    card, from one CUDA graph of ``reps`` calls replayed between two
+    events: the card's own time, without the host's launch overhead
+    (which paces a short kernel's back-to-back eager calls)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()            # first use of allocations and library plans
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(times)
+
+
 # ---------------------------------------------------------------------------
 # phase 2 (slice 1's kernels) and the start of phase 6 (the serving
 # kernels): every kernel against its plain version on the card
@@ -211,11 +259,12 @@ def recorder(rows: dict, bw: float, flops: float, tensor: float):
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
     def record(name, source, replaces, err, tol, ms, plain_ms, nbytes, nops,
-               tensor_ops=0.0, library_ms=None, row=None):
+               tensor_ops=0.0, library_ms=None, library=None, row=None):
         b_ms, b_by = bound(nbytes, nops, tensor_ops)
         log(f"  {row or name}: max_abs_err={err!r} tol={tol!r} "
             f"kernel_ms={ms!r} plain_ms={plain_ms!r} bound_ms={b_ms!r} "
-            f"({b_by}) library_ms={library_ms!r}")
+            f"({b_by}) library_ms={library_ms!r}"
+            + (f" ({library})" if library else ""))
         if not err <= tol:
             raise AssertionError(f"{row or name}: kernel disagrees with its "
                                  f"plain version: {err!r} > {tol!r}")
@@ -446,61 +495,244 @@ def kernel_checks(dev, g, record) -> None:
                                  "plain loop")
 
 
-def serving_kernel_checks(dev, g, record):
-    """The serving path's two kernels against their plain versions at the
-    path's shapes, in bf16 (the served configurations' dtype)."""
+def attended_pairs(S: int, T: int, causal: bool) -> int:
+    """(query, key) pairs the mask keeps, summed over S query rows."""
+    if not causal:
+        return S * T
+    return sum(min(s + 1, T) for s in range(S))
+
+
+def flash_cases():
+    """``(row, B, S, T, H, KV, D, causal)`` for the flash checks:
+    seamless-m4t-medium's cross-attention (B 8, 16 heads, T = PROMPT) at
+    each built head dim, then llama-3.2-vision-90b's (64 query heads on 8
+    KV heads, FLASH_VLM_T image tokens, D 128) at batch 1 and 2. The
+    first row is the kernel's row in the ``kernels`` line."""
+    B, H = SERVE_BATCH, 16
+    out = []
+    for D in FLASH_HEAD_DIMS:
+        tag = "" if D == 64 else f"/d{D}"
+        out += [(f"flash_attention{tag}", B, PROMPT, PROMPT, H, H, D, False),
+                (f"flash_attention/decode{tag}", B, 1, PROMPT, H, H, D,
+                 False),
+                (f"flash_attention/causal{tag}", B, PROMPT, PROMPT, H, H, D,
+                 True)]
+    for B in FLASH_VLM_BATCHES:
+        out += [(f"flash_attention/vlm_b{B}", B, PROMPT, FLASH_VLM_T, 64, 8,
+                 128, False),
+                (f"flash_attention/vlm_b{B}_decode", B, 1, FLASH_VLM_T, 64, 8,
+                 128, False)]
+    return out
+
+
+def flash_inputs(g, dev, dtype, B, S, T, H, KV, D):
+    """q (B, S, H, D) and k, v (B, T, KV, D) as strided views, as
+    cross-attention hands them over: q a slice of a (B, S, 2, H, D)
+    buffer, k and v the two halves of a (B, T, 2, KV, D) one, so that only
+    the last axis is contiguous."""
+    import torch
+    qb = torch.randn((B, S, 2, H, D), generator=g, device=dev).to(dtype)
+    kvb = torch.randn((B, T, 2, KV, D), generator=g, device=dev).to(dtype)
+    return qb[:, :, 0], kvb[:, :, 0], kvb[:, :, 1]
+
+
+def cycling(fn, sets):
+    """``fn`` on each input set in turn: enough sets that their bytes pass
+    twice the L2 cache, so that a timed launch reads device memory as the
+    path does (a decode step reads each layer's cross-attention K, V
+    once)."""
+    import itertools
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def n_sets(tensors) -> int:
+    nbytes = sum(t.untyped_storage().nbytes() for t in tensors)
+    return max(1, -(-2 * L2_BYTES // nbytes))
+
+
+def sdpa_library_ms(sets, causal: bool, reps: int, want):
+    """The library yardstick: ``F.scaled_dot_product_attention`` on 4-D
+    (B, H, S, D) copies of the inputs, under ``sdpa_kernel`` with one
+    fused backend at a time, so that none falls back to the math path.
+    Returns ``(ms, backend)`` of the fastest (``(None, None)`` if every
+    backend refuses the shape) and one note a backend: its time and its
+    max error against the plain version, or why it refused."""
+    import warnings
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sets4 = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
+    kw = {"is_causal": causal}
+    if sets[0][0].shape[2] != sets[0][1].shape[2]:
+        kw["enable_gqa"] = True
+
+    def call(q4, k4, v4):
+        return F.scaled_dot_product_attention(q4, k4, v4, **kw)
+
+    best, notes = (None, None), []
+    for backend in FLASH_LIBRARY_BACKENDS:
+        be = getattr(SDPBackend, backend)
+        with sdpa_kernel([be]):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    out = call(*sets4[0])
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    notes.append(f"{backend} refused: "
+                                 f"{refusal(caught) or str(e).splitlines()[0]}")
+                    continue
+            err = float((out.transpose(1, 2).float() - want.float()
+                         ).abs().max())
+            ms = graph_ms(cycling(call, sets4), reps)
+            eager = median_ms(cycling(call, sets4), reps)
+        notes.append(f"{backend} {ms!r} ms, eager {eager!r} "
+                     f"(max_abs_err {err!r})")
+        if best[0] is None or ms < best[0]:
+            best = (ms, backend)
+    return best, notes
+
+
+def refusal(caught) -> str:
+    """SDPA's reasons for refusing a backend, from its warnings, without
+    the notes on the backends ``sdpa_kernel`` turned off."""
+    why = []
+    for w in caught:
+        msg = str(w.message).split(" (Triggered internally")[0].strip()
+        if msg and not msg.endswith("not used because:") and \
+                "runtime disabled" not in msg and msg not in why:
+            why.append(msg)
+    return "; ".join(why)
+
+
+def kernels_of_one_call(fn) -> list:
+    """The names of the CUDA kernels ``fn`` launches, from a
+    ``torch.profiler`` trace of one call (after one untraced call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def flash_kernel_checks(dev, g, record):
+    """The flash kernels against their plain version on strided
+    model-layout inputs (``flash_inputs``), bf16 and fp32, at every case
+    of ``flash_cases``; one CUDA kernel a model-layout call (profiler)."""
+    import torch
     from repro_torch.kernels import flash_attention as fa
+
+    bf16_eps = float(torch.finfo(torch.bfloat16).eps)
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "/fp32")):
+        es = torch.finfo(dtype).bits // 8
+        for row, B, S, T, H, KV, D, causal in flash_cases():
+            row += suffix
+            q, k, v = flash_inputs(g, dev, dtype, B, S, T, H, KV, D)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{row}: non-finite output")
+            err = float((got.float() - want.float()).abs().max())
+            if dtype == torch.bfloat16:
+                # one bf16 ulp of the largest output: both accumulate in
+                # fp32 and round once to bf16 (P rounded to bf16 before
+                # P V moves each output by far less; see the kernel's note)
+                tol = bf16_eps * float(want.float().abs().max())
+            else:   # fp32 on both sides, other summation orders
+                tol = 1e-4 * float(want.abs().max())
+            names = kernels_of_one_call(
+                lambda: fa.flash_attention(q, k, v, causal=causal))
+            if len(names) != 1 or "flash" not in names[0]:
+                raise AssertionError(f"{row}: one model-layout call launched "
+                                     f"{names}, not one flash kernel")
+            sets = [(q, k, v)] + [
+                flash_inputs(g, dev, dtype, B, S, T, H, KV, D)
+                for _ in range(n_sets((q, k, v)) - 1)]
+            reps = 50 if S == 1 else 20
+            (lib_ms, backend), notes = sdpa_library_ms(sets, causal, reps,
+                                                       want)
+            pairs = attended_pairs(S, T, causal)
+            mm = 4 * B * H * pairs * D
+            splits = fa.kv_splits(B, S, T, H, KV, dtype, causal)
+            kernel = cycling(lambda *t: fa.flash_attention(
+                *t, causal=causal), sets)
+            log(f"  {row}: B={B} S={S} T={T} H={H} KV={KV} D={D} "
+                f"causal={causal} kv_splits={splits} kernel={names[0]!r} "
+                f"eager_ms={median_ms(kernel, reps)!r}; "
+                f"library: {' | '.join(notes)}")
+            record("flash_attention",
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:77", err, tol,
+                   graph_ms(kernel, reps),
+                   median_ms(lambda: fa.flash_attention_plain(
+                       q, k, v, causal=causal), 5),
+                   es * (2 * B * S * H * D + 2 * B * T * KV * D),
+                   # fp32: the products too run on the CUDA cores
+                   5 * B * H * pairs + (mm if es == 4 else 0),
+                   tensor_ops=mm if es == 2 else 0,
+                   library_ms=lib_ms, library=backend, row=row)
+            del q, k, v, got, want, sets
+        torch.cuda.empty_cache()
+
+
+def serve_smoke_config(dev, arch: str = "seamless-m4t-medium"):
+    """A smoke configuration (seamless-m4t-medium's: d_head 16, fp32)
+    served on the card through ``ServeEngine(impl="kernel")``, its
+    cross-attention through the flash kernel, and through
+    ``impl="chunked"``: the greedy tokens must be equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(arch, smoke=True)
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(8, 33, size=SMOKE_SERVE_REQUESTS)]
+    tokens, flash = {}, {}
+    for impl in ("kernel", "chunked"):
+        ops.reset_launch_counts()
+        eng = ServeEngine(cfg, params, batch_size=4, max_len=64, impl=impl,
+                          seed=0)
+        reqs = [Request(i, p, max_new_tokens=SMOKE_SERVE_TOKENS)
+                for i, p in enumerate(prompts)]
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        tokens[impl] = [r.out_tokens for r in reqs]
+        flash[impl] = ops.launch_counts()["flash_attention"]
+    same = tokens["kernel"] == tokens["chunked"]
+    log(f"  {cfg.name} (d_head {cfg.d_head}, {cfg.param_dtype}): "
+        f"{len(prompts)} requests x {SMOKE_SERVE_TOKENS} greedy tokens; "
+        f"kernel tokens equal chunked: {same}; flash launches "
+        f"{flash['kernel']} (kernel), {flash['chunked']} (chunked)")
+    if not same:
+        raise AssertionError(f"{cfg.name}: impl='kernel' tokens differ from "
+                             "impl='chunked'")
+    if flash["kernel"] <= 0 or flash["chunked"] != 0:
+        raise AssertionError(f"{cfg.name}: flash launches {flash}")
+
+
+def serving_kernel_checks(dev, g, record):
+    """The serving path's two kernels against their plain versions at the
+    path's shapes: flash attention (``flash_kernel_checks``), then the
+    smoke configuration served through it, then WKV in bf16 (the served
+    configurations' dtype)."""
+    import torch
     from repro_torch.kernels import rwkv6_wkv as wkv
 
     bf16_eps = float(torch.finfo(torch.bfloat16).eps)
-    # -- flash attention: seamless cross-attention (B*H = 128, D = 64) ----
-    BH, T, D = SERVE_BATCH * 16, PROMPT, 64
-    cases = (("flash_attention", PROMPT, False),            # prefill
-             ("flash_attention/decode", 1, False),           # decode step
-             ("flash_attention/causal", PROMPT, True))       # S = T causal
-    k = torch.randn((BH, T, D), generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn((BH, T, D), generator=g, device=dev).to(torch.bfloat16)
-    for row, S, causal in cases:
-        q = torch.randn((BH, S, D), generator=g, device=dev).to(torch.bfloat16)
-        got = fa.flash_attention_bhsd_cuda(q, k, v, causal=causal)
-        want = fa.flash_attention_bhsd_plain(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got.float()).all():
-            raise AssertionError(f"{row}: non-finite output")
-        err = float((got.float() - want.float()).abs().max())
-        # one bf16 ulp of the largest output: both accumulate in fp32 and
-        # round once to bf16
-        tol = bf16_eps * float(want.float().abs().max())
-        pairs = S * T if not causal else S * (S + 1) // 2
-        record("flash_attention",
-               "src/repro_torch/kernels/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention.py:77", err, tol,
-               median_ms(lambda: fa.flash_attention_bhsd_cuda(
-                   q, k, v, causal=causal), 20),
-               median_ms(lambda: fa.flash_attention_bhsd_plain(
-                   q, k, v, causal=causal), 5),
-               2 * BH * D * (2 * S + 2 * T), 5 * BH * pairs,
-               tensor_ops=4 * BH * pairs * D,
-               library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-                   q, k, v, is_causal=causal), 20),
-               row=row)
-    # the fp32 build of the kernel (no served model reaches it): held to
-    # its plain version, fp32 on both sides, within 1e-4 of the largest
-    # output; logged, not timed
-    for S, causal in ((PROMPT, False), (1, False), (PROMPT, True)):
-        q32, k32, v32 = (torch.randn((BH, n, D), generator=g, device=dev)
-                         for n in (S, T, T))
-        got = fa.flash_attention_bhsd_cuda(q32, k32, v32, causal=causal)
-        want = fa.flash_attention_bhsd_plain(q32, k32, v32, causal=causal)
-        err = float((got - want).abs().max())
-        tol = 1e-4 * float(want.abs().max())
-        log(f"  flash_attention fp32 S={S} causal={causal}: "
-            f"max_abs_err={err!r} tol={tol!r}")
-        if not err <= tol:
-            raise AssertionError(f"flash_attention fp32: {err!r} > {tol!r}")
-    del q, k, v, got, want, q32, k32, v32
+    flash_kernel_checks(dev, g, record)
+    serve_smoke_config(dev)
 
     # -- RWKV6 WKV: rwkv6-1.6b prefill (B=8, S=512, H=32, hs=64) and decode -
     H, hs, chunk = 32, 64, 32

@@ -1,13 +1,22 @@
-"""Flash attention (forward): the CUDA kernel of ``csrc/flash_attention.cu``
-beside its plain version, ``kernels/ref.py::attention_ref``.
+"""Flash attention (forward): the CUDA kernels of ``csrc/flash_attention.cu``
+beside their plain version, ``kernels/ref.py::attention_ref``.
 
-Replaces the JAX package's ``kernels/flash_attention.py::
-flash_attention_bhsd`` (``_flash_fwd_kernel``). :func:`flash_attention_bhsd`
-takes q (BH, S, D) against k, v (BH, T, D), fp32 or bf16, D = 64, causal
-(start-aligned, as the TPU kernel) or not; S = 1 (a decode step) and
-S != T (cross-attention) included. :func:`flash_attention` is the
-model-layout wrapper: it expands GQA by repeating KV heads, as the
-reference's wrapper does, and folds heads into the batch.
+Replaces the JAX package's ``kernels/flash_attention.py``
+(``flash_attention_bhsd``, ``_flash_fwd_kernel``, and its model-layout
+wrapper ``flash_attention``). :func:`flash_attention` takes the model
+layout, q (B, S, H, D) against k, v (B, T, KV, D), and reads it in place:
+the kernel takes each tensor's strides, and query head h reads KV head
+``h // (H // KV)``, so GQA is an index and one call is one launch with no
+copy (a tensor whose last axis is not contiguous, or whose rows are not
+16-byte aligned, is copied first). :func:`flash_attention_bhsd` is the
+reference's (BH, S, D) API, a view of the same entry point with
+H = KV = 1. fp32 or bf16, head dims :data:`HEAD_DIMS`, causal
+(start-aligned, as the TPU kernel) or not.
+
+bf16 runs on the tensor cores: the 64-row kernel, or for a step of at most
+:data:`DECODE_ROWS` query rows a (batch, KV head) the grouped decode
+kernel, with T split across blocks where the batch's KV heads cannot fill
+the card (:func:`kv_splits`). fp32 runs on the CUDA cores.
 
 Each wrapper launches the kernel for a CUDA tensor, runs the plain
 version for a CPU tensor, and raises for any other device.
@@ -16,6 +25,7 @@ version for a CPU tensor, and raises for any other device.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
@@ -24,56 +34,175 @@ from repro_torch.kernels.ref import attention_ref
 
 LAUNCHES = {"flash_attention": 0}
 
-# the kernel is built for the one head size on a path that reaches it
-# (seamless-m4t's cross-attention)
-HEAD_DIMS = (64,)
+# the head dims the kernels are built for: 64 (seamless-m4t-medium), 128
+# (llama-3.2-vision-90b) and 16 (both smoke configurations)
+HEAD_DIMS = (16, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCK_K = 64           # keys per KV tile
+DECODE_ROWS = 16       # query rows (H / KV heads x S) of the decode kernel
+# fewer (batch, KV head) blocks than this leave SMs of the H100's 132 idle
+# at a decode step: T is then split so that about twice as many run
+FILL_BLOCKS = 128
+MAX_SPLITS = 128       # the decode kernel's merge keeps 16 (m, l) a split
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+# per device, the decode kernel's split counters (zeros; each call leaves
+# them at zero). Calls share them, so they run on one stream at a time.
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
 def _lib():
     lib = _build.library("flash_attention")
     if not getattr(lib, "_typed", False):
-        lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                            _I, _I, _P]
+        lib.flash_attention_fwd.argtypes = (
+            [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [_P] * 3)
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, *, causal: bool = True
-                              ) -> torch.Tensor:
-    """The flash-attention kernel: q (BH,S,D), k,v (BH,T,D) -> (BH,S,D)."""
-    BH, S, D = q.shape
-    T = k.shape[1]
-    if k.shape != (BH, T, D) or v.shape != (BH, T, D):
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """What the kernels take: q (B, S, H, D) and k, v (B, T, KV, D) alike,
+    H a multiple of KV, fp32 or bf16 alike (else ``TypeError``), D in
+    :data:`HEAD_DIMS`, one device, a contiguous last axis, and rows that
+    start 16 bytes aligned (else ``ValueError``). Returns each tensor's
+    (batch, position, head) element strides for the kernel."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    B, S, H, D = q.shape
+    kB, T, KV, kD = k.shape
+    if kB != B or kD != D or not (B and S and T and KV) or H % KV:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} against k, v "
+                         f"{tuple(k.shape)}")
+    dt = q.dtype
+    if dt not in _DTYPES or k.dtype != dt or v.dtype != dt:
         raise TypeError(f"flash_attention takes fp32 or bf16 alike, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
-    # contiguous, and 16-byte aligned: the kernel reads 16 bytes at a time
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-    o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = []
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        rs = _row_strides(t)
+        if rs is None:
+            raise ValueError(
+                f"flash_attention: {name}'s last axis has stride "
+                f"{t.stride(-1)}, not 1" if t.stride(-1) != 1 else
+                f"flash_attention: {name}'s rows are not 16-byte aligned")
+        out.append(rs)
+    return out
+
+
+def _row_strides(t: torch.Tensor):
+    """The (batch, position, head) element strides of a 4-D tensor (0 on
+    a size-1 axis, which is never stepped along), or None where the
+    kernels cannot read it in place: a last axis that is not contiguous,
+    or a row that does not start 16 bytes aligned."""
+    st, sh = t.stride(), t.shape
+    if st[3] != 1:
+        return None
+    rs = (st[0] if sh[0] > 1 else 0, st[1] if sh[1] > 1 else 0,
+          st[2] if sh[2] > 1 else 0)
+    es = t.element_size()
+    if (t.data_ptr() | rs[0] * es | rs[1] * es | rs[2] * es) % 16:
+        return None
+    return rs
+
+
+def kv_splits(B: int, S: int, T: int, H: int, KV: int, dtype,
+              causal: bool) -> int:
+    """The launch shape: 0 for the 64-row kernel (fp32, or more than
+    :data:`DECODE_ROWS` query rows a KV head); n >= 1 for the decode
+    kernel, with T split over n blocks a (batch, KV head)."""
+    if dtype != torch.bfloat16 or (H // KV) * S > DECODE_ROWS:
+        return 0
+    n_tiles = -(-T // BLOCK_K)
+    if causal:      # start-aligned: no query position reaches past S - 1
+        n_tiles = min(n_tiles, (S - 1) // BLOCK_K + 1)
+    if B * KV >= FILL_BLOCKS:
+        return 1
+    want = min(n_tiles, MAX_SPLITS, -(-2 * FILL_BLOCKS // (B * KV)))
+    per = -(-n_tiles // want)
+    return -(-n_tiles // per)
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """The kernel, model layout: q (B,S,H,D), k,v (B,T,KV,D) -> (B,S,H,D),
+    read in place (see :func:`check_args` for what it takes)."""
+    strides = check_args(q, k, v)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_cuda: {dev} is not a CUDA "
+                         "device")
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    splits = kv_splits(B, S, T, H, KV, q.dtype, causal)
+    o = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    part = counters = None
+    if splits > 1:
+        part = torch.empty(B * KV * splits * DECODE_ROWS * (D + 2),
+                           dtype=torch.float32, device=dev)
+        counters = _counters(dev, B * KV)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, S, T, H, KV, D, *strides[0], *strides[1], *strides[2],
+            _DTYPES[q.dtype], int(bool(causal)), splits,
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr())
+    if dev.index == torch.cuda.current_device():
         rc = _lib().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH, S, T,
-            D, _DTYPES[q.dtype], int(bool(causal)), stream)
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = _lib().flash_attention_fwd(
+                *args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return o
 
 
+def flash_attention_plain(q, k, v, *, causal: bool = True):
+    """The plain version, model layout."""
+    return attention_ref(q, k, v, causal=causal)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Model layout. q: (B,S,H,D); k,v: (B,T,KV,D), H a multiple of KV.
+    Returns (B,S,H,D) on q's device: the kernel on CUDA (one launch; a
+    tensor is copied only if its last axis is not contiguous or its rows
+    are not 16-byte aligned), the plain version on the CPU."""
+    if q.device.type == "cuda":
+        q, k, v = (t if _row_strides(t) is not None
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+        return flash_attention_cuda(q, k, v, causal=causal)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True
+                              ) -> torch.Tensor:
+    """The kernel in the reference's layout: q (BH,S,D), k,v (BH,T,D) ->
+    (BH,S,D), as one head of a model-layout call."""
+    return flash_attention_cuda(q[:, :, None], k[:, :, None], v[:, :, None],
+                                causal=causal)[:, :, 0]
+
+
 def flash_attention_bhsd_plain(q, k, v, *, causal: bool = True):
-    """The plain version in the kernel's layout."""
+    """The plain version in the reference's layout."""
     return attention_ref(q[:, :, None], k[:, :, None], v[:, :, None],
                          causal=causal)[:, :, 0]
 
@@ -87,17 +216,3 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True):
         return flash_attention_bhsd_plain(q, k, v, causal=causal)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
-
-def flash_attention(q, k, v, *, causal: bool = True):
-    """Model layout. q: (B,S,H,D); k,v: (B,T,KV,D) (GQA expanded here).
-    Returns (B,S,H,D)."""
-    B, S, H, D = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    if KV != H:
-        k = torch.repeat_interleave(k, H // KV, dim=2)
-        v = torch.repeat_interleave(v, H // KV, dim=2)
-    qr = q.transpose(1, 2).reshape(B * H, S, D)
-    kr = k.transpose(1, 2).reshape(B * H, T, D)
-    vr = v.transpose(1, 2).reshape(B * H, T, D)
-    o = flash_attention_bhsd(qr, kr, vr, causal=causal)
-    return o.reshape(B, H, S, D).transpose(1, 2)

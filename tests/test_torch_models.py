@@ -67,30 +67,129 @@ def interpret(monkeypatch):
 # cross-attention; blocks smaller than S or T make the kernel pad
 FLASH_CASES = [(16, 16, True, 256), (16, 16, False, 256), (1, 24, False, 256),
                (11, 24, False, 8), (13, 13, True, 8), (10, 24, True, 8)]
+# the head dims the CUDA kernels are built for (kernels/flash_attention.py)
+FLASH_HEAD_DIMS = (16, 64, 128)
+# fp32 on both sides, other summation orders (the twin materialises the
+# softmax, the Pallas kernel runs it online over blocks)
+FLASH_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("D", FLASH_HEAD_DIMS)
 @pytest.mark.parametrize("S,T,causal,block", FLASH_CASES)
-def test_flash_plain_matches_pallas_kernel(S, T, causal, block):
-    rng = np.random.default_rng(S * 31 + T)
-    BH, D = 3, 16
+def test_flash_plain_matches_pallas_kernel(S, T, causal, block, D):
+    rng = np.random.default_rng(S * 31 + T + D)
+    BH = 3
     q, k, v = (_randn(rng, BH, n, D) for n in (S, T, T))
     want = jx_flash_bhsd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                          causal=causal, bq=block, bk=block, interpret=True)
     got = tfa.flash_attention_bhsd(_t(q), _t(k), _t(v), causal=causal)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FLASH_TOL)
 
 
-def test_flash_model_layout_expands_gqa_like_the_reference():
-    rng = np.random.default_rng(3)
-    q, k, v = _randn(rng, 2, 9, 4, 16), _randn(rng, 2, 14, 2, 16), \
-        _randn(rng, 2, 14, 2, 16)
+@pytest.mark.parametrize("D", FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("groups", (1, 2, 8))
+def test_flash_model_layout_expands_gqa_like_the_reference(groups, D):
+    """H = 2 x groups query heads on 2 KV heads: query head h reads KV
+    head h // groups, as the reference's repeat does."""
+    rng = np.random.default_rng(3 + groups + D)
+    H, KV = 2 * groups, 2
+    q, k, v = _randn(rng, 2, 9, H, D), _randn(rng, 2, 14, KV, D), \
+        _randn(rng, 2, 14, KV, D)
     want = jx_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                     causal=False, interpret=True)
     got = kops.flash_attention(_t(q), _t(k), _t(v), causal=False)
-    assert got.shape == (2, 9, 4, 16)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                               rtol=1e-5, atol=1e-5)
+    assert got.shape == (2, 9, H, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FLASH_TOL)
+
+
+@pytest.mark.parametrize("causal", (False, True))
+def test_flash_strided_views_give_the_references_result(causal):
+    """q, k, v as transposed views of (B, H, S, D) buffers and as slices
+    of a fused qkv buffer: the wrapper reads them as they are."""
+    rng = np.random.default_rng(11)
+    B, S, H, KV, D = 2, 10, 4, 2, 16
+    q, k, v = _randn(rng, B, S, H, D), _randn(rng, B, S, KV, D), \
+        _randn(rng, B, S, KV, D)
+    want = np.asarray(jx_flash(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal,
+                               interpret=True))
+    views = [_t(a.transpose(0, 2, 1, 3).copy()).transpose(1, 2)
+             for a in (q, k, v)]
+    assert not any(t.is_contiguous() for t in views)
+    got = kops.flash_attention(*views, causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, **FLASH_TOL)
+    qkv = torch.cat([_t(q), _t(k), _t(v)], dim=2)      # (B, S, H+2KV, D)
+    got = kops.flash_attention(qkv[:, :, :H], qkv[:, :, H:H + KV],
+                               qkv[:, :, H + KV:], causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, **FLASH_TOL)
+
+
+@pytest.mark.parametrize("D", FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_flash_argument_checks_accept_the_built_head_dims(D, dtype):
+    q = torch.zeros((2, 3, 4, D), dtype=dtype)
+    kv = torch.zeros((2, 5, 2, D), dtype=dtype)
+    tfa.check_args(q, kv, kv)
+    # transposed views with a contiguous last axis are taken as they are
+    tfa.check_args(torch.zeros((2, 4, 3, D), dtype=dtype).transpose(1, 2),
+                   kv, kv)
+    # on a CPU tensor the kernel's wrapper checks, then refuses the device
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tfa.flash_attention_cuda(q, kv, kv)
+
+
+def test_flash_argument_checks_refuse_what_no_kernel_takes():
+    q, kv = torch.zeros((2, 3, 4, 64)), torch.zeros((2, 5, 2, 64))
+    for D in (8, 32, 96, 256):
+        with pytest.raises(ValueError, match="head dim"):
+            tfa.check_args(torch.zeros((2, 3, 4, D)),
+                           torch.zeros((2, 5, 2, D)),
+                           torch.zeros((2, 5, 2, D)))
+    for dt in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError):
+            tfa.check_args(q.to(dt), kv.to(dt), kv.to(dt))
+    with pytest.raises(TypeError):
+        tfa.check_args(q, kv.bfloat16(), kv)
+    # a last axis with stride 2
+    wide = torch.zeros((2, 3, 4, 128))
+    with pytest.raises(ValueError, match="stride"):
+        tfa.check_args(wide[..., ::2], kv, kv)
+    with pytest.raises(ValueError, match="stride"):
+        tfa.check_args(q, torch.zeros((2, 5, 2, 128))[..., ::2], kv)
+    # rows that do not start 16 bytes aligned (a 2-element offset in bf16)
+    flat = torch.zeros(2 * 3 * 4 * 64 + 2, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.check_args(flat[2:].view(2, 3, 4, 64), kv.bfloat16(),
+                       kv.bfloat16())
+    # H not a multiple of KV, mismatched k and v
+    with pytest.raises(ValueError):
+        tfa.check_args(torch.zeros((2, 3, 3, 64)), kv, kv)
+    with pytest.raises(ValueError):
+        tfa.check_args(q, kv, torch.zeros((2, 6, 2, 64)))
+
+
+@pytest.mark.parametrize("shape,causal,want", [
+    # seamless-m4t-medium at full width (B 8, 16 heads): prefill, decode
+    ((8, 512, 512, 16, 16), False, 0),
+    ((8, 1, 512, 16, 16), False, 1),
+    # llama-3.2-vision-90b cross-attention: 64 heads on 8, 1,600 image
+    # tokens; a decode step at batch 1 and 2 splits T to fill the card
+    ((1, 512, 1600, 64, 8), False, 0),
+    ((1, 1, 1600, 64, 8), False, 25),
+    ((2, 1, 1600, 64, 8), False, 13),
+    # 16 rows a KV head still take the decode kernel, 17 do not
+    ((64, 2, 512, 16, 2), False, 1),
+    ((64, 3, 512, 12, 2), False, 0),
+    # causal at S <= 16: only the first tile is attended, nothing to split
+    ((1, 4, 1600, 8, 2), True, 1),
+    # one (batch, KV head) and a long T: at most MAX_SPLITS splits
+    ((1, 1, 65536, 8, 1), False, 128),
+])
+def test_flash_launch_shape(shape, causal, want):
+    B, S, T, H, KV = shape
+    assert tfa.kv_splits(B, S, T, H, KV, torch.bfloat16, causal) == want
+    # fp32 always takes its CUDA-core kernel
+    assert tfa.kv_splits(B, S, T, H, KV, torch.float32, causal) == 0
 
 
 @pytest.mark.parametrize("S,T", [(12, 12), (5, 12)])
