@@ -35,7 +35,13 @@ path on the card, and checks what comes out. Phases:
    inputs (flash, memory-efficient, cuDNN; refusals logged); then
    seamless-m4t-medium's smoke configuration (d_head 16, fp32) served
    through ``impl="kernel"``, its tokens equal to ``impl="chunked"``'s;
-   WKV at two shapes; then model serving (``ServeEngine``, ``impl="kernel"``) at full width,
+   then WKV in the model layout (``wkv_kernel_checks``): rwkv6-1.6b's
+   prefill (B 8, S 512, 32 heads of 64, chunk 32) and decode step in
+   bf16, a ragged S, decays down to -20 a step, strided r, k, v, every
+   built (head size, chunk) and the smoke configuration's in fp32, each
+   one CUDA kernel a call, timed from CUDA-graph replays; the
+   tensor-core kernel against the CUDA-core witness; the C entry's
+   refusals of other sizes; then model serving (``ServeEngine``, ``impl="kernel"``) at full width,
    bf16, random weights from a seed: seamless-m4t-medium (flash
    attention in cross-attention), rwkv6-1.6b (the WKV kernel) and
    qwen2-1.5b (no kernel on its path), each with 16 requests of
@@ -76,8 +82,8 @@ it.
 
 Two further modes measure without checking:
 
-    python3 chip_smoke.py --measure [--src DIR]
-    python3 chip_smoke.py --compare ROOT [--runs 3]
+    python3 chip_smoke.py --measure [--src DIR] [--wkv]
+    python3 chip_smoke.py --compare ROOT [--runs 3] [--wkv]
 
 ``--measure`` drives only the main paths of phases 3 (both codecs, after
 the same warm-up run), 6-7 and 8, as the full run drives them but with
@@ -89,7 +95,10 @@ another checkout's port (``ROOT/src``, for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory) and for
 this one in turns (other, this, this, other, other, this for 3 runs),
 each run a process of its own, and prints one JSON line a run, each
-side's medians and the card's name and power limit.
+side's medians and the card's name and power limit. With ``--wkv``
+both time only the WKV kernel, graph-timed and eager, at rwkv6-1.6b's
+prefill and decode shapes through the tree's ``kernels.ops.rwkv6_wkv``
+(the model layout) and ``rwkv6_wkv_bh_cuda`` (the reference's layout).
 """
 
 from __future__ import annotations
@@ -134,6 +143,8 @@ MAX_LEN = 1024
 # phase 6's flash checks: the head dims the kernels are built for, and
 # llama-3.2-vision-90b's cross-attention (1,600 image tokens) at two batches
 FLASH_HEAD_DIMS = (64, 16, 128)
+WKV_H, WKV_HS, WKV_CHUNK = 32, 64, 32      # rwkv6-1.6b's heads, head size, chunk
+WKV_STRONG = 20.0      # the strong-decay check's largest -lw a step
 FLASH_VLM_T = 1600
 FLASH_VLM_BATCHES = (1, 2)
 FLASH_LIBRARY_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
@@ -606,19 +617,98 @@ def refusal(caught) -> str:
     return "; ".join(why)
 
 
-def kernels_of_one_call(fn) -> list:
+GRAPH_NODE_TYPES = {1: "memcpy", 2: "memset", 3: "host", 4: "child_graph",
+                    6: "wait_event", 7: "event_record", 10: "mem_alloc",
+                    11: "mem_free"}     # CUgraphNodeType; 0 kernel, 5 empty
+
+
+def kernels_in_graph(fn) -> list:
+    """The device work of one call of ``fn`` as the CUDA driver lists it:
+    one call captured into a CUDA graph, its nodes read with
+    ``cuGraphGetNodes``; a kernel node by its (mangled) name from
+    ``cuFuncGetName`` (``cuKernelGetName`` where the node holds a
+    ``CUkernel``), any other node but an empty one by its type. Needs no
+    profiler."""
+    import ctypes
+    import torch
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUresult {rc}")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or \
+        cu.cuGraphKernelNodeGetParams
+    names = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value == 5:
+            continue
+        if kind.value != 0:
+            names.append(GRAPH_NODE_TYPES.get(kind.value, f"node{kind.value}"))
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern at byte 56
+        params = (ctypes.c_void_p * 16)()
+        check(get_params(ctypes.c_void_p(node), params),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params[0]:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(params[0])), "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(params[7])),
+                  "cuKernelGetName")
+        names.append((name.value or b"").decode())
+    del graph
+    return names
+
+
+def kernels_of_one_call(fn, tries: int = 3) -> list:
     """The names of the CUDA kernels ``fn`` launches, from a
-    ``torch.profiler`` trace of one call (after one untraced call)."""
+    ``torch.profiler`` trace of one call (after one untraced call), held
+    to the driver's list of the same call's work (``kernels_in_graph``):
+    both must count the same launches. A trace that holds no device
+    activity at all is taken again, up to ``tries`` traces; the profiler
+    now and then returns only empty ones for the rest of a process (seen
+    on the H100), and then the graph's list stands alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    in_graph = kernels_in_graph(fn)
+    names = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    if not names:
+        log(f"    (torch.profiler traced no device activity in {tries} "
+            f"traces; the CUDA graph of one call holds {in_graph})")
+        return in_graph
+    if len(names) != len(in_graph):
+        raise AssertionError(f"the profiler traced {names}, the CUDA graph "
+                             f"of one call holds {in_graph}")
+    return names
 
 
 def flash_kernel_checks(dev, g, record):
@@ -725,56 +815,254 @@ def serve_smoke_config(dev, arch: str = "seamless-m4t-medium"):
 def serving_kernel_checks(dev, g, record):
     """The serving path's two kernels against their plain versions at the
     path's shapes: flash attention (``flash_kernel_checks``), then the
-    smoke configuration served through it, then WKV in bf16 (the served
-    configurations' dtype)."""
+    smoke configuration served through it, then WKV
+    (``wkv_kernel_checks``)."""
     import torch
+    flash_kernel_checks(dev, g, record)
+    serve_smoke_config(dev)
+    wkv_kernel_checks(dev, g, record)
+    torch.cuda.empty_cache()     # phase 3 starts from an empty cache
+
+
+def wkv_inputs(g, dev, B, S, hs, dtype, *, h0=True, strong=False,
+               strided=False):
+    """WKV's inputs in the model layout, as ``models/rwkv.py`` makes them:
+    r, k, v (B, S, H, hs) reshaped from a projection (contiguous), or with
+    ``strided`` slices of one (B, S, 3, H, hs) buffer; lw fp32, a step's
+    log decay -exp(-2 + 0.5 N(0, 1)), or with ``strong`` down to -20 a
+    step; u (H, hs) in dtype, the parameter's; h0 (B, H, hs, hs) fp32,
+    random, or zeros as a prefill from scratch has it."""
+    import torch
+    H = WKV_H
+    if strided:
+        buf = torch.randn((B, S, 3, H, hs), generator=g, device=dev
+                          ).to(dtype)
+        r, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+    else:
+        r, k, v = (torch.randn((B, S, H, hs), generator=g, device=dev
+                               ).to(dtype) for _ in range(3))
+    if strong:
+        lw = -WKV_STRONG * torch.rand((B, S, H, hs), generator=g, device=dev)
+    else:
+        lw = -torch.exp(-2.0 + 0.5 * torch.randn((B, S, H, hs), generator=g,
+                                                   device=dev))
+    u = (0.5 * torch.randn((H, hs), generator=g, device=dev)).to(dtype)
+    h = (torch.randn((B, H, hs, hs), generator=g, device=dev) if h0 else
+         torch.zeros((B, H, hs, hs), device=dev))
+    return r, k, v, lw, u, h
+
+
+def wkv_work(B, S, hs, chunk, es):
+    """(bytes, fp32 ops, tensor-core ops) of one WKV call: each input
+    read and each output written once; the operations of the design that
+    runs it (``csrc/rwkv6_wkv.cu``): the decode kernel at S = 1; else per
+    chunk the tensor-core kernel's products with their operand-split
+    passes (r~ @ h and the off-diagonal scores 3, scores @ v and the
+    update 2) and its fp32 work (exp(lw), the running products, the
+    diagonal blocks' pairs, the hi/lo splits); fp32 takes every product on the
+    CUDA cores."""
+    H = WKV_H
+    n = B * S * H * hs
+    nbytes = n * (3 * es + 4 + es) + H * hs * es + 2 * B * H * hs * hs * 4
+    if S == 1:
+        return nbytes, 6 * B * H * hs * hs, 0
+    n_chunks = -(-S // chunk)
+    nsub = chunk // 16
+    pairs = nsub * 16 * 17 // 2            # diagonal blocks, bonus included
+    tiles = nsub * (nsub + 1) // 2         # 16 x 16 score tiles of scores @ v
+    mm = (3 * 2 * chunk * hs * hs + 2 * 2 * chunk * hs * hs
+          + 2 * 2 * tiles * 256 * hs + (3 * 2 * 256 * hs if nsub == 2 else 0))
+    fp = chunk * hs * 12 + 3 * pairs * hs
+    per = B * H * n_chunks
+    if es == 4:
+        return nbytes, per * (fp + mm // 2), 0
+    return nbytes, per * fp, per * mm
+
+
+def wkv_kernel_checks(dev, g, record):
+    """WKV on the card against its plain version (``rwkv6_wkv_plain``,
+    the per-step recurrence) in the model layout: rwkv6-1.6b's prefill
+    and decode (bf16), a ragged S, decays down to -20 a step, strided
+    r, k, v, every built (head size, chunk) in bf16 and the smoke
+    configuration's in fp32, each with one CUDA kernel a call
+    (``torch.profiler``); the tensor-core kernel against the CUDA-core
+    witness on the same inputs; the C entry's refusals. Times from
+    CUDA-graph replays, eager times logged."""
+    import torch
+    from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6_wkv as wkv
 
     bf16_eps = float(torch.finfo(torch.bfloat16).eps)
-    flash_kernel_checks(dev, g, record)
-    serve_smoke_config(dev)
+    B, hs, chunk = SERVE_BATCH, WKV_HS, WKV_CHUNK
 
-    # -- RWKV6 WKV: rwkv6-1.6b prefill (B=8, S=512, H=32, hs=64) and decode -
-    H, hs, chunk = 32, 64, 32
-    BH = SERVE_BATCH * H
-    for row, S in (("rwkv6_wkv", PROMPT), ("rwkv6_wkv/decode", 1)):
-        r, kk, vv = (torch.randn((BH, S, hs), generator=g, device=dev
-                                 ).to(torch.bfloat16) for _ in range(3))
-        lw = -torch.exp(-2.0 + 0.5 * torch.randn((BH, S, hs), generator=g,
-                                                   device=dev))
-        u = 0.5 * torch.randn((BH, hs), generator=g, device=dev)
-        h0 = torch.randn((BH, hs, hs), generator=g, device=dev) * (S == 1)
-        o, h = wkv.rwkv6_wkv_bh_cuda(r, kk, vv, lw, u, h0, chunk=chunk)
-        po, ph = wkv.rwkv6_wkv_bh_plain(r, kk, vv, lw, u, h0, chunk=chunk)
-        torch.cuda.synchronize()
+    def tolerances(po, ph, dtype):
+        # h_last: fp32 on both sides, other summation orders; o: one bf16
+        # ulp of the largest output plus that (fp32: 1e-4 of the largest)
+        htol = 1e-4 * float(ph.abs().max())
+        if dtype == torch.bfloat16:
+            return bf16_eps * float(po.float().abs().max()) + htol, htol
+        return 1e-4 * float(po.abs().max()) + htol, htol
+
+    def errors(got, want):
+        (o, h), (po, ph) = got, want
         if not (torch.isfinite(o.float()).all() and torch.isfinite(h).all()):
-            raise AssertionError(f"{row}: non-finite output")
-        herr = float((h - ph).abs().max())
-        htol = 1e-4 * float(ph.abs().max())     # fp32, other summation order
-        log(f"  {row}: h_last max_abs_err={herr!r} tol={htol!r}")
+            raise AssertionError("non-finite output")
+        return (float((o.float() - po.float()).abs().max()),
+                float((h - ph).abs().max()))
+
+    cases = [
+        # (row, B, S, hs, chunk, dtype, input options); the first row is
+        # the kernel's row in the kernels line
+        ("rwkv6_wkv", B, PROMPT, hs, chunk, torch.bfloat16, {}),
+        ("rwkv6_wkv/decode", B, 1, hs, chunk, torch.bfloat16, {}),
+        ("rwkv6_wkv/prefill_h0_zero", B, PROMPT, hs, chunk, torch.bfloat16,
+         {"h0": False}),
+        ("rwkv6_wkv/ragged", B, PROMPT - 12, hs, chunk, torch.bfloat16, {}),
+        ("rwkv6_wkv/strong_decay", B, PROMPT, hs, chunk, torch.bfloat16,
+         {"strong": True}),
+        ("rwkv6_wkv/strided", B, PROMPT, hs, chunk, torch.bfloat16,
+         {"strided": True}),
+        ("rwkv6_wkv/hs64_c16", B, PROMPT, 64, 16, torch.bfloat16, {}),
+        ("rwkv6_wkv/hs16_c32", B, PROMPT, 16, 32, torch.bfloat16, {}),
+        ("rwkv6_wkv/hs16_c16", B, PROMPT, 16, 16, torch.bfloat16, {}),
+        ("rwkv6_wkv/hs16_c16_decode", B, 1, 16, 16, torch.bfloat16, {}),
+        ("rwkv6_wkv/fp32_hs16_c16", B, PROMPT, 16, 16, torch.float32, {}),
+        ("rwkv6_wkv/fp32_hs16_c16_decode", B, 1, 16, 16, torch.float32, {}),
+    ]
+    for row, Bc, S, hsc, ch, dtype, opt in cases:
+        es = torch.finfo(dtype).bits // 8
+        args = wkv_inputs(g, dev, Bc, S, hsc, dtype, **opt)
+        got = ops.rwkv6_wkv(*args, chunk=ch)
+        want = wkv.rwkv6_wkv_plain(*args, chunk=ch)
+        torch.cuda.synchronize()
+        err, herr = errors(got, want)
+        tol, htol = tolerances(*want, dtype)
+        names = kernels_of_one_call(lambda: ops.rwkv6_wkv(*args, chunk=ch))
+        if len(names) != 1 or "wkv" not in names[0]:
+            raise AssertionError(f"{row}: one model-layout call launched "
+                                 f"{names}, not one WKV kernel")
+        if opt.get("strided") and got[0].stride() != \
+                got[0].contiguous().stride():
+            raise AssertionError(f"{row}: o is not contiguous")
+        log(f"  {row}: B={Bc} S={S} H={WKV_H} hs={hsc} chunk={ch} {dtype} "
+            f"{opt} kernel={names[0]!r} h_last max_abs_err={herr!r} "
+            f"tol={htol!r}")
         if not herr <= htol:
-            raise AssertionError(f"{row}: h_last disagrees: {herr!r} > {htol!r}")
-        err = float((o.float() - po.float()).abs().max())
-        # one bf16 ulp of the largest output, plus the fp32 difference of
-        # the chunked and the per-step sums
-        tol = bf16_eps * float(po.float().abs().max()) + htol
-        n_chunks = -(-S // min(chunk, S))
-        lc = min(chunk, S)
-        pairs = lc * (lc - 1) // 2
-        per_chunk_tensor = 4 * lc * hs * hs + 2 * pairs * hs
-        per_chunk_fp32 = 6 * pairs * hs + 4 * lc * hs
+            raise AssertionError(f"{row}: h_last disagrees: {herr!r} > "
+                                 f"{htol!r}")
+        sets = [args] + [wkv_inputs(g, dev, Bc, S, hsc, dtype, **opt)
+                         for _ in range(n_sets(args) - 1)]
+        kernel = cycling(lambda *t: ops.rwkv6_wkv(*t, chunk=ch), sets)
+        reps = 50 if S == 1 else 20
+        eager = median_ms(kernel, reps)
+        nbytes, fops, tops = wkv_work(Bc, S, hsc, ch, es)
+        ms = graph_ms(kernel, reps)
+        log(f"    eager_ms={eager!r} graph_ms={ms!r}")
         record("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
-               "src/repro/kernels/rwkv6_wkv.py:71", err, tol,
-               median_ms(lambda: wkv.rwkv6_wkv_bh_cuda(
-                   r, kk, vv, lw, u, h0, chunk=chunk), 20),
-               median_ms(lambda: wkv.rwkv6_wkv_bh_plain(
-                   r, kk, vv, lw, u, h0, chunk=chunk), 3),
-               BH * S * hs * (2 * 3 + 4 + 2) + BH * hs * 4
-               + 2 * BH * hs * hs * 4,
-               BH * n_chunks * per_chunk_fp32,
-               tensor_ops=BH * n_chunks * per_chunk_tensor, row=row)
-    del r, kk, vv, lw, u, h0, o, h, po, ph
-    torch.cuda.empty_cache()     # phase 3 starts from an empty cache
+               "src/repro/kernels/rwkv6_wkv.py:71", err, tol, ms,
+               median_ms(lambda: wkv.rwkv6_wkv_plain(*args, chunk=ch), 1),
+               nbytes, fops, tensor_ops=tops, row=row)
+        del args, got, want, sets
+
+    # the tensor-core kernel against the CUDA-core witness (the kernel it
+    # replaced, on the same bf16 inputs)
+    args = wkv_inputs(g, dev, B, PROMPT, hs, torch.bfloat16)
+    wit = wkv.rwkv6_wkv_witness_cuda(*args, chunk=chunk)
+    want = wkv.rwkv6_wkv_plain(*args, chunk=chunk)
+    tol, htol = tolerances(*want, torch.bfloat16)
+    werr = errors(wit, want)
+    sets = [args] + [wkv_inputs(g, dev, B, PROMPT, hs, torch.bfloat16)
+                     for _ in range(n_sets(args) - 1)]
+    wit_ms = graph_ms(cycling(lambda *t: wkv.rwkv6_wkv_witness_cuda(
+        *t, chunk=chunk), sets), 10)
+    log(f"  witness (CUDA-core kernel, bf16) vs plain: o, h_last max_abs_err "
+        f"{werr} tol ({tol!r}, {htol!r}) graph_ms={wit_ms!r}")
+    if not (werr[0] <= tol and werr[1] <= htol):
+        raise AssertionError(f"witness disagrees with the plain version: "
+                             f"{werr}")
+    # the tensor-core kernel against the witness
+    got = ops.rwkv6_wkv(*args, chunk=chunk)
+    err = errors(got, wit)
+    log(f"  tensor-core kernel vs the witness: o, h_last max_abs_err {err} "
+        f"tol ({tol!r}, {htol!r})")
+    if not (err[0] <= tol and err[1] <= htol):
+        raise AssertionError(f"the tensor-core kernel disagrees with the "
+                             f"witness: {err}")
+    del args, wit, want, sets, got
+
+    # the reference's (BH, S, hs) layout: the same entry with B = 1
+    r, k, v, lw, u, h0 = wkv_inputs(g, dev, 2, 2 * chunk + 5, hs,
+                                    torch.bfloat16)
+    fold = [t.transpose(1, 2).reshape(2 * WKV_H, -1, hs)
+            for t in (r, k, v, lw)]
+    bh_args = (*fold, u.float().repeat(2, 1), h0.reshape(2 * WKV_H, hs, hs))
+    got = wkv.rwkv6_wkv_bh_cuda(*bh_args, chunk=chunk)
+    want = wkv.rwkv6_wkv_bh_plain(*bh_args, chunk=chunk)
+    err = errors(got, want)
+    tol, htol = tolerances(*want, torch.bfloat16)
+    log(f"  (BH, S, hs) layout vs plain: o, h_last max_abs_err {err} tol "
+        f"({tol!r}, {htol!r})")
+    if not (err[0] <= tol and err[1] <= htol):
+        raise AssertionError(f"rwkv6_wkv_bh_cuda disagrees: {err}")
+    del r, k, v, lw, u, h0, fold, bh_args, got, want
+
+    # what the C entry and the wrapper refuse
+    args = wkv_inputs(g, dev, 1, 4, 64, torch.bfloat16)
+    o = torch.empty_like(args[0])
+    h = torch.empty_like(args[5])
+    lib = wkv._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for bad_hs, bad_chunk in ((32, 32), (128, 32), (64, 64), (64, 8),
+                              (48, 16), (16, 0)):
+        rc = lib.rwkv6_wkv_fwd(
+            *(t.data_ptr() for t in args), o.data_ptr(), h.data_ptr(),
+            1, 4, WKV_H, bad_hs, bad_chunk, *([0] * 12), 1, 1, 0, stream)
+        if rc != wkv.BAD_ARGS:
+            raise AssertionError(f"the C entry took hs {bad_hs}, chunk "
+                                 f"{bad_chunk} (rc {rc})")
+    for kw in ({"chunk": 8}, {"chunk": 64}):
+        try:
+            ops.rwkv6_wkv(*args, **kw)
+        except ValueError:
+            continue
+        raise AssertionError(f"rwkv6_wkv took {kw}")
+    torch.cuda.synchronize()
+    log("  the C entry and the wrapper refuse hs outside (16, 64) and "
+        "chunks outside (16, 32)")
+
+
+def wkv_measure(dev) -> dict:
+    """WKV alone at rwkv6-1.6b's prefill and decode shapes through the
+    tree's ``kernels.ops.rwkv6_wkv`` (model layout, as the model calls it)
+    and its ``rwkv6_wkv_bh_cuda`` (the reference's layout, folded before
+    the timing): CUDA-graph and eager ms, for ``--compare ... --wkv``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    g = torch.Generator(device=dev).manual_seed(1234)
+    out = {}
+    for tag, S in (("prefill", PROMPT), ("decode", 1)):
+        sets = [wkv_inputs(g, dev, SERVE_BATCH, S, WKV_HS, torch.bfloat16)]
+        sets += [wkv_inputs(g, dev, SERVE_BATCH, S, WKV_HS, torch.bfloat16)
+                 for _ in range(n_sets(sets[0]) - 1)]
+        reps = 50 if S == 1 else 20
+
+        def fold(r, k, v, lw, u, h0):
+            B, S_, H, hs = r.shape
+            f = [t.transpose(1, 2).reshape(B * H, S_, hs).contiguous()
+                 for t in (r, k, v, lw)]
+            return (*f, u[None].expand(B, H, hs).reshape(B * H, hs)
+                    .float().contiguous(), h0.reshape(B * H, hs, hs))
+        model = cycling(lambda *t: ops.rwkv6_wkv(*t, chunk=WKV_CHUNK), sets)
+        folded = [fold(*s) for s in sets]
+        bh = cycling(lambda *t: wkv.rwkv6_wkv_bh_cuda(*t, chunk=WKV_CHUNK),
+                     folded)
+        out[f"wkv_{tag}_graph_ms"] = graph_ms(model, reps)
+        out[f"wkv_{tag}_eager_ms"] = median_ms(model, reps)
+        out[f"wkv_{tag}_bh_graph_ms"] = graph_ms(bh, reps)
+        del sets, folded
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1343,9 +1631,9 @@ def measure(dev) -> dict:
     return out
 
 
-def compare(other: pathlib.Path, runs: int) -> int:
-    """``--measure`` for ``other``'s port and this checkout's in turns,
-    each run a process of its own."""
+def compare(other: pathlib.Path, runs: int, wkv: bool = False) -> int:
+    """``--measure`` (with ``wkv``, ``--measure --wkv``) for ``other``'s
+    port and this checkout's in turns, each run a process of its own."""
     trees = {"other": other.resolve() / "src", "this": SRC}
     order = []
     for i in range(runs):
@@ -1354,7 +1642,7 @@ def compare(other: pathlib.Path, runs: int) -> int:
     for tag in order:
         proc = subprocess.run(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--measure",
-             "--src", str(trees[tag])],
+             "--src", str(trees[tag])] + (["--wkv"] if wkv else []),
             cwd=ROOT, capture_output=True, text=True)
         lines = proc.stdout.strip().splitlines()
         if proc.returncode or not lines:
@@ -1391,6 +1679,9 @@ def main(argv=None) -> int:
                          "turns, each run a process of its own")
     ap.add_argument("--runs", type=int, default=3,
                     help="with --compare: runs a side")
+    ap.add_argument("--wkv", action="store_true",
+                    help="with --measure or --compare: time only the WKV "
+                         "kernel at rwkv6-1.6b's prefill and decode shapes")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1408,12 +1699,13 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
     if args.compare is not None:
-        return compare(args.compare, args.runs)
+        return compare(args.compare, args.runs, args.wkv)
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.measure:
-        log(json.dumps(measure(torch.device("cuda"))))
+        fn = wkv_measure if args.wkv else measure
+        log(json.dumps(fn(torch.device("cuda"))))
         return 0
 
     from repro_torch.core.orchestrator import Orchestrator, StreamJob

@@ -5,9 +5,10 @@
 Each is the plain version its CUDA kernel is held against: the kernel
 wrappers run these for tensors on the CPU, the tests hold them to the
 JAX oracles, and ``chip_smoke.py`` holds each kernel to them on the
-card. They run on any device. ``mg_update_chunked_ref`` and
-``ddm_scan_restart_ref`` spell out the two chained scans' kernel
-algorithms for the CPU tests only; nothing on a main path calls them.
+card. They run on any device. ``mg_update_chunked_ref``,
+``ddm_scan_restart_ref`` and ``rwkv6_wkv_chunked_ref`` spell out the
+kernel algorithms of the two chained scans and of the WKV tensor-core
+kernel for the CPU tests only; nothing on a main path calls them.
 """
 
 from __future__ import annotations
@@ -152,6 +153,134 @@ def rwkv6_wkv_ref(r, k, v, lw, u, h0):
                                  h + uf[None, :, :, None] * kv))
         h = wt[..., None] * h + kv
     return torch.stack(outs, dim=1), h           # (B,S,H,hs), (B,H,hs,hs)
+
+
+def _bf16_split(x):
+    """x as hi + lo, both bf16 values (in fp32): the WKV kernel's split of
+    an fp32 operand for the bf16 tensor cores."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mm3(a, b, split: bool):
+    """a @ b with both operands split: hi*hi + lo*hi + hi*lo."""
+    if not split:
+        return a @ b
+    ah, al = _bf16_split(a)
+    bh, bl = _bf16_split(b)
+    return ah @ bh + al @ bh + ah @ bl
+
+
+def _mm2(a, b, split: bool):
+    """a @ b with a split and b (v, bf16 on the kernel's route) whole."""
+    if not split:
+        return a @ b
+    ah, al = _bf16_split(a)
+    return ah @ b + al @ b
+
+
+def rwkv6_wkv_chunked_ref(r, k, v, lw, u, h0, chunk: int = 32, *,
+                          operand_split: bool = True):
+    """The WKV tensor-core kernel's decomposition (``csrc/rwkv6_wkv.cu``,
+    ``wkv_chunk_mma``), model layout like :func:`rwkv6_wkv_ref`, fp32.
+
+    The sequence is padded to a multiple of ``chunk`` (16 or 32) with
+    r = k = v = 0 and lw = 0. Each chunk is cut into sub-chunks of 16
+    steps; every decay is a running product of w = exp(lw), multiplied
+    in the kernel's order: per quarter of 8 steps, started from the
+    products of the quarters and sub-chunk around it, for exp(L_excl)
+    and exp(L_end - L) (the state) and the off-diagonal block's factors
+    r[t] exp(L_excl[t] - L[15]) and k[s] exp(L[15] - L[s]); the diagonal
+    blocks' r[t] exp(L_excl[t] - L[s]) walked from s = t - 1 down. The bonus is
+    the scores' diagonal. Products take the kernel's operand split
+    (``operand_split``: fp32 operands as bf16 hi + lo, three passes, two
+    where one side is v). Returns (o (B,S,H,hs), h_last (B,H,hs,hs)) in
+    fp32."""
+    if chunk not in (16, 32):
+        raise ValueError(f"rwkv6_wkv_chunked_ref: chunk {chunk} not in "
+                         "(16, 32)")
+    B, S, H, hs = r.shape
+    nsub, Sp = chunk // 16, -(-S // chunk) * chunk
+
+    def heads(t, fill):
+        t = t.float().transpose(1, 2)                   # (B, H, S, hs)
+        pad = torch.full((B, H, Sp - S, hs), fill, dtype=torch.float32,
+                         device=t.device)
+        return torch.cat([t, pad], dim=2)
+    rf, kf, vf = heads(r, 0.0), heads(k, 0.0), heads(v, 0.0)
+    wf = torch.exp(heads(lw, 0.0))
+    uf = u.float()
+    h = h0.float().clone()                              # (B, H, hs, hs)
+    o = torch.zeros((B, H, Sp, hs), dtype=torch.float32, device=r.device)
+    ones = torch.ones((B, H, 1, hs), dtype=torch.float32, device=r.device)
+    nq = chunk // 8
+    for c0 in range(0, Sp, chunk):
+        rc, kc, vc, wc = (t[:, :, c0:c0 + chunk] for t in (rf, kf, vf, wf))
+        # products of w over quarters of 8 steps, each in step order
+        Q = []
+        for q in range(nq):
+            p_ = ones[:, :, 0]
+            for t in range(8):
+                p_ = p_ * wc[:, :, 8 * q + t]
+            Q.append(p_)
+        W = [Q[2 * g] * Q[2 * g + 1] for g in range(nsub)]
+        ex, kd, rhat, khat = [], [], [], []
+        for q in range(nq):
+            g, half = q // 2, q % 2
+            qo = Q[q ^ 1]
+            wo = W[1 - g] if nsub == 2 else ones[:, :, 0]
+            # exp(L_excl[t] - L[16 g - 1]) walked up from the quarter before
+            loc = qo if half else ones[:, :, 0]
+            before = wo if g == 1 else ones[:, :, 0]
+            for t in range(8):
+                row = 8 * q + t
+                ex.append(rc[:, :, row] * before * loc)
+                if nsub == 2 and g == 1:
+                    rhat.append(rc[:, :, row] * loc)
+                loc = loc * wc[:, :, row]
+            # exp(L[16 g + 15] - L[s]) walked down from the quarter after
+            suf = ones[:, :, 0] if half else qo
+            after = wo if (nsub == 2 and g == 0) else ones[:, :, 0]
+            kq, hq = [], []
+            for t in range(7, -1, -1):
+                row = 8 * q + t
+                kq.append(kc[:, :, row] * suf * after)
+                if nsub == 2 and g == 0:
+                    hq.append(kc[:, :, row] * suf)
+                suf = suf * wc[:, :, row]
+            kd += kq[::-1]
+            khat += hq[::-1]
+        rt = torch.stack(ex, dim=2)                     # r * exp(L_excl)
+        kt = torch.stack(kd, dim=2)                     # k * exp(L_end - L)
+        dec = W[0] * W[1] if nsub == 2 else W[0]        # exp(L_end)
+
+        sc = torch.zeros((B, H, chunk, chunk), dtype=torch.float32,
+                         device=r.device)
+        for g in range(nsub):
+            b0 = 16 * g
+            rb, kb, wb = (t[:, :, b0:b0 + 16] for t in (rc, kc, wc))
+            rd = rb[:, :, 1:]                           # r[t], t >= 1
+            for off in range(1, 16):
+                # rd = r[t] exp(L_excl[t] - L[t - off]), walked from s = t - 1
+                if off > 1:
+                    rd = rd[:, :, 1:] * wb[:, :, 1:16 - off + 1]
+                s_ = torch.sum(rd * kb[:, :, :16 - off], dim=-1)
+                t_idx = torch.arange(off, 16) + b0
+                sc[:, :, t_idx, t_idx - off] = s_
+            diag = torch.arange(16) + b0
+            sc[:, :, diag, diag] = torch.sum(rb * uf[None, :, None] * kb,
+                                             dim=-1)
+        if nsub == 2:
+            # r exp(L_excl - L[15]) against k exp(L[15] - L)
+            sc[:, :, 16:, :16] = _mm3(torch.stack(rhat, dim=2),
+                                      torch.stack(khat, dim=2
+                                                  ).transpose(-1, -2),
+                                      operand_split)
+        o[:, :, c0:c0 + chunk] = (_mm2(sc, vc, operand_split)
+                                  + _mm3(rt, h, operand_split))
+        h = dec[..., None] * h + _mm2(kt.transpose(-1, -2), vc,
+                                      operand_split)
+    return o[:, :, :S].transpose(1, 2), h
 
 
 def mamba_scan_ref(dt, x, Bm, Cm, A, h0):

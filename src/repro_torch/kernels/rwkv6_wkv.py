@@ -1,16 +1,26 @@
-"""RWKV6 WKV recurrence: the CUDA kernel of ``csrc/rwkv6_wkv.cu`` beside
-its plain version, ``kernels/ref.py::rwkv6_wkv_ref`` (the per-timestep
+"""RWKV6 WKV recurrence: the CUDA kernels of ``csrc/rwkv6_wkv.cu`` beside
+their plain version, ``kernels/ref.py::rwkv6_wkv_ref`` (the per-timestep
 recurrence).
 
-Replaces the JAX package's ``kernels/rwkv6_wkv.py::rwkv6_wkv_bh``
-(``_wkv_kernel``). :func:`rwkv6_wkv_bh` takes r, k, v (BH, S, hs) in fp32
-or bf16, lw (BH, S, hs), u (BH, hs) and h0 (BH, hs, hs) in fp32, and
-returns ``(o, h_last)``: o in r's dtype, h_last in fp32. The kernel
-walks the sequence in chunks of ``chunk`` steps (``min(chunk, S)``), the
-last one padded; S = 1 is a decode step. :func:`rwkv6_wkv` is the model
-layout wrapper.
+Replaces the JAX package's ``kernels/rwkv6_wkv.py`` (``rwkv6_wkv_bh``,
+``_wkv_kernel``, and its model-layout wrapper ``rwkv6_wkv``).
+:func:`rwkv6_wkv` takes the model layout and reads it in place: r, k, v
+(B, S, H, hs) in bf16 or fp32 and lw (B, S, H, hs) fp32, each with its
+own strides (a contiguous last axis, 16-byte aligned rows; anything else
+is copied first), u (H, hs) in fp32 or bf16, h0 (B, H, hs, hs) fp32. It
+returns ``(o, h_last)``: o (B, S, H, hs) contiguous in r's dtype, h_last
+(B, H, hs, hs) fp32. One call is one launch: the decode kernel at S = 1,
+the tensor-core chunk kernel for bf16, the CUDA-core kernel for fp32.
+:func:`rwkv6_wkv_bh` is the reference's (BH, S, hs) API, a view of the
+same entry point with B = 1 and BH heads. The kernels take head sizes
+:data:`HEAD_SIZES` and chunks :data:`CHUNKS` (the sequence is padded to
+a multiple of the chunk, so h_last is exact at any S); the wrapper and
+the C entry refuse anything else with ``ValueError``. The plain version
+takes any shape. :func:`rwkv6_wkv_witness_cuda` runs the CUDA-core
+kernel on either dtype: the witness the tensor-core kernel is held
+against on the card (not counted in :data:`LAUNCHES`).
 
-Each wrapper launches the kernel for a CUDA tensor, runs the plain
+Each wrapper launches its kernel for a CUDA tensor, runs the plain
 version for a CPU tensor, and raises for any other device.
 """
 
@@ -25,86 +35,175 @@ from repro_torch.kernels.ref import rwkv6_wkv_ref
 
 LAUNCHES = {"rwkv6_wkv": 0}
 
-MAX_CHUNK = 64
-MAX_HS = 64
+# every head size and chunk a configuration reaches: rwkv6-1.6b (64, 32)
+# and its smoke configuration (16, 16)
+HEAD_SIZES = (16, 64)
+CHUNKS = (16, 32)
+BAD_ARGS = -1          # the C entry's answer to arguments it does not take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def _lib():
     lib = _build.library("rwkv6_wkv")
     if not getattr(lib, "_typed", False):
-        lib.rwkv6_wkv_fwd.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+        lib.rwkv6_wkv_fwd.argtypes = (
+            [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I] * 3 + [_P])
         lib.rwkv6_wkv_fwd.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def rwkv6_wkv_bh_cuda(r, k, v, lw, u, h0, *, chunk: int = 32):
-    """The WKV kernel: ``(o (BH,S,hs), h_last (BH,hs,hs))``."""
-    BH, S, hs = r.shape
-    chunk = min(int(chunk), S)
-    if k.shape != r.shape or v.shape != r.shape or lw.shape != r.shape:
+def check_args(r, k, v, lw, u, h0, chunk: int):
+    """What the kernels take (``ValueError`` or ``TypeError`` otherwise):
+    r, k, v, lw (B, S, H, hs) alike, u (H, hs), h0 (B, H, hs, hs); r, k, v
+    one of fp32/bf16 alike, lw and h0 fp32, u fp32 or bf16; hs in
+    :data:`HEAD_SIZES`, ``chunk`` in :data:`CHUNKS`; one device."""
+    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, lw)):
         raise ValueError(f"rwkv6_wkv: r {tuple(r.shape)}, k {tuple(k.shape)}"
                          f", v {tuple(v.shape)}, lw {tuple(lw.shape)}")
-    if u.shape != (BH, hs) or h0.shape != (BH, hs, hs):
+    B, S, H, hs = r.shape
+    if hs not in HEAD_SIZES:
+        raise ValueError(f"rwkv6_wkv: head size {hs} not in {HEAD_SIZES}")
+    if chunk not in CHUNKS:
+        raise ValueError(f"rwkv6_wkv: chunk {chunk} not in {CHUNKS}")
+    if not (B and S and H):
+        raise ValueError(f"rwkv6_wkv: empty input {tuple(r.shape)}")
+    if u.shape != (H, hs) or h0.shape != (B, H, hs, hs):
         raise ValueError(f"rwkv6_wkv: u {tuple(u.shape)}, h0 "
                          f"{tuple(h0.shape)} for r {tuple(r.shape)}")
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
-        raise TypeError(f"rwkv6_wkv: r, k, v must be one of fp32/bf16, got "
-                        f"{r.dtype}, {k.dtype}, {v.dtype}")
-    if not (0 < chunk <= MAX_CHUNK and hs <= MAX_HS):
-        raise ValueError(f"rwkv6_wkv: chunk {chunk} (max {MAX_CHUNK}) or "
-                         f"head size {hs} (max {MAX_HS}) out of range")
+        raise TypeError(f"rwkv6_wkv: r, k, v must be one of fp32/bf16 alike, "
+                        f"got {r.dtype}, {k.dtype}, {v.dtype}")
+    if lw.dtype != torch.float32 or h0.dtype != torch.float32 or \
+            u.dtype not in _DTYPES:
+        raise TypeError(f"rwkv6_wkv: lw {lw.dtype}, h0 {h0.dtype} must be "
+                        f"fp32 and u {u.dtype} fp32 or bf16")
+    if any(t.device != r.device for t in (k, v, lw, u, h0)):
+        raise ValueError("rwkv6_wkv: inputs on different devices")
+
+
+def _row_strides(t: torch.Tensor):
+    """The (batch, position, head) element strides of a 4-D tensor (0 on
+    a size-1 axis), or None where the kernels cannot read it in place: a
+    last axis that is not contiguous, or a row not 16 bytes aligned."""
+    st, sh = t.stride(), t.shape
+    if st[3] != 1:
+        return None
+    rs = tuple(st[d] if sh[d] > 1 else 0 for d in range(3))
+    es = t.element_size()
+    if (t.data_ptr() | rs[0] * es | rs[1] * es | rs[2] * es) % 16:
+        return None
+    return rs
+
+
+def _in_place(t: torch.Tensor) -> torch.Tensor:
+    return t if _row_strides(t) is not None else \
+        t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch(r, k, v, lw, u, h0, chunk: int, route: int):
+    check_args(r, k, v, lw, u, h0, chunk)
     dev = r.device
-    r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
-    lwf = lw.to(device=dev, dtype=torch.float32).contiguous()
-    uf = u.to(device=dev, dtype=torch.float32).contiguous()
-    h0f = h0.to(device=dev, dtype=torch.float32).contiguous()
-    o = torch.empty_like(r)
-    h_last = torch.empty((BH, hs, hs), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.type != "cuda":
+        raise ValueError(f"rwkv6_wkv: {dev} is not a CUDA device")
+    strides = [_row_strides(t) for t in (r, k, v, lw)]
+    if any(s is None for s in strides) or not u.is_contiguous() or \
+            not h0.is_contiguous() or h0.data_ptr() % 16:
+        raise ValueError("rwkv6_wkv: an input the kernels cannot read in "
+                         "place (last axis, row alignment, or u / h0 not "
+                         "contiguous)")
+    B, S, H, hs = r.shape
+    o = torch.empty((B, S, H, hs), dtype=r.dtype, device=dev)
+    h_last = torch.empty((B, H, hs, hs), dtype=torch.float32, device=dev)
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            u.data_ptr(), h0.data_ptr(), o.data_ptr(), h_last.data_ptr(),
+            B, S, H, hs, chunk, *strides[0], *strides[1], *strides[2],
+            *strides[3], _DTYPES[r.dtype], int(u.dtype == torch.bfloat16),
+            route)
+    if dev.index == torch.cuda.current_device():
         rc = _lib().rwkv6_wkv_fwd(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), lwf.data_ptr(),
-            uf.data_ptr(), h0f.data_ptr(), o.data_ptr(), h_last.data_ptr(),
-            BH, S, hs, chunk, _DTYPES[r.dtype], stream)
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = _lib().rwkv6_wkv_fwd(
+                *args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc == BAD_ARGS:
+        raise ValueError(f"rwkv6_wkv: the kernel refused hs {hs}, chunk "
+                         f"{chunk}")
     _build.check(rc, "rwkv6_wkv")
-    LAUNCHES["rwkv6_wkv"] += 1
     return o, h_last
 
 
-def rwkv6_wkv_bh_plain(r, k, v, lw, u, h0, *, chunk: int = 32):
-    """The plain version in the kernel's layout: the (B,S,H,hs) oracle
-    with the B*H rows as the heads of one batch (``chunk`` only sets the
-    kernel's schedule). o in r's dtype, h_last in fp32."""
-    def unfold(t):
-        return t.transpose(0, 1)[None]          # (1, S, BH, hs)
-    o, h = rwkv6_wkv_ref(unfold(r), unfold(k), unfold(v), unfold(lw), u,
-                         h0[None])
-    return o[0].transpose(0, 1).to(r.dtype), h[0]
+def rwkv6_wkv_cuda(r, k, v, lw, u, h0, *, chunk: int = 32):
+    """The path's kernel, model layout, read in place (see
+    :func:`check_args`): one launch."""
+    out = _launch(r, k, v, lw, u, h0, chunk, 0)
+    LAUNCHES["rwkv6_wkv"] += 1
+    return out
 
 
-def rwkv6_wkv_bh(r, k, v, lw, u, h0, *, chunk: int = 32):
-    """WKV in the kernel's layout on r's device: kernel on CUDA, plain
-    version on the CPU."""
-    if r.device.type == "cuda":
-        return rwkv6_wkv_bh_cuda(r, k, v, lw, u, h0, chunk=chunk)
-    if r.device.type == "cpu":
-        return rwkv6_wkv_bh_plain(r, k, v, lw, u, h0, chunk=chunk)
-    raise ValueError(f"rwkv6_wkv: no kernel for device {r.device}")
+def rwkv6_wkv_witness_cuda(r, k, v, lw, u, h0, *, chunk: int = 32):
+    """The CUDA-core kernel on either dtype and any S, model layout: the
+    witness the tensor-core kernel is held against on the card."""
+    return _launch(r, k, v, lw, u, h0, chunk, 1)
+
+
+def rwkv6_wkv_plain(r, k, v, lw, u, h0, *, chunk: int = 32):
+    """The plain version, model layout, any shape (``chunk`` only sets
+    the kernel's schedule): o in r's dtype, h_last fp32."""
+    o, h = rwkv6_wkv_ref(r, k, v, lw, u, h0)
+    return o.to(r.dtype), h
 
 
 def rwkv6_wkv(r, k, v, lw, u, h0, *, chunk: int = 32):
     """Model layout. r,k,v,lw: (B,S,H,hs); u: (H,hs); h0: (B,H,hs,hs).
-    Returns (o (B,S,H,hs) in r's dtype, h_last (B,H,hs,hs) fp32)."""
-    B, S, H, hs = r.shape
+    Returns (o (B,S,H,hs) in r's dtype, h_last (B,H,hs,hs) fp32) on r's
+    device: the kernel on CUDA (one launch; an input is copied only where
+    the kernels cannot read it in place or its type is not theirs), the
+    plain version on the CPU."""
+    if r.device.type == "cuda":
+        r, k, v = (_in_place(t) for t in (r, k, v))
+        lw = _in_place(lw.float())
+        h0 = h0.float().contiguous()
+        if u.dtype not in _DTYPES:
+            u = u.float()
+        return rwkv6_wkv_cuda(r, k, v, lw, u.contiguous(), h0, chunk=chunk)
+    if r.device.type == "cpu":
+        return rwkv6_wkv_plain(r, k, v, lw, u, h0, chunk=chunk)
+    raise ValueError(f"rwkv6_wkv: no kernel for device {r.device}")
 
-    def fold(t):
-        return t.transpose(1, 2).reshape(B * H, S, hs)
-    uf = u[None].expand(B, H, hs).reshape(B * H, hs)
-    o, h_last = rwkv6_wkv_bh(fold(r), fold(k), fold(v), fold(lw), uf,
-                             h0.reshape(B * H, hs, hs), chunk=chunk)
-    return (o.reshape(B, H, S, hs).transpose(1, 2),
-            h_last.reshape(B, H, hs, hs))
+
+def _heads(t):
+    """(BH, S, hs) as (1, S, BH, hs), a view: BH heads of one batch."""
+    return t.transpose(0, 1)[None]
+
+
+def rwkv6_wkv_bh_cuda(r, k, v, lw, u, h0, *, chunk: int = 32):
+    """The kernel in the reference's layout: r,k,v,lw (BH,S,hs), u
+    (BH,hs), h0 (BH,hs,hs) -> (o (BH,S,hs), h_last (BH,hs,hs)), as the BH
+    heads of one batch of a model-layout call."""
+    o, h = rwkv6_wkv_cuda(*map(_heads, (r, k, v, lw)), u, h0[None],
+                          chunk=chunk)
+    return o[0].transpose(0, 1), h[0]
+
+
+def rwkv6_wkv_bh_plain(r, k, v, lw, u, h0, *, chunk: int = 32):
+    """The plain version in the reference's layout."""
+    o, h = rwkv6_wkv_plain(*map(_heads, (r, k, v, lw)), u, h0[None],
+                           chunk=chunk)
+    return o[0].transpose(0, 1), h[0]
+
+
+def rwkv6_wkv_bh(r, k, v, lw, u, h0, *, chunk: int = 32):
+    """WKV in the reference's (BH, S, hs) layout on r's device: kernel on
+    CUDA, plain version on the CPU."""
+    if r.device.type == "cuda":
+        o, h = rwkv6_wkv(*map(_heads, (r, k, v, lw)), u, h0[None],
+                         chunk=chunk)
+        return o[0].transpose(0, 1), h[0]
+    if r.device.type == "cpu":
+        return rwkv6_wkv_bh_plain(r, k, v, lw, u, h0, chunk=chunk)
+    raise ValueError(f"rwkv6_wkv: no kernel for device {r.device}")
