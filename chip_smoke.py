@@ -13,8 +13,16 @@ path on the card, and checks what comes out. Phases:
 1. device (``nvidia-smi`` name and power limit) and the kernel build;
 2. each slice-1 kernel vs its plain version: max error against the
    stated tolerance, the kernel's median time, the plain version's
-   time, and the least time the card could take (``bound_ms``); the DDM
-   scan also against its serial witness kernel on a many-drift stream
+   time, and the least time the card could take (``bound_ms``); the
+   top-k EF round-trip (its radix select on the card) bitwise its plain
+   version and its witness (``torch.topk``'s threshold, then the int8
+   kernels) at the dense job's two shapes (16,777,216 and 65,536
+   elements), with many ties at the threshold, on all-equal data and on
+   data that fools the select's sample, its select bitwise
+   ``torch.topk``'s k-th largest, one call a CUDA graph of a memset and
+   the select and apply kernels, timed from CUDA-graph replays beside
+   ``torch.topk``'s threshold (``library_ms``); the DDM scan also
+   against its serial witness kernel on a many-drift stream
    and on the errors after the ``int8_ef`` codec, its chain's divide
    against IEEE ``/`` over random pairs, and EDDM and Page-Hinkley
    against their plain loops; chain lengths and ns a chained event;
@@ -52,7 +60,9 @@ path on the card, and checks what comes out. Phases:
    serving example's cluster and run at the ``{decode}`` frontier: its
    tokens must be the engine's, bitwise;
 8. edge summarization: the count-min kernels (widths 1,024 and
-   1,048,576, and a table preloaded at 2^24 + 1) and the Misra-Gries
+   1,048,576, and a table preloaded at 2^24 + 1; the add-then-query also
+   against the increment kernels, one call a CUDA graph of a copy and two
+   kernels; graph-timed) and the Misra-Gries
    scan against their plain versions, exactly (Misra-Gries on a whole
    batch against its plain loop on the host CPU, and on a 16,384-id
    prefix against that loop on the card, and at four more chunk
@@ -82,8 +92,8 @@ it.
 
 Two further modes measure without checking:
 
-    python3 chip_smoke.py --measure [--src DIR] [--wkv]
-    python3 chip_smoke.py --compare ROOT [--runs 3] [--wkv]
+    python3 chip_smoke.py --measure [--src DIR] [--wkv | --codec]
+    python3 chip_smoke.py --compare ROOT [--runs 3] [--wkv | --codec]
 
 ``--measure`` drives only the main paths of phases 3 (both codecs, after
 the same warm-up run), 6-7 and 8, as the full run drives them but with
@@ -99,6 +109,10 @@ side's medians and the card's name and power limit. With ``--wkv``
 both time only the WKV kernel, graph-timed and eager, at rwkv6-1.6b's
 prefill and decode shapes through the tree's ``kernels.ops.rwkv6_wkv``
 (the model layout) and ``rwkv6_wkv_bh_cuda`` (the reference's layout).
+With ``--codec`` both time only the top-k EF round-trip (16,777,216
+and 65,536 elements, with ``torch.topk``'s threshold beside it) and
+count-min's increment and add-then-query at both widths, graph-timed
+and eager (``codec_measure``).
 """
 
 from __future__ import annotations
@@ -315,27 +329,8 @@ def kernel_checks(dev, g, record) -> None:
            median_ms(lambda: ref.ef_int8_roundtrip_ref(r, x), 5),
            16 * n_el, 8 * n_el)
 
-    k = int(round(0.1 * n_el))
-    dec, rout = ef_codec.ef_topk_int8_roundtrip_cuda(r, x, k)
-    pdec, prout = ref.ef_topk_int8_roundtrip_ref(r, x, k)
-    torch.cuda.synchronize()
-    ident = float(((dec + rout) - (x + r)).abs().max())
-    if ident != 0.0:
-        raise AssertionError(f"top-k EF identity broken by {ident!r}")
-    kept = int((dec != 0).sum())
-    if kept < k:      # ties at the threshold are all kept
-        raise AssertionError(f"top-k kept {kept} coordinates, fewer than {k}")
-    err = max(float((dec - pdec).abs().max()), float((rout - prout).abs().max()))
-    tol = float(torch.finfo(torch.float32).eps) * float(pdec.abs().max())
-    record("ef_topk_int8_roundtrip", "src/repro_torch/kernels/csrc/ef_codec.cu",
-           "src/repro/kernels/ef_codec.py:145", err, tol,
-           median_ms(lambda: ef_codec.ef_topk_int8_roundtrip_cuda(r, x, k), 20),
-           median_ms(lambda: ref.ef_topk_int8_roundtrip_ref(r, x, k), 5),
-           16 * n_el + 4, 10 * n_el)
-    thr_ms = median_ms(lambda: ref.topk_threshold(
-        torch.abs(x.reshape(-1) + r.reshape(-1)), k), 10)
-    log(f"  (of which the wrapper's torch.topk threshold: {thr_ms!r} ms)")
     del x, r, dec, rout, pdec, prout
+    topk_kernel_checks(dev, record)
 
     # -- hashing: ids over the full int32 range, negatives included --------
     ids = torch.randint(-2 ** 31, 2 ** 31 - 1, (N_EVENTS, HASH_F),
@@ -504,6 +499,132 @@ def kernel_checks(dev, g, record) -> None:
         if not same:
             raise AssertionError(f"detector scan ({det}) differs from its "
                                  "plain loop")
+
+
+def bitwise(a, b) -> bool:
+    """Equal bit for bit (so -0 differs from +0, and NaN matches itself)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def topk_kernel_checks(dev, record) -> None:
+    """The top-k EF round-trip (radix select on the card) at the dense
+    job's two shapes and on 16.7M elements with many ties at the
+    threshold, with all keys equal (more than pass 1 keeps) and with the
+    sample's window missing the threshold (the last two send pass 2 back
+    to x and r): bitwise its plain version and its witness
+    (``torch.topk``'s threshold, then the int8 kernels), the select
+    bitwise ``torch.topk``'s k-th largest, every tie kept, ``dec + r' ==
+    x + r``; one call a CUDA graph of a memset and the select and apply
+    kernels (no host sync).
+    Times from CUDA-graph replays with the inputs cycled past the L2
+    (eager in brackets); ``library_ms``: ``torch.topk``'s threshold, the
+    select stage alone."""
+    import torch
+    from repro_torch.kernels import ef_codec, ref
+    g = torch.Generator(device=dev).manual_seed(18)
+
+    def planted_ties(shape):
+        # values on a grid of 1/8: about 1% of them tie at any threshold
+        x = torch.round(torch.randn(shape, generator=g, device=dev) * 8) / 8
+        return torch.zeros(shape, device=dev), x
+
+    def all_equal(shape):
+        # every key in one bin: more than pass 1 has room to keep
+        sign = torch.rand(shape, generator=g, device=dev) < 0.5
+        return (torch.zeros(shape, device=dev),
+                torch.where(sign, -0.75, 0.75).to(torch.float32))
+
+    def sample_missed(shape):
+        # large values at exactly the sample's positions: its window lies
+        # far above the true threshold, and pass 2 reads x and r again
+        x = torch.randn(shape, generator=g, device=dev) * 0.5
+        x.view(-1)[::x.numel() // 65536] += 100.0
+        return torch.zeros(shape, device=dev), x
+
+    # (row, shape, inputs, whether pass 2 should take pass 1's kept keys:
+    # up to 65,536 elements it reads x and r again)
+    cases = (("ef_topk_int8_roundtrip", (N_EVENTS, DIM), None, True),
+             ("ef_topk_int8_roundtrip/65536", (N_EVENTS,), None, False),
+             ("ef_topk_int8_roundtrip/ties", (N_EVENTS, DIM), planted_ties,
+              None),
+             ("ef_topk_int8_roundtrip/all_equal", (N_EVENTS, DIM), all_equal,
+              False),
+             ("ef_topk_int8_roundtrip/sample_missed", (N_EVENTS, DIM),
+              sample_missed, False))
+    for row, shape, make, from_kept in cases:
+        if make is None:
+            r = torch.randn(shape, generator=g, device=dev) * 0.01
+            x = torch.randn(shape, generator=g, device=dev)
+        else:
+            r, x = make(shape)
+        n = x.numel()
+        k = int(round(0.1 * n))
+        dec, rout = ef_codec.ef_topk_int8_roundtrip_cuda(r, x, k)
+        pdec, prout = ref.ef_topk_int8_roundtrip_ref(r, x, k)
+        wdec, wrout = ef_codec.ef_topk_int8_roundtrip_witness_cuda(r, x, k)
+        mag = torch.abs(x.reshape(-1) + r.reshape(-1))
+        t, state = ef_codec.ef_topk_threshold_cuda(r, x, k, state=True)
+        tt = torch.topk(mag, k).values[-1]
+        torch.cuda.synchronize()
+        kept, at_t = int((mag >= t).sum()), int((mag == t).sum())
+        same = {"plain": bitwise(dec, pdec) and bitwise(rout, prout),
+                "witness": bitwise(dec, wdec) and bitwise(rout, wrout),
+                "select_vs_torch.topk": bitwise(t, tt),
+                "identity": bool(((dec + rout) == (x + r)).all()),
+                "kept>=k": kept >= k,
+                # no kept value is small enough to decode to 0 here
+                "decoded_iff_|xc|>=t": torch.equal((dec != 0).reshape(-1),
+                                                   mag >= t)}
+        if from_kept is not None:
+            same["pass2_path"] = state["from_kept"] == from_kept
+        log(f"  {row}: n {n}, k {k}, t {float(t)!r}, {at_t} at t, {kept} "
+            f"kept; select {state}; {same}")
+        if not all(same.values()):
+            raise AssertionError(f"{row}: {same}")
+        if make is not None:
+            continue
+        nodes = kernels_in_graph(
+            lambda: ef_codec.ef_topk_int8_roundtrip_cuda(r, x, k))
+        want = ["memset"] + ["select_sample"] * (n > 65536) + [
+            "select_pass1", "select_pass2", "topk_apply"]
+        if len(nodes) != len(want) or not all(
+                w in got for w, got in zip(want, nodes)):
+            raise AssertionError(f"{row}: one call's CUDA graph holds "
+                                 f"{nodes}, not {want}")
+        log(f"    one call's CUDA graph: {nodes}")
+        err = max(float((dec - pdec).abs().max()),
+                  float((rout - prout).abs().max()))
+        sets = [(r, x)] + [(r.clone(), x.clone())
+                           for _ in range(n_sets((r, x)) - 1)]
+        reps = max(20, len(sets))
+        call = cycling(lambda r_, x_: ef_codec.ef_topk_int8_roundtrip_cuda(
+            r_, x_, k), sets)
+        ms, eager = graph_ms(call, reps), median_ms(call, reps)
+        witness_ms = graph_ms(cycling(
+            lambda r_, x_: ef_codec.ef_topk_int8_roundtrip_witness_cuda(
+                r_, x_, k), sets), reps)
+        select_ms = graph_ms(cycling(
+            lambda r_, x_: ef_codec.ef_topk_threshold_cuda(r_, x_, k), sets),
+            reps)
+        mags = [(torch.abs(x_.reshape(-1) + r_.reshape(-1)),)
+                for r_, x_ in sets]
+        topk_ms = graph_ms(cycling(lambda a: ref.topk_threshold(a, k), mags),
+                           reps)
+        log(f"    graph ms: kernel {ms!r} [eager {eager!r}], its select "
+            f"{select_ms!r}, torch.topk's threshold {topk_ms!r}, the "
+            f"witness path (torch.topk + int8 kernels) {witness_ms!r}")
+        record("ef_topk_int8_roundtrip",
+               "src/repro_torch/kernels/csrc/ef_codec.cu",
+               "src/repro/kernels/ef_codec.py:145", err, 0.0, ms,
+               median_ms(lambda: ref.ef_topk_int8_roundtrip_ref(r, x, k), 3),
+               16 * n + 4, 10 * n, library_ms=topk_ms,
+               library="torch.topk threshold, the select alone",
+               row=None if row == "ef_topk_int8_roundtrip" else row)
+        del sets, mags
+    del r, x, dec, rout, pdec, prout, wdec, wrout, mag
+    torch.cuda.empty_cache()
 
 
 def attended_pairs(S: int, T: int, causal: bool) -> int:
@@ -1065,6 +1186,67 @@ def wkv_measure(dev) -> dict:
     return out
 
 
+def codec_measure(dev) -> dict:
+    """Rows 4-6 alone in the tree under test, for ``--measure --codec``:
+    the top-k EF round-trip at the dense job's two shapes (``x``, 65,536
+    x 256; ``p`` and ``err``, 65,536), ``torch.topk``'s threshold on the
+    same ``|x + r|`` (the select's library yardstick) and, where the tree
+    has one, its own select alone; count-min's increment and
+    add-then-query at both widths on the feeder's first batch; the int8
+    round-trip as a control. CUDA-graph ms with the inputs cycled past
+    the L2 (``*_graph_ms``), and eager ms of the same calls."""
+    import torch
+    from repro_torch.kernels import countmin as cms
+    from repro_torch.kernels import ef_codec, ref
+    from repro_torch.streams import sketches as sk
+    g = torch.Generator(device=dev).manual_seed(1234)
+    out = {}
+
+    def both(key, fn, sets, reps):
+        call = cycling(fn, sets)
+        out[f"{key}_graph_ms"] = graph_ms(call, reps)
+        out[f"{key}_eager_ms"] = median_ms(call, reps)
+
+    for tag, shape in (("x", (N_EVENTS, DIM)), ("p", (N_EVENTS,))):
+        k = int(round(0.1 * math.prod(shape)))
+        first = (torch.randn(shape, generator=g, device=dev) * 0.01,
+                 torch.randn(shape, generator=g, device=dev))
+        sets = [first] + [tuple(t.clone() for t in first)
+                          for _ in range(n_sets(first) - 1)]
+        reps = max(20, len(sets))
+        both(f"topk_{tag}", lambda r, x: ef_codec.ef_topk_int8_roundtrip_cuda(
+            r, x, k), sets, reps)
+        mags = [(torch.abs(x.reshape(-1) + r.reshape(-1)),) for r, x in sets]
+        out[f"topk_{tag}_torch_select_graph_ms"] = graph_ms(
+            cycling(lambda a: ref.topk_threshold(a, k), mags), reps)
+        select = getattr(ef_codec, "ef_topk_threshold_cuda", None)
+        if select is not None:
+            out[f"topk_{tag}_select_graph_ms"] = graph_ms(
+                cycling(lambda r, x: select(r, x, k), sets), reps)
+        if tag == "x":
+            both("int8_x", ef_codec.ef_int8_roundtrip_cuda, sets, reps)
+        del first, sets, mags
+        torch.cuda.empty_cache()
+
+    ids = torch.from_numpy(first_token_batch()).to(dev)
+    _STREAMS.clear()
+    sets = [(ids,)] + [(ids.clone(),) for _ in range(n_sets((ids,)) - 1)]
+    reps = max(20, len(sets))
+    d = SKETCH_DEPTH
+    for w in SKETCH_WIDTHS:
+        seeds = sk.countmin_init(d, w, seed=0, device=dev).seeds
+        table = cms.countmin_update_cuda(ids, d, w, seeds) * 3
+        both(f"countmin_update_w{w}",
+             lambda i: cms.countmin_update_cuda(i, d, w, seeds), sets, reps)
+        both(f"countmin_update_query_w{w}",
+             lambda i: cms.countmin_update_query_cuda(i, table, seeds), sets,
+             reps)
+        del table
+    del ids, sets
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the main path
 # ---------------------------------------------------------------------------
@@ -1250,21 +1432,26 @@ def first_token_batch():
     return out.data["tokens"].reshape(-1)
 
 
-def sketch_kernel_checks(dev, record, ids):
-    """Count-min at both widths and with a table at 2^24 + 1, and the
-    Misra-Gries scan, each against its plain version: exactly."""
+def countmin_kernel_checks(dev, record, ids):
+    """Count-min at both widths and with a table at 2^24 + 1 against its
+    plain version, exactly; the add-then-query also against row 5's
+    kernels (its witness), the table left as it was, one call a CUDA
+    graph of a copy and two kernels. Graph-timed with the ids cycled
+    past the L2 (eager logged)."""
     import torch
     from repro_torch.kernels import countmin as cms
-    from repro_torch.kernels import mg_scan as mgk
     from repro_torch.kernels import ref
     from repro_torch.streams import sketches as sk
 
     n, d = ids.numel(), SKETCH_DEPTH
+    sets = [(ids,)] + [(ids.clone(),) for _ in range(n_sets((ids,)) - 1)]
+    reps = max(20, len(sets))
     for w in SKETCH_WIDTHS:
         seeds = sk.countmin_init(d, w, seed=0, device=dev).seeds
         inc = cms.countmin_update_cuda(ids, d, w, seeds)
         pinc = ref.countmin_ref(ids, d, w, seeds)
         table = inc * 3                     # a running table, not zeros
+        before = table.clone()
         got = cms.countmin_update_query_cuda(ids, table, seeds)
         want = ref.countmin_update_query_ref(ids, table, seeds)
         big = torch.full((d, w), 2 ** 24 + 1, dtype=torch.int32, device=dev)
@@ -1273,7 +1460,10 @@ def sketch_kernel_checks(dev, record, ids):
         torch.cuda.synchronize()
         same = {"update": torch.equal(inc, pinc),
                 "update_query": all(map(torch.equal, got, want)),
-                "at_2^24+1": all(map(torch.equal, got_big, want_big))}
+                "at_2^24+1": all(map(torch.equal, got_big, want_big)),
+                # row 5's kernels are the add's witness
+                "witness": torch.equal(got[0], table + inc),
+                "table_untouched": torch.equal(table, before)}
         err = max(float((a.long() - b.long()).abs().max())
                   for a, b in ((inc, pinc), *zip(got, want),
                                *zip(got_big, want_big)))
@@ -1283,25 +1473,52 @@ def sketch_kernel_checks(dev, record, ids):
         if not all(same.values()):
             raise AssertionError(f"count-min width {w}: kernel differs from "
                                  f"plain: {same}")
+        nodes = kernels_in_graph(
+            lambda: cms.countmin_update_query_cuda(ids, table, seeds))
+        # all depth rows of the narrow sketch fit shared memory
+        path = "uq_add_smem" if w == SKETCH_WIDTHS[0] else "uq_add_global"
+        if len(nodes) != 3 or nodes[0] != "memcpy" or path not in nodes[1] \
+                or "uq_query" not in nodes[2]:
+            raise AssertionError(f"count-min width {w}: one call's CUDA graph "
+                                 f"holds {nodes}")
+        log(f"    one add-then-query call's CUDA graph: {nodes}")
         src = "src/repro_torch/kernels/csrc/countmin.cu"
         tag = "" if w == SKETCH_WIDTHS[0] else f"/w{w}"
+        timed = {}
+        for name, fn in (
+                ("countmin_update",
+                 lambda i: cms.countmin_update_cuda(i, d, w, seeds)),
+                ("countmin_update_query",
+                 lambda i: cms.countmin_update_query_cuda(i, table, seeds))):
+            call = cycling(fn, sets)
+            timed[name] = (graph_ms(call, reps), median_ms(call, reps))
+        log(f"    graph ms [eager]: " + ", ".join(
+            f"{k} {v[0]!r} [{v[1]!r}]" for k, v in timed.items()))
         record("countmin_update", src, "src/repro/kernels/countmin.py:59",
-               err, 0.0,
-               median_ms(lambda: cms.countmin_update_cuda(ids, d, w, seeds),
-                         20),
+               err, 0.0, timed["countmin_update"][0],
                median_ms(lambda: ref.countmin_ref(ids, d, w, seeds), 5),
                4 * n + 4 * d * w, 5 * n * d,
                row=f"countmin_update{tag}" if tag else None)
         record("countmin_update_query", src,
                "src/repro/kernels/countmin.py:131", err, 0.0,
-               median_ms(lambda: cms.countmin_update_query_cuda(
-                   ids, table, seeds), 20),
+               timed["countmin_update_query"][0],
                median_ms(lambda: ref.countmin_update_query_ref(
                    ids, table, seeds), 5),
                8 * n + 8 * d * w, 10 * n * d,
                row=f"countmin_update_query{tag}" if tag else None)
-        del inc, pinc, table, got, want, big, got_big, want_big
+        del inc, pinc, table, before, got, want, big, got_big, want_big
+    del sets
 
+
+def sketch_kernel_checks(dev, record, ids):
+    """Count-min (``countmin_kernel_checks``) and the Misra-Gries scan,
+    each against its plain version: exactly."""
+    import torch
+    from repro_torch.kernels import mg_scan as mgk
+    from repro_torch.kernels import ref
+
+    countmin_kernel_checks(dev, record, ids)
+    n = ids.numel()
     keys0 = torch.full((MG_K,), -1, dtype=torch.int32, device=dev)
     counts0 = torch.zeros((MG_K,), dtype=torch.int32, device=dev)
     pre = ids[:MG_PLAIN_N]
@@ -1631,9 +1848,10 @@ def measure(dev) -> dict:
     return out
 
 
-def compare(other: pathlib.Path, runs: int, wkv: bool = False) -> int:
-    """``--measure`` (with ``wkv``, ``--measure --wkv``) for ``other``'s
-    port and this checkout's in turns, each run a process of its own."""
+def compare(other: pathlib.Path, runs: int, mode=None) -> int:
+    """``--measure`` (with ``mode``, ``--measure --wkv`` or ``--measure
+    --codec``) for ``other``'s port and this checkout's in turns, each run
+    a process of its own."""
     trees = {"other": other.resolve() / "src", "this": SRC}
     order = []
     for i in range(runs):
@@ -1642,7 +1860,7 @@ def compare(other: pathlib.Path, runs: int, wkv: bool = False) -> int:
     for tag in order:
         proc = subprocess.run(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--measure",
-             "--src", str(trees[tag])] + (["--wkv"] if wkv else []),
+             "--src", str(trees[tag])] + ([f"--{mode}"] if mode else []),
             cwd=ROOT, capture_output=True, text=True)
         lines = proc.stdout.strip().splitlines()
         if proc.returncode or not lines:
@@ -1682,7 +1900,12 @@ def main(argv=None) -> int:
     ap.add_argument("--wkv", action="store_true",
                     help="with --measure or --compare: time only the WKV "
                          "kernel at rwkv6-1.6b's prefill and decode shapes")
+    ap.add_argument("--codec", action="store_true",
+                    help="with --measure or --compare: time only the top-k "
+                         "EF round-trip and count-min's kernels (rows 4-6)")
     args = ap.parse_args(argv)
+    if args.wkv and args.codec:
+        ap.error("--wkv and --codec are two separate modes")
     try:
         import torch
     except ImportError:
@@ -1699,12 +1922,14 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
     if args.compare is not None:
-        return compare(args.compare, args.runs, args.wkv)
+        return compare(args.compare, args.runs,
+                       "wkv" if args.wkv else "codec" if args.codec else None)
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.measure:
-        fn = wkv_measure if args.wkv else measure
+        fn = wkv_measure if args.wkv else codec_measure if args.codec \
+            else measure
         log(json.dumps(fn(torch.device("cuda"))))
         return 0
 

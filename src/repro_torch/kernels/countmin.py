@@ -8,8 +8,10 @@ beside their plain versions in ``kernels/ref.py``.
 * :func:`countmin_update_query` replaces ``::countmin_update_query``
   (``_cms_uq_kernel``): fold the batch into the table and estimate each
   id against the updated table (min over depths). ``table`` is not
-  modified: the kernel adds into a copy, then a second launch on the
-  same stream gathers, so every add lands before any read.
+  modified: one C call copies it, adds every id once at all depths into
+  the copy, then gathers in a second launch on the same stream, so every
+  add lands before any read. Row 5's kernels (:func:`countmin_update`)
+  are its witness on the card.
 
 Both count with int32 atomics, so they are bitwise equal to their plain
 versions at any count. The JAX package's fused kernel counts in fp32 and
@@ -39,8 +41,9 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.countmin_add.argtypes = [_P, _L, _P, _I, _I, _P, _P]
         lib.countmin_add.restype = _I
-        lib.countmin_query.argtypes = [_P, _L, _P, _I, _I, _P, _P, _P]
-        lib.countmin_query.restype = _I
+        lib.countmin_update_query.argtypes = [_P, _L, _P, _I, _I, _P, _P,
+                                              _P, _P]
+        lib.countmin_update_query.restype = _I
         lib._typed = True
     return lib
 
@@ -80,19 +83,17 @@ def countmin_update_query_cuda(ids, table, seeds):
     idt, sd = _operands(ids, seeds, depth)
     if table.device != ids.device:
         raise ValueError(f"ids on {ids.device}, table on {table.device}")
-    new_table = table.to(torch.int32).clone(
-        memory_format=torch.contiguous_format)
+    src = table.to(torch.int32).contiguous()
+    new_table = torch.empty_like(src)
     est = torch.empty(idt.shape, dtype=torch.int32, device=ids.device)
-    if not idt.numel():
-        return new_table, est
-    _add(idt, sd, new_table)
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
-        rc = _lib().countmin_query(idt.data_ptr(), idt.numel(), sd.data_ptr(),
-                                   depth, width, new_table.data_ptr(),
-                                   est.data_ptr(), stream)
-    _build.check(rc, "countmin_query")
-    LAUNCHES["countmin_update_query"] += 1
+        rc = _lib().countmin_update_query(
+            idt.data_ptr(), idt.numel(), sd.data_ptr(), depth, width,
+            src.data_ptr(), new_table.data_ptr(), est.data_ptr(), stream)
+    _build.check(rc, "countmin_update_query")
+    if idt.numel():
+        LAUNCHES["countmin_update_query"] += 1
     return new_table, est
 
 

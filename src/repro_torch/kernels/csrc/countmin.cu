@@ -2,8 +2,8 @@
 // ids, and the add-then-query of a batch against the updated table.
 //
 // countmin_add replaces the JAX package's Pallas kernel
-// kernels/countmin.py::countmin_update (_cms_kernel) and, with
-// countmin_query, ::countmin_update_query (_cms_uq_kernel). The TPU has no
+// kernels/countmin.py::countmin_update (_cms_kernel); countmin_update_query
+// replaces ::countmin_update_query (_cms_uq_kernel). The TPU has no
 // scatter-add, so its kernels build a (block, width) one-hot matrix per
 // depth and sum it; the fused one also keeps its counts in fp32, exact only
 // below 2^24. Hopper has integer atomics in shared memory and in L2, so
@@ -13,23 +13,44 @@
 //
 // The hash is jnp's: id * a + b wraps in int32 (computed in uint32 and
 // cast back), and jnp's % floors where C truncates, so the remainder mod
-// 2^31 - 1 is lifted into [0, P) before slot = h % width.
+// 2^31 - 1 is lifted into [0, P) before slot = h % width (a mask where
+// width is a power of two, as both of the path's widths are).
 //
 // What bounds it: bytes (ids read, the table read and written once) for a
 // uniform stream. A skewed stream puts many ids on one cell, and atomics on
-// one address serialise in L2; lanes of a warp holding the same slot
+// one address serialise, in L2 above all: the summarization path's stream
+// has a quarter of its ids on one id.
+//
+// countmin_add (row 5's increment): grid (blocks, depth). Where a depth
+// row fits shared memory (width <= kMaxSmemWidth), each block counts its
+// share of the ids into a private copy of the row and then adds the row's
+// nonzero cells into the table; otherwise blocks add straight into the
+// table in device memory. Lanes of a warp holding the same slot
 // (__match_any_sync) add their count once, through their leader.
 //
-// countmin_add: grid (blocks, depth). Where a depth row fits shared memory
-// (width <= kMaxSmemWidth), each block counts its share of the ids into a
-// private copy of the row and then adds the row's nonzero cells into the
-// table; otherwise blocks add straight into the table in device memory.
-// countmin_query: one thread per id takes the min over depths of its
-// cells. The update-then-query is two launches on the stream, so every
-// add has landed before any gather.
+// countmin_update_query: the table copied into new_table inside the call,
+// then two launches on the stream, so every add lands before any gather.
+//   1. uq_add reads each id once (16-byte loads) and adds it at every
+//      depth (one atomic a lane: aggregating a warp's equal ids with
+//      __match_any_sync cost more than the atomics it saved). Where all
+//      depth rows fit shared memory (depth * width <= kMaxSmemWidth, 16 KiB
+//      for the path's 4 x 1,024) a block counts into them and flushes their
+//      nonzero cells; otherwise a block keeps the counts of the ids it
+//      meets in a small shared table keyed by id (kCache entries, the
+//      first id at each entry keeps it) and flushes those once, so the
+//      stream's hot id costs each block one device-memory atomic a depth;
+//      ids that find their entry taken add straight into device memory.
+//   2. uq_query: one thread per 4 ids takes the min over depths, from a
+//      copy of the table in shared memory where it fits 48 KiB.
+// Measured (H100 80GB HBM3, 700 W; chip_smoke.py): the add-then-query of
+// 1,048,576 Zipf ids takes 0.018 ms at width 1,024 and 0.040 at 2^20.
+// Warp aggregation and a remainder by division made the add slower;
+// more loads in flight, more or fewer blocks and a per-warp register
+// count of the hot id moved nothing.
 
 #include <algorithm>
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -94,21 +115,168 @@ __global__ void cms_add_global(const int* __restrict__ ids, long long n,
   }
 }
 
-__global__ void cms_query(const int* __restrict__ ids, long long n,
-                          const int* __restrict__ seeds, int depth, int width,
-                          const int* __restrict__ table,
-                          int* __restrict__ est) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int id = ids[i];
-    int m = INT_MAX;
-    for (int d = 0; d < depth; ++d) {
-      const int s = cms_slot(id, seeds[2 * d], seeds[2 * d + 1], width);
-      m = min(m, table[(long long)d * width + s]);
-    }
-    est[i] = m;
+constexpr int kUqThreads = 512;
+constexpr int kUqIdsPerBlock = 8192;    // the smem add: one block an SM at most
+constexpr int kGlobalBlocksPerSm = 2;   // the device-memory add
+constexpr int kCacheBits = 11;
+constexpr int kCache = 1 << kCacheBits;
+
+// The slot of id at one depth, as cms_slot, with the floor of
+// h mod (2^31 - 1) taken by selects: h is an int32, so h, h + P or
+// h + 2P lies in [0, P).
+__device__ __forceinline__ int uq_slot(int id, int a, int b, int width,
+                                       bool pow2) {
+  const int h = (int)((unsigned)id * (unsigned)a + (unsigned)b);
+  int m;
+  if (h >= 0) {
+    m = h == kP ? 0 : h;
+  } else {
+    m = h + kP;                        // in [-1, P - 1)
+    if (m < 0) m += kP;                // h = -2^31
   }
+  return pow2 ? (m & (width - 1)) : m % width;
+}
+
+// f(id) for every id, 4 a thread a trip from 16-byte loads (the first
+// 4 * n4 ids), then one.
+template <typename F>
+__device__ __forceinline__ void for_each_id(const int* __restrict__ ids,
+                                            long long n, long long n4,
+                                            F&& f) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long q = tid; q < n4; q += stride) {
+    const int4 v = reinterpret_cast<const int4*>(ids)[q];
+    f(v.x);
+    f(v.y);
+    f(v.z);
+    f(v.w);
+  }
+  for (long long i = 4 * n4 + tid; i < n; i += stride) f(ids[i]);
+}
+
+// c more of id at every depth of cells (depth, width): the table in
+// device memory, or a block's copy of its rows in shared memory.
+__device__ __forceinline__ void add_all_depths(int* cells,
+                                               const int* __restrict__ seeds,
+                                               int depth, int width, bool pow2,
+                                               int id, int c) {
+  for (int d = 0; d < depth; ++d)
+    atomicAdd(cells + (long long)d * width +
+                  uq_slot(id, __ldg(seeds + 2 * d), __ldg(seeds + 2 * d + 1),
+                          width, pow2),
+              c);
+}
+
+__global__ void __launch_bounds__(kUqThreads)
+uq_add_smem(const int* __restrict__ ids, long long n, long long n4,
+            const int* __restrict__ seeds, int depth, int width, bool pow2,
+            int* __restrict__ table) {
+  extern __shared__ int rows[];
+  const int cells = depth * width;
+  for (int j = threadIdx.x; j < cells; j += blockDim.x) rows[j] = 0;
+  __syncthreads();
+  for_each_id(ids, n, n4, [&](int id) {
+    add_all_depths(rows, seeds, depth, width, pow2, id, 1);
+  });
+  __syncthreads();
+  for (int j = threadIdx.x; j < cells; j += blockDim.x) {
+    const int v = rows[j];
+    if (v) atomicAdd(table + j, v);
+  }
+}
+
+// c more of id: into the block's entry for id where it holds one or can
+// take a free one, else straight into the table.
+__device__ __forceinline__ void add_cached(unsigned long long* key,
+                                           int* count, int* table,
+                                           const int* __restrict__ seeds,
+                                           int depth, int width, bool pow2,
+                                           int id, int c) {
+  const unsigned long long want = (unsigned long long)(unsigned)id + 1ull;
+  const int e = (int)(((unsigned)id * 2654435761u) >> (32 - kCacheBits));
+  unsigned long long k = key[e];
+  if (k == 0ull) {
+    k = atomicCAS(key + e, 0ull, want);
+    if (k == 0ull) k = want;
+  }
+  if (k == want)
+    atomicAdd(count + e, c);
+  else
+    add_all_depths(table, seeds, depth, width, pow2, id, c);
+}
+
+__global__ void __launch_bounds__(kUqThreads)
+uq_add_global(const int* __restrict__ ids, long long n, long long n4,
+              const int* __restrict__ seeds, int depth, int width, bool pow2,
+              int* __restrict__ table) {
+  // entry e holds id + 1 (0: empty) and its count so far in this block
+  __shared__ unsigned long long key[kCache];
+  __shared__ int count[kCache];
+  for (int e = threadIdx.x; e < kCache; e += blockDim.x) {
+    key[e] = 0ull;
+    count[e] = 0;
+  }
+  __syncthreads();
+  for_each_id(ids, n, n4, [&](int id) {
+    add_cached(key, count, table, seeds, depth, width, pow2, id, 1);
+  });
+  __syncthreads();
+  for (int e = threadIdx.x; e < kCache; e += blockDim.x) {
+    const unsigned long long k = key[e];
+    if (k && count[e])
+      add_all_depths(table, seeds, depth, width, pow2,
+                     (int)(unsigned)(k - 1ull), count[e]);
+  }
+}
+
+__device__ __forceinline__ int min_over_depths(const int* __restrict__ table,
+                                               const int* __restrict__ seeds,
+                                               int depth, int width, bool pow2,
+                                               int id) {
+  int m = INT_MAX;
+  for (int d = 0; d < depth; ++d)
+    m = min(m, table[(long long)d * width +
+                     uq_slot(id, __ldg(seeds + 2 * d),
+                             __ldg(seeds + 2 * d + 1), width, pow2)]);
+  return m;
+}
+
+constexpr int kStageCells = 12288;       // 48 KiB: no opt-in needed
+constexpr int kStageThreads = 1024;
+
+// kStaged: each block first copies the table into shared memory (where
+// depth * width <= kStageCells) and gathers from there.
+template <bool kStaged>
+__global__ void uq_query(const int* __restrict__ ids, long long n,
+                         long long n4, const int* __restrict__ seeds,
+                         int depth, int width, bool pow2,
+                         const int* __restrict__ table,
+                         int* __restrict__ est) {
+  extern __shared__ int staged[];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // the first ids are on their way while the table is staged
+  const int4 first = tid < n4 ? reinterpret_cast<const int4*>(ids)[tid]
+                              : make_int4(0, 0, 0, 0);
+  const int* tab = table;
+  if (kStaged) {
+    for (int j = threadIdx.x; j < depth * width; j += blockDim.x)
+      staged[j] = table[j];
+    __syncthreads();
+    tab = staged;
+  }
+  for (long long q = tid; q < n4; q += stride) {
+    const int4 v = q == tid ? first : reinterpret_cast<const int4*>(ids)[q];
+    int4 m;
+    m.x = min_over_depths(tab, seeds, depth, width, pow2, v.x);
+    m.y = min_over_depths(tab, seeds, depth, width, pow2, v.y);
+    m.z = min_over_depths(tab, seeds, depth, width, pow2, v.z);
+    m.w = min_over_depths(tab, seeds, depth, width, pow2, v.w);
+    reinterpret_cast<int4*>(est)[q] = m;
+  }
+  for (long long i = 4 * n4 + tid; i < n; i += stride)
+    est[i] = min_over_depths(tab, seeds, depth, width, pow2, ids[i]);
 }
 
 int sm_count() {
@@ -160,16 +328,55 @@ extern "C" int countmin_add(const int* ids, long long n, const int* seeds,
   return (int)cudaGetLastError();
 }
 
-// est[i] = min over depths of table[d, slot_d(ids[i])].
-extern "C" int countmin_query(const int* ids, long long n, const int* seeds,
-                              int depth, int width, const int* table, int* est,
-                              void* stream) {
-  if (n <= 0) return 0;
-  if (depth <= 0 || width <= 0) return (int)cudaErrorInvalidValue;
+// new_table = table + the counts of ids (n,) int32 at every depth, and
+// est[i] = min over depths of new_table[d, slot_d(ids[i])]; table is not
+// modified. seeds (depth, 2) int32 holds each depth's (a, b).
+extern "C" int countmin_update_query(const int* ids, long long n,
+                                     const int* seeds, int depth, int width,
+                                     const int* table, int* new_table,
+                                     int* est, void* stream) {
+  if (depth <= 0 || width <= 0 || n < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long blocks =
-      std::max(1LL, std::min(ceil_div(n, kThreads), 16LL * sm_count()));
-  cms_query<<<(unsigned)blocks, kThreads, 0, s>>>(ids, n, seeds, depth, width,
-                                                  table, est);
+  const long long cells = (long long)depth * width;
+  cudaError_t e = cudaMemcpyAsync(new_table, table, cells * sizeof(int),
+                                  cudaMemcpyDeviceToDevice, s);
+  if (e != cudaSuccess || n == 0) return (int)e;
+  const bool pow2 = (width & (width - 1)) == 0;
+  const long long n4 =
+      ((uintptr_t)ids | (uintptr_t)est) % 16 ? 0 : n / 4;
+  const long long units = n4 + (n - 4 * n4);
+  if (cells <= kMaxSmemWidth) {
+    const size_t smem = (size_t)cells * sizeof(int);
+    if (smem > (size_t)kDefaultSmem) {
+      e = cudaFuncSetAttribute(uq_add_smem,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const long long blocks = std::max(
+        1LL, std::min(ceil_div(n, kUqIdsPerBlock), (long long)sm_count()));
+    uq_add_smem<<<(unsigned)blocks, kUqThreads, smem, s>>>(
+        ids, n, n4, seeds, depth, width, pow2, new_table);
+  } else {
+    const long long blocks = std::max(
+        1LL, std::min(ceil_div(units, kUqThreads),
+                      (long long)kGlobalBlocksPerSm * sm_count()));
+    uq_add_global<<<(unsigned)blocks, kUqThreads, 0, s>>>(
+        ids, n, n4, seeds, depth, width, pow2, new_table);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (cells <= kStageCells) {
+    const long long qblocks = std::max(
+        1LL, std::min(ceil_div(units, kStageThreads), 2LL * sm_count()));
+    uq_query<true><<<(unsigned)qblocks, kStageThreads, cells * sizeof(int),
+                     s>>>(ids, n, n4, seeds, depth, width, pow2, new_table,
+                          est);
+  } else {
+    const long long qblocks =
+        std::max(1LL, std::min(ceil_div(units, kThreads), 16LL * sm_count()));
+    uq_query<false><<<(unsigned)qblocks, kThreads, 0, s>>>(
+        ids, n, n4, seeds, depth, width, pow2, new_table, est);
+  }
   return (int)cudaGetLastError();
 }

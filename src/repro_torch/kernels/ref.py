@@ -88,20 +88,65 @@ def ef_int8_roundtrip_ref(residual, x):
 
 
 def topk_threshold(a: torch.Tensor, k: int) -> torch.Tensor:
-    """The k-th largest value of the flat tensor ``a`` (0-dim)."""
+    """The k-th largest value of the flat tensor ``a`` (0-dim) by
+    ``torch.topk``: NaN if ``a`` holds one (``min`` propagates it). The
+    top-k kernel's select replaced it on the path; it stays as that
+    select's witness and library yardstick."""
     return torch.topk(a, k, sorted=False).values.min()
+
+
+# the top-k select's digits of a key (the 31 bits of |v|: bit 31 is the
+# sign): (shift, bits), top digit first; csrc/ef_codec.cu counts digit 1
+# in its first pass and digits 2 and 3 together in its second
+SELECT_DIGITS = ((19, 12), (9, 10), (0, 9))
+
+
+def _pick_bin(hist: torch.Tensor, k: int):
+    """The highest bin whose count with the bins above reaches k, and k
+    less the count above it."""
+    above = torch.flip(torch.cumsum(torch.flip(hist, (0,)), 0), (0,))
+    b = int(torch.nonzero(above >= k).max())
+    return b, k - (int(above[b + 1]) if b + 1 < hist.numel() else 0)
+
+
+def topk_threshold_radix(a: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th largest ``|a|`` (0-dim fp32) by the top-k kernel's radix
+    select: the keys are the bit patterns of ``|a|``, which order like
+    the values with NaN above +inf (as ``torch.topk`` and ``lax.top_k``
+    order them); a histogram of each digit in turn (``SELECT_DIGITS``),
+    over the keys whose higher digits are those already chosen, picks the
+    next digit of the k-th largest key. Exact: bitwise
+    ``lax.top_k(|a|, k)[0][-1]``."""
+    keys = a.reshape(-1).float().contiguous().view(torch.int32) & 0x7FFFFFFF
+    if keys.numel() == 0:
+        raise ValueError("top-k of an empty tensor")
+    k = max(1, min(int(k), keys.numel()))
+    t, inside = 0, None
+    for shift, bits in SELECT_DIGITS:
+        digit = (keys >> shift) & ((1 << bits) - 1)
+        hist = torch.bincount((digit if inside is None else digit[inside])
+                              .long(), minlength=1 << bits)
+        b, k = _pick_bin(hist, k)
+        t |= b << shift
+        inside = digit == b if inside is None else inside & (digit == b)
+    return torch.tensor(t, dtype=torch.int32,
+                        device=a.device).view(torch.float32)
 
 
 def ef_topk_int8_roundtrip_ref(residual, x, k: int):
     """Top-k + int8 EF round-trip with one shared residual. Selection is
-    by magnitude threshold (the k-th largest ``|x + residual|``), so ties
-    at the threshold are all kept."""
+    by magnitude threshold (the k-th largest ``|x + residual|``, by
+    :func:`topk_threshold_radix`), so ties at the threshold are all kept.
+    A NaN anywhere makes the threshold NaN, so nothing is kept (what
+    ``topk_threshold`` gives)."""
     xc = x.reshape(-1).float() + residual.reshape(-1)
     k = max(1, min(int(k), xc.shape[0]))
-    t = topk_threshold(torch.abs(xc), k)
-    kept = torch.abs(xc) >= t
+    mag = torch.abs(xc)
+    t = topk_threshold_radix(mag, k)
+    t = torch.where(torch.isnan(mag).any(), torch.nan, t)
+    kept = mag >= t
     zero = torch.zeros((), dtype=torch.float32, device=xc.device)
-    amax = torch.max(torch.where(kept, torch.abs(xc), zero))
+    amax = torch.max(torch.where(kept, mag, zero))
     scale = torch.clamp(amax, min=1e-30) / QMAX
     q = torch.clamp(torch.round(torch.where(kept, xc, zero) / scale),
                     -QMAX, QMAX)
