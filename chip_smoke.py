@@ -12,8 +12,14 @@ path on the card, and checks what comes out. Phases:
 
 1. device (``nvidia-smi`` name and power limit) and the kernel build;
 2. each slice-1 kernel vs its plain version: max error against the
-   stated tolerance, the kernel's median time, the plain version's
-   time, and the least time the card could take (``bound_ms``); the
+   stated tolerance, the kernel's time from CUDA-graph replays with the
+   inputs cycled past the L2 (eager logged), the plain version's time,
+   and the least time the card could take (``bound_ms``); the staged
+   hash kernel bitwise its plain version and its row-thread witness at
+   the hashed job's shape (65,536 x 32 -> 1,024) and on -0.0, NaN and
+   +-inf among colliding features, f = 1, 7, 33, 64, ragged n, dims 8,
+   1,000 and 20,000 (the row-thread route) and no rows, one call one
+   kernel, ``torch.zeros`` of its output timed beside it; the
    top-k EF round-trip (its radix select on the card) bitwise its plain
    version and its witness (``torch.topk``'s threshold, then the int8
    kernels) at the dense job's two shapes (16,777,216 and 65,536
@@ -60,9 +66,12 @@ path on the card, and checks what comes out. Phases:
    serving example's cluster and run at the ``{decode}`` frontier: its
    tokens must be the engine's, bitwise;
 8. edge summarization: the count-min kernels (widths 1,024 and
-   1,048,576, and a table preloaded at 2^24 + 1; the add-then-query also
-   against the increment kernels, one call a CUDA graph of a copy and two
-   kernels; graph-timed) and the Misra-Gries
+   1,048,576, and a table preloaded at 2^24 + 1; the increment, the
+   copy-and-add of ``sketches.countmin_add`` and the add-then-query also
+   against the increment's first kernels, the witness; one increment
+   call a CUDA graph of a memset and one kernel, one ``countmin_add`` a
+   copy and one kernel, one add-then-query a copy and two kernels;
+   graph-timed) and the Misra-Gries
    scan against their plain versions, exactly (Misra-Gries on a whole
    batch against its plain loop on the host CPU, and on a 16,384-id
    prefix against that loop on the card, and at four more chunk
@@ -96,10 +105,10 @@ Two further modes measure without checking:
     python3 chip_smoke.py --compare ROOT [--runs 3] [--wkv | --codec]
 
 ``--measure`` drives only the main paths of phases 3 (both codecs, after
-the same warm-up run), 6-7 and 8, as the full run drives them but with
-no kernel check before them, and prints their rates (events/s, prefill
-and decode tok/s, phase 8's card ms a batch per sketch) as its last
-line, one JSON object. ``--src`` names the ``src`` directory whose
+the same warm-up run), 4, 6-7 and 8, as the full run drives them but
+with no kernel check before them, and prints their rates (events/s,
+prefill and decode tok/s, phase 8's card ms a batch per sketch) as its
+last line, one JSON object. ``--src`` names the ``src`` directory whose
 ``repro_torch`` it measures. ``--compare`` runs ``--measure`` for
 another checkout's port (``ROOT/src``, for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory) and for
@@ -110,9 +119,11 @@ both time only the WKV kernel, graph-timed and eager, at rwkv6-1.6b's
 prefill and decode shapes through the tree's ``kernels.ops.rwkv6_wkv``
 (the model layout) and ``rwkv6_wkv_bh_cuda`` (the reference's layout).
 With ``--codec`` both time only the top-k EF round-trip (16,777,216
-and 65,536 elements, with ``torch.topk``'s threshold beside it) and
-count-min's increment and add-then-query at both widths, graph-timed
-and eager (``codec_measure``).
+and 65,536 elements, with ``torch.topk``'s threshold beside it), the
+int8 round-trip, the fused normalize, the hash at phase 4's shape, and
+count-min's increment, ``sketches.countmin_add`` and add-then-query at
+both widths, graph-timed and eager (``codec_measure``), with the
+witnesses where the tree has them.
 """
 
 from __future__ import annotations
@@ -323,41 +334,26 @@ def kernel_checks(dev, g, record) -> None:
     err = max(float((dec - pdec).abs().max()), float((rout - prout).abs().max()))
     # one ulp of the largest decoded value; a flipped quantum is a scale
     tol = float(torch.finfo(torch.float32).eps) * float(pdec.abs().max())
+    del dec, rout, pdec, prout
+    sets = [(r, x)] + [(r.clone(), x.clone())
+                       for _ in range(n_sets((r, x)) - 1)]
+    call = cycling(ef_codec.ef_int8_roundtrip_cuda, sets)
+    ms, eager = graph_ms(call, max(20, len(sets))), median_ms(call, 20)
+    log(f"  ef_int8_roundtrip: graph ms {ms!r} [eager {eager!r}]")
     record("ef_int8_roundtrip", "src/repro_torch/kernels/csrc/ef_codec.cu",
-           "src/repro/kernels/ef_codec.py:81", err, tol,
-           median_ms(lambda: ef_codec.ef_int8_roundtrip_cuda(r, x), 20),
+           "src/repro/kernels/ef_codec.py:81", err, tol, ms,
            median_ms(lambda: ref.ef_int8_roundtrip_ref(r, x), 5),
            16 * n_el, 8 * n_el)
 
-    del x, r, dec, rout, pdec, prout
+    del x, r, sets
     topk_kernel_checks(dev, record)
 
-    # -- hashing: ids over the full int32 range, negatives included --------
-    ids = torch.randint(-2 ** 31, 2 ** 31 - 1, (N_EVENTS, HASH_F),
-                        generator=g, device=dev, dtype=torch.int64
-                        ).to(torch.int32)
-    vals = torch.randn((N_EVENTS, HASH_F), generator=g, device=dev)
-    if int((ids < 0).sum()) == 0:
-        raise AssertionError("hash check drew no negative ids")
-    out = preprocess.fused_hash_features_cuda(ids, vals, HASH_DIM)
-    pout = ref.hash_features_ref(ids, vals, HASH_DIM)
-    torch.cuda.synchronize()
-    if not torch.equal(out, pout):
-        raise AssertionError("hash kernel is not bitwise equal to plain")
-    record("fused_hash_features", "src/repro_torch/kernels/csrc/preprocess.cu",
-           "src/repro/kernels/preprocess.py:159",
-           float((out - pout).abs().max()), 0.0,
-           median_ms(lambda: preprocess.fused_hash_features_cuda(
-               ids, vals, HASH_DIM), 20),
-           median_ms(lambda: ref.hash_features_ref(ids, vals, HASH_DIM), 5),
-           N_EVENTS * HASH_F * 8 + N_EVENTS * HASH_DIM * 4,
-           N_EVENTS * HASH_F * 8)
-    del ids, vals, out, pout
+    hash_kernel_checks(dev, g, record)
 
     # -- fused normalize: (65536 x 256) with 15% NaN -----------------------
     x = torch.randn((N_EVENTS, DIM), generator=g, device=dev) * 2.0 + 0.5
     x[torch.rand((N_EVENTS, DIM), generator=g, device=dev) < 0.15] = math.nan
-    n0 = 1000.0
+    n0 = torch.tensor(1000.0, device=dev)   # on the card, as the path's
     mean0 = torch.randn((DIM,), generator=g, device=dev)
     m20 = (torch.rand((DIM,), generator=g, device=dev) + 0.1) * n0
     got = preprocess.fused_normalize_cuda(x, n0, mean0, m20)
@@ -374,13 +370,17 @@ def kernel_checks(dev, g, record) -> None:
         raise AssertionError(f"fused_normalize outside rtol/atol 1e-4 by {worst!r}")
     yerr = float((got[0] - want[0]).abs().max())
     ytol = 1e-4 + 1e-4 * float(want[0].abs().max())
+    del got, want
+    sets = [(x,)] + [(x.clone(),) for _ in range(n_sets((x,)) - 1)]
+    call = cycling(lambda x_: preprocess.fused_normalize_cuda(
+        x_, n0, mean0, m20), sets)
+    ms, eager = graph_ms(call, max(20, len(sets))), median_ms(call, 20)
+    log(f"  fused_normalize: graph ms {ms!r} [eager {eager!r}]")
     record("fused_normalize", "src/repro_torch/kernels/csrc/preprocess.cu",
-           "src/repro/kernels/preprocess.py:92", yerr, ytol,
-           median_ms(lambda: preprocess.fused_normalize_cuda(
-               x, n0, mean0, m20), 20),
+           "src/repro/kernels/preprocess.py:92", yerr, ytol, ms,
            median_ms(lambda: ref.fused_normalize_ref(x, n0, mean0, m20), 5),
            2 * n_el * 4 + 3 * DIM * 4 * 2, 8 * n_el)
-    del x, got, want
+    del x, sets
 
     # -- detector scan: a 0/1 error stream with a planted drift ------------
     p = torch.where(torch.arange(N_EVENTS, device=dev) < N_EVENTS // 2,
@@ -499,6 +499,92 @@ def kernel_checks(dev, g, record) -> None:
         if not same:
             raise AssertionError(f"detector scan ({det}) differs from its "
                                  "plain loop")
+
+
+def hash_cases(g, dev):
+    """``(row, ids, vals, dim)``: the hashed job's shape, ids over the
+    full int32 range, then the traps: -0.0, NaN and +-inf among colliding
+    features, f off the warp's pass of 32, ragged n, dims off 4 and past
+    the stage (the row-thread route), no rows."""
+    import torch
+
+    def draw(n, f, lo=-2 ** 31, hi=2 ** 31 - 1):
+        ids = torch.randint(lo, hi, (n, f), generator=g, device=dev,
+                            dtype=torch.int64).to(torch.int32)
+        return ids, torch.randn((n, f), generator=g, device=dev)
+
+    special = torch.tensor([-0.0, 0.0, math.nan, math.inf, -math.inf, 1.5,
+                            -2.25], device=dev)
+    ids, _ = draw(4099, 40, 0, 40)
+    pick = torch.randint(0, len(special), (4099, 40), generator=g, device=dev)
+    yield ("fused_hash_features", *draw(N_EVENTS, HASH_F), HASH_DIM)
+    yield "hash/specials", ids, special[pick], 16
+    for f in (1, 7, 33, 64):
+        yield (f"hash/f{f}", *draw(3001, f), HASH_DIM)
+    yield ("hash/ragged", *draw(N_EVENTS - 1, HASH_F), HASH_DIM)
+    yield ("hash/dim8", *draw(999, HASH_F), 8)
+    yield ("hash/dim1000", *draw(777, HASH_F), 1000)
+    yield ("hash/dim20000 (row-thread route)", *draw(300, HASH_F), 20000)
+    yield ("hash/n0", *draw(0, HASH_F), HASH_DIM)
+
+
+def hash_kernel_checks(dev, g, record) -> None:
+    """Row 2, the staged hash kernel: bitwise its plain version and the
+    row-thread witness (the kernel it replaced) at the hashed job's shape
+    (65,536 x 32 -> 1,024) and on ``hash_cases``' traps, one call one
+    kernel (``kernels_in_graph``); graph-timed with the inputs cycled past
+    the L2 (eager, the witness and ``torch.zeros`` of the same output
+    logged beside it: no library call computes the function)."""
+    import torch
+    from repro_torch.kernels import preprocess, ref
+
+    for row, ids, vals, dim in hash_cases(g, dev):
+        out = preprocess.fused_hash_features_cuda(ids, vals, dim)
+        pout = ref.hash_features_ref(ids, vals, dim)
+        wout = preprocess.hash_features_rowthread_cuda(ids, vals, dim)
+        torch.cuda.synchronize()
+        same = {"plain": bitwise(out, pout), "witness": bitwise(out, wout)}
+        neg0 = int((pout.view(torch.int32) == -2 ** 31).sum())
+        log(f"  {row}: ({ids.shape[0]}, {ids.shape[1]}) -> {dim}, bitwise "
+            f"{same}; cells -0.0 {neg0}, NaN {int(torch.isnan(pout).sum())}"
+            f", inf {int(torch.isinf(pout).sum())}")
+        if not all(same.values()):
+            raise AssertionError(f"{row}: the hash kernel is not bitwise its "
+                                 f"plain version and witness: {same}")
+        if row == "hash/specials" and not (torch.isnan(pout).any()
+                                           and torch.isinf(pout).any()):
+            raise AssertionError("hash/specials: no NaN or inf cell to check")
+        if row != "fused_hash_features":
+            continue
+        if int((ids < 0).sum()) == 0:
+            raise AssertionError("hash check drew no negative ids")
+        err = float((out - pout).abs().max())
+        del out, pout, wout
+        nodes = kernels_in_graph(
+            lambda: preprocess.fused_hash_features_cuda(ids, vals, dim))
+        if len(nodes) != 1 or "hash_staged" not in nodes[0]:
+            raise AssertionError(f"hash: one call's CUDA graph holds {nodes}")
+        log(f"    one call's CUDA graph: {nodes}")
+        n, f = ids.shape
+        sets = [(ids, vals)] + [(ids.clone(), vals.clone())
+                                for _ in range(n_sets((ids, vals)) - 1)]
+        reps = max(20, len(sets))
+        call = cycling(lambda i, v: preprocess.fused_hash_features_cuda(
+            i, v, dim), sets)
+        ms, eager = graph_ms(call, reps), median_ms(call, reps)
+        witness_ms = graph_ms(cycling(
+            lambda i, v: preprocess.hash_features_rowthread_cuda(i, v, dim),
+            sets), reps)
+        zeros_ms = graph_ms(lambda: torch.zeros((n, dim), device=dev), reps)
+        log(f"    graph ms: kernel {ms!r} [eager {eager!r}], the row-thread "
+            f"witness {witness_ms!r}, torch.zeros of the output {zeros_ms!r}")
+        record("fused_hash_features",
+               "src/repro_torch/kernels/csrc/preprocess.cu",
+               "src/repro/kernels/preprocess.py:159", err, 0.0, ms,
+               median_ms(lambda: ref.hash_features_ref(ids, vals, dim), 5),
+               n * f * 8 + n * dim * 4, n * f * 8)
+        del sets
+    torch.cuda.empty_cache()
 
 
 def bitwise(a, b) -> bool:
@@ -1187,17 +1273,21 @@ def wkv_measure(dev) -> dict:
 
 
 def codec_measure(dev) -> dict:
-    """Rows 4-6 alone in the tree under test, for ``--measure --codec``:
+    """Rows 1-6 alone in the tree under test, for ``--measure --codec``:
     the top-k EF round-trip at the dense job's two shapes (``x``, 65,536
     x 256; ``p`` and ``err``, 65,536), ``torch.topk``'s threshold on the
     same ``|x + r|`` (the select's library yardstick) and, where the tree
-    has one, its own select alone; count-min's increment and
-    add-then-query at both widths on the feeder's first batch; the int8
-    round-trip as a control. CUDA-graph ms with the inputs cycled past
-    the L2 (``*_graph_ms``), and eager ms of the same calls."""
+    has one, its own select alone; the int8 round-trip; the fused
+    normalize at phase 5's shape (15% NaN); the hash at phase 4's (65,536
+    x 32 -> 1,024), with ``torch.zeros`` of its output and, where the
+    tree has it, the row-thread witness; count-min's increment,
+    ``sketches.countmin_add`` on a running table and the add-then-query
+    at both widths on the feeder's first batch, with the increment's
+    witness where the tree has it. CUDA-graph ms with the inputs cycled
+    past the L2 (``*_graph_ms``), and eager ms of the same calls."""
     import torch
     from repro_torch.kernels import countmin as cms
-    from repro_torch.kernels import ef_codec, ref
+    from repro_torch.kernels import ef_codec, preprocess, ref
     from repro_torch.streams import sketches as sk
     g = torch.Generator(device=dev).manual_seed(1234)
     out = {}
@@ -1228,19 +1318,54 @@ def codec_measure(dev) -> dict:
         del first, sets, mags
         torch.cuda.empty_cache()
 
+    # rows 1 and 2 at the path's shapes: phase 5's normalize, phase 4's hash
+    x = torch.randn((N_EVENTS, DIM), generator=g, device=dev)
+    x[torch.rand((N_EVENTS, DIM), generator=g, device=dev) < 0.15] = math.nan
+    n0, mean0 = torch.tensor(1000.0, device=dev), torch.zeros(DIM, device=dev)
+    m20 = torch.ones(DIM, device=dev)
+    sets = [(x,)] + [(x.clone(),) for _ in range(n_sets((x,)) - 1)]
+    both("normalize", lambda x_: preprocess.fused_normalize_cuda(
+        x_, n0, mean0, m20), sets, max(20, len(sets)))
+    del x, sets
+    first = (torch.randint(-2 ** 31, 2 ** 31 - 1, (N_EVENTS, HASH_F),
+                           generator=g, device=dev,
+                           dtype=torch.int64).to(torch.int32),
+             torch.randn((N_EVENTS, HASH_F), generator=g, device=dev))
+    sets = [first] + [tuple(t.clone() for t in first)
+                      for _ in range(n_sets(first) - 1)]
+    reps = max(20, len(sets))
+    both("hash", lambda i, v: preprocess.fused_hash_features_cuda(
+        i, v, HASH_DIM), sets, reps)
+    rowthread = getattr(preprocess, "hash_features_rowthread_cuda", None)
+    if rowthread is not None:
+        out["hash_witness_graph_ms"] = graph_ms(cycling(
+            lambda i, v: rowthread(i, v, HASH_DIM), sets), reps)
+    out["hash_torch_zeros_graph_ms"] = graph_ms(
+        lambda: torch.zeros((N_EVENTS, HASH_DIM), device=dev), reps)
+    del first, sets
+    torch.cuda.empty_cache()
+
     ids = torch.from_numpy(first_token_batch()).to(dev)
     _STREAMS.clear()
     sets = [(ids,)] + [(ids.clone(),) for _ in range(n_sets((ids,)) - 1)]
     reps = max(20, len(sets))
     d = SKETCH_DEPTH
+    witness = getattr(cms, "countmin_update_witness_cuda", None)
     for w in SKETCH_WIDTHS:
-        seeds = sk.countmin_init(d, w, seed=0, device=dev).seeds
+        cm = sk.countmin_init(d, w, seed=0, device=dev)
+        seeds = cm.seeds
         table = cms.countmin_update_cuda(ids, d, w, seeds) * 3
         both(f"countmin_update_w{w}",
              lambda i: cms.countmin_update_cuda(i, d, w, seeds), sets, reps)
+        # row 5 on the path: sketches.countmin_add on a running table
+        both(f"countmin_add_w{w}", lambda i: sk.countmin_add(
+            cm._replace(table=table), i), sets, reps)
         both(f"countmin_update_query_w{w}",
              lambda i: cms.countmin_update_query_cuda(i, table, seeds), sets,
              reps)
+        if witness is not None:
+            out[f"countmin_update_witness_w{w}_graph_ms"] = graph_ms(cycling(
+                lambda i: witness(i, d, w, seeds), sets), reps)
         del table
     del ids, sets
     torch.cuda.empty_cache()
@@ -1279,6 +1404,34 @@ def run_dense(batches, codec: str, budget: float, device: str,
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return orch, m, secs
+
+
+def run_hashed():
+    """Phase 4's path: the orchestrator on 8 batches of 65,536 sparse
+    events (32 features, ids over the full int32 range) hashed into 1,024
+    on the card, then pca and a sketch. Returns ``(orch, metrics,
+    seconds)``."""
+    import torch
+    from repro_torch.core.orchestrator import Orchestrator, StreamJob
+    from repro_torch.core.pipeline import Pipeline, hash_op, pca_op, sketch_op
+    from repro_torch.core.sla import SLA
+    from repro_torch.streams.events import StreamBatch
+    rng = torch.Generator().manual_seed(7)
+    sparse = [StreamBatch(data={
+        "ids": torch.randint(-2 ** 31, 2 ** 31 - 1, (N_EVENTS, HASH_F),
+                             generator=rng, dtype=torch.int64
+                             ).to(torch.int32),
+        "vals": torch.randn((N_EVENTS, HASH_F), generator=rng)})
+        for _ in range(8)]
+    hp = Pipeline([hash_op(HASH_DIM), pca_op(HASH_DIM, 16), sketch_op(16)])
+    orch = Orchestrator(StreamJob(
+        "smoke-hash", dim=HASH_DIM, pipeline=hp,
+        sla=SLA(error_budget=0.1, max_latency_s=1e3),
+        uplink_codecs=["int8_ef"]))
+    t0 = time.perf_counter()
+    m = orch.run(sparse, rate_fn=lambda s: 1e4)
+    torch.cuda.synchronize()
+    return orch, m, time.perf_counter() - t0
 
 
 def edge_serving_cluster():
@@ -1434,9 +1587,13 @@ def first_token_batch():
 
 def countmin_kernel_checks(dev, record, ids):
     """Count-min at both widths and with a table at 2^24 + 1 against its
-    plain version, exactly; the add-then-query also against row 5's
-    kernels (its witness), the table left as it was, one call a CUDA
-    graph of a copy and two kernels. Graph-timed with the ids cycled
+    plain version, exactly. Row 5's increment (a memset and the add) and
+    the copy-and-add that ``sketches.countmin_add`` takes on the card are
+    also held to the witness (the increment's first kernels); so is the
+    add-then-query (row 6), which shares the add. Each call's CUDA graph
+    is read: the increment a memset and one kernel, ``countmin_add`` a
+    copy and one kernel, the add-then-query a copy and two kernels; the
+    caller's table is left as it was. Graph-timed with the ids cycled
     past the L2 (eager logged)."""
     import torch
     from repro_torch.kernels import countmin as cms
@@ -1447,49 +1604,69 @@ def countmin_kernel_checks(dev, record, ids):
     sets = [(ids,)] + [(ids.clone(),) for _ in range(n_sets((ids,)) - 1)]
     reps = max(20, len(sets))
     for w in SKETCH_WIDTHS:
-        seeds = sk.countmin_init(d, w, seed=0, device=dev).seeds
+        cm = sk.countmin_init(d, w, seed=0, device=dev)
+        seeds = cm.seeds
         inc = cms.countmin_update_cuda(ids, d, w, seeds)
         pinc = ref.countmin_ref(ids, d, w, seeds)
+        winc = cms.countmin_update_witness_cuda(ids, d, w, seeds)
         table = inc * 3                     # a running table, not zeros
         before = table.clone()
+        added = sk.countmin_add(cm._replace(table=table), ids).table
         got = cms.countmin_update_query_cuda(ids, table, seeds)
         want = ref.countmin_update_query_ref(ids, table, seeds)
         big = torch.full((d, w), 2 ** 24 + 1, dtype=torch.int32, device=dev)
+        added_big = cms.countmin_add_cuda(ids, big, seeds)
         got_big = cms.countmin_update_query_cuda(ids, big, seeds)
         want_big = ref.countmin_update_query_ref(ids, big, seeds)
         torch.cuda.synchronize()
         same = {"update": torch.equal(inc, pinc),
+                "update_vs_witness": torch.equal(inc, winc),
+                "countmin_add": torch.equal(added, table + pinc),
+                "countmin_add_vs_witness": torch.equal(added, table + winc),
                 "update_query": all(map(torch.equal, got, want)),
-                "at_2^24+1": all(map(torch.equal, got_big, want_big)),
-                # row 5's kernels are the add's witness
-                "witness": torch.equal(got[0], table + inc),
+                # the add-then-query against the kernels its add replaced
+                "update_query_vs_witness": torch.equal(got[0], table + winc),
+                "at_2^24+1": all(map(torch.equal, got_big, want_big))
+                and torch.equal(added_big, want_big[0]),
                 "table_untouched": torch.equal(table, before)}
         err = max(float((a.long() - b.long()).abs().max())
-                  for a, b in ((inc, pinc), *zip(got, want),
-                               *zip(got_big, want_big)))
-        log(f"  count-min width {w}: bitwise equal to plain {same}; "
-            f"max cell {int(got[0].max())}, at 2^24+1: "
-            f"{int(got_big[0].max())}")
+                  for a, b in ((inc, pinc), (added, table + pinc),
+                               *zip(got, want), *zip(got_big, want_big)))
+        log(f"  count-min width {w}: bitwise {same}; max cell "
+            f"{int(got[0].max())}, at 2^24+1: {int(got_big[0].max())}")
         if not all(same.values()):
             raise AssertionError(f"count-min width {w}: kernel differs from "
-                                 f"plain: {same}")
-        nodes = kernels_in_graph(
-            lambda: cms.countmin_update_query_cuda(ids, table, seeds))
+                                 f"plain or witness: {same}")
         # all depth rows of the narrow sketch fit shared memory
         path = "uq_add_smem" if w == SKETCH_WIDTHS[0] else "uq_add_global"
-        if len(nodes) != 3 or nodes[0] != "memcpy" or path not in nodes[1] \
-                or "uq_query" not in nodes[2]:
-            raise AssertionError(f"count-min width {w}: one call's CUDA graph "
-                                 f"holds {nodes}")
-        log(f"    one add-then-query call's CUDA graph: {nodes}")
+        graphs = {
+            "countmin_update": (kernels_in_graph(
+                lambda: cms.countmin_update_cuda(ids, d, w, seeds)),
+                ["memset", path]),
+            "countmin_add": (kernels_in_graph(
+                lambda: sk.countmin_add(cm._replace(table=table), ids)),
+                ["memcpy", path]),
+            "countmin_update_query": (kernels_in_graph(
+                lambda: cms.countmin_update_query_cuda(ids, table, seeds)),
+                ["memcpy", path, "uq_query"])}
+        for what, (nodes, want_nodes) in graphs.items():
+            if len(nodes) != len(want_nodes) or not all(
+                    x in y for x, y in zip(want_nodes, nodes)):
+                raise AssertionError(f"count-min width {w}: one {what} call's "
+                                     f"CUDA graph holds {nodes}")
+            log(f"    one {what} call's CUDA graph: {nodes}")
         src = "src/repro_torch/kernels/csrc/countmin.cu"
         tag = "" if w == SKETCH_WIDTHS[0] else f"/w{w}"
         timed = {}
         for name, fn in (
                 ("countmin_update",
                  lambda i: cms.countmin_update_cuda(i, d, w, seeds)),
+                ("countmin_add", lambda i: cms.countmin_add_cuda(
+                    i, table, seeds)),
                 ("countmin_update_query",
-                 lambda i: cms.countmin_update_query_cuda(i, table, seeds))):
+                 lambda i: cms.countmin_update_query_cuda(i, table, seeds)),
+                ("witness", lambda i: cms.countmin_update_witness_cuda(
+                    i, d, w, seeds))):
             call = cycling(fn, sets)
             timed[name] = (graph_ms(call, reps), median_ms(call, reps))
         log(f"    graph ms [eager]: " + ", ".join(
@@ -1506,7 +1683,8 @@ def countmin_kernel_checks(dev, record, ids):
                    ids, table, seeds), 5),
                8 * n + 8 * d * w, 10 * n * d,
                row=f"countmin_update_query{tag}" if tag else None)
-        del inc, pinc, table, before, got, want, big, got_big, want_big
+        del inc, pinc, winc, table, before, added, got, want, big
+        del added_big, got_big, want_big
     del sets
 
 
@@ -1827,8 +2005,8 @@ def check_no_nan(states, what: str):
 # ---------------------------------------------------------------------------
 
 def measure(dev) -> dict:
-    """The main paths of phases 3, 6-7 and 8, timed as the full run times
-    them, with no kernel check before them: their rates."""
+    """The main paths of phases 3, 4, 6-7 and 8, timed as the full run
+    times them, with no kernel check before them: their rates."""
     import torch
     from repro_torch.kernels import ops
     ops.build_all()
@@ -1839,6 +2017,8 @@ def measure(dev) -> dict:
         _, m, secs = run_dense(batches, codec, budget, "cuda")
         out[f"dense_events_per_s/{codec}"] = m.events / secs
     del batches
+    _, m, secs = run_hashed()
+    out["hashed_events_per_s"] = m.events / secs
     torch.cuda.empty_cache()
     out.update(serving_phases(dev)[1])
     # each shard's stream draws its vocabulary permutation (2^24 ids) at
@@ -1887,7 +2067,7 @@ def main(argv=None) -> int:
         description="GPU smoke test of the PyTorch port (see the module "
                     "docstring).")
     ap.add_argument("--measure", action="store_true",
-                    help="only time the main paths of phases 3, 6-7 and 8 "
+                    help="only time the main paths of phases 3, 4, 6-7 and 8 "
                          "and print their rates as one JSON line")
     ap.add_argument("--src", type=pathlib.Path, default=SRC,
                     help="with --measure: the src directory whose "
@@ -1901,8 +2081,8 @@ def main(argv=None) -> int:
                     help="with --measure or --compare: time only the WKV "
                          "kernel at rwkv6-1.6b's prefill and decode shapes")
     ap.add_argument("--codec", action="store_true",
-                    help="with --measure or --compare: time only the top-k "
-                         "EF round-trip and count-min's kernels (rows 4-6)")
+                    help="with --measure or --compare: time only rows 1-6 "
+                         "(normalize, hash, the EF codecs, count-min)")
     args = ap.parse_args(argv)
     if args.wkv and args.codec:
         ap.error("--wkv and --codec are two separate modes")
@@ -1933,13 +2113,9 @@ def main(argv=None) -> int:
         log(json.dumps(fn(torch.device("cuda"))))
         return 0
 
-    from repro_torch.core.orchestrator import Orchestrator, StreamJob
-    from repro_torch.core.pipeline import Pipeline, hash_op, pca_op, sketch_op
-    from repro_torch.core.sla import SLA
     from repro_torch.kernels import detector_scan as ds
     from repro_torch.kernels import ops
     from repro_torch.streams import preprocess as prep
-    from repro_torch.streams.events import StreamBatch
 
     t_all = time.perf_counter()
     # -- phase 1 ------------------------------------------------------------
@@ -1992,22 +2168,7 @@ def main(argv=None) -> int:
 
     log("phase 4: orchestrator, hashed job (hash -> pca -> sketch)")
     before = ops.launch_counts()
-    rng = torch.Generator().manual_seed(7)
-    sparse = [StreamBatch(data={
-        "ids": torch.randint(-2 ** 31, 2 ** 31 - 1, (N_EVENTS, HASH_F),
-                             generator=rng, dtype=torch.int64
-                             ).to(torch.int32),
-        "vals": torch.randn((N_EVENTS, HASH_F), generator=rng)})
-        for _ in range(8)]
-    hp = Pipeline([hash_op(HASH_DIM), pca_op(HASH_DIM, 16), sketch_op(16)])
-    orch = Orchestrator(StreamJob(
-        "smoke-hash", dim=HASH_DIM, pipeline=hp,
-        sla=SLA(error_budget=0.1, max_latency_s=1e3),
-        uplink_codecs=["int8_ef"]))
-    t0 = time.perf_counter()
-    m = orch.run(sparse, rate_fn=lambda s: 1e4)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    orch, m, secs = run_hashed()
     delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
     phase_counts["hashed"] = delta
     sk = orch.states["sketch"]

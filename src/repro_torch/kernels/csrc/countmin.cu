@@ -21,15 +21,11 @@
 // one address serialise, in L2 above all: the summarization path's stream
 // has a quarter of its ids on one id.
 //
-// countmin_add (row 5's increment): grid (blocks, depth). Where a depth
-// row fits shared memory (width <= kMaxSmemWidth), each block counts its
-// share of the ids into a private copy of the row and then adds the row's
-// nonzero cells into the table; otherwise blocks add straight into the
-// table in device memory. Lanes of a warp holding the same slot
-// (__match_any_sync) add their count once, through their leader.
-//
-// countmin_update_query: the table copied into new_table inside the call,
-// then two launches on the stream, so every add lands before any gather.
+// One add serves both entries. Its C entry first fills the table it adds
+// into, on the caller's stream: zeros (cudaMemsetAsync: the increment,
+// countmin_update) or a copy of the caller's table (the sketch's own
+// update, and the first half of countmin_update_query), so no separate
+// zeros, increment and table + increment pass over the table remain.
 //   1. uq_add reads each id once (16-byte loads) and adds it at every
 //      depth (one atomic a lane: aggregating a warp's equal ids with
 //      __match_any_sync cost more than the atomics it saved). Where all
@@ -40,13 +36,24 @@
 //      first id at each entry keeps it) and flushes those once, so the
 //      stream's hot id costs each block one device-memory atomic a depth;
 //      ids that find their entry taken add straight into device memory.
-//   2. uq_query: one thread per 4 ids takes the min over depths, from a
-//      copy of the table in shared memory where it fits 48 KiB.
-// Measured (H100 80GB HBM3, 700 W; chip_smoke.py): the add-then-query of
-// 1,048,576 Zipf ids takes 0.018 ms at width 1,024 and 0.040 at 2^20.
+//   2. uq_query (countmin_update_query only, a second launch on the same
+//      stream, so every add lands before any gather): one thread per 4 ids
+//      takes the min over depths, from a copy of the table in shared
+//      memory where it fits 48 KiB.
+// Measured (H100 80GB HBM3, 700 W; chip_smoke.py, CUDA-graph replays):
+// on 1,048,576 Zipf ids the add-then-query takes 0.018 ms at width 1,024
+// and 0.040 at 2^20, the increment (memset and add) 0.010 and 0.023,
+// against 0.034 and 0.079 for the witness kernels.
 // Warp aggregation and a remainder by division made the add slower;
 // more loads in flight, more or fewer blocks and a per-warp register
 // count of the hot id moved nothing.
+//
+// countmin_add_witness keeps the increment's first kernels, which the add
+// replaced, as its witness on the card: grid (blocks, depth), so every id
+// is read and hashed once a depth, the remainder by division, each warp's
+// equal slots aggregated with __match_any_sync; a depth row in shared
+// memory where it fits (width <= kMaxSmemWidth), else atomics straight
+// into the table in device memory.
 
 #include <algorithm>
 #include <climits>
@@ -292,12 +299,62 @@ int sm_count() {
 
 long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
+// table = src (a copy; zeros where src is null) + the counts of ids (n,)
+// int32 at every depth, on stream s: the fill, then one uq_add launch.
+cudaError_t fill_and_add(const int* ids, long long n, const int* seeds,
+                         int depth, int width, const int* src, int* table,
+                         cudaStream_t s) {
+  const long long cells = (long long)depth * width;
+  cudaError_t e =
+      src ? (src == table ? cudaSuccess
+                          : cudaMemcpyAsync(table, src, cells * sizeof(int),
+                                            cudaMemcpyDeviceToDevice, s))
+          : cudaMemsetAsync(table, 0, cells * sizeof(int), s);
+  if (e != cudaSuccess || n == 0) return e;
+  const bool pow2 = (width & (width - 1)) == 0;
+  const long long n4 = (uintptr_t)ids % 16 ? 0 : n / 4;
+  const long long units = n4 + (n - 4 * n4);
+  if (cells <= kMaxSmemWidth) {
+    const size_t smem = (size_t)cells * sizeof(int);
+    if (smem > (size_t)kDefaultSmem) {
+      e = cudaFuncSetAttribute(uq_add_smem,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    const long long blocks = std::max(
+        1LL, std::min(ceil_div(n, kUqIdsPerBlock), (long long)sm_count()));
+    uq_add_smem<<<(unsigned)blocks, kUqThreads, smem, s>>>(
+        ids, n, n4, seeds, depth, width, pow2, table);
+  } else {
+    const long long blocks = std::max(
+        1LL, std::min(ceil_div(units, kUqThreads),
+                      (long long)kGlobalBlocksPerSm * sm_count()));
+    uq_add_global<<<(unsigned)blocks, kUqThreads, 0, s>>>(
+        ids, n, n4, seeds, depth, width, pow2, table);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Adds the counts of ids (n,) int32 into table (depth, width) int32, in
-// place; seeds (depth, 2) int32 holds each depth's (a, b).
+// table (depth, width) int32 = src + the counts of ids (n,) int32, or the
+// counts alone where src is null; src is not modified (it may be table
+// itself: an add in place). seeds (depth, 2) int32 holds each depth's
+// (a, b).
 extern "C" int countmin_add(const int* ids, long long n, const int* seeds,
-                            int depth, int width, int* table, void* stream) {
+                            int depth, int width, const int* src, int* table,
+                            void* stream) {
+  if (depth <= 0 || width <= 0 || n < 0) return (int)cudaErrorInvalidValue;
+  return (int)fill_and_add(ids, n, seeds, depth, width, src, table,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The witness: adds the counts of ids into table in place, with the
+// increment's first kernels (cms_add_smem / cms_add_global).
+extern "C" int countmin_add_witness(const int* ids, long long n,
+                                    const int* seeds, int depth, int width,
+                                    int* table, void* stream) {
   if (n <= 0) return 0;
   if (depth <= 0 || width <= 0 || depth > 65535)
     return (int)cudaErrorInvalidValue;
@@ -337,35 +394,14 @@ extern "C" int countmin_update_query(const int* ids, long long n,
                                      int* est, void* stream) {
   if (depth <= 0 || width <= 0 || n < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long cells = (long long)depth * width;
-  cudaError_t e = cudaMemcpyAsync(new_table, table, cells * sizeof(int),
-                                  cudaMemcpyDeviceToDevice, s);
+  cudaError_t e =
+      fill_and_add(ids, n, seeds, depth, width, table, new_table, s);
   if (e != cudaSuccess || n == 0) return (int)e;
+  const long long cells = (long long)depth * width;
   const bool pow2 = (width & (width - 1)) == 0;
   const long long n4 =
       ((uintptr_t)ids | (uintptr_t)est) % 16 ? 0 : n / 4;
   const long long units = n4 + (n - 4 * n4);
-  if (cells <= kMaxSmemWidth) {
-    const size_t smem = (size_t)cells * sizeof(int);
-    if (smem > (size_t)kDefaultSmem) {
-      e = cudaFuncSetAttribute(uq_add_smem,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    const long long blocks = std::max(
-        1LL, std::min(ceil_div(n, kUqIdsPerBlock), (long long)sm_count()));
-    uq_add_smem<<<(unsigned)blocks, kUqThreads, smem, s>>>(
-        ids, n, n4, seeds, depth, width, pow2, new_table);
-  } else {
-    const long long blocks = std::max(
-        1LL, std::min(ceil_div(units, kUqThreads),
-                      (long long)kGlobalBlocksPerSm * sm_count()));
-    uq_add_global<<<(unsigned)blocks, kUqThreads, 0, s>>>(
-        ids, n, n4, seeds, depth, width, pow2, new_table);
-  }
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   if (cells <= kStageCells) {
     const long long qblocks = std::max(
         1LL, std::min(ceil_div(units, kStageThreads), 2LL * sm_count()));

@@ -32,6 +32,7 @@ detector_scan = _ds.detector_scan
 flash_attention = _fa.flash_attention
 rwkv6_wkv = _wkv.rwkv6_wkv
 countmin_update = _cms.countmin_update
+countmin_add = _cms.countmin_add
 countmin_update_query = _cms.countmin_update_query
 mg_scan = _mg.mg_scan
 mamba_scan = _ms.mamba_scan

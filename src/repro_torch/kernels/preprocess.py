@@ -10,7 +10,14 @@
   first.
 * :func:`fused_hash_features` replaces ``::fused_hash_features``
   (``_hash_kernel``): signed feature hashing into a dense (n, dim) array.
-  Bound by the bytes of the output. Bitwise equal to the plain version.
+  Bound by the bytes of the output, which it writes once: each row is
+  staged in shared memory, a warp adds its features there (equal slots
+  summed in feature order by the lowest of their lanes) and writes the
+  row out whole (``hash_staged``; dim <= 16,384, beyond that the
+  row-thread kernel). Bitwise equal to the plain version.
+  :func:`hash_features_rowthread_cuda` runs the first kernel (a thread
+  a row, adding in device memory) at any dim: the witness on the card,
+  not counted in :data:`LAUNCHES`.
 
 Each wrapper launches the kernel for a CUDA tensor, runs the plain
 version for a CPU tensor, and raises for any other device.
@@ -34,9 +41,9 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.library("preprocess")
     if not getattr(lib, "_typed", False):
-        lib.hash_features.argtypes = [_P, _P, _P, _I, _I, _I, ctypes.c_uint,
-                                      _P]
-        lib.hash_features.restype = _I
+        for fn in (lib.hash_features, lib.hash_features_rowthread):
+            fn.argtypes = [_P, _P, _P, _I, _I, _I, ctypes.c_uint, _P]
+            fn.restype = _I
         lib.normalize_chunks.argtypes = [_I]
         lib.normalize_chunks.restype = _I
         lib.fused_normalize.argtypes = [_P] * 9 + [_I, _I, _I, _P]
@@ -75,8 +82,7 @@ def fused_normalize_cuda(x, n0, mean0, m20, *, impute: bool = True):
     return y, n1.reshape(()), mean1, m21
 
 
-def fused_hash_features_cuda(ids, vals, dim: int, *, seed: int = 17):
-    """The feature-hashing kernel: ids/vals (n, f) -> dense (n, dim)."""
+def _hash(entry: str, ids, vals, dim: int, seed: int):
     if ids.shape != vals.shape or ids.dim() != 2:
         raise ValueError(f"ids {tuple(ids.shape)} and vals "
                          f"{tuple(vals.shape)} must both be (n, f)")
@@ -89,11 +95,24 @@ def fused_hash_features_cuda(ids, vals, dim: int, *, seed: int = 17):
     a = (2 * int(seed) + 1) & 0xFFFFFFFF
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
-        rc = _lib().hash_features(idt.data_ptr(), vf.data_ptr(),
-                                  out.data_ptr(), n, f, int(dim), a, stream)
-    _build.check(rc, "fused_hash_features")
-    LAUNCHES["fused_hash_features"] += 1
+        rc = getattr(_lib(), entry)(idt.data_ptr(), vf.data_ptr(),
+                                    out.data_ptr(), n, f, int(dim), a,
+                                    stream)
+    _build.check(rc, entry)
     return out
+
+
+def fused_hash_features_cuda(ids, vals, dim: int, *, seed: int = 17):
+    """The feature-hashing kernel: ids/vals (n, f) -> dense (n, dim)."""
+    out = _hash("hash_features", ids, vals, dim, seed)
+    if ids.shape[0]:
+        LAUNCHES["fused_hash_features"] += 1
+    return out
+
+
+def hash_features_rowthread_cuda(ids, vals, dim: int, *, seed: int = 17):
+    """The first hashing kernel, the staged kernel's witness (uncounted)."""
+    return _hash("hash_features_rowthread", ids, vals, dim, seed)
 
 
 def fused_normalize(x, n0, mean0, m20, *, impute: bool = True):

@@ -6,8 +6,9 @@ Each is the plain version its CUDA kernel is held against: the kernel
 wrappers run these for tensors on the CPU, the tests hold them to the
 JAX oracles, and ``chip_smoke.py`` holds each kernel to them on the
 card. They run on any device. ``mg_update_chunked_ref``,
-``ddm_scan_restart_ref`` and ``rwkv6_wkv_chunked_ref`` spell out the
-kernel algorithms of the two chained scans and of the WKV tensor-core
+``ddm_scan_restart_ref``, ``rwkv6_wkv_chunked_ref`` and
+``hash_features_grouped_ref`` spell out the kernel algorithms of the two
+chained scans, of the WKV tensor-core kernel and of the staged hash
 kernel for the CPU tests only; nothing on a main path calls them.
 """
 
@@ -72,6 +73,36 @@ def hash_features_ref(ids, vals, dim: int, seed: int = 17):
     out = torch.zeros((n, dim), dtype=torch.float32, device=vals.device)
     for j in range(f):
         out.scatter_add_(1, slot[:, j:j + 1], contrib[:, j:j + 1])
+    return out
+
+
+HASH_PASS = 32     # features a warp takes at once in the staged hash kernel
+
+
+def hash_features_grouped_ref(ids, vals, dim: int, seed: int = 17):
+    """The staged hash kernel's order of adds (``csrc/preprocess.cu``,
+    ``hash_staged``), spelled out for the CPU tests: per row, passes of
+    ``HASH_PASS`` features; in a pass the features whose slots are equal
+    form a group, and the group's first feature reads its cell (+0.0 at
+    the start), adds the group's values onto it in feature order and
+    stores the sum once. Bitwise :func:`hash_features_ref`."""
+    slot, odd = hash_slots(ids, dim, seed)
+    v = vals.float()
+    contrib = torch.where(odd, -v, v)
+    n, f = ids.shape
+    out = torch.zeros((n, dim), dtype=torch.float32, device=vals.device)
+    for p in range(0, f, HASH_PASS):
+        s, c = slot[:, p:p + HASH_PASS], contrib[:, p:p + HASH_PASS]
+        w = s.shape[1]
+        same = s[:, :, None] == s[:, None, :]              # (n, lane, peer)
+        lead = torch.argmax(same.to(torch.int8), dim=2)     # first peer
+        sums = torch.gather(out, 1, s)                      # cells at start
+        for j in range(w):
+            col = lead[:, j:j + 1]
+            sums.scatter_(1, col, torch.gather(sums, 1, col) + c[:, j:j + 1])
+        leader = lead == torch.arange(w, device=s.device)
+        rows = torch.arange(n, device=s.device)[:, None].expand(n, w)
+        out[rows[leader], s[leader]] = sums[leader]
     return out
 
 
@@ -373,6 +404,12 @@ def countmin_ref(ids, depth: int, width: int, seeds) -> torch.Tensor:
     return out
 
 
+def countmin_add_ref(ids, table, seeds) -> torch.Tensor:
+    """``table +`` the increment of ``ids``, as a new int32 table."""
+    depth, width = table.shape
+    return table.to(torch.int32) + countmin_ref(ids, depth, width, seeds)
+
+
 def countmin_update_query_ref(ids, table, seeds):
     """Fold the batch into the sketch, then estimate each id against the
     UPDATED table (min over depths): ``(new_table, est (n,))``, int32
@@ -380,7 +417,7 @@ def countmin_update_query_ref(ids, table, seeds):
     counts in fp32: ROADMAP fault 9)."""
     depth, width = table.shape
     sd = _seeds(seeds, ids.device)
-    new_table = table.to(torch.int32) + countmin_ref(ids, depth, width, sd)
+    new_table = countmin_add_ref(ids, table, sd)
     ests = [new_table[d][cms_hash(ids, sd[d, 0], sd[d, 1], width)]
             for d in range(depth)]
     return new_table, torch.stack(ests).amin(0)

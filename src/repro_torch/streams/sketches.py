@@ -20,7 +20,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import (cms_hash, countmin_ref,
+from repro_torch.kernels.ref import (cms_hash, countmin_add_ref,
                                      countmin_update_query_ref)
 
 
@@ -79,13 +79,15 @@ def _ids(like: torch.Tensor, ids) -> torch.Tensor:
 
 def countmin_add(cm: CountMin, ids,
                  use_kernel: Optional[bool] = None) -> CountMin:
-    depth, width = cm.table.shape
+    """Fold ``ids`` into the sketch: ``table +`` their increment, a new
+    table (on the card one C call: a copy of the table, then the add);
+    ``cm`` is left as it was."""
     ids = _ids(cm.table, ids)
     if _resolve_kernel(use_kernel, cm.table.device, "countmin_add"):
-        inc = kops.countmin_update(ids, depth, width, cm.seeds)
+        table = kops.countmin_add(ids, cm.table, cm.seeds)
     else:
-        inc = countmin_ref(ids, depth, width, cm.seeds)
-    return cm._replace(table=cm.table + inc)
+        table = countmin_add_ref(ids, cm.table, cm.seeds)
+    return cm._replace(table=table)
 
 
 def countmin_add_query(cm: CountMin, ids,
