@@ -14,7 +14,12 @@ path on the card, and checks what comes out. Phases:
 2. each slice-1 kernel vs its plain version: max error against the
    stated tolerance, the kernel's time from CUDA-graph replays with the
    inputs cycled past the L2 (eager logged), the plain version's time,
-   and the least time the card could take (``bound_ms``); the staged
+   and the least time the card could take (``bound_ms``); the
+   persistent normalize (one cooperative kernel a call, captured by a
+   CUDA graph) against its plain version and its three-kernel witness at
+   phase 5's shape and with no rows, one row, fewer rows than CTAs, rows
+   off the CTA count, d 8, 255 and 20,000, an all-NaN column and no
+   impute, ``copy_`` of x timed beside it; the staged
    hash kernel bitwise its plain version and its row-thread witness at
    the hashed job's shape (65,536 x 32 -> 1,024) and on -0.0, NaN and
    +-inf among colliding features, f = 1, 7, 33, 64, ragged n, dims 8,
@@ -84,10 +89,13 @@ path on the card, and checks what comes out. Phases:
    count, Misra-Gries after the first batch must be bitwise its plain
    loop's and after every batch its serial witness's (replayed over the
    same ids), and its top key at the end must be the most frequent id;
-9. the Mamba selective scan at jamba-1.5-large-398b's mixer width
-   (d_inner 16,384, 16 states) against its plain version at a prefill
-   shape (B 2, S 4,096), a ragged one (S 4,000) and a decode step
-   (S 1), then through ``kernels.ops.mamba_scan`` as that path.
+9. the Mamba selective scan (four lanes a channel) at
+   jamba-1.5-large-398b's mixer width (d_inner 16,384, 16 states)
+   against its plain version and its thread-a-channel witness at a
+   prefill shape (B 2, S 4,096), a ragged one (S 4,000) and a decode
+   step (S 1), graph-timed with the inputs cycled past the L2, and at
+   N = 4 and d_inner 16,380 and 1,001; one call one kernel; then
+   through ``kernels.ops.mamba_scan`` as that path.
 
 The launch counts are set to 0 just before each main path (phases 3-5
 as one, each model of phase 6, phases 7, 8 and 9) and read just after
@@ -101,8 +109,8 @@ it.
 
 Two further modes measure without checking:
 
-    python3 chip_smoke.py --measure [--src DIR] [--wkv | --codec]
-    python3 chip_smoke.py --compare ROOT [--runs 3] [--wkv | --codec]
+    python3 chip_smoke.py --measure [--src DIR] [--wkv | --codec | --mamba]
+    python3 chip_smoke.py --compare ROOT [--runs 3] [--wkv | --codec | --mamba]
 
 ``--measure`` drives only the main paths of phases 3 (both codecs, after
 the same warm-up run), 4, 6-7 and 8, as the full run drives them but
@@ -120,10 +128,13 @@ prefill and decode shapes through the tree's ``kernels.ops.rwkv6_wkv``
 (the model layout) and ``rwkv6_wkv_bh_cuda`` (the reference's layout).
 With ``--codec`` both time only the top-k EF round-trip (16,777,216
 and 65,536 elements, with ``torch.topk``'s threshold beside it), the
-int8 round-trip, the fused normalize, the hash at phase 4's shape, and
-count-min's increment, ``sketches.countmin_add`` and add-then-query at
-both widths, graph-timed and eager (``codec_measure``), with the
-witnesses where the tree has them.
+int8 round-trip, the fused normalize (with ``copy_`` of x), the hash at
+phase 4's shape, and count-min's increment, ``sketches.countmin_add``
+and add-then-query at both widths, graph-timed and eager
+(``codec_measure``), with the witnesses where the tree has them. With
+``--mamba`` both time only the Mamba scan at phase 9's three shapes,
+graph-timed and eager, with the witness where the tree has it
+(``mamba_measure``).
 """
 
 from __future__ import annotations
@@ -201,6 +212,7 @@ MAMBA_B = 2
 MAMBA_CHUNK = 256
 MAMBA_SHAPES = (("mamba_scan", 4096), ("mamba_scan/ragged", 4000),
                 ("mamba_scan/decode", 1))
+MAMBA_CHECK_S = 512    # steps of the N = 4 and ragged-dI checks
 MAMBA_TOL = 1e-5       # rtol and atol, fp32 against the per-step plain scan
 # prefill logits of impl="kernel" against impl="chunked" on the card, in
 # bf16: max |difference| <= LOGITS_RTOL * max |chunked logits|
@@ -316,8 +328,7 @@ def recorder(rows: dict, bw: float, flops: float, tensor: float):
 def kernel_checks(dev, g, record) -> None:
     """Slice 1's kernels at the orchestrator's shapes."""
     import torch
-    from repro_torch.kernels import (detector_scan as ds, ef_codec,
-                                     preprocess, ref)
+    from repro_torch.kernels import detector_scan as ds, ef_codec, ref
     from repro_torch.streams import drift
 
     n_el = N_EVENTS * DIM
@@ -350,37 +361,7 @@ def kernel_checks(dev, g, record) -> None:
 
     hash_kernel_checks(dev, g, record)
 
-    # -- fused normalize: (65536 x 256) with 15% NaN -----------------------
-    x = torch.randn((N_EVENTS, DIM), generator=g, device=dev) * 2.0 + 0.5
-    x[torch.rand((N_EVENTS, DIM), generator=g, device=dev) < 0.15] = math.nan
-    n0 = torch.tensor(1000.0, device=dev)   # on the card, as the path's
-    mean0 = torch.randn((DIM,), generator=g, device=dev)
-    m20 = (torch.rand((DIM,), generator=g, device=dev) + 0.1) * n0
-    got = preprocess.fused_normalize_cuda(x, n0, mean0, m20)
-    want = ref.fused_normalize_ref(x, n0, mean0, m20)
-    torch.cuda.synchronize()
-    # raw moments (kernel) vs centred moments (plain): rtol 1e-4, atol 1e-4
-    worst = 0.0
-    for a, b in zip(got, want):
-        excess = float(((a - b).abs() - (1e-4 + 1e-4 * b.abs())).max())
-        worst = max(worst, excess)
-        if not torch.isfinite(a).all():
-            raise AssertionError("fused_normalize returned a non-finite value")
-    if worst > 0.0:
-        raise AssertionError(f"fused_normalize outside rtol/atol 1e-4 by {worst!r}")
-    yerr = float((got[0] - want[0]).abs().max())
-    ytol = 1e-4 + 1e-4 * float(want[0].abs().max())
-    del got, want
-    sets = [(x,)] + [(x.clone(),) for _ in range(n_sets((x,)) - 1)]
-    call = cycling(lambda x_: preprocess.fused_normalize_cuda(
-        x_, n0, mean0, m20), sets)
-    ms, eager = graph_ms(call, max(20, len(sets))), median_ms(call, 20)
-    log(f"  fused_normalize: graph ms {ms!r} [eager {eager!r}]")
-    record("fused_normalize", "src/repro_torch/kernels/csrc/preprocess.cu",
-           "src/repro/kernels/preprocess.py:92", yerr, ytol, ms,
-           median_ms(lambda: ref.fused_normalize_ref(x, n0, mean0, m20), 5),
-           2 * n_el * 4 + 3 * DIM * 4 * 2, 8 * n_el)
-    del x, sets
+    normalize_kernel_checks(dev, g, record)
 
     # -- detector scan: a 0/1 error stream with a planted drift ------------
     p = torch.where(torch.arange(N_EVENTS, device=dev) < N_EVENTS // 2,
@@ -499,6 +480,112 @@ def kernel_checks(dev, g, record) -> None:
         if not same:
             raise AssertionError(f"detector scan ({det}) differs from its "
                                  "plain loop")
+
+
+NORM_TOL = 1e-4     # rtol and atol: raw moments (kernel) against centred
+
+
+def normalize_cases():
+    """``(row, n, d, impute, all-NaN column)``: phase 5's shape, then the
+    edge cases: no rows, one row, fewer rows than CTAs, rows off the
+    CTA count, d 8 and 255 (4-byte loads), an all-NaN column, no impute,
+    and rows too wide for a CTA's stage (d 20,000)."""
+    yield "fused_normalize", N_EVENTS, DIM, True, False
+    yield "normalize/n0", 0, DIM, True, False
+    yield "normalize/n1", 1, DIM, True, False
+    yield "normalize/n100", 100, DIM, True, False
+    yield "normalize/ragged", N_EVENTS + 1, DIM, True, False
+    yield "normalize/d8", 1000, 8, True, False
+    yield "normalize/d255", 1000, 255, True, False
+    yield "normalize/nan_column", 5000, DIM, True, True
+    yield "normalize/no_impute", 5000, DIM, False, False
+    yield "normalize/d20000", 777, 20000, True, False
+
+
+def normalize_excess(got, want) -> float:
+    """Largest excess of |got - want| over rtol/atol ``NORM_TOL`` over the
+    four outputs; a NaN must meet a NaN (n = 0 leaves mean1 NaN in both)."""
+    import torch
+    worst = -math.inf
+    for a, b in zip(got, want):
+        if a.numel() == 0:
+            continue
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            return math.inf
+        ok = ~torch.isnan(b)
+        if ok.any():
+            worst = max(worst, float(((a[ok] - b[ok]).abs()
+                                      - (NORM_TOL + NORM_TOL * b[ok].abs())
+                                      ).max()))
+    return worst
+
+
+def normalize_kernel_checks(dev, g, record) -> None:
+    """Row 1, the persistent normalize: within rtol/atol 1e-4 of its plain
+    version and of the three-kernel witness on ``normalize_cases``; at
+    phase 5's shape (65,536 x 256, 15% NaN) one call one kernel
+    (``kernels_in_graph``: the cooperative launch captured by a CUDA
+    graph), graph-timed with the inputs cycled past the L2, the witness
+    and ``copy_`` of x (the bound's bytes) timed beside it."""
+    import torch
+    from repro_torch.kernels import preprocess, ref
+
+    log(f"  normalize: {preprocess._lib().normalize_grid()} CTAs")
+    for row, n, d, impute, nan_col in normalize_cases():
+        x = torch.randn((n, d), generator=g, device=dev) * 2.0 + 0.5
+        if impute:
+            x[torch.rand((n, d), generator=g, device=dev) < 0.15] = math.nan
+        if nan_col:
+            x[:, 3] = math.nan
+        n0 = torch.tensor(1000.0, device=dev)   # on the card, as the path's
+        mean0 = torch.randn((d,), generator=g, device=dev)
+        m20 = (torch.rand((d,), generator=g, device=dev) + 0.1) * n0
+        got = preprocess.fused_normalize_cuda(x, n0, mean0, m20,
+                                              impute=impute)
+        want = ref.fused_normalize_ref(x, n0, mean0, m20, impute=impute)
+        wit = preprocess.fused_normalize_witness_cuda(x, n0, mean0, m20,
+                                                      impute=impute)
+        torch.cuda.synchronize()
+        excess = {"plain": normalize_excess(got, want),
+                  "witness": normalize_excess(got, wit)}
+        finite = n == 0 or bool(torch.isfinite(got[0]).all())
+        log(f"  {row}: ({n}, {d}) impute={impute}, excess over rtol/atol "
+            f"{NORM_TOL}: {excess}; y finite {finite}")
+        if not (max(excess.values()) <= 0.0 and finite):
+            raise AssertionError(f"{row}: the normalize kernel is outside "
+                                 f"rtol/atol {NORM_TOL} or not finite")
+        if row != "fused_normalize":
+            del x, got, want, wit
+            continue
+        yerr = float((got[0] - want[0]).abs().max())
+        ytol = NORM_TOL + NORM_TOL * float(want[0].abs().max())
+        del got, want, wit
+        nodes = kernels_in_graph(
+            lambda: preprocess.fused_normalize_cuda(x, n0, mean0, m20))
+        log(f"    one call's CUDA graph: {nodes}")
+        if len(nodes) != 1 or "normalize_persistent" not in nodes[0]:
+            raise AssertionError(f"normalize: one call's CUDA graph holds "
+                                 f"{nodes}")
+        sets = [(x,)] + [(x.clone(),) for _ in range(n_sets((x,)) - 1)]
+        reps = max(20, len(sets))
+        call = cycling(lambda x_: preprocess.fused_normalize_cuda(
+            x_, n0, mean0, m20), sets)
+        ms, eager = graph_ms(call, reps), median_ms(call, reps)
+        witness_ms = graph_ms(cycling(
+            lambda x_: preprocess.fused_normalize_witness_cuda(
+                x_, n0, mean0, m20), sets), reps)
+        outs = [(x_, torch.empty_like(x_)) for (x_,) in sets]
+        copy_ms = graph_ms(cycling(lambda a, b: b.copy_(a), outs), reps)
+        log(f"    graph ms: kernel {ms!r} [eager {eager!r}], the "
+            f"three-kernel witness {witness_ms!r}, copy_ of x {copy_ms!r}")
+        n_el = n * d
+        record("fused_normalize", "src/repro_torch/kernels/csrc/preprocess.cu",
+               "src/repro/kernels/preprocess.py:92", yerr, ytol, ms,
+               median_ms(lambda: ref.fused_normalize_ref(x, n0, mean0, m20),
+                         5),
+               2 * n_el * 4 + 3 * d * 4 * 2, 8 * n_el)
+        del x, sets, outs
+    torch.cuda.empty_cache()
 
 
 def hash_cases(g, dev):
@@ -1324,9 +1411,17 @@ def codec_measure(dev) -> dict:
     n0, mean0 = torch.tensor(1000.0, device=dev), torch.zeros(DIM, device=dev)
     m20 = torch.ones(DIM, device=dev)
     sets = [(x,)] + [(x.clone(),) for _ in range(n_sets((x,)) - 1)]
+    reps = max(20, len(sets))
     both("normalize", lambda x_: preprocess.fused_normalize_cuda(
-        x_, n0, mean0, m20), sets, max(20, len(sets)))
-    del x, sets
+        x_, n0, mean0, m20), sets, reps)
+    witness = getattr(preprocess, "fused_normalize_witness_cuda", None)
+    if witness is not None:
+        out["normalize_witness_graph_ms"] = graph_ms(cycling(
+            lambda x_: witness(x_, n0, mean0, m20), sets), reps)
+    outs = [(x_, torch.empty_like(x_)) for (x_,) in sets]
+    out["normalize_copy_graph_ms"] = graph_ms(
+        cycling(lambda a, b: b.copy_(a), outs), reps)
+    del x, sets, outs
     first = (torch.randint(-2 ** 31, 2 ** 31 - 1, (N_EVENTS, HASH_F),
                            generator=g, device=dev,
                            dtype=torch.int64).to(torch.int32),
@@ -1921,13 +2016,14 @@ def summarization_phase(dev, mg_first=None):
 # phase 9: the Mamba selective scan at jamba's mixer width
 # ---------------------------------------------------------------------------
 
-def mamba_inputs(g, dev, S: int):
+def mamba_inputs(g, dev, S: int, N=None, dI=None):
     """dt, x, B, C, A, h0 built as ``models/ssm.py`` builds them:
     dt = softplus(. - 4.6) (its dt_bias), A = -exp(A_log) with Mamba's
-    S4D-real A_log = log(1..N)."""
+    S4D-real A_log = log(1..N); h0 nonzero only for a decode step. N and
+    dI default to jamba's."""
     import torch
     import torch.nn.functional as F
-    B, dI, N = MAMBA_B, MAMBA_DI, MAMBA_N
+    B, N, dI = MAMBA_B, N or MAMBA_N, dI or MAMBA_DI
     dt = F.softplus(torch.randn((B, S, dI), generator=g, device=dev) - 4.6)
     x = torch.randn((B, S, dI), generator=g, device=dev)
     Bm = torch.randn((B, S, N), generator=g, device=dev)
@@ -1939,49 +2035,91 @@ def mamba_inputs(g, dev, S: int):
     return dt, x, Bm, Cm, A, h0
 
 
+def mamba_excess(a, b) -> float:
+    """Largest excess of |a - b| over rtol=atol=``MAMBA_TOL``."""
+    return float(((a - b).abs() - MAMBA_TOL * (1 + b.abs())).max())
+
+
+def mamba_timed(dev, g, S: int, reps_floor: int):
+    """Graph ms of the lane kernel and of the witness on input sets cycled
+    past the L2, and the lane kernel's eager ms."""
+    import torch
+    from repro_torch.kernels import mamba_scan as ms
+    first = mamba_inputs(g, dev, S)
+    sets = [first] + [mamba_inputs(g, dev, S)
+                      for _ in range(n_sets(first) - 1)]
+    reps = max(reps_floor, len(sets))
+    call = cycling(lambda *t: ms.mamba_scan_cuda(*t, chunk=MAMBA_CHUNK), sets)
+    out = {"graph": graph_ms(call, reps), "eager": median_ms(call, reps)}
+    witness = getattr(ms, "mamba_scan_witness_cuda", None)
+    if witness is not None:
+        out["witness_graph"] = graph_ms(cycling(
+            lambda *t: witness(*t, chunk=MAMBA_CHUNK), sets), reps)
+    del first, sets
+    torch.cuda.empty_cache()
+    return out
+
+
 def mamba_phase(dev, g, record) -> dict:
-    """The scan against its plain version at three shapes, then the
-    public wrapper as the path. Returns the launch counts of the path."""
+    """The lane kernel against its plain version and the thread-a-channel
+    witness at three shapes (graph-timed with the inputs cycled past the
+    L2, eager and the witness logged beside), at N = 4 and at dI off the
+    block's 64 channels (16-byte and 4-byte copies); then the public
+    wrapper as the path. Returns the launch counts of the path."""
     import torch
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ops
 
-    B, dI, N = MAMBA_B, MAMBA_DI, MAMBA_N
-    for row, S in MAMBA_SHAPES:
-        ins = mamba_inputs(g, dev, S)
+    B = MAMBA_B
+    checks = [(row, S, MAMBA_N, MAMBA_DI) for row, S in MAMBA_SHAPES]
+    checks += [("mamba_scan/N4", MAMBA_CHECK_S, 4, MAMBA_DI),
+               (f"mamba_scan/dI{MAMBA_DI - 4}", MAMBA_CHECK_S, MAMBA_N,
+                MAMBA_DI - 4),
+               ("mamba_scan/dI1001", MAMBA_CHECK_S, MAMBA_N, 1001)]
+    for row, S, N, dI in checks:
+        ins = mamba_inputs(g, dev, S, N, dI)
         y, h = ms.mamba_scan_cuda(*ins, chunk=MAMBA_CHUNK)
+        wy, wh = ms.mamba_scan_witness_cuda(*ins, chunk=MAMBA_CHUNK)
         t0 = time.perf_counter()
         py, ph = ms.mamba_scan_ref(*ins)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        worst, err = 0.0, 0.0
-        for a, b in ((y, py), (h, ph)):
+        for a in (y, h):
             if not torch.isfinite(a).all():
                 raise AssertionError(f"{row}: non-finite output")
-            worst = max(worst, float(((a - b).abs()
-                                      - MAMBA_TOL * (1 + b.abs())).max()))
-            err = max(err, float((a - b).abs().max()))
+        excess = {"plain": max(mamba_excess(y, py), mamba_excess(h, ph)),
+                  "witness": max(mamba_excess(y, wy), mamba_excess(h, wh))}
+        err = max(float((y - py).abs().max()), float((h - ph).abs().max()))
         tol = MAMBA_TOL * (1 + float(torch.maximum(py.abs().max(),
                                                    ph.abs().max())))
         log(f"  {row} (B {B}, S {S}, dI {dI}, N {N}): elementwise excess "
-            f"over rtol=atol={MAMBA_TOL}: {worst!r}")
-        if worst > 0.0:
+            f"over rtol=atol={MAMBA_TOL}: {excess}")
+        if max(excess.values()) > 0.0:
             raise AssertionError(f"{row}: outside rtol=atol={MAMBA_TOL}")
-        nbytes = 4 * (3 * B * S * dI + 2 * B * S * N + dI * N + 2 * B * dI * N)
-        record("mamba_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
-               "src/repro/kernels/mamba_scan.py:70", err, tol,
-               median_ms(lambda: ms.mamba_scan_cuda(*ins, chunk=MAMBA_CHUNK),
-                         20 if S > 1 else 100),
-               plain_ms, nbytes, B * S * dI * (7 * N + 1),
-               row=None if row == "mamba_scan" else row)
-        del ins, y, h, py, ph
+        del ins, y, h, wy, wh, py, ph
+        torch.cuda.empty_cache()
+        if row in dict(MAMBA_SHAPES):
+            t = mamba_timed(dev, g, S, 20 if S > 1 else 100)
+            log(f"    graph ms: kernel {t['graph']!r} [eager {t['eager']!r}]"
+                f", the thread-a-channel witness {t['witness_graph']!r}")
+            nbytes = 4 * (3 * B * S * dI + 2 * B * S * N + dI * N
+                          + 2 * B * dI * N)
+            record("mamba_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:70", err, tol, t["graph"],
+                   plain_ms, nbytes, B * S * dI * (7 * N + 1),
+                   row=None if row == "mamba_scan" else row)
     ins = mamba_inputs(g, dev, MAMBA_SHAPES[0][1])
+    nodes = kernels_in_graph(lambda: ops.mamba_scan(*ins, chunk=MAMBA_CHUNK))
+    log(f"  one call's CUDA graph: {nodes}")
+    if len(nodes) != 1 or "mamba_scan_lanes" not in nodes[0]:
+        raise AssertionError(f"mamba_scan: one call's CUDA graph holds {nodes}")
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     y, h = ops.mamba_scan(*ins, chunk=MAMBA_CHUNK)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    if y.shape != (B, MAMBA_SHAPES[0][1], dI) or h.shape != (B, dI, N) \
+    if y.shape != (B, MAMBA_SHAPES[0][1], MAMBA_DI) \
+            or h.shape != (B, MAMBA_DI, MAMBA_N) \
             or not (torch.isfinite(y).all() and torch.isfinite(h).all()):
         raise AssertionError("ops.mamba_scan: misshapen or non-finite")
     log(f"  ops.mamba_scan: y {tuple(y.shape)}, h_last {tuple(h.shape)}, "
@@ -1989,6 +2127,21 @@ def mamba_phase(dev, g, record) -> dict:
     del ins, y, h
     torch.cuda.empty_cache()
     return counts
+
+
+def mamba_measure(dev) -> dict:
+    """The scan alone at phase 9's three shapes in the tree under test,
+    for ``--measure --mamba``: the kernel's CUDA-graph and eager ms with
+    the inputs cycled past the L2, and the witness's graph ms where the
+    tree has one."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(1234)
+    out = {}
+    for row, S in MAMBA_SHAPES:
+        tag = row.split("/")[-1] if "/" in row else "prefill"
+        for k, v in mamba_timed(dev, g, S, 20 if S > 1 else 100).items():
+            out[f"mamba_{tag}_{k}_ms"] = v
+    return out
 
 
 def check_no_nan(states, what: str):
@@ -2029,9 +2182,9 @@ def measure(dev) -> dict:
 
 
 def compare(other: pathlib.Path, runs: int, mode=None) -> int:
-    """``--measure`` (with ``mode``, ``--measure --wkv`` or ``--measure
-    --codec``) for ``other``'s port and this checkout's in turns, each run
-    a process of its own."""
+    """``--measure`` (with ``mode``, ``--measure --wkv``, ``--codec`` or
+    ``--mamba``) for ``other``'s port and this checkout's in turns, each
+    run a process of its own."""
     trees = {"other": other.resolve() / "src", "this": SRC}
     order = []
     for i in range(runs):
@@ -2083,9 +2236,13 @@ def main(argv=None) -> int:
     ap.add_argument("--codec", action="store_true",
                     help="with --measure or --compare: time only rows 1-6 "
                          "(normalize, hash, the EF codecs, count-min)")
+    ap.add_argument("--mamba", action="store_true",
+                    help="with --measure or --compare: time only the Mamba "
+                         "scan and its witness at phase 9's three shapes")
     args = ap.parse_args(argv)
-    if args.wkv and args.codec:
-        ap.error("--wkv and --codec are two separate modes")
+    modes = [m for m in ("wkv", "codec", "mamba") if getattr(args, m)]
+    if len(modes) > 1:
+        ap.error("--wkv, --codec and --mamba are separate modes")
     try:
         import torch
     except ImportError:
@@ -2102,14 +2259,14 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
     if args.compare is not None:
-        return compare(args.compare, args.runs,
-                       "wkv" if args.wkv else "codec" if args.codec else None)
+        return compare(args.compare, args.runs, modes[0] if modes else None)
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.measure:
-        fn = wkv_measure if args.wkv else codec_measure if args.codec \
-            else measure
+        fn = {"wkv": wkv_measure, "codec": codec_measure,
+              "mamba": mamba_measure}.get(modes[0] if modes else None,
+                                          measure)
         log(json.dumps(fn(torch.device("cuda"))))
         return 0
 

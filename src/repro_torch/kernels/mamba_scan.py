@@ -6,8 +6,18 @@ Replaces the JAX package's ``kernels/mamba_scan.py::mamba_scan_bd``
 (``_mamba_kernel``). :func:`mamba_scan` takes dt, x (B, S, dI), Bm, Cm
 (B, S, N), A (dI, N) and h0 (B, dI, N) and returns ``(y (B, S, dI),
 h_last (B, dI, N))``, both fp32 (inputs of another float type are cast).
-``chunk`` (steps of B and C staged at a time) and ``bd`` (channels a
-block) only set the kernel's schedule. S = 1 is a decode step.
+S = 1 is a decode step.
+
+On the card the kernel is ``mamba_scan_lanes``: four lanes a channel,
+each holding N / 4 states (a thread is a lane of two channels),
+exponentials as ``ex2`` of a pre-scaled A, dt and x staged a tile of
+steps ahead (``ref.mamba_scan_lanes_ref``
+spells out its arithmetic). ``chunk`` and ``bd`` only set its schedule,
+within what it builds: it stages ``min(chunk, 32)`` steps at a time and
+takes ``bd`` channels a block, rounded up to a multiple of 16, at most
+64. :func:`mamba_scan_witness_cuda` runs the first kernel (a thread a
+channel, ``chunk`` steps of B and C staged, ``bd`` threads a block): the
+witness on the card, not counted in :data:`LAUNCHES`.
 
 It launches the kernel for a CUDA tensor, runs the plain version for a
 CPU tensor, and raises for any other device.
@@ -25,6 +35,8 @@ from repro_torch.kernels.ref import mamba_scan_ref
 LAUNCHES = {"mamba_scan": 0}
 
 STATE_SIZES = (4, 16)   # the configs' d_state; the .cu builds these
+MAX_TILE = 32           # steps the lane kernel stages at a time
+MAX_CHANNELS = 64       # channels a block of the lane kernel
 MAX_CHUNK = 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,15 +45,14 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.library("mamba_scan")
     if not getattr(lib, "_typed", False):
-        lib.mamba_scan.argtypes = [_P] * 8 + [_I] * 6 + [_P]
-        lib.mamba_scan.restype = _I
+        for fn in (lib.mamba_scan, lib.mamba_scan_witness):
+            fn.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+            fn.restype = _I
         lib._typed = True
     return lib
 
 
-def mamba_scan_cuda(dt, x, Bm, Cm, A, h0, *, chunk: int = 128,
-                    bd: int = 256):
-    """The selective-scan kernel: ``(y, h_last)`` in fp32."""
+def _scan(entry: str, dt, x, Bm, Cm, A, h0, steps: int, width: int):
     B, S, dI = dt.shape
     N = Bm.shape[-1]
     if (x.shape != dt.shape or Bm.shape != (B, S, N) or Cm.shape != Bm.shape
@@ -54,20 +65,38 @@ def mamba_scan_cuda(dt, x, Bm, Cm, A, h0, *, chunk: int = 128,
         raise ValueError(f"mamba_scan: state size {N} (built for "
                          f"{STATE_SIZES})")
     dev = dt.device
-    chunk = max(1, min(int(chunk), S, MAX_CHUNK))
-    bd = min(1024, 32 * -(-max(1, min(int(bd), dI)) // 32))
     ins = [t.to(device=dev, dtype=torch.float32).contiguous()
            for t in (dt, x, Bm, Cm, A, h0)]
     y = torch.empty((B, S, dI), dtype=torch.float32, device=dev)
     h_last = torch.empty((B, dI, N), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().mamba_scan(*[t.data_ptr() for t in ins], y.data_ptr(),
-                               h_last.data_ptr(), B, S, dI, N, chunk, bd,
-                               stream)
-    _build.check(rc, "mamba_scan")
-    LAUNCHES["mamba_scan"] += 1
+        rc = getattr(_lib(), entry)(*[t.data_ptr() for t in ins],
+                                    y.data_ptr(), h_last.data_ptr(), B, S,
+                                    dI, N, steps, width, stream)
+    _build.check(rc, entry)
     return y, h_last
+
+
+def mamba_scan_cuda(dt, x, Bm, Cm, A, h0, *, chunk: int = 128,
+                    bd: int = 256):
+    """The lane-split selective-scan kernel: ``(y, h_last)`` in fp32."""
+    S, dI = dt.shape[1], dt.shape[2]
+    steps = max(1, min(int(chunk), S, MAX_TILE))
+    chans = min(MAX_CHANNELS, 16 * -(-max(1, min(int(bd), dI)) // 16))
+    out = _scan("mamba_scan", dt, x, Bm, Cm, A, h0, steps, chans)
+    LAUNCHES["mamba_scan"] += 1
+    return out
+
+
+def mamba_scan_witness_cuda(dt, x, Bm, Cm, A, h0, *, chunk: int = 128,
+                            bd: int = 256):
+    """The first selective-scan kernel, the lane kernel's witness
+    (uncounted)."""
+    S, dI = dt.shape[1], dt.shape[2]
+    steps = max(1, min(int(chunk), S, MAX_CHUNK))
+    threads = min(1024, 32 * -(-max(1, min(int(bd), dI)) // 32))
+    return _scan("mamba_scan_witness", dt, x, Bm, Cm, A, h0, steps, threads)
 
 
 def mamba_scan(dt, x, Bm, Cm, A, h0, *, chunk: int = 128, bd: int = 256):

@@ -4,10 +4,16 @@
 * :func:`fused_normalize` replaces the JAX package's
   ``kernels/preprocess.py::fused_normalize`` (``_normalize_kernel``):
   NaN -> prior-mean impute, batch moments, Welford merge and normalize.
-  Bound by bytes (x read once, y written once). The kernel sums raw
-  moments in a fixed order (no float atomics), so it is deterministic
-  and tolerance-equal, not bitwise, to the plain version, which centres
-  first.
+  Bound by bytes (x read once, y written once). One call is one
+  persistent kernel (``normalize_persistent``, a cooperative launch of
+  one CTA an SM): each CTA reads its slice of rows once and keeps it in
+  shared memory and the L2 for the normalize after a grid barrier. The
+  partials are added in a fixed order (no float atomics), so it is
+  deterministic and tolerance-equal, not bitwise, to the plain version,
+  which centres first; ``ref.fused_normalize_slices_ref`` spells out its
+  order. :func:`fused_normalize_witness_cuda` runs the
+  first kernels (three launches, x read twice): the witness on the
+  card, not counted in :data:`LAUNCHES`.
 * :func:`fused_hash_features` replaces ``::fused_hash_features``
   (``_hash_kernel``): signed feature hashing into a dense (n, dim) array.
   Bound by the bytes of the output, which it writes once: each row is
@@ -46,14 +52,17 @@ def _lib():
             fn.restype = _I
         lib.normalize_chunks.argtypes = [_I]
         lib.normalize_chunks.restype = _I
-        lib.fused_normalize.argtypes = [_P] * 9 + [_I, _I, _I, _P]
-        lib.fused_normalize.restype = _I
+        lib.normalize_grid.argtypes = []
+        lib.normalize_grid.restype = _I
+        for fn in (lib.fused_normalize, lib.fused_normalize_witness):
+            fn.argtypes = [_P] * 9 + [_I, _I, _I, _P]
+            fn.restype = _I
         lib._typed = True
     return lib
 
 
-def fused_normalize_cuda(x, n0, mean0, m20, *, impute: bool = True):
-    """The fused normalize kernel: ``(y, n1, mean1, m21)``."""
+def _normalize(entry: str, scratch, x, n0, mean0, m20, impute: bool):
+    """Run C entry ``entry`` with ``scratch(lib, n, d)`` floats of scratch."""
     if x.dim() != 2:
         raise ValueError(f"x must be (n, d), got {tuple(x.shape)}")
     n, d = x.shape
@@ -65,21 +74,37 @@ def fused_normalize_cuda(x, n0, mean0, m20, *, impute: bool = True):
     m20t = torch.as_tensor(m20, dtype=torch.float32,
                            device=dev).reshape(d).contiguous()
     lib = _lib()
-    chunks = lib.normalize_chunks(n)
     y = torch.empty_like(xf)
     n1 = torch.empty(1, dtype=torch.float32, device=dev)
     mean1 = torch.empty(d, dtype=torch.float32, device=dev)
     m21 = torch.empty(d, dtype=torch.float32, device=dev)
-    scratch = torch.empty(2 * chunks * d + d, dtype=torch.float32, device=dev)
+    work = torch.empty(scratch(lib, n, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_normalize(
+        rc = getattr(lib, entry)(
             xf.data_ptr(), n0t.data_ptr(), mean0t.data_ptr(), m20t.data_ptr(),
             y.data_ptr(), n1.data_ptr(), mean1.data_ptr(), m21.data_ptr(),
-            scratch.data_ptr(), n, d, int(bool(impute)), stream)
-    _build.check(rc, "fused_normalize")
-    LAUNCHES["fused_normalize"] += 1
+            work.data_ptr(), n, d, int(bool(impute)), stream)
+    _build.check(rc, entry)
     return y, n1.reshape(()), mean1, m21
+
+
+def fused_normalize_cuda(x, n0, mean0, m20, *, impute: bool = True):
+    """The persistent normalize kernel: ``(y, n1, mean1, m21)``."""
+    out = _normalize("fused_normalize",
+                     lambda lib, n, d: 2 * lib.normalize_grid() * d + 2 * d,
+                     x, n0, mean0, m20, impute)
+    LAUNCHES["fused_normalize"] += 1
+    return out
+
+
+def fused_normalize_witness_cuda(x, n0, mean0, m20, *, impute: bool = True):
+    """The first normalize kernels, the persistent kernel's witness
+    (uncounted)."""
+    return _normalize(
+        "fused_normalize_witness",
+        lambda lib, n, d: 2 * lib.normalize_chunks(n) * d + d,
+        x, n0, mean0, m20, impute)
 
 
 def _hash(entry: str, ids, vals, dim: int, seed: int):

@@ -6,10 +6,12 @@ Each is the plain version its CUDA kernel is held against: the kernel
 wrappers run these for tensors on the CPU, the tests hold them to the
 JAX oracles, and ``chip_smoke.py`` holds each kernel to them on the
 card. They run on any device. ``mg_update_chunked_ref``,
-``ddm_scan_restart_ref``, ``rwkv6_wkv_chunked_ref`` and
-``hash_features_grouped_ref`` spell out the kernel algorithms of the two
-chained scans, of the WKV tensor-core kernel and of the staged hash
-kernel for the CPU tests only; nothing on a main path calls them.
+``ddm_scan_restart_ref``, ``rwkv6_wkv_chunked_ref``,
+``hash_features_grouped_ref``, ``fused_normalize_slices_ref`` and
+``mamba_scan_lanes_ref`` spell out the kernel algorithms of the two
+chained scans, of the WKV tensor-core kernel, of the staged hash kernel,
+of the persistent normalize and of the lane-split Mamba scan for the CPU
+tests only; nothing on a main path calls them.
 """
 
 from __future__ import annotations
@@ -42,6 +44,62 @@ def fused_normalize_ref(x, n0, mean0, m20, *, impute: bool = True):
     m21 = m20 + m2_b + torch.square(delta) * n0 * nb / torch.clamp(n1, min=1.0)
     var = m21 / torch.clamp(n1 - 1.0, min=1.0)
     y = (x - mean1) * torch.rsqrt(var + 1e-6)
+    return y, n1, mean1, m21
+
+
+NORM_THREADS = 512  # threads a CTA of the persistent normalize kernel
+
+
+def fused_normalize_slices_ref(x, n0, mean0, m20, *, impute: bool = True,
+                               ctas: int = 132, vec: bool = True):
+    """The persistent normalize kernel's order of sums (``csrc/
+    preprocess.cu``, ``normalize_persistent``), spelled out for the CPU
+    tests: CTA ``b`` of ``ctas`` owns rows ``[b n / ctas, (b + 1) n /
+    ctas)``; a column's ``L`` row lanes (``NORM_THREADS`` over the column
+    vectors of a tile, 4 floats a vector where ``vec`` and d % 4 == 0)
+    each sum x and x^2 over rows ``l, l + L, ...`` of the slice in order,
+    the lanes are added in lane order, the CTAs' partials in CTA order,
+    and the merge is the TPU kernel's, from raw moments."""
+    x = x.float()
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    mean0 = torch.as_tensor(mean0, **f32)
+    m20 = torch.as_tensor(m20, **f32)
+    n0 = torch.as_tensor(n0, **f32)
+    if impute:
+        x = torch.where(torch.isnan(x), mean0[None, :], x)
+    n, d = x.shape
+    q = d // 4 if vec and d % 4 == 0 else d
+    lanes = NORM_THREADS // min(q, NORM_THREADS)
+    s1 = torch.zeros(d, **f32)
+    s2 = torch.zeros(d, **f32)
+    for b in range(ctas):
+        xs = x[b * n // ctas:(b + 1) * n // ctas]
+        l1 = torch.zeros((lanes, d), **f32)
+        l2 = torch.zeros((lanes, d), **f32)
+        for k in range(0, xs.shape[0], lanes):
+            blk = xs[k:k + lanes]
+            m = blk.shape[0]
+            l1[:m] = l1[:m] + blk
+            l2[:m] = l2[:m] + blk * blk
+        p1 = torch.zeros(d, **f32)
+        p2 = torch.zeros(d, **f32)
+        for lane in range(lanes):
+            p1 = p1 + l1[lane]
+            p2 = p2 + l2[lane]
+        s1 = s1 + p1
+        s2 = s2 + p2
+    nb = torch.tensor(float(n), **f32)
+    mean_b = s1 / nb
+    m2_b = torch.clamp(s2 - nb * mean_b * mean_b, min=0.0)
+    n1 = n0 + nb
+    delta = mean_b - mean0
+    denom = torch.clamp(n1, min=1.0)
+    mean1 = mean0 + delta * (nb / denom)
+    m21 = m20 + m2_b + delta * delta * n0 * nb / denom
+    var = m21 / torch.clamp(n1 - 1.0, min=1.0)
+    rstd = 1.0 / torch.sqrt(var + 1e-6)
+    y = (x - mean1) * rstd
     return y, n1, mean1, m21
 
 
@@ -372,6 +430,38 @@ def mamba_scan_ref(dt, x, Bm, Cm, A, h0):
         b = (dtf[:, t] * xf[:, t])[:, :, None] * Bf[:, t][:, None, :]
         h = a * h + b
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+LOG2E = 1.4426950408889634
+MAMBA_LANES = 4    # threads a channel in the lane-split Mamba kernel
+
+
+def mamba_scan_lanes_ref(dt, x, Bm, Cm, A, h0):
+    """The lane-split Mamba kernel's arithmetic (``csrc/mamba_scan.cu``,
+    ``mamba_scan_lanes``), spelled out for the CPU tests: A scaled by
+    log2(e) once, ``exp(dt A)`` as ``exp2(dt (A log2 e))``; each of a
+    channel's ``MAMBA_LANES`` lanes holds N / 4 consecutive states and
+    sums its ``h C`` terms in state order, and the four partial sums are
+    combined as the two xor shuffles do: ``(p0 + p1) + (p2 + p3)``.
+    Same shapes and returns as :func:`mamba_scan_ref`."""
+    dtf, xf, Bf, Cf = (t.float() for t in (dt, x, Bm, Cm))
+    A2 = A.float() * torch.tensor(LOG2E, dtype=torch.float32)
+    h = h0.float().clone()
+    B, S, dI = dt.shape
+    N = Bm.shape[-1]
+    per = N // MAMBA_LANES
+    ys = []
+    for t in range(S):
+        d = dtf[:, t]
+        dx = d * xf[:, t]
+        e = torch.exp2(d[:, :, None] * A2[None])
+        h = e * h + dx[:, :, None] * Bf[:, t][:, None, :]
+        terms = (h * Cf[:, t][:, None, :]).reshape(B, dI, MAMBA_LANES, per)
+        p = terms[..., 0]
+        for i in range(1, per):
+            p = p + terms[..., i]
+        ys.append((p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3]))
     return torch.stack(ys, dim=1), h
 
 
