@@ -57,10 +57,11 @@ path on the card, and checks what comes out. Phases:
    then WKV in the model layout (``wkv_kernel_checks``): rwkv6-1.6b's
    prefill (B 8, S 512, 32 heads of 64, chunk 32) and decode step in
    bf16, a ragged S, decays down to -20 a step, strided r, k, v, every
-   built (head size, chunk) and the smoke configuration's in fp32, each
-   one CUDA kernel a call, timed from CUDA-graph replays; the
-   tensor-core kernel against the CUDA-core witness; the C entry's
-   refusals of other sizes; then model serving (``ServeEngine``, ``impl="kernel"``) at full width,
+   built (head size, chunk), ``RWKVConfig``'s default chunk 64 (run at
+   the built chunk 32; a row of its own in the ``kernels`` line) and
+   the smoke configuration's in fp32, each one CUDA kernel a call,
+   timed from CUDA-graph replays; the tensor-core kernel against the
+   CUDA-core witness; the C entry's refusals of other sizes; then model serving (``ServeEngine``, ``impl="kernel"``) at full width,
    bf16, random weights from a seed: seamless-m4t-medium (flash
    attention in cross-attention), rwkv6-1.6b (the WKV kernel) and
    qwen2-1.5b (no kernel on its path), each with 16 requests of
@@ -95,11 +96,32 @@ path on the card, and checks what comes out. Phases:
    prefill shape (B 2, S 4,096), a ragged one (S 4,000) and a decode
    step (S 1), graph-timed with the inputs cycled past the L2, and at
    N = 4 and d_inner 16,380 and 1,001; one call one kernel; then
-   through ``kernels.ops.mamba_scan`` as that path.
+   through ``kernels.ops.mamba_scan`` as that path;
+10. dynamic topology (``examples/dynamic_topology.py`` in the port): a
+    ``MembershipDirectory`` on the example's edge and cloud, the job
+    (the example's fan-out graph of the standard operators,
+    ``sample_rate`` 0.5, DDM, ``int8_ef``) subscribed before
+    ``edge_rack`` and ``edge_far`` register at t = 0, three latency
+    probes, 16 batches of 65,536 x 256 at a pinned 1e4 events/s, the
+    rack silent after step 8: the join replans, the rack's failure in
+    the plan, its checkpoint rescale (states back on the card, bitwise)
+    and forced ``pool_lost`` replan, no op on the rack after it, the
+    path's kernels launched after the rescale, the control trajectory
+    equal to the same script's on the CPU at 2,048 events a batch;
+11. the fleet (``examples/fleet_pipeline.py`` in the port):
+    ``FleetOrchestrator(membership=...)`` over the example's edge and
+    cloud and a rack edge, its four tenants (``dl`` at 256 wide with two
+    workers, two sketch jobs at 64, the hog at 1e9 events/s, which must
+    queue), 8 rounds of 65,536 events a tenant, the seed edge failing
+    through the directory at round 4: the ledger's check empty every
+    round, no plan on the dead pool, every admitted tenant's events
+    and states on the card, the admissions, queue, audit log and
+    control trajectories equal to the same script's on the CPU. Phases
+    10 and 11 each end with a profiled rerun for the card's idle share.
 
 The launch counts are set to 0 just before each main path (phases 3-5
-as one, each model of phase 6, phases 7, 8 and 9) and read just after
-it; every kernel must have launched on a main path. A line
+as one, each model of phase 6, phases 7, 8, 9, 10 and 11) and read just
+after it; every kernel must have launched on a main path. A line
 ``{"kernels": [...]}`` reports each kernel, the line before the last
 gives the card's name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -181,6 +203,7 @@ MAX_LEN = 1024
 FLASH_HEAD_DIMS = (64, 16, 128)
 WKV_H, WKV_HS, WKV_CHUNK = 32, 64, 32      # rwkv6-1.6b's heads, head size, chunk
 WKV_STRONG = 20.0      # the strong-decay check's largest -lw a step
+WKV_CHUNK64_ROW = "rwkv6_wkv/chunk64"   # RWKVConfig's default chunk
 FLASH_VLM_T = 1600
 FLASH_VLM_BATCHES = (1, 2)
 FLASH_LIBRARY_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
@@ -217,6 +240,17 @@ MAMBA_TOL = 1e-5       # rtol and atol, fp32 against the per-step plain scan
 # prefill logits of impl="kernel" against impl="chunked" on the card, in
 # bf16: max |difference| <= LOGITS_RTOL * max |chunked logits|
 LOGITS_RTOL = 5e-2
+
+# phases 10-11: the port's counterparts of examples/dynamic_topology.py and
+# examples/fleet_pipeline.py at the dense job's width
+TOPO_STEPS = 16
+TOPO_LAST_BEAT = TOPO_STEPS // 2   # edge_rack's last heartbeat
+TOPO_RATE = 1e4                    # offered events/s, pinned
+FLEET_ROUNDS = 8
+FLEET_FAIL_ROUND = 4               # the seed edge's lease runs out here
+FLEET_DIMS = {"dl": 256, "sketch": 64}
+FLEET_DEMAND = {"dl": 4e4, "sketch_a": 1e4, "sketch_b": 1e4}
+CONTROL_EVENTS = 2048   # events a batch of the CPU runs the card's are held to
 
 
 def log(*a):
@@ -1178,7 +1212,8 @@ def wkv_kernel_checks(dev, g, record):
     the per-step recurrence) in the model layout: rwkv6-1.6b's prefill
     and decode (bf16), a ragged S, decays down to -20 a step, strided
     r, k, v, every built (head size, chunk) in bf16 and the smoke
-    configuration's in fp32, each with one CUDA kernel a call
+    configuration's in fp32, and ``RWKVConfig``'s default chunk 64 (run
+    at ``kernel_chunk``'s built chunk), each with one CUDA kernel a call
     (``torch.profiler``); the tensor-core kernel against the CUDA-core
     witness on the same inputs; the C entry's refusals. Times from
     CUDA-graph replays, eager times logged."""
@@ -1217,6 +1252,9 @@ def wkv_kernel_checks(dev, g, record):
         ("rwkv6_wkv/strided", B, PROMPT, hs, chunk, torch.bfloat16,
          {"strided": True}),
         ("rwkv6_wkv/hs64_c16", B, PROMPT, 64, 16, torch.bfloat16, {}),
+        # RWKVConfig's default chunk, run at the built chunk kernel_chunk
+        # names (32); a row of its own in the kernels line
+        (WKV_CHUNK64_ROW, B, PROMPT, 64, 64, torch.bfloat16, {}),
         ("rwkv6_wkv/hs16_c32", B, PROMPT, 16, 32, torch.bfloat16, {}),
         ("rwkv6_wkv/hs16_c16", B, PROMPT, 16, 16, torch.bfloat16, {}),
         ("rwkv6_wkv/hs16_c16_decode", B, 1, 16, 16, torch.bfloat16, {}),
@@ -1249,7 +1287,7 @@ def wkv_kernel_checks(dev, g, record):
         kernel = cycling(lambda *t: ops.rwkv6_wkv(*t, chunk=ch), sets)
         reps = 50 if S == 1 else 20
         eager = median_ms(kernel, reps)
-        nbytes, fops, tops = wkv_work(Bc, S, hsc, ch, es)
+        nbytes, fops, tops = wkv_work(Bc, S, hsc, wkv.kernel_chunk(ch), es)
         ms = graph_ms(kernel, reps)
         log(f"    eager_ms={eager!r} graph_ms={ms!r}")
         record("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
@@ -1314,15 +1352,16 @@ def wkv_kernel_checks(dev, g, record):
         if rc != wkv.BAD_ARGS:
             raise AssertionError(f"the C entry took hs {bad_hs}, chunk "
                                  f"{bad_chunk} (rc {rc})")
-    for kw in ({"chunk": 8}, {"chunk": 64}):
+    for fn, bad in ((wkv.rwkv6_wkv_cuda, 64), (wkv.rwkv6_wkv_cuda, 8),
+                    (ops.rwkv6_wkv, 0), (ops.rwkv6_wkv, -32)):
         try:
-            ops.rwkv6_wkv(*args, **kw)
+            fn(*args, chunk=bad)
         except ValueError:
             continue
-        raise AssertionError(f"rwkv6_wkv took {kw}")
+        raise AssertionError(f"{fn.__name__} took chunk {bad}")
     torch.cuda.synchronize()
-    log("  the C entry and the wrapper refuse hs outside (16, 64) and "
-        "chunks outside (16, 32)")
+    log("  the C entry and the kernel's wrapper refuse hs outside (16, 64) "
+        "and chunks outside (16, 32); the dispatch refuses chunks below 1")
 
 
 def wkv_measure(dev) -> dict:
@@ -2144,6 +2183,355 @@ def mamba_measure(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 10-11: dynamic topology and the multi-tenant fleet
+# ---------------------------------------------------------------------------
+
+def control_lines(decisions):
+    """A decision log without its elastic lines: a voluntary rescale reads
+    the measured rate (the wall clock), and the involuntary one's worker
+    count follows the voluntary ones. Nothing else in the control plane
+    reads the wall clock or the batch size here (rates are pinned, the
+    SLAs' latency limits are seconds), so the rest of the log, the cuts,
+    plan identities and codecs are the same at any batch size."""
+    return [ln for ln in decisions if "elastic" not in ln]
+
+
+def profiled_window(profile: bool):
+    import contextlib
+    import torch
+    if not profile:
+        return contextlib.nullcontext()
+    return torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+
+
+def device_busy(prof, wall_s: float) -> dict:
+    """Kernel and copy ms on the card in a profiled window, and the
+    card's idle share of its wall time, with and without the copies."""
+    from repro_torch.launch.profile_stream import _device_events
+    rows = _device_events(prof)
+    copy_ms = sum(r[0] for r in rows if r[2].startswith(("Memcpy", "Memset")))
+    kernel_ms = sum(r[0] for r in rows) - copy_ms
+    wall_ms = wall_s * 1e3
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "copy_ms": copy_ms,
+            "idle_share": 1.0 - kernel_ms / wall_ms,
+            "idle_share_with_copies": 1.0 - (kernel_ms + copy_ms) / wall_ms}
+
+
+def topology_run(device: str, n_events: int, dim: int, profile=False):
+    """Phase 10's path, ``examples/dynamic_topology.py`` in the port: a
+    ``MembershipDirectory`` on the example's edge and cloud; the job (the
+    example's fan-out graph of the standard operators, ``sample_rate``
+    0.5, DDM, the ``int8_ef`` codec) subscribes, then ``edge_rack`` and
+    ``edge_far`` register at t = 0 and three latency probes refine the
+    rack's uplink; ``TOPO_STEPS`` batches of ``n_events`` at a pinned
+    rate, the rack's heartbeats stopping after step ``TOPO_LAST_BEAT``.
+    Every rescale is recorded: ``(step, reason, states before, states
+    after, launch counts before)``. Returns ``(orch, metrics, seconds,
+    rescales, busy)``; ``busy`` is :func:`device_busy` of the run when
+    ``profile``."""
+    import torch
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.membership import Locality, MembershipDirectory
+    from repro_torch.core.orchestrator import Orchestrator, StreamJob
+    from repro_torch.core.pipeline import fanout_stream_graph
+    from repro_torch.core.sla import SLA
+    from repro_torch.kernels import ops
+    from repro_torch.streams.generators import HyperplaneStream
+    directory = MembershipDirectory(cm.ClusterSpec(
+        pools=[cm.EDGE_NODE, cm.CLOUD_POD],
+        links=[cm.Link("edge", "cloud", bw=2e6, latency=20e-3)]),
+        lease_ticks=3)
+    orch = Orchestrator(StreamJob(
+        "dyn", dim=dim, sla=SLA(max_latency_s=1e3, error_budget=0.1),
+        pipeline=fanout_stream_graph(dim, sample_rate=0.5,
+                                     drift_detector="ddm"),
+        membership=directory, sla_window=6, uplink_codecs=["int8_ef"],
+        device=device))
+    for name, loc, flops, link in (
+            ("edge_rack", Locality(0.5, 0.0, region="metro"), 4e12,
+             cm.Link("edge_rack", "cloud", bw=8e6, latency=5e-3)),
+            ("edge_far", Locality(120.0, 90.0, region="rural"), 1e12,
+             cm.Link("edge_far", "cloud", bw=1e6, latency=60e-3))):
+        directory.register(
+            cm.Resource(name, "edge", chips=2, flops=flops, mem_bw=100e9,
+                        mem_cap=8e9, net_bw=1e9, net_latency=5e-3),
+            links=[link], locality=loc, now=0)
+    for _ in range(3):
+        directory.observe_latency("edge_rack", "cloud", 4e-3, now=0)
+    gen = HyperplaneStream(dim=dim, seed=0,
+                           horizon=TOPO_STEPS * float(n_events))
+    batches = [gen.batch(s, n_events) for s in range(TOPO_STEPS)]
+
+    rescales = []
+    apply = orch._apply_rescale
+
+    def recorded(step, plan):
+        before, counts = orch.states, ops.launch_counts()
+        apply(step, plan)
+        rescales.append((step, plan.reason, before, orch.states, counts))
+
+    orch._apply_rescale = recorded
+
+    def stream():
+        for step, b in enumerate(batches):
+            if step <= TOPO_LAST_BEAT:
+                directory.heartbeat("edge_rack", now=step)
+            directory.heartbeat("edge_far", now=step)
+            yield b
+
+    with profiled_window(profile) as prof:
+        t0 = time.perf_counter()
+        m = orch.run(stream(), rate_fn=lambda s: TOPO_RATE)
+        if orch.device.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return orch, m, secs, rescales, device_busy(prof, secs) if profile \
+        else None
+
+
+def fleet_tenants(dims):
+    """The four tenants of ``examples/fleet_pipeline.py``: ``dl`` (tier 0,
+    4e4 events/s, two workers), two best-effort sketch jobs and a hog at
+    1e9 events/s that cannot fit. ``(TenantSpec, StreamJob keywords)``."""
+    from repro_torch.core.fleet import TenantSpec
+    from repro_torch.core.sla import SLA
+    loose = SLA(max_latency_s=10.0, error_budget=11.0)
+    return [
+        (TenantSpec("dl", priority=0, demand_rate=FLEET_DEMAND["dl"],
+                    replan_cooldown=2,
+                    sla=SLA(max_latency_s=2.0, error_budget=0.5)),
+         {"dim": dims["dl"], "workers": 2}),
+        (TenantSpec("sketch_a", priority=2,
+                    demand_rate=FLEET_DEMAND["sketch_a"], sla=loose),
+         {"dim": dims["sketch"]}),
+        (TenantSpec("sketch_b", priority=2,
+                    demand_rate=FLEET_DEMAND["sketch_b"], sla=loose),
+         {"dim": dims["sketch"]}),
+        (TenantSpec("hog", priority=1, demand_rate=1e9, sla=loose),
+         {"dim": dims["sketch"]}),
+    ]
+
+
+def fleet_run(device: str, n_events: int, dims, profile=False):
+    """Phase 11's path, ``examples/fleet_pipeline.py`` in the port on a
+    live directory: the example's edge and cloud (its uplink, with a
+    transmit energy) and a rack edge registered at t = 0;
+    ``FleetOrchestrator(membership=...)`` takes the four tenants (the
+    standard pipeline each), then ``FLEET_ROUNDS`` rounds of
+    ``n_events`` a tenant at the declared demand. The seed edge
+    heartbeats at round 0 only, so it fails through the directory at
+    round ``FLEET_FAIL_ROUND``. Returns ``(fleet, admissions, metrics,
+    seconds, ledger checks a round, busy)``."""
+    import torch
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.fleet import FleetOrchestrator
+    from repro_torch.core.membership import Locality, MembershipDirectory
+    from repro_torch.core.orchestrator import StreamJob
+    from repro_torch.streams.generators import DriftSpec, HyperplaneStream
+    energy = dict(energy_per_byte=3e-7)
+    directory = MembershipDirectory(cm.ClusterSpec(
+        pools=[cm.EDGE_NODE, cm.CLOUD_POD],
+        links=[cm.Link("edge", "cloud", bw=2e6, latency=20e-3, **energy)]),
+        lease_ticks=FLEET_FAIL_ROUND - 1)
+    directory.register(
+        cm.Resource("edge_rack", "edge", chips=2, flops=4e12, mem_bw=100e9,
+                    mem_cap=8e9, net_bw=1e9, net_latency=5e-3),
+        links=[cm.Link("edge_rack", "cloud", bw=8e6, latency=5e-3,
+                       **energy)],
+        locality=Locality(0.5, 0.0, region="metro"), now=0, monitored=False)
+    fleet = FleetOrchestrator(membership=directory)
+    admissions, feeds = {}, {}
+    for i, (spec, kw) in enumerate(fleet_tenants(dims)):
+        res = fleet.add_tenant(spec, StreamJob(spec.name, device=device,
+                                               **kw), seed=i)
+        admissions[spec.name] = (res.admitted, res.queued)
+        drift = ({"drift": DriftSpec("gradual", at=0.5, width=0.3)}
+                 if spec.name == "dl" else {})
+        gen = HyperplaneStream(dim=kw["dim"], seed=i + 1,
+                               horizon=FLEET_ROUNDS * float(n_events),
+                               **drift)
+        feeds[spec.name] = [gen.batch(r, n_events)
+                            for r in range(FLEET_ROUNDS)]
+    checks = []
+    with profiled_window(profile) as prof:
+        t0 = time.perf_counter()
+        for r in range(FLEET_ROUNDS):
+            if r == 0:
+                directory.heartbeat("edge", now=0)
+            fleet.step_round({n: feeds[n][r] for n in fleet.orchestrators},
+                             rates=FLEET_DEMAND)
+            checks.append(fleet.scheduler.ledger.check())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return (fleet, admissions, fleet.finish(), secs, checks,
+            device_busy(prof, secs) if profile else None)
+
+
+def states_on(states, device_type: str) -> bool:
+    import torch
+    from repro_torch._tree import tree_leaves
+    return all(t.device.type == device_type for t in tree_leaves(states)
+               if isinstance(t, torch.Tensor))
+
+
+def bitwise_trees(a, b) -> bool:
+    import torch
+    from repro_torch._tree import tree_flatten_with_path
+    fa, fb = tree_flatten_with_path(a)[0], tree_flatten_with_path(b)[0]
+    return [p for p, _ in fa] == [p for p, _ in fb] and all(
+        torch.equal(u, v) for (_, u), (_, v) in zip(fa, fb))
+
+
+def topology_phase(dev) -> dict:
+    """Phase 10: :func:`topology_run` on the card at ``N_EVENTS`` x
+    ``DIM``, with the launch counts from 0; its checks; the same script
+    on the CPU at ``CONTROL_EVENTS`` a batch for the control trajectory;
+    a profiled rerun on the card for the idle share. Returns the main
+    path's launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    orch, m, secs, rescales, _ = topology_run(dev.type, N_EVENTS, DIM)
+    counts = ops.launch_counts()
+    launched = sorted(k for k, v in counts.items() if v > 0)
+    log(f"  events={m.events} events_per_s={m.events / secs!r} "
+        f"ms_per_batch={secs / TOPO_STEPS * 1e3!r} cuts={sorted(set(m.cuts))} "
+        f"codecs={sorted(set(m.codecs))} migrations={m.migrations} "
+        f"rescales={m.rescales} drift_alarms={m.drift_alarms} "
+        f"launches={counts}")
+    for ln in m.decisions:
+        log(f"    {ln}")
+    log(f"  {nvidia_smi_line()}")
+    if m.events != TOPO_STEPS * N_EVENTS:
+        raise AssertionError(f"topology: events {m.events}")
+    dec = m.decisions
+    fail = [i for i, ln in enumerate(dec)
+            if "topology pool_failed edge_rack" in ln]
+    if not any(":pool_joined" in ln for ln in dec) or len(fail) != 1:
+        raise AssertionError("topology: no join replan or no failure of "
+                             "edge_rack in the decisions")
+    step = int(dec[fail[0]].split(":")[0])
+    # the joins moved ops onto the rack, so its failure hits the plan
+    if not ("[in plan]" in dec[fail[0]]
+            and any(f"{step}:elastic-recover" in ln for ln in dec)
+            and any(f"{step}:pool_lost" in ln for ln in dec)):
+        raise AssertionError("topology: the rack's failure did not take the "
+                             "plan through a rescale and a pool_lost replan")
+    recover = [r for r in rescales if "edge_rack" in r[1]]
+    if len(recover) != 1:
+        raise AssertionError(f"topology: {len(recover)} recoveries")
+    after_counts = {k: counts[k] - recover[0][4][k] for k in launched}
+    log(f"  launches after the rescale and the pool_lost replan: "
+        f"{after_counts}")
+    if any(v <= 0 for v in after_counts.values()):
+        raise AssertionError(f"topology: a path kernel was not launched "
+                             f"after the rescale: {after_counts}")
+    for r_step, reason, before, after, _ in rescales:
+        if not (states_on(after, dev.type) and bitwise_trees(before, after)):
+            raise AssertionError(f"topology: the rescale at {r_step} "
+                                 f"({reason}) moved or changed the states")
+    log(f"  {len(rescales)} rescales: every state back on the card, bitwise")
+    post = {p for ident in m.plan_identities[step + 1:] for _, p in ident[0]}
+    if "edge_rack" in post or "edge_rack" in orch.controller.resources.pools:
+        raise AssertionError("topology: an op stays on edge_rack after its "
+                             "failure")
+    if not {"ef_int8_roundtrip", "detector_scan"} <= set(launched):
+        raise AssertionError(f"topology: the path's kernels did not launch: "
+                             f"{counts}")
+    check_no_nan(orch.states, "topology")
+    _, mc, _, _, _ = topology_run("cpu", CONTROL_EVENTS, DIM)
+    same = (mc.cuts == m.cuts and mc.plan_identities == m.plan_identities
+            and mc.codecs == m.codecs
+            and control_lines(mc.decisions) == control_lines(m.decisions))
+    log(f"  control trajectory equal to the CPU run at {CONTROL_EVENTS} "
+        f"events a batch: {same}")
+    if not same:
+        raise AssertionError(f"topology: the card's control trajectory "
+                             f"differs from the CPU's: "
+                             f"{control_lines(mc.decisions)}")
+    del orch
+    torch.cuda.empty_cache()
+    _, mp, psecs, _, busy = topology_run(dev.type, N_EVENTS, DIM,
+                                         profile=True)
+    log(f"  profiled rerun: events_per_s={mp.events / psecs!r} "
+        f"{json.dumps(busy)}")
+    return counts
+
+
+def fleet_phase(dev) -> dict:
+    """Phase 11: :func:`fleet_run` on the card at ``N_EVENTS`` a tenant a
+    round, with the launch counts from 0; its checks; the same script on
+    the CPU at ``CONTROL_EVENTS`` for the admissions, the audit log and
+    each tenant's control trajectory; a profiled rerun for the idle
+    share. Returns the main path's launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    fleet, adm, ms, secs, checks, _ = fleet_run(dev.type, N_EVENTS,
+                                                FLEET_DIMS)
+    counts = ops.launch_counts()
+    events = sum(m.events for m in ms.values())
+    sched = fleet.scheduler
+    log(f"  admitted={sched.admitted} queued={sched.queued} "
+        f"events={events} events_per_s={events / secs!r} "
+        f"ms_per_round={secs / FLEET_ROUNDS * 1e3!r} launches={counts}")
+    for name, m in ms.items():
+        log(f"  {name}: events={m.events} cuts={sorted(set(m.cuts))} "
+            f"codecs={sorted(set(m.codecs))} migrations={m.migrations} "
+            f"rescales={m.rescales} plan pools="
+            f"{sorted(set(fleet.orchestrators[name]._exec_assignment.values()))}")
+        for ln in m.decisions:
+            log(f"    {ln}")
+    for ln in sched.log:
+        log(f"    log: {ln}")
+    log(f"  {nvidia_smi_line()}")
+    if checks != [[]] * FLEET_ROUNDS:
+        raise AssertionError(f"fleet: ledger check failed: {checks}")
+    if sched.queued != ["hog"] or "hog" in sched.admitted:
+        raise AssertionError("fleet: the hog did not queue")
+    if "edge" in fleet.cluster.pools or not any(
+            "forced replan" in ln for ln in sched.log):
+        raise AssertionError("fleet: the seed edge did not fail")
+    for name, m in ms.items():
+        orch = fleet.orchestrators[name]
+        if m.events != FLEET_ROUNDS * N_EVENTS:
+            raise AssertionError(f"fleet: {name} events {m.events}")
+        if "edge" in set(orch._exec_assignment.values()):
+            raise AssertionError(f"fleet: {name} keeps the dead pool")
+        if not states_on(orch.states, dev.type):
+            raise AssertionError(f"fleet: {name}'s states left the card")
+        check_no_nan(orch.states, f"fleet/{name}")
+    if not {"ef_int8_roundtrip", "ef_topk_int8_roundtrip",
+            "detector_scan"} <= {k for k, v in counts.items() if v > 0}:
+        raise AssertionError(f"fleet: the path's kernels did not launch: "
+                             f"{counts}")
+    cfleet, cadm, cms, _, _, _ = fleet_run("cpu", CONTROL_EVENTS, FLEET_DIMS)
+    same = (cadm == adm and cfleet.scheduler.admitted == sched.admitted
+            and cfleet.scheduler.queued == sched.queued
+            and cfleet.scheduler.log == sched.log and all(
+                cms[n].cuts == ms[n].cuts
+                and cms[n].plan_identities == ms[n].plan_identities
+                and cms[n].codecs == ms[n].codecs
+                and control_lines(cms[n].decisions)
+                == control_lines(ms[n].decisions) for n in ms)
+            and set(cms) == set(ms))
+    log(f"  admissions, queue, audit log and control trajectories equal to "
+        f"the CPU run at {CONTROL_EVENTS} events a batch: {same}")
+    if not same:
+        raise AssertionError("fleet: the card's run differs from the CPU's")
+    del fleet, ms
+    torch.cuda.empty_cache()
+    _, _, mp, psecs, _, busy = fleet_run(dev.type, N_EVENTS, FLEET_DIMS,
+                                         profile=True)
+    log(f"  profiled rerun: events_per_s="
+        f"{sum(m.events for m in mp.values()) / psecs!r} {json.dumps(busy)}")
+    return counts
+
+
 def check_no_nan(states, what: str):
     import torch
     from repro_torch._tree import tree_leaves
@@ -2382,6 +2770,17 @@ def main(argv=None) -> int:
         "width")
     path_counts["mamba"] = mamba_phase(dev, kg, record)
 
+    # -- phases 10-11: dynamic topology and the multi-tenant fleet -------------
+    torch.cuda.empty_cache()
+    log(f"phase 10: dynamic topology ({TOPO_STEPS} x {N_EVENTS} events, dim "
+        f"{DIM}; edge_rack silent after step {TOPO_LAST_BEAT})")
+    path_counts["topology"] = topology_phase(dev)
+    torch.cuda.empty_cache()
+    log(f"phase 11: the fleet ({FLEET_ROUNDS} rounds x {N_EVENTS} events a "
+        f"tenant, dims {FLEET_DIMS}; the seed edge fails at round "
+        f"{FLEET_FAIL_ROUND})")
+    path_counts["fleet"] = fleet_phase(dev)
+
     counts = {k: sum(c[k] for c in path_counts.values())
               for k in ops.launch_counts()}
     missing = sorted(k for k, v in counts.items() if v <= 0)
@@ -2408,11 +2807,12 @@ def main(argv=None) -> int:
 
     kernels = []
     for k, row in rows.items():
-        if k != row["name"]:
+        if k != row["name"] and k != WKV_CHUNK64_ROW:
             continue        # a further shape of a kernel: logged above
-        kernels.append({"name": row["name"], "route": row["route"],
+        # the chunk-64 row is the WKV kernel (one counter for every chunk)
+        kernels.append({"name": k, "route": row["route"],
                         "source": row["source"], "replaces": row["replaces"],
-                        "launches": counts[k],
+                        "launches": counts[row["name"]],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

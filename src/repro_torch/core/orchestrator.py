@@ -27,7 +27,11 @@ and an SLA. The orchestrator:
   4. reacts to drift alarms through each op's declared drift response,
   5. drives elastic grow/shrink plans through the state-carrying
      ``elastic.rescale_cycle`` (checkpoint.save -> restore -> back on the
-     job's device — the same path failure recovery takes),
+     job's device — the same path failure recovery takes), and drains a
+     live :class:`~repro_torch.core.membership.MembershipDirectory`
+     every step: a failed or departed pool the plan uses takes that
+     path involuntarily and forces a replan without it, a joined pool
+     forces a replan onto it,
   6. exposes metrics for the Output Interface.
 
 Because segments are composed from shared per-op steps (see
@@ -50,6 +54,7 @@ from typing import Callable, Dict, FrozenSet, Iterable, List, Optional
 import torch
 
 from repro_torch._tree import tree_flatten, tree_unflatten
+from repro_torch.core import membership as ms
 from repro_torch.core.costmodel import (CLOUD_POD, EDGE_NODE, ClusterSpec,
                                         Resource)
 from repro_torch.core.offload import OffloadController
@@ -87,7 +92,11 @@ class StreamJob:
     # explicit links); None -> the classic two-pool spec built from
     # edge_resource/cloud_resource below (kept for back-compat)
     cluster: Optional[ClusterSpec] = None
-    # live topology (a membership directory): not ported yet, raises
+    # live topology: a core/membership.MembershipDirectory whose events
+    # (pools joining/leaving/failing, probe-driven latency rewrites) the
+    # orchestrator drains every step. Mutually exclusive with `cluster`;
+    # a directory that emits no events runs bitwise identically to the
+    # equivalent static spec
     membership: Optional[object] = None
     edge_resource: Resource = EDGE_NODE
     cloud_resource: Resource = CLOUD_POD
@@ -150,10 +159,6 @@ class Orchestrator:
             raise RuntimeError(
                 f"StreamJob {job.name!r} asks for device {job.device!r} but "
                 "CUDA is not available; pass device='cpu' to run on the CPU")
-        if job.membership is not None:
-            raise NotImplementedError(
-                "StreamJob(membership=...) is not ported yet: see "
-                "ROADMAP.md, 'Modules to port', core/membership.py")
         if job.measured_costs:
             raise NotImplementedError(
                 "StreamJob(measured_costs=True) is not ported yet: see "
@@ -166,9 +171,19 @@ class Orchestrator:
         # A user-declared per-link codec wins over the blanket pick but
         # must itself fit the budget — a lossy topology under a lossless
         # SLA is a configuration conflict, not something to paper over.
-        spec = (ClusterSpec.of(job.cluster) if job.cluster is not None
-                else ClusterSpec.edge_cloud(job.edge_resource,
-                                            job.cloud_resource))
+        self.membership = job.membership
+        self._topo_sub = None
+        if self.membership is not None:
+            if job.cluster is not None:
+                raise ValueError(
+                    "StreamJob takes either cluster= (static topology) "
+                    "or membership= (live directory), not both")
+            spec = self.membership.spec
+            self._topo_sub = self.membership.subscribe()
+        else:
+            spec = (ClusterSpec.of(job.cluster) if job.cluster is not None
+                    else ClusterSpec.edge_cloud(job.edge_resource,
+                                                job.cloud_resource))
         # the user-declared topology, BEFORE the blanket codec attach:
         # rate-adaptive replans re-derive per-candidate specs from it
         # (user-declared per-link codecs always win over the blanket)
@@ -305,6 +320,70 @@ class Orchestrator:
         self.metrics.decisions.append(
             f"{step}:elastic-{plan.action} workers={plan.workers} "
             f"devices={len(devices)} ({plan.reason})")
+
+    # -- dynamic topology: membership events drive the run ------------------
+    def set_cluster(self, spec) -> None:
+        """Swap the topology mid-run (membership churn). The controller's
+        candidate set updates IMMEDIATELY — a lost pool is excluded
+        before the next placement search runs — and the blanket SLA
+        codec re-attaches to the new uplink set."""
+        self._base_cluster = ClusterSpec.of(spec)
+        self.cluster = self._base_cluster.with_uplink_codec(self.codec.name)
+        self.resources = dict(self.cluster.pools)
+        self.controller.set_resources(self._base_cluster)
+
+    def topology_step(self, step: int, offered: float) -> list:
+        """Drain membership events and react: a lost pool the executing
+        plan touches rides the involuntary checkpoint-rescale path and
+        forces a replan with the dead pool already excluded; a join
+        replans so the plan can spread onto the new capacity; a probe-
+        driven link update re-prices silently at the next replan. With
+        no directory (or no events) this is a strict no-op — the
+        zero-event trajectory stays bitwise identical to a static spec.
+        Returns the events handled."""
+        if self._topo_sub is None:
+            return []
+        self.membership.tick(step)
+        events = self._topo_sub.poll()
+        for ev in events:
+            self._apply_topology_event(step, ev, offered)
+        return events
+
+    def _apply_topology_event(self, step: int, ev, offered: float) -> None:
+        spec_now = self.membership.spec
+        if ev.kind in (ms.POOL_FAILED, ms.POOL_LEFT):
+            lost = ev.subject
+            touched = lost in set(self._exec_assignment.values())
+            self.metrics.decisions.append(
+                f"{step}:topology {ev.kind} {lost} v{ev.version}"
+                + (" [in plan]" if touched else ""))
+            self.set_cluster(spec_now)
+            if not touched:
+                # dead pool carried none of this job's ops: the
+                # candidate set shrank, the plan stands as-is
+                return
+            # involuntary shrink: the states held for the lost pool
+            # survive through the published checkpoint and come back on
+            # the job's device (the same path failure recovery takes) ...
+            plan = self.elastic.involuntary(
+                step, reason=f"pool {lost} {ev.kind}")
+            self._apply_rescale(step, plan)
+            # ... then a forced replan over the survivor-only spec: the
+            # placement search never sees the dead pool as a candidate
+            d = self.controller.replan(step, offered, self.sla,
+                                       reason="pool_lost")
+            self.apply_decision(step, d)
+        elif ev.kind == ms.POOL_JOINED:
+            self.metrics.decisions.append(
+                f"{step}:topology pool_joined {ev.subject} v{ev.version}")
+            self.set_cluster(spec_now)
+            d = self.controller.replan(step, offered, self.sla,
+                                       reason="pool_joined")
+            self.apply_decision(step, d)
+        elif ev.kind == ms.LINK_UPDATE:
+            # refreshed latencies re-price the next (voluntary) replan;
+            # a probe alone never forces a migration
+            self.set_cluster(spec_now)
 
     # -- step primitives ----------------------------------------------------
     # run() composes these; the fleet orchestrator (core/fleet) drives
@@ -446,6 +525,10 @@ class Orchestrator:
         for step, batch in enumerate(batches):
             rate = self.execute_batch(step, batch, record_outputs)
             offered = rate_fn(step) if rate_fn else rate
+            # membership churn first: a dead pool must leave the
+            # candidate set (and the executing plan) before the regular
+            # control pass could decide to hold a stale plan
+            self.topology_step(step, offered)
             d = self.controller.observe(step, offered, self.sla)
             self.apply_decision(step, d)
             self.elastic_step(step, offered, rate)

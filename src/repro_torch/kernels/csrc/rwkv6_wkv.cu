@@ -23,7 +23,9 @@
 // h0 and h_last are (B, H, hs, hs) fp32, contiguous; o is (B, S, H, hs),
 // contiguous, in r's type, so that the model's o.reshape(B, S, D) is a
 // view. The reference's (BH, S, hs) layout is B = 1 with BH heads. Head
-// sizes 16 and 64, chunks 16 and 32; anything else is refused.
+// sizes 16 and 64, chunks 16 and 32; anything else is refused here. The
+// chunk only sets the schedule, so the Python wrapper runs any other
+// positive chunk at a built one (rwkv6_wkv.py, kernel_chunk).
 //
 // What bounds it. At rwkv6-1.6b's prefill (B*H = 256, S = 512, hs = 64,
 // Lc = 32, bf16) a call moves 10 bytes an input element plus the state

@@ -14,8 +14,16 @@ the tensor-core chunk kernel for bf16, the CUDA-core kernel for fp32.
 :func:`rwkv6_wkv_bh` is the reference's (BH, S, hs) API, a view of the
 same entry point with B = 1 and BH heads. The kernels take head sizes
 :data:`HEAD_SIZES` and chunks :data:`CHUNKS` (the sequence is padded to
-a multiple of the chunk, so h_last is exact at any S); the wrapper and
-the C entry refuse anything else with ``ValueError``. The plain version
+a multiple of the chunk, so h_last is exact at any S); the kernel's
+wrapper :func:`rwkv6_wkv_cuda` and the C entry refuse anything else with
+``ValueError``. The chunk is internal to the kernel: any chunk computes
+the same recurrence, only the schedule and the order of sums differ. So
+the dispatching wrappers :func:`rwkv6_wkv` and :func:`rwkv6_wkv_bh` take
+every positive chunk the reference's kernel takes and run one that was
+not built at the built chunk :func:`kernel_chunk` names (the largest
+built chunk that divides it, else the largest built chunk): rwkv6's
+default ``RWKVConfig.chunk`` of 64 runs the chunk-32 kernel, one launch.
+A head size outside :data:`HEAD_SIZES` is refused. The plain version
 takes any shape. :func:`rwkv6_wkv_witness_cuda` runs the CUDA-core
 kernel on either dtype: the witness the tensor-core kernel is held
 against on the card (not counted in :data:`LAUNCHES`).
@@ -44,6 +52,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+
+
+def kernel_chunk(chunk: int) -> int:
+    """The built chunk a call at ``chunk`` runs at on the card: ``chunk``
+    where it is built, else the largest built chunk that divides it, else
+    the largest built chunk. ``ValueError`` for a chunk below 1."""
+    chunk = int(chunk)
+    if chunk < 1:
+        raise ValueError(f"rwkv6_wkv: chunk {chunk} is not positive")
+    if chunk in CHUNKS:
+        return chunk
+    return max([c for c in CHUNKS if chunk % c == 0] or CHUNKS)
 
 
 def _lib():
@@ -163,7 +183,9 @@ def rwkv6_wkv(r, k, v, lw, u, h0, *, chunk: int = 32):
     Returns (o (B,S,H,hs) in r's dtype, h_last (B,H,hs,hs) fp32) on r's
     device: the kernel on CUDA (one launch; an input is copied only where
     the kernels cannot read it in place or its type is not theirs), the
-    plain version on the CPU."""
+    plain version on the CPU. ``chunk`` is any positive chunk: the
+    kernel runs it at :func:`kernel_chunk`'s built chunk."""
+    chunk = kernel_chunk(chunk)
     if r.device.type == "cuda":
         r, k, v = (_in_place(t) for t in (r, k, v))
         lw = _in_place(lw.float())
@@ -199,7 +221,9 @@ def rwkv6_wkv_bh_plain(r, k, v, lw, u, h0, *, chunk: int = 32):
 
 def rwkv6_wkv_bh(r, k, v, lw, u, h0, *, chunk: int = 32):
     """WKV in the reference's (BH, S, hs) layout on r's device: kernel on
-    CUDA, plain version on the CPU."""
+    CUDA (at :func:`kernel_chunk`'s built chunk), plain version on the
+    CPU."""
+    chunk = kernel_chunk(chunk)
     if r.device.type == "cuda":
         o, h = rwkv6_wkv(*map(_heads, (r, k, v, lw)), u, h0[None],
                          chunk=chunk)

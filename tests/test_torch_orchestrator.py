@@ -301,9 +301,15 @@ def test_orchestrator_runs_on_the_card_unless_asked_for_the_cpu():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``measured_costs`` and ``fuse="xla"`` are not ported; a live
+    topology (``membership=``) is, and, as in the JAX package, it
+    excludes a static ``cluster=``."""
+    from repro_torch.core.costmodel import ClusterSpec
+    from repro_torch.core.membership import MembershipDirectory
+    with pytest.raises(ValueError, match="not both"):
         torch_orch.Orchestrator(torch_orch.StreamJob(
-            "m", device="cpu", membership=object()))
+            "m", device="cpu", cluster=ClusterSpec.edge_cloud(),
+            membership=MembershipDirectory(ClusterSpec.edge_cloud())))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_orch.Orchestrator(torch_orch.StreamJob(
             "m", device="cpu", measured_costs=True))

@@ -22,19 +22,29 @@ term), so outputs and states agree within 2e-5 of their largest entry
 order: the same bound.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
+
+from repro.configs import get_config as jget
+from repro.models import model_zoo as jzoo
 
 from repro.kernels.rwkv6_wkv import rwkv6_wkv as jx_wkv
 from repro.kernels.rwkv6_wkv import rwkv6_wkv_bh as jx_wkv_bh
 
+from repro_torch import convert
+from repro_torch._tree import tree_leaves
 from repro_torch.configs import get_config
+from repro_torch.configs.base import RWKVConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_wkv as twkv
+from repro_torch.models import model_zoo as tzoo
 
 # the twin against the JAX kernel and the per-step recurrence, relative to
 # the largest entry of the expected o or h_last
@@ -166,12 +176,14 @@ def _small(hs=16, S=4, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("hs,chunk", [
     (8, 16), (32, 32), (128, 32), (48, 16),    # head sizes not built
-    (64, 8), (64, 64), (16, 48), (16, 0),      # chunks not built
+    (64, 8), (64, 48), (16, 48), (16, 0),      # chunks not built
 ])
 def test_kernel_refuses_sizes_it_was_not_built_for(hs, chunk):
     """The kernel's wrapper refuses, before it looks at the device, what
     the C entry refuses (``chip_smoke.py`` checks the C entry on the
-    card); the plain version takes any size."""
+    card); the plain version takes any size. The dispatching wrapper
+    ``rwkv6_wkv`` maps an unbuilt positive chunk to a built one first
+    (``test_unbuilt_chunks_run_at_a_built_chunk``)."""
     args = _small(hs)
     with pytest.raises(ValueError, match="head size|chunk"):
         twkv.check_args(*args, chunk)
@@ -198,3 +210,88 @@ def test_every_configured_size_is_built(smoke):
 def test_decomposition_refuses_other_chunks():
     with pytest.raises(ValueError, match="chunk"):
         tref.rwkv6_wkv_chunked_ref(*_small(16, dtype=torch.float32), chunk=8)
+
+
+# ---------------------------------------------------------------------------
+# an unbuilt chunk (RWKVConfig's default 64) runs at a built one
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("chunk,built", [
+    (16, 16), (32, 32), (64, 32), (128, 32), (48, 16), (96, 32),
+    (8, 32), (40, 32), (1, 32)])
+def test_unbuilt_chunks_run_at_a_built_chunk(chunk, built):
+    """The largest built chunk that divides the chunk, else the largest
+    built chunk; what it maps to is one the kernel takes."""
+    assert twkv.kernel_chunk(chunk) == built
+    twkv.check_args(*_small(64), twkv.kernel_chunk(chunk))
+
+
+@pytest.mark.parametrize("chunk", [0, -32])
+def test_dispatch_refuses_a_chunk_below_one(chunk):
+    args = _small(16, dtype=torch.float32)
+    with pytest.raises(ValueError, match="not positive"):
+        kops.rwkv6_wkv(*args, chunk=chunk)
+    with pytest.raises(ValueError, match="not positive"):
+        twkv.rwkv6_wkv_bh(*(t[0].transpose(0, 1) for t in args[:4]),
+                          args[4], args[5][0], chunk=chunk)
+
+
+def test_default_config_chunk_runs_on_a_built_kernel():
+    c = RWKVConfig()
+    assert c.chunk == 64 and c.chunk not in twkv.CHUNKS
+    assert twkv.kernel_chunk(c.chunk) in twkv.CHUNKS
+    twkv.check_args(*_small(c.head_size), twkv.kernel_chunk(c.chunk))
+
+
+@pytest.mark.parametrize("hs", [16, 64])
+@pytest.mark.parametrize("S", ["decode", "multiple", "ragged"])
+def test_built_chunk_twin_matches_pallas_at_chunk_64(hs, S):
+    """What the card computes for a chunk-64 call, the chunk-32 kernel
+    (its twin ``rwkv6_wkv_chunked_ref``), against the Pallas kernel run
+    at chunk 64 (interpret mode) and the per-step recurrence."""
+    S = {"decode": 1, "multiple": 128, "ragged": 133}[S]
+    rng = np.random.default_rng(640 + hs + S)
+    args = _inputs(rng, 2, S, 2, hs)
+    got_o, got_h = tref.rwkv6_wkv_chunked_ref(
+        *map(torch.from_numpy, args), chunk=twkv.kernel_chunk(64))
+    for (want_o, want_h), name in zip(_both(args, 64), ("pallas", "plain")):
+        _close(got_o, want_o, f"o vs {name}")
+        _close(got_h, want_h, f"h_last vs {name}")
+
+
+def test_rwkv_model_on_the_default_chunk_matches_pallas(monkeypatch):
+    """rwkv6-1.6b's smoke configuration with ``RWKVConfig``'s default
+    chunk (64) through the port's ``impl="kernel"`` dispatch, against the
+    reference's ``impl="pallas"`` in interpret mode on the same weights:
+    logits within the model tests' fp32 tolerance, and the WKV states
+    of the prefill within this file's."""
+    monkeypatch.setenv("REPRO_FORCE_PALLAS_INTERPRET", "1")
+    chunk = RWKVConfig().chunk
+    jc = jget("rwkv6-1.6b", smoke=True)
+    tc = get_config("rwkv6-1.6b", smoke=True)
+    jc = dataclasses.replace(jc, rwkv=dataclasses.replace(jc.rwkv,
+                                                          chunk=chunk))
+    tc = dataclasses.replace(tc, rwkv=dataclasses.replace(tc.rwkv,
+                                                          chunk=chunk))
+    jp = jzoo.init_params(jc, 0)
+    tp = convert.params_from_numpy(tc, jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+    toks = np.random.default_rng(64).integers(
+        0, jc.vocab_size, size=(2, chunk + 13)).astype(np.int32)
+    want, _ = jzoo.forward_lm(jp, jc, {"tokens": jnp.asarray(toks)},
+                              impl="pallas")
+    got, _ = tzoo.forward_lm(tp, tc, {"tokens": torch.from_numpy(toks)},
+                             impl="kernel")
+    real = slice(0, jc.vocab_size)
+    np.testing.assert_allclose(got.numpy()[..., real],
+                               np.asarray(want)[..., real],
+                               rtol=1e-4, atol=1e-4)
+    _, jcache = jzoo.prefill(jp, jc, {"tokens": jnp.asarray(toks)},
+                             max_len=chunk + 16, impl="pallas")
+    _, tcache = tzoo.prefill(tp, tc, {"tokens": torch.from_numpy(toks)},
+                             max_len=chunk + 16, impl="kernel")
+    jw = [np.asarray(x) for x in jax.tree.leaves(jcache)]
+    tw = [t.numpy() for t in tree_leaves(tcache)]
+    assert [a.shape for a in jw] == [b.shape for b in tw]
+    for a, b in zip(tw, jw):
+        _close(a, b, "prefill cache")
