@@ -117,10 +117,27 @@ path on the card, and checks what comes out. Phases:
     round, no plan on the dead pool, every admitted tenant's events
     and states on the card, the admissions, queue, audit log and
     control trajectories equal to the same script's on the CPU. Phases
-    10 and 11 each end with a profiled rerun for the card's idle share.
+    10 and 11 each end with a profiled rerun for the card's idle share;
+12. training (``examples/train_stream_lm.py`` in the port, through
+    torch autograd on the chunked paths): qwen2-1.5b's full config
+    (28 layers, bf16 with fp32 master weights and AdamW moments, remat
+    full) on a drifting ``TokenStream`` of 8 x 512 tokens a step, 2
+    untimed and 8 timed steps, Page-Hinkley on the loss on the card,
+    the loss falling; rwkv6-1.6b's full config with its 4 microbatches,
+    4 steps; each with ms a step, tok/s, peak memory, MFU and a
+    profiled step's idle share. Then ``dl_train_op`` at qwen2's width
+    (2 layers) placed by ``place_frontier`` on the edge serving
+    cluster, its losses and state bitwise the standalone step's on the
+    card; an ``AsyncCheckpointer`` save at step 3 of 6 (smoke config)
+    with the next step updating in place, resumed bitwise; 3 steps on
+    the card against the CPU within 1e-4. It launches no hand kernel
+    (no kernel has a backward). The kernels' pad routes (flash attention
+    at head dims 32 and 96, WKV at head size 32, Mamba at 8 states, each
+    zero-padded to the next built size) are held to their plain versions
+    at the original size after phase 6's and phase 9's checks.
 
 The launch counts are set to 0 just before each main path (phases 3-5
-as one, each model of phase 6, phases 7, 8, 9, 10 and 11) and read just
+as one, each model of phase 6, phases 7, 8, 9, 10, 11 and 12) and read just
 after it; every kernel must have launched on a main path. A line
 ``{"kernels": [...]}`` reports each kernel, the line before the last
 gives the card's name and power limit, and the last line is
@@ -1149,7 +1166,136 @@ def serving_kernel_checks(dev, g, record):
     flash_kernel_checks(dev, g, record)
     serve_smoke_config(dev)
     wkv_kernel_checks(dev, g, record)
+    pad_route_checks(dev, g, record, ("flash", "wkv"))
     torch.cuda.empty_cache()     # phase 3 starts from an empty cache
+
+
+# the sizes the kernels are not built for that their wrappers pad up
+PAD_FLASH_DIMS = (32, 96)        # -> 64, 128
+PAD_WKV_HS = 32                  # -> 64
+PAD_MAMBA_N = 8                  # -> 16
+
+
+def pad_route_checks(dev, g, record, which):
+    """The dispatching wrappers' pad routes on the card: flash attention
+    at head dims 32 and 96, WKV at head size 32, Mamba at 8 states, each
+    zero-padded up to the next built size. Every call is one launch of
+    the kernel plus the pads' copies (its CUDA graph's node list), held
+    to the plain version at the original size with the tolerance of the
+    rows it extends; the row's bound is the original size's work."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_wkv as wkv
+
+    bf16_eps = float(torch.finfo(torch.bfloat16).eps)
+
+    def one_kernel(row, fn, tag):
+        nodes = kernels_in_graph(fn)
+        hits = [n for n in nodes if tag in n]
+        log(f"  {row}: one call's CUDA graph: {nodes}")
+        if len(hits) != 1:
+            raise AssertionError(f"{row}: {len(hits)} {tag} kernels in one "
+                                 f"call's graph: {nodes}")
+
+    if "flash" in which:
+        B, H, T = SERVE_BATCH, 16, PROMPT
+        for D in PAD_FLASH_DIMS:
+            for tag, S, causal, dtype in (
+                    ("", PROMPT, False, torch.bfloat16),
+                    ("/decode", 1, False, torch.bfloat16),
+                    ("/causal", PROMPT, True, torch.bfloat16),
+                    ("/fp32", PROMPT, False, torch.float32)):
+                row = f"flash_attention/pad_d{D}{tag}"
+                es = torch.finfo(dtype).bits // 8
+                q, k, v = flash_inputs(g, dev, dtype, B, S, T, H, H, D)
+                got = fa.flash_attention(q, k, v, causal=causal)
+                want = fa.flash_attention_plain(q, k, v, causal=causal)
+                if got.shape != want.shape or \
+                        not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"{row}: misshapen or non-finite")
+                err = float((got.float() - want.float()).abs().max())
+                scale = float(want.float().abs().max())
+                tol = (bf16_eps if es == 2 else 1e-4) * scale
+                call = lambda: fa.flash_attention(q, k, v, causal=causal)
+                one_kernel(row, call, "flash")
+                pairs = attended_pairs(S, T, causal)
+                mm = 4 * B * H * pairs * D
+                record("flash_attention",
+                       "src/repro_torch/kernels/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:77", err, tol,
+                       graph_ms(call, 50 if S == 1 else 20),
+                       median_ms(lambda: fa.flash_attention_plain(
+                           q, k, v, causal=causal), 5),
+                       es * (2 * B * S * H * D + 2 * B * T * H * D),
+                       5 * B * H * pairs + (mm if es == 4 else 0),
+                       tensor_ops=mm if es == 2 else 0, row=row)
+                del q, k, v, got, want
+    if "wkv" in which:
+        B, hs, chunk = SERVE_BATCH, PAD_WKV_HS, WKV_CHUNK
+        for tag, S, dtype in (("", PROMPT, torch.bfloat16),
+                              ("/decode", 1, torch.bfloat16),
+                              ("/fp32", PROMPT, torch.float32)):
+            row = f"rwkv6_wkv/pad_hs{hs}{tag}"
+            es = torch.finfo(dtype).bits // 8
+            args = wkv_inputs(g, dev, B, S, hs, dtype)
+            o, h = ops.rwkv6_wkv(*args, chunk=chunk)
+            po, ph = wkv.rwkv6_wkv_plain(*args, chunk=chunk)
+            if o.shape != po.shape or h.shape != ph.shape or not (
+                    torch.isfinite(o.float()).all()
+                    and torch.isfinite(h).all()):
+                raise AssertionError(f"{row}: misshapen or non-finite")
+            htol = 1e-4 * float(ph.abs().max())
+            herr = float((h - ph).abs().max())
+            err = float((o.float() - po.float()).abs().max())
+            tol = (bf16_eps if es == 2 else 1e-4) * float(
+                po.float().abs().max()) + htol
+            log(f"  {row}: h_last max_abs_err={herr!r} tol={htol!r}")
+            if not herr <= htol:
+                raise AssertionError(f"{row}: h_last disagrees")
+            call = lambda: ops.rwkv6_wkv(*args, chunk=chunk)
+            one_kernel(row, call, "wkv")
+            nbytes, fops, tops = wkv_work(B, S, hs, chunk, es)
+            record("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+                   "src/repro/kernels/rwkv6_wkv.py:71", err, tol,
+                   graph_ms(call, 50 if S == 1 else 20),
+                   median_ms(lambda: wkv.rwkv6_wkv_plain(*args, chunk=chunk),
+                             1),
+                   nbytes, fops, tensor_ops=tops, row=row)
+            del args, o, h, po, ph
+    if "mamba" in which:
+        B, N, dI = MAMBA_B, PAD_MAMBA_N, MAMBA_DI
+        for tag, S in (("", MAMBA_CHECK_S), ("/decode", 1)):
+            row = f"mamba_scan/pad_N{N}{tag}"
+            ins = mamba_inputs(g, dev, S, N)
+            y, h = ops.mamba_scan(*ins, chunk=MAMBA_CHUNK)
+            t0 = time.perf_counter()
+            py, ph = ms.mamba_scan_ref(*ins)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            if h.shape != (B, dI, N) or not (torch.isfinite(y).all()
+                                             and torch.isfinite(h).all()):
+                raise AssertionError(f"{row}: misshapen or non-finite")
+            excess = max(mamba_excess(y, py), mamba_excess(h, ph))
+            log(f"  {row} (B {B}, S {S}, dI {dI}, N {N}): elementwise "
+                f"excess over rtol=atol={MAMBA_TOL}: {excess!r}")
+            if excess > 0.0:
+                raise AssertionError(f"{row}: outside rtol=atol={MAMBA_TOL}")
+            call = lambda: ops.mamba_scan(*ins, chunk=MAMBA_CHUNK)
+            one_kernel(row, call, "mamba")
+            err = max(float((y - py).abs().max()), float((h - ph).abs().max()))
+            tol = MAMBA_TOL * (1 + float(torch.maximum(py.abs().max(),
+                                                       ph.abs().max())))
+            record("mamba_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:70", err, tol,
+                   graph_ms(call, 20 if S > 1 else 100), plain_ms,
+                   4 * (3 * B * S * dI + 2 * B * S * N + dI * N
+                        + 2 * B * dI * N),
+                   B * S * dI * (7 * N + 1), row=row)
+            del ins, y, h, py, ph
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def wkv_inputs(g, dev, B, S, hs, dtype, *, h0=True, strong=False,
@@ -2147,6 +2293,7 @@ def mamba_phase(dev, g, record) -> dict:
                    "src/repro/kernels/mamba_scan.py:70", err, tol, t["graph"],
                    plain_ms, nbytes, B * S * dI * (7 * N + 1),
                    row=None if row == "mamba_scan" else row)
+    pad_route_checks(dev, g, record, ("mamba",))
     ins = mamba_inputs(g, dev, MAMBA_SHAPES[0][1])
     nodes = kernels_in_graph(lambda: ops.mamba_scan(*ins, chunk=MAMBA_CHUNK))
     log(f"  one call's CUDA graph: {nodes}")
@@ -2532,6 +2679,307 @@ def fleet_phase(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training (examples/train_stream_lm.py and dl_train_op)
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 8, 512        # sequences x tokens a step
+TRAIN_LR = 3e-4
+TRAIN_WARM, TRAIN_TIMED = 2, 8   # qwen2-1.5b: untimed, then timed steps
+RWKV_WARM, RWKV_TIMED = 1, 3     # rwkv6-1.6b: 4 steps (microbatches 4)
+TRAIN_OP_LAYERS = 2              # dl_train_op at qwen2-1.5b's width
+TRAIN_OP_STEPS = 2
+TRAIN_PLACE_RATE = 1.0           # sequences/s offered to the placement DP
+CKPT_STEPS, CKPT_AT, CKPT_S = 6, 3, 64
+CPU_STEPS, CPU_TOL = 3, 1e-4     # the card against the CPU, smoke config
+BF16_DENSE_PEAK = 989e12         # MFU's denominator (H100 SXM, dense bf16)
+
+
+def train_stream(dev, arch: str, n_warm: int, n_timed: int) -> dict:
+    """``examples/train_stream_lm.py``'s loop at ``arch``'s full config
+    on the card: random bf16 weights from seed 0 (fp32 master weights
+    and AdamW moments, the config's remat and microbatches), a drifting
+    ``TokenStream`` (abrupt at half the horizon) of TRAIN_B x TRAIN_S
+    tokens a step, ``make_optimizer(cfg, "adamw", lr=TRAIN_LR, warmup=2)``,
+    Page-Hinkley on the loss on the card; ``n_warm`` untimed steps, then
+    ``n_timed`` steps timed one by one (synchronised), then one more step
+    under ``torch.profiler`` for the card's idle share."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.streams import drift
+    from repro_torch.streams.generators import DriftSpec, TokenStream
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(arch)
+    n_steps = n_warm + n_timed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    opt = make_optimizer(cfg, "adamw", lr=TRAIN_LR, total_steps=n_steps,
+                         warmup=2)
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    gen = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                      drift=DriftSpec("abrupt", at=0.5),
+                      horizon=float(n_steps * TRAIN_B * TRAIN_S))
+    ph = drift.ph_init(dev)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    out = {"loss": [], "grad_norm": [], "step_s": [], "alarms": []}
+    busy = None
+    for i in range(n_steps + 1):
+        tokens = torch.from_numpy(gen.batch(i, TRAIN_B).data["tokens"]).to(dev)
+        torch.cuda.synchronize()
+        profile = i == n_steps
+        with profiled_window(profile) as prof:
+            t0 = time.perf_counter()
+            params, state, step, m = step_fn(params, state, step,
+                                             {"tokens": tokens})
+            ph, level = drift.ph_step(ph, m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if profile:
+            busy = device_busy(prof, wall)
+            break
+        if i == n_steps - 1:
+            out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        if m["loss"].device != params["embed"]["tok"].device or \
+                not states_on((params, state), dev.type):
+            raise AssertionError(f"{arch}: a step left the card")
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if int(level) == drift.DRIFT:
+            out["alarms"].append(i)
+        if i >= n_warm:
+            out["step_s"].append(wall)
+    bad = [i for i, (l, g) in enumerate(zip(out["loss"], out["grad_norm"]))
+           if not (math.isfinite(l) and math.isfinite(g) and g > 0)]
+    if bad:
+        raise AssertionError(f"{arch}: non-finite loss or grad_norm <= 0 at "
+                             f"steps {bad}: {out}")
+    step_s = statistics.median(out["step_s"])
+    tokens = TRAIN_B * TRAIN_S
+    n_active = cfg.param_counts()["active"]
+    out.update(cfg=cfg, busy=busy, median_ms=step_s * 1e3,
+               tok_per_s=tokens / step_s, n_active=n_active,
+               mfu=6.0 * n_active * tokens / (step_s * BF16_DENSE_PEAK))
+    log(f"  {arch}: {zoo.param_count(cfg)} parameters ({n_active} active), "
+        f"remat={cfg.remat} microbatches={cfg.microbatches} batch "
+        f"{TRAIN_B} x {TRAIN_S}")
+    log(f"    losses={out['loss']!r}")
+    log(f"    grad_norms={out['grad_norm']!r}")
+    log(f"    step_ms={[t * 1e3 for t in out['step_s']]!r} "
+        f"median_ms={out['median_ms']!r} tok_per_s={out['tok_per_s']!r} "
+        f"mfu={out['mfu']!r} peak_gib={out['peak_bytes'] / 2 ** 30!r} "
+        f"ph_alarms_at={out['alarms']}")
+    log(f"    profiled step: {json.dumps(busy)}")
+    log(f"    {nvidia_smi_line()}")
+    del params, state, m, opt, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_op_check(dev) -> None:
+    """``dl_train_op`` at qwen2-1.5b's width with TRAIN_OP_LAYERS layers,
+    placed by ``place_frontier`` on the edge serving example's cluster
+    (``examples/edge_serving.py``: a train op is cloud-anchored) and run
+    in its ``OpGraph`` at the plan's frontier, against the standalone
+    ``make_train_step`` on the same card from the same seed and tokens:
+    losses, gradient norms, parameters and moments bitwise."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import OpGraph
+    from repro_torch.core.placement import Objective, place_frontier
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.train.ops import dl_train_op
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              n_layers=TRAIN_OP_LAYERS)
+    opt = make_optimizer(cfg, "adamw", lr=TRAIN_LR,
+                         total_steps=TRAIN_OP_STEPS, warmup=0)
+    rng = np.random.default_rng(12)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int32)).to(dev)
+        for _ in range(TRAIN_OP_STEPS)]
+    op = dl_train_op(cfg, opt, batch_size=TRAIN_B, seq_len=TRAIN_S,
+                     device=dev)
+    graph = OpGraph([op])
+    plan, frontier = place_frontier(graph, edge_serving_cluster(),
+                                    TRAIN_PLACE_RATE, Objective(),
+                                    method="dp")
+    log(f"  dl_train_op ({TRAIN_OP_LAYERS} layers, state "
+        f"{op.cost.state_bytes!r} bytes): place_frontier at "
+        f"{TRAIN_PLACE_RATE} sequences/s -> {plan.assignment} "
+        f"frontier={sorted(frontier)} feasible={plan.feasible}")
+    if plan.assignment.get(op.name) != "cloud0" or frontier:
+        raise AssertionError("dl_train_op was not anchored on the pod")
+    states = graph.init_states(dev)
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    ostate = opt.init(params)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    step_fn = make_train_step(cfg, opt)
+    for i, tokens in enumerate(batches):
+        params, ostate, step, m = step_fn(params, ostate, step,
+                                          {"tokens": tokens})
+        states, got = graph.run(states, {"tokens": tokens}, frontier)
+        same = all(torch.equal(m[k], got[k]) for k in ("loss", "grad_norm"))
+        log(f"    step {i}: standalone loss {float(m['loss'])!r} grad_norm "
+            f"{float(m['grad_norm'])!r}; op bitwise: {same}")
+        if not same:
+            raise AssertionError(f"dl_train_op step {i}: loss or grad_norm "
+                                 "differs from the standalone step")
+    p_op, o_op, s_op = states[op.name]
+    if not (bitwise_trees(params, p_op) and bitwise_trees(ostate, o_op)
+            and int(s_op) == int(step) == TRAIN_OP_STEPS
+            and states_on(states, dev.type)):
+        raise AssertionError("dl_train_op: parameters or moments differ "
+                             "from the standalone step's")
+    log("    parameters, moments and step bitwise the standalone step's, "
+        "on the card")
+    del states, params, ostate, p_op, o_op, graph, op
+    torch.cuda.empty_cache()
+
+
+def checkpoint_resume_check(dev) -> None:
+    """qwen2-1.5b's smoke config on the card: CKPT_STEPS AdamW steps with
+    an ``AsyncCheckpointer`` save after step CKPT_AT (the next step
+    updates the tensors in place as soon as ``save`` returns), against a
+    run restored from that save into fresh state: parameters and moments
+    bitwise. The full config's train state would be ~25 GB of npz with
+    bf16 widened; its size is logged, not written."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.streams.generators import TokenStream
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    opt = make_optimizer(cfg, "adamw", lr=3e-3, total_steps=CKPT_STEPS,
+                         warmup=2)
+    step_fn = make_train_step(cfg, opt)
+    gen = TokenStream(vocab_size=cfg.vocab_size, seq_len=CKPT_S)
+    batches = [torch.from_numpy(gen.batch(i, TRAIN_B).data["tokens"]).to(dev)
+               for i in range(CKPT_STEPS)]
+
+    def run(params, state, start, saver=None):
+        step = torch.tensor(start, dtype=torch.int32, device=dev)
+        for i in range(start, CKPT_STEPS):
+            params, state, step, _ = step_fn(params, state, step,
+                                             {"tokens": batches[i]})
+            if saver is not None and i + 1 == CKPT_AT:
+                saver.save(int(step), {"params": params, "opt": state})
+        return params, state
+
+    d = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        p0 = zoo.init_params(cfg, seed=0, device=dev)
+        with ckpt.AsyncCheckpointer(d) as saver:
+            p_end, s_end = run(p0, opt.init(p0), 0, saver)
+            saver.wait()
+        nbytes = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+        fresh = zoo.init_params(cfg, seed=1, device=dev)
+        tree, meta = ckpt.restore(d, {"params": fresh, "opt": opt.init(fresh)})
+        if meta["step"] != CKPT_AT or not states_on(tree, dev.type):
+            raise AssertionError(f"checkpoint: restored step {meta['step']} "
+                                 "or a leaf off the card")
+        r_end, rs_end = run(tree["params"], tree["opt"], CKPT_AT)
+        same = bitwise_trees(p_end, r_end) and bitwise_trees(s_end, rs_end)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    # params widened to fp32 on disk, beside the fp32 master, m and v
+    full_disk = 4 * 4 * zoo.param_count(get_config("qwen2-1.5b"))
+    log(f"  checkpoint at step {CKPT_AT} of {CKPT_STEPS} (smoke config, "
+        f"{nbytes} bytes on disk), restored into fresh state on the card: "
+        f"parameters and moments bitwise the uninterrupted run's: {same}; "
+        f"qwen2-1.5b's full train state would be {full_disk!r} bytes")
+    if not same:
+        raise AssertionError("checkpoint: the resumed run differs")
+
+
+def card_vs_cpu_check(dev) -> None:
+    """qwen2-1.5b's smoke config, CPU_STEPS AdamW steps from the same
+    weights (drawn on the CPU: a generator on the card draws other
+    numbers from the same seed) on the same tokens on the card and on
+    the CPU: losses within CPU_TOL relative."""
+    import numpy as np
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    rng = np.random.default_rng(21)
+    toks = [rng.integers(0, cfg.vocab_size, (TRAIN_B, CKPT_S)).astype(np.int32)
+            for _ in range(CPU_STEPS)]
+    start = zoo.init_params(cfg, seed=0, device="cpu")
+    losses = {}
+    for where in (dev, torch.device("cpu")):
+        opt = make_optimizer(cfg, "adamw", lr=3e-3, total_steps=CPU_STEPS,
+                             warmup=1)
+        params = tree_map(lambda t: t.to(where, copy=True), start)
+        state, step = opt.init(params), 0
+        step_fn = make_train_step(cfg, opt)
+        run = losses.setdefault(where.type, [])
+        for t in toks:
+            params, state, step, m = step_fn(
+                params, state, step, {"tokens": torch.from_numpy(t).to(where)})
+            run.append(float(m["loss"]))
+    card, cpu = losses[dev.type], losses["cpu"][-CPU_STEPS:]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    log(f"  card vs CPU (smoke config, {CPU_STEPS} steps): losses "
+        f"{card!r} vs {cpu!r}, largest relative gap {gap!r} (tol {CPU_TOL})")
+    if not gap <= CPU_TOL:
+        raise AssertionError("training: card and CPU losses disagree")
+
+
+def training_phase(dev) -> dict:
+    """Phase 12. Returns its launch counts: training takes the plain
+    chunked paths (no kernel has a backward), so every count stays 0."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    log(f"phase 12a: examples/train_stream_lm.py at qwen2-1.5b's full config "
+        f"({TRAIN_WARM} + {TRAIN_TIMED} steps)")
+    a = train_stream(dev, "qwen2-1.5b", TRAIN_WARM, TRAIN_TIMED)
+    timed = a["loss"][TRAIN_WARM:]
+    first, last = statistics.mean(timed[:3]), statistics.mean(timed[-3:])
+    log(f"    mean loss of the first 3 timed steps {first!r}, of the last 3 "
+        f"{last!r}")
+    if not last < first:
+        raise AssertionError("qwen2-1.5b: the loss did not fall")
+    log(f"phase 12b: rwkv6-1.6b's full config ({RWKV_WARM} + {RWKV_TIMED} "
+        f"steps, microbatches 4)")
+    b = train_stream(dev, "rwkv6-1.6b", RWKV_WARM, RWKV_TIMED)
+    log("phase 12c: dl_train_op placed on the edge serving cluster")
+    train_op_check(dev)
+    log("phase 12d: async checkpoint and bitwise resume on the card")
+    checkpoint_resume_check(dev)
+    log("phase 12e: the card against the CPU")
+    card_vs_cpu_check(dev)
+    counts = ops.launch_counts()
+    log(f"  phase 12 launches: {counts}")
+    if any(counts.values()):
+        raise AssertionError("training launched a hand kernel")
+    summary = {arch: {k: r[k] for k in ("median_ms", "tok_per_s", "mfu",
+                                        "peak_bytes")}
+               | {"idle_share": r["busy"]["idle_share"]}
+               for arch, r in (("qwen2-1.5b", a), ("rwkv6-1.6b", b))}
+    log(f"  training: {json.dumps(summary)}")
+    return counts
+
+
 def check_no_nan(states, what: str):
     import torch
     from repro_torch._tree import tree_leaves
@@ -2780,6 +3228,9 @@ def main(argv=None) -> int:
         f"tenant, dims {FLEET_DIMS}; the seed edge fails at round "
         f"{FLEET_FAIL_ROUND})")
     path_counts["fleet"] = fleet_phase(dev)
+
+    # -- phase 12: training ----------------------------------------------------
+    path_counts["training"] = training_phase(dev)
 
     counts = {k: sum(c[k] for c in path_counts.values())
               for k in ops.launch_counts()}

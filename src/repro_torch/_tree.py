@@ -82,3 +82,11 @@ def tree_map(fn: Callable, tree) -> Any:
 
 def tree_leaves(tree) -> List[Any]:
     return tree_flatten(tree)[0]
+
+
+def tree_bytes(tree) -> float:
+    """Bytes of every tensor leaf (``meta`` tensors included: shapes
+    only)."""
+    import math
+    return float(sum(math.prod(t.shape) * t.element_size()
+                     for t in tree_leaves(tree)))

@@ -9,7 +9,10 @@ packages can continue from the same point. :func:`state_from_numpy`
 carries one state, such as an edge node's ``CountMin`` (table, seeds) or
 ``MisraGries`` (keys, counts) sketch, onto the port's template of it
 (``streams/sketches.py``), after which it continues bitwise.
-:func:`params_from_numpy` does the same for a model's parameter tree.
+:func:`params_from_numpy` does the same for a model's parameter tree,
+and :func:`opt_state_from_numpy` / :func:`step_from_numpy` for a
+trainer's optimizer state and step, so both packages continue training
+from the same step.
 
 Every entry point defaults to ``device="cuda"`` and raises where CUDA is
 not available; pass ``device="cpu"`` to build on the CPU.
@@ -23,9 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch._tree import tree_flatten_with_path, tree_unflatten
+from repro_torch._tree import tree_flatten_with_path, tree_map, tree_unflatten
 from repro_torch.models import model_zoo as zoo
-from repro_torch.models.layers import dtype_of
 from repro_torch.streams.sampling import SEED_MASK
 
 
@@ -72,27 +74,55 @@ def states_from_numpy(pipeline, states_np: Dict[str, Any],
             for name in pipeline.names}
 
 
+def _tree_from_numpy(template, tree_np, device, what: str):
+    """``tree_np`` (numpy leaves, bf16 ones included) on ``device``, leaf
+    for leaf onto ``template`` (tensors, ``meta`` ones included): each
+    leaf takes its template leaf's dtype. Raises on a missing, extra or
+    misshaped leaf."""
+    want, treedef = tree_flatten_with_path(template)
+    have = dict(tree_flatten_with_path(tree_np)[0])
+    paths = [p for p, _ in want]
+    missing = sorted(set(paths) - set(have))
+    extra = sorted(set(have) - set(paths))
+    if missing or extra:
+        raise ValueError(f"{what} tree differs: missing {missing}, "
+                         f"extra {extra}")
+    leaves = []
+    for p, t in want:
+        a = np.asarray(have[p])
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{what} {p}: shape {a.shape} where the port "
+                             f"has {tuple(t.shape)}")
+        # through fp32, which holds every bf16 value exactly
+        a = np.array(a, dtype=np.float32 if t.is_floating_point() else None)
+        leaves.append(torch.from_numpy(a).to(device=device, dtype=t.dtype))
+    return tree_unflatten(treedef, leaves)
+
+
 def params_from_numpy(cfg, params_np, device="cuda"):
     """The port's parameter tree for ``cfg`` on ``device``, leaf for leaf
     from the JAX package's (``jax.tree.map(np.asarray, params)``), in the
     configuration's parameter dtype. Raises on a missing, extra or
     misshaped leaf."""
-    device = resolve_device(device)
-    want, treedef = tree_flatten_with_path(zoo.param_shapes(cfg))
-    have = dict(tree_flatten_with_path(params_np)[0])
-    paths = [p for p, _ in want]
-    missing = sorted(set(paths) - set(have))
-    extra = sorted(set(have) - set(paths))
-    if missing or extra:
-        raise ValueError(f"parameter tree differs: missing {missing}, "
-                         f"extra {extra}")
-    dtype = dtype_of(cfg.param_dtype)
-    leaves = []
-    for p, t in want:
-        a = np.asarray(have[p])
-        if tuple(a.shape) != tuple(t.shape):
-            raise ValueError(f"parameter {p}: shape {a.shape} where the port "
-                             f"has {tuple(t.shape)}")
-        leaves.append(torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=dtype))
-    return tree_unflatten(treedef, leaves)
+    return _tree_from_numpy(zoo.param_shapes(cfg), params_np,
+                            resolve_device(device), "parameter")
+
+
+def opt_state_from_numpy(optimizer, params, state_np, device="cuda"):
+    """The port's state of ``optimizer`` (``repro_torch.train.optim``)
+    over the port's ``params``, leaf for leaf from the JAX package's
+    state of the same optimizer as numpy trees: AdamW's ``m``, ``v`` and
+    ``master``, Lion's ``m``, Adafactor's factored ``vr`` and ``vc`` (``v``
+    for a vector), SGD's ``m``. Each leaf takes the dtype the port's
+    ``init`` gives it. Raises on a missing, extra or misshaped leaf."""
+    shapes = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                            device="meta"), params)
+    return _tree_from_numpy(optimizer.init(shapes), state_np,
+                            resolve_device(device), "optimizer state")
+
+
+def step_from_numpy(step, device="cuda") -> torch.Tensor:
+    """The JAX package's step counter as the port's: a 0-dim int32
+    tensor on ``device``."""
+    return torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                        device=resolve_device(device))

@@ -1,4 +1,4 @@
-"""Step-numbered checkpointing.
+"""Step-numbered checkpointing with async publish.
 
 Layout: ``<dir>/step_<010d>/{arrays.npz, manifest.json}``. Writes are
 atomic (tmp dir + ``os.replace``) so a reader never sees a partial
@@ -7,9 +7,14 @@ Restore is *structure-checked*: the target tree must have exactly the
 saved leaves (a mismatch raises ``ValueError`` naming the keys) and
 each leaf comes back with the target leaf's dtype and device.
 
-The port carries ``save``/``restore`` (what the elastic rescale cycle
-uses); the JAX package's asynchronous writer comes with the rest of
-``dist`` (ROADMAP).
+:class:`AsyncCheckpointer` snapshots the tree on the caller thread (every
+tensor leaf copied to host memory, what the reference's
+``jax.device_get`` gives it) and performs serialization + disk I/O on a
+single background thread; ``wait()`` drains the queue and re-raises any
+writer-side failure. The snapshot is a copy, so the caller may update the
+tensors in place (the port's optimizers do) as soon as ``save`` returns.
+bf16 leaves are widened to fp32 on disk (``_to_numpy``) and cast back by
+``restore``.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import queue
 import shutil
 import threading
 from typing import Any, Optional, Tuple
@@ -24,7 +30,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch._tree import tree_flatten_with_path, tree_unflatten
+from repro_torch._tree import tree_flatten_with_path, tree_map, tree_unflatten
 
 _STEP_PREFIX = "step_"
 _MANIFEST = "manifest.json"
@@ -136,3 +142,70 @@ def restore(directory, like, step: Optional[int] = None) -> Tuple[Any, dict]:
             leaves.append(arr)
     tree = tree_unflatten(treedef, leaves)
     return tree, {"step": manifest["step"], "meta": manifest["meta"]}
+
+
+def _host_copy(leaf):
+    """A tensor leaf copied to host memory (a CPU tensor is cloned: the
+    caller may overwrite it once ``save`` returns)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    return leaf
+
+
+class AsyncCheckpointer:
+    """Background-thread checkpoint writer.
+
+    ``save`` returns once every leaf of the tree is copied to host
+    memory; serialization and disk I/O happen on the worker. ``wait``
+    blocks until all submitted saves are on disk and re-raises the first
+    writer error, if any.
+    """
+
+    def __init__(self, directory, *, keep: Optional[int] = None):
+        self.directory = pathlib.Path(directory)
+        self.keep = keep
+        self._q: "queue.Queue" = queue.Queue()
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._worker, name="ckpt-writer", daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                step, tree, meta = item
+                save(self.directory, step, tree, meta=meta, keep=self.keep)
+            except BaseException as e:  # surfaced on wait()
+                if self._error is None:
+                    self._error = e
+            finally:
+                self._q.task_done()
+
+    def save(self, step: int, tree, *, meta: Optional[dict] = None):
+        if not self._thread.is_alive():
+            raise RuntimeError("AsyncCheckpointer is closed")
+        snapshot = tree_map(_host_copy, tree)
+        self._q.put((int(step), snapshot, meta))
+
+    def wait(self):
+        self._q.join()
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def close(self):
+        if self._thread.is_alive():
+            self._q.put(None)
+            self._thread.join()
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -124,6 +124,25 @@ def device_stats(store: dict, device) -> "torch.Tensor":
     return store[dev]
 
 
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise ``RuntimeError`` where grad mode is on and a tensor (or a
+    tensor field of a NamedTuple state) requires grad: a ``ctypes``
+    launch is invisible to autograd, so the gradient through it would
+    come back as silently zero. No kernel of the port has a backward;
+    training takes the plain chunked paths (``impl="chunked"``)."""
+    import torch
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        parts = t if isinstance(t, tuple) else (t,)
+        if any(isinstance(x, torch.Tensor) and x.requires_grad
+               for x in parts):
+            raise RuntimeError(
+                f"{what}: an input requires grad, and the CUDA kernel has "
+                "no backward (autograd cannot see its launch); train "
+                "through impl='chunked', or call it under torch.no_grad()")
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a CUDA error code returned by a launch."""
     if rc != 0:

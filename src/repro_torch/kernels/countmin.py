@@ -90,6 +90,7 @@ def _add(ids, sd, src, table) -> None:
 
 def countmin_update_cuda(ids, depth: int, width: int, seeds):
     """The count-min kernel: the (depth, width) int32 increment."""
+    _build.refuse_autograd("countmin_update", ids, seeds)
     idt, sd = _operands(ids, seeds, depth)
     out = torch.empty((depth, width), dtype=torch.int32, device=ids.device)
     _add(idt, sd, None, out)
@@ -106,6 +107,7 @@ def countmin_add_cuda(ids, table, seeds):
     """The count-min kernel into a copy of ``table``: ``table +`` the
     increment, as a new (depth, width) int32 table; ``table`` is not
     modified."""
+    _build.refuse_autograd("countmin_add", ids, table, seeds)
     depth, _ = table.shape
     idt, sd = _operands(ids, seeds, depth)
     src = _table(ids, table)
@@ -128,6 +130,7 @@ def countmin_update_witness_cuda(ids, depth: int, width: int, seeds):
 
 def countmin_update_query_cuda(ids, table, seeds):
     """The add-then-query kernels: ``(new_table, est (n,) int32)``."""
+    _build.refuse_autograd("countmin_update_query", ids, table, seeds)
     depth, width = table.shape
     idt, sd = _operands(ids, seeds, depth)
     src = _table(ids, table)

@@ -903,13 +903,15 @@ int launch_d(const Args& a, int dtype, cudaStream_t st) {
 // 1 = bfloat16; D in {16, 64, 128}. kv_splits: 0 for the 64-row kernel; for
 // bf16 with (H / KV) * S <= 16, n >= 1 for the decode kernel with T split
 // over n blocks (n > 1 needs part, B*KV*n*16*(D+2) floats, and counters, B*KV
-// ints at zero). Returns the CUDA error of the launch.
+// ints at zero). scale multiplies the scores: 1/sqrt(D) where it is 0, the
+// original head dim's 1/sqrt where q, k and v were zero-padded up to D.
+// Returns the CUDA error of the launch.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int S, int T,
     int H, int KV, int D, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_st, long long k_sh, long long v_sb,
     long long v_st, long long v_sh, int dtype, int causal, int kv_splits,
-    void* part, void* counters, void* stream) {
+    float scale, void* part, void* counters, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -945,7 +947,7 @@ extern "C" int flash_attention_fwd(
   a.kv_splits = kv_splits;
   a.part = (float*)part;
   a.counters = (int*)counters;
-  a.scale = 1.0f / sqrtf((float)D);
+  a.scale = scale > 0.0f ? scale : 1.0f / sqrtf((float)D);
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 16:

@@ -100,6 +100,7 @@ def _launch(detector: str, state, err: torch.Tensor, serial: bool):
 
 def detector_scan_cuda(detector: str, state, err: torch.Tensor):
     """The detector-scan kernel: ``(final state, any event at DRIFT)``."""
+    _build.refuse_autograd("detector_scan", state, err)
     out = _launch(detector, state, err, serial=False)
     LAUNCHES["detector_scan"] += 1
     return out

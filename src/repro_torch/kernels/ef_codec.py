@@ -86,6 +86,7 @@ def _launch(residual, x, thresh, counter):
 
 def ef_int8_roundtrip_cuda(residual: torch.Tensor, x: torch.Tensor):
     """The int8 EF round-trip kernel: ``(decoded, new_residual)``."""
+    _build.refuse_autograd("ef_int8_roundtrip", residual, x)
     return _launch(residual, x, None, "ef_int8_roundtrip")
 
 
@@ -107,6 +108,7 @@ def ef_topk_int8_roundtrip_cuda(residual: torch.Tensor, x: torch.Tensor,
                                 k: int):
     """The top-k + int8 EF round-trip kernels, the radix select included:
     ``(decoded, new_residual)``."""
+    _build.refuse_autograd("ef_topk_int8_roundtrip", residual, x)
     xf, r, k, scratch = _topk_operands(residual, x, k)
     dec = torch.empty_like(xf)
     rout = torch.empty_like(xf)

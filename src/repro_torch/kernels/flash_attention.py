@@ -11,7 +11,13 @@ copy (a tensor whose last axis is not contiguous, or whose rows are not
 16-byte aligned, is copied first). :func:`flash_attention_bhsd` is the
 reference's (BH, S, D) API, a view of the same entry point with
 H = KV = 1. fp32 or bf16, head dims :data:`HEAD_DIMS`, causal
-(start-aligned, as the TPU kernel) or not.
+(start-aligned, as the TPU kernel) or not. The dispatching wrappers take
+any head dim up to the largest built one: q, k and v of an unbuilt dim
+are zero-padded up to the next built dim (:func:`padded_head_dim`), the
+kernel scales the scores by the original dim's 1/sqrt (so they do not
+change), and the padded columns of the output are sliced off
+(:func:`padded_call`). A head dim above the largest built one is
+refused.
 
 bf16 runs on the tensor cores: the 64-row kernel, or for a step of at most
 :data:`DECODE_ROWS` query rows a (batch, KV head) the grouped decode
@@ -19,7 +25,9 @@ kernel, with T split across blocks where the batch's KV heads cannot fill
 the card (:func:`kv_splits`). fp32 runs on the CUDA cores.
 
 Each wrapper launches the kernel for a CUDA tensor, runs the plain
-version for a CPU tensor, and raises for any other device.
+version for a CPU tensor, and raises for any other device. The kernel
+has no backward: its wrapper raises where an input requires grad in
+grad mode.
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ from __future__ import annotations
 import ctypes
 from typing import Dict
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
@@ -56,7 +66,8 @@ def _lib():
     lib = _build.library("flash_attention")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_fwd.argtypes = (
-            [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [_P] * 3)
+            [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [ctypes.c_float]
+            + [_P] * 3)
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -137,10 +148,42 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     return c
 
 
+def padded_head_dim(D: int) -> int:
+    """The built head dim a call at ``D`` runs at: ``D`` where it is
+    built, else the smallest built dim above it. ``ValueError`` above the
+    largest."""
+    wider = [d for d in HEAD_DIMS if d >= D]
+    if D < 1 or not wider:
+        raise ValueError(f"flash_attention: head dim {D} above the largest "
+                         f"built {max(HEAD_DIMS)}")
+    return min(wider)
+
+
+def _scale(D: int) -> float:
+    """1/sqrt(D) as the kernel computes it, in fp32."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(D)))
+
+
+def padded_call(fn, q, k, v, *, causal: bool = True):
+    """``fn(q, k, v, causal=..., scale_dim=...)`` at the built head dim
+    :func:`padded_head_dim` gives: q, k and v zero-padded on the head dim
+    (the scores and the output's first D columns do not change when the
+    scores keep the original dim's scale), the output sliced back."""
+    D = q.shape[-1]
+    Dp = padded_head_dim(D)
+    if Dp == D:
+        return fn(q, k, v, causal=causal)
+    q, k, v = (F.pad(t, (0, Dp - D)) for t in (q, k, v))
+    return fn(q, k, v, causal=causal, scale_dim=D)[..., :D]
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True,
+                         scale_dim=None) -> torch.Tensor:
     """The kernel, model layout: q (B,S,H,D), k,v (B,T,KV,D) -> (B,S,H,D),
-    read in place (see :func:`check_args` for what it takes)."""
+    read in place (see :func:`check_args` for what it takes). The scores
+    are scaled by 1/sqrt(``scale_dim``), D by default."""
+    _build.refuse_autograd("flash_attention", q, k, v)
     strides = check_args(q, k, v)
     dev = q.device
     if dev.type != "cuda":
@@ -158,6 +201,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             B, S, T, H, KV, D, *strides[0], *strides[1], *strides[2],
             _DTYPES[q.dtype], int(bool(causal)), splits,
+            0.0 if scale_dim is None else _scale(scale_dim),
             None if part is None else part.data_ptr(),
             None if counters is None else counters.data_ptr())
     if dev.index == torch.cuda.current_device():
@@ -172,21 +216,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True):
-    """The plain version, model layout."""
-    return attention_ref(q, k, v, causal=causal)
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          scale_dim=None):
+    """The plain version, model layout, any head dim."""
+    return attention_ref(q, k, v, causal=causal, scale_dim=scale_dim)
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """Model layout. q: (B,S,H,D); k,v: (B,T,KV,D), H a multiple of KV.
     Returns (B,S,H,D) on q's device: the kernel on CUDA (one launch; a
     tensor is copied only if its last axis is not contiguous or its rows
-    are not 16-byte aligned), the plain version on the CPU."""
+    are not 16-byte aligned, or zero-padded where D is not built), the
+    plain version on the CPU."""
     if q.device.type == "cuda":
         q, k, v = (t if _row_strides(t) is not None
                    else t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
-        return flash_attention_cuda(q, k, v, causal=causal)
+        return padded_call(flash_attention_cuda, q, k, v, causal=causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
@@ -196,9 +242,10 @@ def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True
                               ) -> torch.Tensor:
     """The kernel in the reference's layout: q (BH,S,D), k,v (BH,T,D) ->
-    (BH,S,D), as one head of a model-layout call."""
-    return flash_attention_cuda(q[:, :, None], k[:, :, None], v[:, :, None],
-                                causal=causal)[:, :, 0]
+    (BH,S,D), as one head of a model-layout call (zero-padded where D is
+    not built)."""
+    return padded_call(flash_attention_cuda, q[:, :, None], k[:, :, None],
+                       v[:, :, None], causal=causal)[:, :, 0]
 
 
 def flash_attention_bhsd_plain(q, k, v, *, causal: bool = True):

@@ -19,8 +19,16 @@ takes ``bd`` channels a block, rounded up to a multiple of 16, at most
 channel, ``chunk`` steps of B and C staged, ``bd`` threads a block): the
 witness on the card, not counted in :data:`LAUNCHES`.
 
+A state size that is not built, up to the largest built one, runs
+zero-padded up to the next built size (:func:`padded_state_size`,
+:func:`padded_call`): B, C, A and h0 are padded on the state axis (a zero
+B and a zero h0 keep the padded states at 0, whatever exp(dt A) is), and
+h_last is sliced back. A state size above the largest built one is
+refused.
+
 It launches the kernel for a CUDA tensor, runs the plain version for a
-CPU tensor, and raises for any other device.
+CPU tensor, and raises for any other device. The kernel has no
+backward: its wrapper raises where an input requires grad in grad mode.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mamba_scan_ref
@@ -40,6 +49,29 @@ MAX_CHANNELS = 64       # channels a block of the lane kernel
 MAX_CHUNK = 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def padded_state_size(N: int) -> int:
+    """The built state size a call at ``N`` runs at: ``N`` where it is
+    built, else the smallest built size above it. ``ValueError`` above
+    the largest."""
+    wider = [n for n in STATE_SIZES if n >= N]
+    if N < 1 or not wider:
+        raise ValueError(f"mamba_scan: state size {N} above the largest "
+                         f"built {max(STATE_SIZES)}")
+    return min(wider)
+
+
+def padded_call(fn, dt, x, Bm, Cm, A, h0, **kw):
+    """``fn`` (a selective scan) at the built state size
+    :func:`padded_state_size` gives: B, C, A and h0 zero-padded on the
+    state axis, h_last sliced back (y is unchanged)."""
+    N = Bm.shape[-1]
+    p = padded_state_size(N) - N
+    if not p:
+        return fn(dt, x, Bm, Cm, A, h0, **kw)
+    y, h = fn(dt, x, *(F.pad(t, (0, p)) for t in (Bm, Cm, A, h0)), **kw)
+    return y, h[..., :N]
 
 
 def _lib():
@@ -81,6 +113,7 @@ def _scan(entry: str, dt, x, Bm, Cm, A, h0, steps: int, width: int):
 def mamba_scan_cuda(dt, x, Bm, Cm, A, h0, *, chunk: int = 128,
                     bd: int = 256):
     """The lane-split selective-scan kernel: ``(y, h_last)`` in fp32."""
+    _build.refuse_autograd("mamba_scan", dt, x, Bm, Cm, A, h0)
     S, dI = dt.shape[1], dt.shape[2]
     steps = max(1, min(int(chunk), S, MAX_TILE))
     chans = min(MAX_CHANNELS, 16 * -(-max(1, min(int(bd), dI)) // 16))
@@ -100,10 +133,11 @@ def mamba_scan_witness_cuda(dt, x, Bm, Cm, A, h0, *, chunk: int = 128,
 
 
 def mamba_scan(dt, x, Bm, Cm, A, h0, *, chunk: int = 128, bd: int = 256):
-    """The selective scan on dt's device: kernel on CUDA, plain version
-    on the CPU."""
+    """The selective scan on dt's device: kernel on CUDA (zero-padded
+    where N is not built), plain version on the CPU."""
     if dt.device.type == "cuda":
-        return mamba_scan_cuda(dt, x, Bm, Cm, A, h0, chunk=chunk, bd=bd)
+        return padded_call(mamba_scan_cuda, dt, x, Bm, Cm, A, h0,
+                           chunk=chunk, bd=bd)
     if dt.device.type == "cpu":
         return mamba_scan_ref(dt, x, Bm, Cm, A, h0)
     raise ValueError(f"mamba_scan: no kernel for device {dt.device}")

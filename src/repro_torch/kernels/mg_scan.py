@@ -71,6 +71,7 @@ def _args(keys, counts, ids):
 
 def mg_scan_cuda(keys, counts, ids):
     """The Misra-Gries kernel: ``(keys, counts)`` after ``ids``."""
+    _build.refuse_autograd("mg_scan", keys, counts, ids)
     k, kk, cc, idt = _args(keys, counts, ids)
     if not idt.numel():
         return kk, cc

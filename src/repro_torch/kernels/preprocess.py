@@ -91,6 +91,7 @@ def _normalize(entry: str, scratch, x, n0, mean0, m20, impute: bool):
 
 def fused_normalize_cuda(x, n0, mean0, m20, *, impute: bool = True):
     """The persistent normalize kernel: ``(y, n1, mean1, m21)``."""
+    _build.refuse_autograd("fused_normalize", x, n0, mean0, m20)
     out = _normalize("fused_normalize",
                      lambda lib, n, d: 2 * lib.normalize_grid() * d + 2 * d,
                      x, n0, mean0, m20, impute)
@@ -129,6 +130,7 @@ def _hash(entry: str, ids, vals, dim: int, seed: int):
 
 def fused_hash_features_cuda(ids, vals, dim: int, *, seed: int = 17):
     """The feature-hashing kernel: ids/vals (n, f) -> dense (n, dim)."""
+    _build.refuse_autograd("fused_hash_features", ids, vals)
     out = _hash("hash_features", ids, vals, dim, seed)
     if ids.shape[0]:
         LAUNCHES["fused_hash_features"] += 1

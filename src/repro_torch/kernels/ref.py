@@ -244,10 +244,12 @@ def ef_topk_int8_roundtrip_ref(residual, x, k: int):
     return dec.reshape(shape).to(x.dtype), (xc - dec).reshape(shape)
 
 
-def attention_ref(q, k, v, *, causal: bool = True):
+def attention_ref(q, k, v, *, causal: bool = True, scale_dim=None):
     """Materialized-softmax attention. q: (B,S,H,D); k,v: (B,T,KV,D)
     (GQA expanded here). Scores, softmax and the product in fp32, the
-    result in q's dtype.
+    result in q's dtype. The scores are divided by the square root of
+    ``scale_dim`` (D by default; the original head dim of a call whose
+    q, k, v were zero-padded to a wider one).
 
     The causal mask is the flash kernel's: ``kpos <= qpos`` with both
     counted from 0 (start-aligned). The JAX package's oracle
@@ -260,7 +262,8 @@ def attention_ref(q, k, v, *, causal: bool = True):
     if KV != H:
         k = torch.repeat_interleave(k, H // KV, dim=2)
         v = torch.repeat_interleave(v, H // KV, dim=2)
-    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(D)
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(
+        D if scale_dim is None else scale_dim)
     if causal:
         mask = torch.tril(torch.ones((S, T), dtype=torch.bool,
                                      device=q.device))

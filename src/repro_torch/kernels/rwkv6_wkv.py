@@ -23,13 +23,20 @@ every positive chunk the reference's kernel takes and run one that was
 not built at the built chunk :func:`kernel_chunk` names (the largest
 built chunk that divides it, else the largest built chunk): rwkv6's
 default ``RWKVConfig.chunk`` of 64 runs the chunk-32 kernel, one launch.
-A head size outside :data:`HEAD_SIZES` is refused. The plain version
+A head size that is not built, up to the largest built one, runs
+zero-padded up to the next built size (:func:`padded_head_size`,
+:func:`padded_call`): r, k, v, lw, u and h0 are padded on the head axis
+(a zero key and a zero state keep the padded rows of the state at 0, a
+zero value the padded columns of o), and o and h_last are sliced back.
+A head size above the largest built one is refused. The plain version
 takes any shape. :func:`rwkv6_wkv_witness_cuda` runs the CUDA-core
 kernel on either dtype: the witness the tensor-core kernel is held
 against on the card (not counted in :data:`LAUNCHES`).
 
 Each wrapper launches its kernel for a CUDA tensor, runs the plain
-version for a CPU tensor, and raises for any other device.
+version for a CPU tensor, and raises for any other device. The kernels
+have no backward: the path's wrapper raises where an input requires grad
+in grad mode.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rwkv6_wkv_ref
@@ -64,6 +72,30 @@ def kernel_chunk(chunk: int) -> int:
     if chunk in CHUNKS:
         return chunk
     return max([c for c in CHUNKS if chunk % c == 0] or CHUNKS)
+
+
+def padded_head_size(hs: int) -> int:
+    """The built head size a call at ``hs`` runs at: ``hs`` where it is
+    built, else the smallest built size above it. ``ValueError`` above
+    the largest."""
+    wider = [h for h in HEAD_SIZES if h >= hs]
+    if hs < 1 or not wider:
+        raise ValueError(f"rwkv6_wkv: head size {hs} above the largest "
+                         f"built {max(HEAD_SIZES)}")
+    return min(wider)
+
+
+def padded_call(fn, r, k, v, lw, u, h0, *, chunk: int):
+    """``fn`` (a model-layout WKV) at the built head size
+    :func:`padded_head_size` gives: every input zero-padded on the head
+    axis (both axes of h0), o and h_last sliced back."""
+    hs = r.shape[-1]
+    p = padded_head_size(hs) - hs
+    if not p:
+        return fn(r, k, v, lw, u, h0, chunk=chunk)
+    r, k, v, lw, u = (F.pad(t, (0, p)) for t in (r, k, v, lw, u))
+    o, h = fn(r, k, v, lw, u, F.pad(h0, (0, p, 0, p)), chunk=chunk)
+    return o[..., :hs], h[..., :hs, :hs]
 
 
 def _lib():
@@ -160,6 +192,7 @@ def _launch(r, k, v, lw, u, h0, chunk: int, route: int):
 def rwkv6_wkv_cuda(r, k, v, lw, u, h0, *, chunk: int = 32):
     """The path's kernel, model layout, read in place (see
     :func:`check_args`): one launch."""
+    _build.refuse_autograd("rwkv6_wkv", r, k, v, lw, u, h0)
     out = _launch(r, k, v, lw, u, h0, chunk, 0)
     LAUNCHES["rwkv6_wkv"] += 1
     return out
@@ -182,9 +215,10 @@ def rwkv6_wkv(r, k, v, lw, u, h0, *, chunk: int = 32):
     """Model layout. r,k,v,lw: (B,S,H,hs); u: (H,hs); h0: (B,H,hs,hs).
     Returns (o (B,S,H,hs) in r's dtype, h_last (B,H,hs,hs) fp32) on r's
     device: the kernel on CUDA (one launch; an input is copied only where
-    the kernels cannot read it in place or its type is not theirs), the
-    plain version on the CPU. ``chunk`` is any positive chunk: the
-    kernel runs it at :func:`kernel_chunk`'s built chunk."""
+    the kernels cannot read it in place or its type is not theirs, or
+    zero-padded where hs is not built), the plain version on the CPU.
+    ``chunk`` is any positive chunk: the kernel runs it at
+    :func:`kernel_chunk`'s built chunk."""
     chunk = kernel_chunk(chunk)
     if r.device.type == "cuda":
         r, k, v = (_in_place(t) for t in (r, k, v))
@@ -192,7 +226,8 @@ def rwkv6_wkv(r, k, v, lw, u, h0, *, chunk: int = 32):
         h0 = h0.float().contiguous()
         if u.dtype not in _DTYPES:
             u = u.float()
-        return rwkv6_wkv_cuda(r, k, v, lw, u.contiguous(), h0, chunk=chunk)
+        return padded_call(rwkv6_wkv_cuda, r, k, v, lw, u.contiguous(), h0,
+                           chunk=chunk)
     if r.device.type == "cpu":
         return rwkv6_wkv_plain(r, k, v, lw, u, h0, chunk=chunk)
     raise ValueError(f"rwkv6_wkv: no kernel for device {r.device}")
@@ -221,8 +256,8 @@ def rwkv6_wkv_bh_plain(r, k, v, lw, u, h0, *, chunk: int = 32):
 
 def rwkv6_wkv_bh(r, k, v, lw, u, h0, *, chunk: int = 32):
     """WKV in the reference's (BH, S, hs) layout on r's device: kernel on
-    CUDA (at :func:`kernel_chunk`'s built chunk), plain version on the
-    CPU."""
+    CUDA (at :func:`kernel_chunk`'s built chunk, zero-padded where hs is
+    not built), plain version on the CPU."""
     chunk = kernel_chunk(chunk)
     if r.device.type == "cuda":
         o, h = rwkv6_wkv(*map(_heads, (r, k, v, lw)), u, h0[None],

@@ -5,9 +5,9 @@ operation for operation (reductions in fp32, results dropped to the
 activation dtype where the reference drops them). All functions are
 pure; parameters are plain dicts materialized from Spec trees
 (:mod:`repro_torch.models.params`). The reference's sharding annotations
-are no-ops without a device mesh and are left out; its ``cot_cast``
-(a backward-only cast) is the identity here, since this path computes no
-gradients.
+are no-ops without a device mesh and are left out. Every function is
+differentiable by torch autograd; :func:`cot_cast` is the reference's
+backward-only cast of the residual stream's cotangent.
 """
 
 from __future__ import annotations
@@ -27,9 +27,25 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+class _CotCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
 def cot_cast(x: torch.Tensor) -> torch.Tensor:
-    """The reference's backward-only cotangent cast: the identity in a
-    forward pass."""
+    """Identity whose BACKWARD casts the cotangent to the primal's dtype,
+    as the reference's ``custom_vjp``: one fp32 contribution (a norm's
+    VJP) must not widen the whole residual stream's cotangent chain.
+    Outside autograd (no grad mode, or nothing to differentiate) it
+    returns ``x`` itself."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CotCast.apply(x)
     return x
 
 

@@ -90,6 +90,7 @@ def wkv_chunked(r, k, v, lw, u, h0, chunk: int):
     uf = u.float()
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
                                 device=r.device), diagonal=-1)
+    zero = torch.zeros((), dtype=torch.float32, device=r.device)
     h = h0
     outs = []
     for idx in range(n):
@@ -100,9 +101,12 @@ def wkv_chunked(r, k, v, lw, u, h0, chunk: int):
         # inter-chunk: o_t += (r_t * exp(L_excl_t)) @ h
         q_in = rc * torch.exp(L_excl)
         o = torch.einsum("blhi,bhij->blhj", q_in, h)
-        # intra-chunk (pairwise-stable): exponent L_excl[t]-L[s] <= 0 for s<t
-        dpair = torch.exp(torch.clamp(L_excl[:, :, None] - L[:, None],
-                                      max=0.0))       # (B,t,s,H,hs)
+        # intra-chunk (pairwise-stable): exponent L_excl[t]-L[s] <= 0 for s<t.
+        # minimum, not clamp: at an exponent of exactly 0 (s = t-1 often
+        # rounds there) it halves the gradient, as the reference's
+        # jnp.minimum does, where clamp would pass all of it
+        dpair = torch.exp(torch.minimum(L_excl[:, :, None] - L[:, None],
+                                        zero))        # (B,t,s,H,hs)
         scores = torch.einsum("blhi,blshi,bshi->blsh", rc, dpair, kc)
         scores = scores * tri[None, :, :, None]
         o = o + torch.einsum("blsh,bshj->blhj", scores, vc)

@@ -6,8 +6,12 @@ A config compiles to a *layer plan*: a short prefix plus a periodic
 pattern of per-layer "slots" over stacked parameters (every leaf of the
 pattern's parameters carries a leading ``layers`` dimension). The
 reference scans over that dimension; here :func:`run_stack` is a Python
-loop over it, and the reference's gather barrier (``_diff_barrier``) and
-rematerialisation have no counterpart. Slot mixers ported: ``attn``,
+loop over it, differentiable by torch autograd, with the reference's
+rematerialisation (``cfg.remat``, :func:`_remat_wrap`) when it runs
+under autograd. The reference's gather barrier (``_diff_barrier``) has
+no counterpart: it is an XLA scheduling barrier (it keeps the partitioner
+from hoisting FSDP all-gathers out of the scan) with no numeric effect.
+Slot mixers ported: ``attn``,
 ``attn_cross``, ``rwkv``; slot MLPs: ``dense``, ``rwkv_cm``. The moe,
 ssm, hybrid and vlm families and MLA raise ``NotImplementedError``.
 
@@ -19,11 +23,14 @@ Families:
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
-from repro_torch._tree import tree_flatten_with_path, tree_map, tree_unflatten
+from repro_torch._tree import (tree_flatten, tree_flatten_with_path,
+                               tree_map, tree_unflatten)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv as rwkv_mod
@@ -209,6 +216,50 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _layers(tree, n: int):
+    """Every layer of a stacked tree, by one ``torch.unbind`` a leaf: its
+    backward is one ``stack`` a leaf, where ``t[i]`` a layer would run n
+    ``select_backward``s, each a zero tensor the size of the whole
+    stack."""
+    leaves, treedef = tree_flatten(tree)
+    per_leaf = [torch.unbind(t) for t in leaves]
+    return [tree_unflatten(treedef, [u[i] for u in per_leaf])
+            for i in range(n)]
+
+
+# the matrix products a "dots" policy saves (the reference's
+# ``checkpoint_dots``): einsum and ``@`` run as these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, cfg: ArchConfig):
+    """``fn(x, layer_params)`` under the reference's remat policy:
+    ``"none"`` saves every activation, ``"dots"`` saves the matrix
+    products' outputs and recomputes the rest, and anything else
+    (``"full"``) saves only the layer's input and recomputes its body in
+    the backward. The model draws no random numbers, so the RNG state is
+    not carried into the recompute."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
+
+    def wrapped(x, lp):
+        return torch_checkpoint.checkpoint(
+            fn, x, lp, use_reentrant=False, preserve_rng_state=False, **kw)
+    return wrapped
+
+
 def _write_back(stacked, per_layer):
     """The stacked cache tree after the loop. A leaf the stacked tree
     already holds is updated IN PLACE, layer by layer (a layer's KV
@@ -236,21 +287,30 @@ def _write_back(stacked, per_layer):
 def run_stack(params, cfg: ArchConfig, pattern, x, *, positions, memory,
               caches, impl):
     """params: stacked slot-param list; caches: stacked cache trees or
-    None (updated in place where given)."""
+    None (updated in place where given). Without caches and under
+    autograd each layer runs under ``cfg.remat``."""
     n = len(tree_flatten_with_path(params)[0][0][1])
+    layers = _layers(params, n)
+    if caches is None:
+        def body(x, lp):
+            for i, slot in enumerate(pattern):
+                x, _ = apply_slot(lp[i], cfg, slot, x, positions=positions,
+                                  memory=memory, cache=None, impl=impl)
+            return x
+        if torch.is_grad_enabled():
+            body = _remat_wrap(body, cfg)
+        for lp in layers:
+            x = body(x, lp)
+        return x, None
     per_layer = []
-    for l in range(n):
-        lp = _layer(params, l)
-        lc = _layer(caches, l) if caches is not None else None
+    for l, lp in enumerate(layers):
+        lc = _layer(caches, l)
         new_caches = []
         for i, slot in enumerate(pattern):
-            c = lc[i] if lc is not None else None
             x, nc = apply_slot(lp[i], cfg, slot, x, positions=positions,
-                               memory=memory, cache=c, impl=impl)
+                               memory=memory, cache=lc[i], impl=impl)
             new_caches.append(nc)
         per_layer.append(new_caches)
-    if caches is None:
-        return x, None
     return x, _write_back(caches, per_layer)
 
 
@@ -351,8 +411,8 @@ def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked"):
 
 
 def lm_loss(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
-    """Next-token cross-entropy (+ aux), forward only. Returns
-    (loss, metrics)."""
+    """Next-token cross-entropy (+ aux), differentiable by torch autograd
+    (the train step's loss). Returns (loss, metrics)."""
     logits, aux = forward_lm(params, cfg, batch, impl=impl)
     tokens = batch["tokens"].to(logits.device)
     labels = tokens[:, 1:].long()

@@ -18,12 +18,11 @@ frontier (cloud-prefill/edge-decode).
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch._tree import tree_leaves
+from repro_torch._tree import tree_bytes
 from repro_torch.core.costmodel import OperatorCost
 from repro_torch.core.pipeline import Op, OpGraph
 from repro_torch.launch.roofline import dl_operator_cost
@@ -32,22 +31,17 @@ from repro_torch.serve.engine import (ServeEngine, sample_with_seed,
                                       split_seed, wave_inputs)
 
 
-def _tree_bytes(tree) -> float:
-    return float(sum(math.prod(t.shape) * t.element_size()
-                     for t in tree_leaves(tree)))
-
-
 def param_bytes(cfg) -> float:
     """Resident bytes of the model weights (shapes only, nothing
     allocated)."""
-    return _tree_bytes(zoo.param_shapes(cfg))
+    return tree_bytes(zoo.param_shapes(cfg))
 
 
 def kv_cache_bytes(cfg, batch: int, max_len: int, src_len: int = 0) -> float:
     """Resident bytes of a full KV-cache tree at ``(batch, max_len)`` —
     the decode op's placement-priced state, from shapes only (a cache
     on the ``meta`` device)."""
-    return _tree_bytes(zoo.init_caches(cfg, batch, max_len, src_len,
+    return tree_bytes(zoo.init_caches(cfg, batch, max_len, src_len,
                                        device="meta"))
 
 
