@@ -134,11 +134,39 @@ path on the card, and checks what comes out. Phases:
     (no kernel has a backward). The kernels' pad routes (flash attention
     at head dims 32 and 96, WKV at head size 32, Mamba at 8 states, each
     zero-padded to the next built size) are held to their plain versions
-    at the original size after phase 6's and phase 9's checks.
+    at the original size after phase 6's and phase 9's checks, flash's
+    beside the fastest fused SDPA backend at the original size;
+13. the orchestrator's other modes on phase 3's dense job (12 x 65,536 x
+    256, ``int8_ef``, a pinned 1e4 events/s): (a) ``fuse="xla"`` (each
+    segment captured once into a CUDA graph and replayed) against
+    ``fuse="op"``, on the job and on a direct walk of the standard
+    pipeline through cuts 0, 2, 5, 2, 0 (two batches a cut, states
+    carried): JobMetrics equal, masks bitwise, states and outputs within
+    rtol 1e-5 and atol 1e-6, one capture per distinct segment and none on
+    a revisit, the DDM kernel among each drift segment's graph nodes;
+    ms a batch, host-clock ms per op and per segment, a profiled rerun's
+    idle share and capture ms per segment for both modes; (b)
+    ``measured_costs=True``: every op measured, the decision line, the
+    card's cost table within 1% of the CPU's for the same first batch,
+    the measured plan beside the declared one; (c) a fusion-fed job (a
+    32-wide side stream on the same timestamps through
+    ``WindowJoin(tolerance=5.0)``, then concat -> normalize -> train ->
+    drift): every event matched, prequential accuracy above 0.6, the
+    control trajectory equal to the CPU's at 2,048 events a batch; (d)
+    the stratified reservoir (2 classes, k 256) over the batches' labels,
+    bitwise ``reservoir_update`` over each class's items with the same
+    draws and the same run on the CPU; (e) ``dl_train_op`` (2 layers at
+    qwen2-1.5b's width; its optimizer updates parameters and moments in
+    place) under ``fuse="xla"`` against ``fuse="op"``, 3 steps from one
+    seed: losses, gradient norms and states within the same tolerance,
+    the caller's tensors the updated ones. Graph replays count as
+    launches: each replay launches every hand kernel its graph holds, and
+    a hand kernel (a ``__global__`` of the port's sources) in a captured
+    graph without a counter fails the phase.
 
 The launch counts are set to 0 just before each main path (phases 3-5
-as one, each model of phase 6, phases 7, 8, 9, 10, 11 and 12) and read just
-after it; every kernel must have launched on a main path. A line
+as one, each model of phase 6, phases 7, 8, 9, 10, 11, 12 and 13) and read
+just after it; every kernel must have launched on a main path. A line
 ``{"kernels": [...]}`` reports each kernel, the line before the last
 gives the card's name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -969,19 +997,9 @@ GRAPH_NODE_TYPES = {1: "memcpy", 2: "memset", 3: "host", 4: "child_graph",
 
 def kernels_in_graph(fn) -> list:
     """The device work of one call of ``fn`` as the CUDA driver lists it:
-    one call captured into a CUDA graph, its nodes read with
-    ``cuGraphGetNodes``; a kernel node by its (mangled) name from
-    ``cuFuncGetName`` (``cuKernelGetName`` where the node holds a
-    ``CUkernel``), any other node but an empty one by its type. Needs no
-    profiler."""
-    import ctypes
+    one call captured into a CUDA graph, its nodes read by
+    :func:`graph_node_names`. Needs no profiler."""
     import torch
-    cu = ctypes.CDLL("libcuda.so.1")
-
-    def check(rc, what):
-        if rc != 0:
-            raise RuntimeError(f"{what} returned CUresult {rc}")
-
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -991,36 +1009,7 @@ def kernels_in_graph(fn) -> list:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * max(n.value, 1))()
-    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or \
-        cu.cuGraphKernelNodeGetParams
-    names = []
-    for node in nodes[:n.value]:
-        kind = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
-              "cuGraphNodeGetType")
-        if kind.value == 5:
-            continue
-        if kind.value != 0:
-            names.append(GRAPH_NODE_TYPES.get(kind.value, f"node{kind.value}"))
-            continue
-        # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern at byte 56
-        params = (ctypes.c_void_p * 16)()
-        check(get_params(ctypes.c_void_p(node), params),
-              "cuGraphKernelNodeGetParams")
-        name = ctypes.c_char_p()
-        if params[0]:
-            check(cu.cuFuncGetName(ctypes.byref(name),
-                                   ctypes.c_void_p(params[0])), "cuFuncGetName")
-        else:
-            check(cu.cuKernelGetName(ctypes.byref(name),
-                                     ctypes.c_void_p(params[7])),
-                  "cuKernelGetName")
-        names.append((name.value or b"").decode())
+    names = graph_node_names(graph.raw_cuda_graph())
     del graph
     return names
 
@@ -1222,15 +1211,21 @@ def pad_route_checks(dev, g, record, which):
                 one_kernel(row, call, "flash")
                 pairs = attended_pairs(S, T, causal)
                 mm = 4 * B * H * pairs * D
+                reps = 50 if S == 1 else 20
+                # the library at the original D, on the same inputs
+                (lib_ms, backend), notes = sdpa_library_ms(
+                    [(q, k, v)], causal, reps, want)
+                log(f"  {row}: library: {' | '.join(notes)}")
                 record("flash_attention",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:77", err, tol,
-                       graph_ms(call, 50 if S == 1 else 20),
+                       graph_ms(call, reps),
                        median_ms(lambda: fa.flash_attention_plain(
                            q, k, v, causal=causal), 5),
                        es * (2 * B * S * H * D + 2 * B * T * H * D),
                        5 * B * H * pairs + (mm if es == 4 else 0),
-                       tensor_ops=mm if es == 2 else 0, row=row)
+                       tensor_ops=mm if es == 2 else 0, library_ms=lib_ms,
+                       library=backend, row=row)
                 del q, k, v, got, want
     if "wkv" in which:
         B, hs, chunk = SERVE_BATCH, PAD_WKV_HS, WKV_CHUNK
@@ -1665,19 +1660,27 @@ def dense_batches(n_batches: int, n: int, dim: int):
     return [gen.batch(i, n) for i in range(n_batches)]
 
 
-def run_dense(batches, codec: str, budget: float, device: str,
-              sample_rate: float = 0.5):
+def dense_job(dim: int, codec: str, budget: float, device: str,
+              sample_rate: float = 0.5, fuse: str = "op",
+              measured: bool = False):
+    """Phase 3's job: the standard pipeline (DDM) built under ``fuse``,
+    the uplink codec pinned."""
     from repro_torch.core.orchestrator import Orchestrator, StreamJob
     from repro_torch.core.pipeline import standard_stream_pipeline
     from repro_torch.core.sla import SLA
+    return Orchestrator(StreamJob(
+        f"smoke-{codec}-{fuse}", dim=dim,
+        sla=SLA(error_budget=budget, max_latency_s=1e3),
+        pipeline=standard_stream_pipeline(
+            dim, sample_rate=sample_rate, drift_detector="ddm", fuse=fuse),
+        uplink_codecs=[codec], device=device, measured_costs=measured))
+
+
+def run_dense(batches, codec: str, budget: float, device: str,
+              sample_rate: float = 0.5):
     import torch
-    dim = batches[0].data["x"].shape[1]
-    job = StreamJob(f"smoke-{codec}", dim=dim,
-                    sla=SLA(error_budget=budget, max_latency_s=1e3),
-                    pipeline=standard_stream_pipeline(
-                        dim, sample_rate=sample_rate, drift_detector="ddm"),
-                    uplink_codecs=[codec], device=device)
-    orch = Orchestrator(job)
+    orch = dense_job(batches[0].data["x"].shape[1], codec, budget, device,
+                     sample_rate)
     t0 = time.perf_counter()
     m = orch.run(batches, rate_fn=lambda s: 1e4)
     if device == "cuda":
@@ -2980,6 +2983,590 @@ def training_phase(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the orchestrator's other modes (fuse="xla", measured costs,
+# a fusion-fed job, the stratified reservoir)
+# ---------------------------------------------------------------------------
+
+MODES_WALK = (0, 2, 5, 2, 0)     # the pipeline walked directly, 2 batches a cut
+MODES_RTOL, MODES_ATOL = 1e-5, 1e-6   # the reference's fuse="xla" tolerance
+MODES_PROFILED = 6               # batches of each mode's profiled rerun
+MEASURED_TOL = 0.01              # the card's cost table against the CPU's
+FUSION_SIDE = 32                 # the side stream's width
+FUSION_TOL = 5.0                 # WindowJoin's tolerance, s
+STRAT_CLASSES = 2
+STRAT_K = 256
+TRAIN_MODES_STEPS = 3            # 13e: one eager step, then two replays
+# kernels a captured segment holds, by the wrapper counter they count in
+GRAPH_KERNELS = {"ddm_tiled_kernel": "detector_scan"}
+
+
+def hand_kernel_names() -> list:
+    """Every ``__global__`` function of the port's CUDA sources."""
+    import re
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                     r"(\w+)\s*\(")
+    csrc = pathlib.Path(__file__).resolve().parent / \
+        "src" / "repro_torch" / "kernels" / "csrc"
+    return sorted({k for f in csrc.glob("*.cu")
+                   for k in pat.findall(f.read_text())})
+
+
+def modes_run(batches, fuse: str, device: str, measured: bool = False,
+              record: bool = False):
+    """Phase 3's job with ``int8_ef`` (:func:`dense_job`) built under
+    ``fuse`` over ``batches`` at a pinned 1e4 events/s: ``(orch,
+    metrics, seconds, host ms of each batch)``."""
+    import torch
+    orch = dense_job(batches[0].data["x"].shape[1], "int8_ef", 0.1, device,
+                     fuse=fuse, measured=measured)
+    batch_ms = []
+    inner = orch.execute_batch
+
+    def timed(step, batch, record_outputs=False):
+        t0 = time.perf_counter()
+        rate = inner(step, batch, record_outputs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        return rate
+
+    orch.execute_batch = timed
+    t0 = time.perf_counter()
+    m = orch.run(batches, rate_fn=lambda s: 1e4, record_outputs=record)
+    return orch, m, time.perf_counter() - t0, batch_ms
+
+
+def graph_node_names(raw) -> list:
+    """The device work of a CUDA graph (a ``CUgraph`` handle) as the
+    driver lists it: a kernel node by its (mangled) name from
+    ``cuFuncGetName`` (``cuKernelGetName`` where the node holds a
+    ``CUkernel``), any other node but an empty one by its type."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUresult {rc}")
+
+    raw = ctypes.c_void_p(raw)
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or \
+        cu.cuGraphKernelNodeGetParams
+    names = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value == 5:
+            continue
+        if kind.value != 0:
+            names.append(GRAPH_NODE_TYPES.get(kind.value, f"node{kind.value}"))
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern at byte 56
+        params = (ctypes.c_void_p * 16)()
+        check(get_params(ctypes.c_void_p(node), params),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params[0]:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(params[0])), "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(params[7])),
+                  "cuKernelGetName")
+        names.append((name.value or b"").decode())
+    return names
+
+
+def segment_graphs(pipe) -> dict:
+    """``{segment's op names: (replays, kernel node names)}`` of a
+    pipeline's captured segments."""
+    return {seg.names: (seg.replays,
+                        graph_node_names(seg.graph.raw_cuda_graph()))
+            for seg in pipe.graph_segments}
+
+
+def graph_launches(graphs: dict) -> dict:
+    """The hand kernels' launches by graph replays: a replay launches
+    every kernel node without passing through the wrappers' counters. A
+    node is a hand kernel where its mangled name holds a ``__global__``
+    of the port's sources (as ``<length><name>``); one that has no counter
+    in ``GRAPH_KERNELS`` raises, rather than go uncounted."""
+    known = hand_kernel_names()
+    out = {}
+    for replays, nodes in graphs.values():
+        for node in nodes:
+            for k in known:
+                if f"{len(k)}{k}" not in node and node != k:
+                    continue
+                if k not in GRAPH_KERNELS:
+                    raise AssertionError(
+                        f"hand kernel {k} ({node}) in a captured graph has "
+                        "no launch counter in GRAPH_KERNELS")
+                counter = GRAPH_KERNELS[k]
+                out[counter] = out.get(counter, 0) + replays
+    return out
+
+
+def trees_close(a, b):
+    """``(every leaf within rtol/atol, every leaf bitwise, largest
+    excess over the tolerance)`` of two trees of tensors."""
+    import torch
+    from repro_torch._tree import tree_flatten_with_path
+    fa, fb = tree_flatten_with_path(a)[0], tree_flatten_with_path(b)[0]
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        raise AssertionError(f"tree structures differ: {[p for p, _ in fa]} "
+                             f"vs {[p for p, _ in fb]}")
+    bitwise, excess = True, float("-inf")
+    for (p, u), (_, v) in zip(fa, fb):
+        u, v = u.cpu(), v.cpu()
+        if u.shape != v.shape or u.dtype != v.dtype:
+            raise AssertionError(f"{p}: {u.shape}/{u.dtype} vs "
+                                 f"{v.shape}/{v.dtype}")
+        bitwise = bitwise and torch.equal(u, v)
+        if u.numel():
+            d = ((u.double() - v.double()).abs()
+                 - (MODES_ATOL + MODES_RTOL * v.double().abs()))
+            excess = max(excess, float(torch.nan_to_num(d, nan=1.0).max()))
+    return excess <= 0.0, bitwise, excess
+
+
+def segment_breakdown(orch, batches, first_step: int) -> dict:
+    """Host-clock ms per batch of each segment the plan runs, with a
+    synchronize after each (a captured segment is one replay)."""
+    import torch
+    pipe = orch.pipeline
+    parts = {}
+    saved = dict(pipe._segments)
+
+    def timed(fn, name):
+        def call(states, env):
+            t0 = time.perf_counter()
+            out = fn(states, env)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + \
+                (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    for key, fn in saved.items():
+        pipe._segments[key] = timed(fn, "+".join(pipe.ops[i].name
+                                                 for i in key[0]))
+    try:
+        for step, b in enumerate(batches, start=first_step):
+            orch.execute_batch(step, b)
+    finally:
+        pipe._segments.clear()
+        pipe._segments.update(saved)
+    return {k: v / len(batches) for k, v in parts.items()}
+
+
+def profiled_rerun(orch, batches, first_step: int) -> dict:
+    """:func:`device_busy` of ``len(batches)`` more batches of a run, its
+    segments already cached."""
+    import torch
+    torch.cuda.synchronize()
+    with profiled_window(True) as prof:
+        t0 = time.perf_counter()
+        for step, b in enumerate(batches, start=first_step):
+            orch.execute_batch(step, b)
+            orch.apply_decision(step, orch.controller.observe(
+                step, 1e4, orch.sla))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return device_busy(prof, wall)
+
+
+def walk_modes(batches, fuse: str, dev):
+    """The standard pipeline walked directly through ``MODES_WALK`` (two
+    batches a cut), states carried across cuts, the ``int8_ef`` wire
+    round-trip where a batch crosses: ``(pipeline, final states, each
+    batch's outputs on the host, compiles after each batch)``."""
+    import torch
+    from repro_torch.core.orchestrator import step_seed
+    orch = dense_job(batches[0].data["x"].shape[1], "int8_ef", 0.1,
+                     dev.type, fuse=fuse)
+    pipe, states, uplink = orch.pipeline, orch.states, orch._uplink_fn()
+    outs, compiles = [], []
+    for i, b in enumerate(batches[:2 * len(MODES_WALK)]):
+        bd = {k: torch.as_tensor(v).to(dev) for k, v in b.data.items()}
+        bd["rng"] = torch.tensor(step_seed(0, i), dtype=torch.int64,
+                                 device=dev)
+        states, out = pipe.run(states, bd, MODES_WALK[i // 2], uplink=uplink)
+        outs.append({k: v.cpu() for k, v in out.items()})
+        compiles.append(pipe.compiles)
+    return pipe, states, outs, compiles
+
+
+def fuse_modes_check(dev, batches) -> dict:
+    """Phase 13a: ``fuse="xla"`` against ``fuse="op"`` on phase 3's job
+    and on a direct walk of the cuts. Returns the captured segments of
+    every ``fuse="xla"`` pipeline that ran (for the launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.profile_stream import op_breakdown
+    runs, timed = {}, {}
+    for fuse in ("op", "xla"):
+        # a timed run, then one that records every batch's outputs (their
+        # copies to the host would take most of its time)
+        timed[fuse] = modes_run(batches, fuse, dev.type)
+        orch, m, secs, batch_ms = timed[fuse]
+        pipe = orch.pipeline
+        log(f"  fuse={fuse}: events={m.events} events_per_s="
+            f"{m.events / secs!r} ms_per_batch_median="
+            f"{statistics.median(batch_ms)!r} batch_ms={batch_ms} "
+            f"cuts={sorted(set(m.cuts))} drift_alarms={m.drift_alarms} "
+            f"compiles={pipe.compiles} cache_hits={pipe.cache_hits}")
+        runs[fuse] = modes_run(batches, fuse, dev.type, record=True)
+        check_no_nan(runs[fuse][0].states, f"fuse={fuse}")
+    (oa, ma, _, _), (ox, mx, _, _) = runs["op"], runs["xla"]
+    same = all(getattr(ma, f) == getattr(mx, f) for f in (
+        "events", "cuts", "plan_identities", "codecs", "drift_alarms")) \
+        and control_lines(ma.decisions) == control_lines(mx.decisions)
+    masks = all(np.array_equal(a["mask"], b["mask"])
+                for a, b in zip(ma.outputs, mx.outputs))
+    outs_ok, outs_bit, outs_ex = trees_close(
+        [{k: torch.from_numpy(v) for k, v in o.items()} for o in mx.outputs],
+        [{k: torch.from_numpy(v) for k, v in o.items()} for o in ma.outputs])
+    st_ok, st_bit, st_ex = trees_close(ox.states, oa.states)
+    log(f"  job: JobMetrics equal={same} masks bitwise={masks} outputs "
+        f"within rtol {MODES_RTOL} atol {MODES_ATOL}={outs_ok} (bitwise "
+        f"{outs_bit}, largest excess {outs_ex!r}) states within={st_ok} "
+        f"(bitwise {st_bit}, largest excess {st_ex!r})")
+    if not (same and masks and outs_ok and st_ok):
+        raise AssertionError("fuse='xla' differs from fuse='op' on the job")
+    px = ox.pipeline
+    if not (px.compiles == len(px._segments) == len(px.graph_segments) == 2
+            and px.cache_hits == 2 * len(batches) - 2):
+        raise AssertionError(f"fuse='xla' job: {px.compiles} captures, "
+                             f"{px.cache_hits} hits for the cut-4 plan's "
+                             "2 segments")
+    for seg in px.graph_segments:
+        log(f"    segment {list(seg.names)}: capture ms {seg.capture_ms!r}, "
+            f"replays {seg.replays}")
+    # the walk 0 -> 2 -> 5 -> 2 -> 0
+    walks = {fuse: walk_modes(batches, fuse, dev) for fuse in ("op", "xla")}
+    (_, sa, oa_, _), (pw, sx, ox_, cx) = walks["op"], walks["xla"]
+    w_masks = all(torch.equal(a["mask"], b["mask"]) for a, b in zip(oa_, ox_))
+    w_out = trees_close(ox_, oa_)
+    w_st = trees_close(sx, sa)
+    log(f"  walk {MODES_WALK}: masks bitwise={w_masks} outputs "
+        f"within={w_out[0]} (bitwise {w_out[1]}, excess {w_out[2]!r}) "
+        f"states within={w_st[0]} (bitwise {w_st[1]}, excess {w_st[2]!r}) "
+        f"captures after each batch {cx}")
+    if not (w_masks and w_out[0] and w_st[0]):
+        raise AssertionError("fuse='xla' differs from fuse='op' on the walk")
+    if not (cx[2:] == [3] * (len(cx) - 2)
+            and len(pw._segments) == len(pw.graph_segments) == 3):
+        raise AssertionError(f"the walk captured {cx}: 3 distinct segments "
+                             "expected, none on a revisit")
+    for seg in pw.graph_segments:
+        log(f"    segment {list(seg.names)}: capture ms {seg.capture_ms!r}, "
+            f"replays {seg.replays}")
+    # timings: the host clock per op (per segment under fuse="xla") and a
+    # profiled rerun each
+    more = batches[:MODES_PROFILED]
+    log(f"  fuse=op host-clock ms per op: "
+        f"{json.dumps(op_breakdown(timed['op'][0], more, 1000))}")
+    for fuse, (orch, _, _, _) in timed.items():
+        log(f"  fuse={fuse} host-clock ms per segment: "
+            f"{json.dumps(segment_breakdown(orch, more, 2000))}")
+        log(f"  fuse={fuse} profiled rerun ({MODES_PROFILED} batches): "
+            f"{json.dumps(profiled_rerun(orch, more, 3000))}")
+    graphs = {}
+    for pipe in (px, timed["xla"][0].pipeline, pw):
+        for names, (replays, nodes) in segment_graphs(pipe).items():
+            key = (id(pipe),) + names
+            graphs[key] = (replays, nodes)
+            kernels = [n for n in nodes if n not in GRAPH_NODE_TYPES.values()]
+            log(f"    graph of {list(names)}: {len(nodes)} nodes, "
+                f"{len(kernels)} kernels, replays {replays}; hand kernels "
+                f"{[n for n in nodes if any(t in n for t in GRAPH_KERNELS)]}")
+            if "drift" in names and not any("ddm_tiled_kernel" in n
+                                            for n in nodes):
+                raise AssertionError(f"no DDM kernel in the graph of {names}")
+    del runs, timed, walks
+    torch.cuda.empty_cache()
+    return graphs
+
+
+def cost_tables_close(card: dict, cpu: dict):
+    """The largest relative gap of the two tables, term by term."""
+    worst = 0.0
+    for name, c in card.items():
+        for f in ("flops_per_event", "bytes_per_event", "out_bytes_per_event",
+                  "state_bytes"):
+            a, b = getattr(c, f), getattr(cpu[name], f)
+            gap = abs(a - b) / max(abs(b), 1e-30) if (a or b) else 0.0
+            worst = max(worst, gap)
+    return worst
+
+
+def measured_costs_check(dev, batches) -> None:
+    """Phase 13b: ``measured_costs=True`` on phase 3's job; the card's cost
+    table against the CPU's for the same first batch."""
+    import torch
+    from repro_torch.core import selftune
+    from repro_torch.core.pipeline import standard_stream_pipeline
+    orch, m, secs, _ = modes_run(batches, "op", dev.type, measured=True)
+    _, md, _, _ = modes_run(batches[:1], "op", dev.type)
+    names = orch.pipeline.names
+    line = [d for d in m.decisions if "measured-costs" in d]
+    log(f"  events_per_s={m.events / secs!r} {line}")
+    if line != [f"0:measured-costs {len(names)}/{len(names)} ops"]:
+        raise AssertionError(f"measured costs: decision line {line}")
+    card = {n: orch.pipeline.cost_of(n) for n in names}
+    bd = {k: torch.as_tensor(v) for k, v in batches[0].data.items()}
+    bd["rng"] = torch.zeros((), dtype=torch.int64)
+    t0 = time.perf_counter()
+    cpu, notes = selftune.measure_operator_costs(
+        standard_stream_pipeline(DIM, sample_rate=0.5, drift_detector="ddm"),
+        bd)
+    cpu_s = time.perf_counter() - t0
+    if notes or set(cpu) != set(names):
+        raise AssertionError(f"the CPU measured {sorted(cpu)}: {notes}")
+    for n in names:
+        d = orch.pipeline.op(n).cost
+        log(f"    {n}: card flops/ev {card[n].flops_per_event!r} bytes/ev "
+            f"{card[n].bytes_per_event!r} out/ev "
+            f"{card[n].out_bytes_per_event!r} state {card[n].state_bytes!r}"
+            f" | CPU {cpu[n].flops_per_event!r} {cpu[n].bytes_per_event!r} "
+            f"{cpu[n].out_bytes_per_event!r} {cpu[n].state_bytes!r} | "
+            f"declared {d.flops_per_event!r} {d.bytes_per_event!r} "
+            f"{d.out_bytes_per_event!r} {d.state_bytes!r}")
+    worst = cost_tables_close(card, cpu)
+    log(f"  card vs CPU table: largest relative gap {worst!r} (tol "
+        f"{MEASURED_TOL}; the CPU's measurement {cpu_s:.1f} s)")
+    if worst > MEASURED_TOL:
+        raise AssertionError("the card's cost table differs from the CPU's")
+    log(f"  measured plan: {control_lines(m.decisions)} first "
+        f"{m.plan_identities[0]}")
+    log(f"  declared plan: {control_lines(md.decisions)} first "
+        f"{md.plan_identities[0]}")
+
+
+def fusion_run(device: str, n_events: int, dim: int):
+    """Phase 13c's path: the dense stream joined with a ``FUSION_SIDE``-wide
+    side stream on the same timestamps through ``WindowJoin``, then
+    concat -> normalize -> logreg train -> drift (DDM), ``int8_ef``, a
+    pinned 1e4 events/s: ``(orch, metrics, seconds, join host ms a
+    batch)``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.orchestrator import Orchestrator, StreamJob
+    from repro_torch.core.pipeline import (Pipeline, concat_op, drift_op,
+                                           logreg_train_op, normalize_op)
+    from repro_torch.core.sla import SLA
+    from repro_torch.streams.events import StreamBatch
+    from repro_torch.streams.fusion import WindowJoin
+    rng = np.random.default_rng(1)
+    join = WindowJoin(tolerance=FUSION_TOL)
+    joined, join_ms = [], []
+    for b in dense_batches(N_BATCHES, n_events, dim):
+        right = StreamBatch(data={"x": rng.normal(
+            size=(n_events, FUSION_SIDE)).astype(np.float32)},
+            ts=np.asarray(b.ts))
+        t0 = time.perf_counter()
+        join.push_right(right)
+        jb, matched = join.join_left(b)
+        join_ms.append((time.perf_counter() - t0) * 1e3)
+        if not matched.all():
+            raise AssertionError(f"fusion: {int((~matched).sum())} events "
+                                 "found no match")
+        joined.append(jb)
+    width = dim + FUSION_SIDE
+    orch = Orchestrator(StreamJob(
+        "fusion-fed", dim=width, pipeline=Pipeline([
+            concat_op("joined", width), normalize_op(width),
+            logreg_train_op(width), drift_op("ddm")]),
+        sla=SLA(error_budget=0.1, max_latency_s=1e3),
+        uplink_codecs=["int8_ef"], device=device))
+    t0 = time.perf_counter()
+    m = orch.run(joined, rate_fn=lambda s: 1e4)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return orch, m, time.perf_counter() - t0, join_ms
+
+
+def fusion_check(dev) -> None:
+    """Phase 13c: the fusion-fed job on the card, against the same script
+    on the CPU at ``CONTROL_EVENTS`` a batch."""
+    orch, m, secs, join_ms = fusion_run(dev.type, N_EVENTS, DIM)
+    log(f"  events={m.events} events_per_s={m.events / secs!r} "
+        f"join_host_ms_per_batch_median={statistics.median(join_ms)!r} "
+        f"cuts={sorted(set(m.cuts))} codecs={sorted(set(m.codecs))} "
+        f"drift_alarms={m.drift_alarms} preq={m.preq}")
+    if m.events != N_BATCHES * N_EVENTS or not m.preq["accuracy"] > 0.6:
+        raise AssertionError(f"fusion-fed job: events {m.events}, "
+                             f"preq {m.preq}")
+    check_no_nan(orch.states, "fusion-fed job")
+    _, mc, _, _ = fusion_run("cpu", CONTROL_EVENTS, DIM)
+    same = (mc.cuts == m.cuts and mc.plan_identities == m.plan_identities
+            and mc.codecs == m.codecs
+            and control_lines(mc.decisions) == control_lines(m.decisions))
+    log(f"  JobMetrics equal to the CPU run at {CONTROL_EVENTS} events a "
+        f"batch: {same} (CPU preq {mc.preq})")
+    if not same:
+        raise AssertionError("fusion-fed job: the card's control trajectory "
+                             "differs from the CPU's")
+
+
+def stratified_check(dev, batches) -> None:
+    """Phase 13d: the stratified reservoir over the batches' labels on the
+    card, bitwise its plain version (``reservoir_update`` over each
+    class's items with the same draws) and the same run on the CPU."""
+    import torch
+    from repro_torch.streams import sampling as samp
+    sr = samp.stratified_init(STRAT_CLASSES, STRAT_K, DIM, device=dev)
+    sr_cpu = samp.stratified_init(STRAT_CLASSES, STRAT_K, DIM)
+    ms = []
+    for b in batches:
+        xc = torch.as_tensor(b.data["x"])
+        yc = torch.as_tensor(b.data["y"])
+        x, y = xc.to(dev), yc.to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = samp.stratified_update(sr, x, y, STRAT_CLASSES)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for c in range(STRAT_CLASSES):
+            st = samp.ReservoirState(*(f[c] for f in sr.states))
+            sel = y == c
+            n_c = int(sel.sum())
+            ar = torch.arange(n_c, device=dev)
+            j = samp.draws(st.rng, ar) % (st.seen.long() + ar + 1)
+            want = samp.reservoir_update(st, x[sel], y[sel], j=j)
+            seed = samp.advance(st.rng) if n_c else st.rng
+            got = samp.ReservoirState(*(f[c] for f in new.states))
+            if not (bitwise_trees(got._replace(rng=seed), want._replace(
+                    rng=seed)) and torch.equal(got.rng, seed)):
+                raise AssertionError(f"stratified: class {c} differs from "
+                                     "reservoir_update on its items")
+        sr = new
+        sr_cpu = samp.stratified_update(sr_cpu, xc, yc, STRAT_CLASSES)
+    same_cpu = bitwise_trees(tuple(t.cpu() for t in sr.states),
+                             tuple(sr_cpu.states))
+    seen = sr.states.seen.tolist()
+    log(f"  {len(batches)} batches: ms_per_batch_median="
+        f"{statistics.median(ms)!r} seen={seen} bitwise the per-class "
+        f"reservoir_update: True, the CPU's run: {same_cpu}")
+    if not same_cpu or min(seen) <= STRAT_K:
+        raise AssertionError("stratified: the card's run differs from the "
+                             "CPU's, or a class never replaced")
+
+
+def train_modes_check(dev) -> dict:
+    """Phase 13e: ``dl_train_op`` at qwen2-1.5b's width with
+    TRAIN_OP_LAYERS layers in an ``OpGraph`` under ``fuse="xla"`` against
+    ``fuse="op"``, TRAIN_MODES_STEPS steps from one seed on the same
+    tokens. Its optimizer writes parameters and moments in place and
+    hands the same tensors back: the captured graph must write them back
+    into the caller's. The first ``fuse="xla"`` step runs eagerly, the
+    rest replay. Losses, gradient norms and states within MODES_RTOL and
+    MODES_ATOL (bitwise logged). Returns the segment's graph."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import OpGraph
+    from repro_torch.train.ops import dl_train_op
+    from repro_torch.train.optim import make_optimizer
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              n_layers=TRAIN_OP_LAYERS)
+    rng = np.random.default_rng(13)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int32)).to(dev)
+        for _ in range(TRAIN_MODES_STEPS)]
+    runs = {}
+    for fuse in ("op", "xla"):
+        opt = make_optimizer(cfg, "adamw", lr=TRAIN_LR,
+                             total_steps=TRAIN_MODES_STEPS, warmup=0)
+        op = dl_train_op(cfg, opt, batch_size=TRAIN_B, seq_len=TRAIN_S,
+                         device=dev)
+        graph = OpGraph([op], fuse=fuse)
+        states = graph.init_states(dev)
+        held = tree_leaves(states[op.name][:2])
+        metrics, ms = [], []
+        for tokens in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states, out = graph.run(states, {"tokens": tokens}, frozenset())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: out[k] for k in ("loss", "grad_norm")})
+        same = all(a is b for a, b in zip(
+            held, tree_leaves(states[op.name][:2]), strict=True))
+        runs[fuse] = (graph, states[op.name], metrics, ms, same)
+        log(f"  fuse={fuse}: losses "
+            f"{[float(m['loss']) for m in metrics]} grad norms "
+            f"{[float(m['grad_norm']) for m in metrics]} host ms a step "
+            f"{ms} (the first xla step runs eagerly and captures); the "
+            f"caller's tensors updated in place: {same}")
+    (_, sa, ma, _, _), (gx, sx, mx, _, same_x) = runs["op"], runs["xla"]
+    m_ok, m_bit, m_ex = trees_close(mx, ma)
+    s_ok, s_bit, s_ex = trees_close(sx, sa)
+    segs = gx.graph_segments
+    log(f"  metrics within rtol {MODES_RTOL} atol {MODES_ATOL}={m_ok} "
+        f"(bitwise {m_bit}, excess {m_ex!r}); states within={s_ok} "
+        f"(bitwise {s_bit}, excess {s_ex!r}); captures {gx.compiles}, "
+        f"replays {[s.replays for s in segs]}, capture ms "
+        f"{[s.capture_ms for s in segs]}")
+    if not (m_ok and s_ok and same_x):
+        raise AssertionError("dl_train_op under fuse='xla' differs from "
+                             "fuse='op'")
+    if not (gx.compiles == len(segs) == 1
+            and segs[0].replays == TRAIN_MODES_STEPS - 1):
+        raise AssertionError(f"dl_train_op under fuse='xla': {gx.compiles} "
+                             f"captures, replays {[s.replays for s in segs]}")
+    graphs = {(id(gx),) + names: v
+              for names, v in segment_graphs(gx).items()}
+    del runs, sa, sx, segs, gx
+    torch.cuda.empty_cache()
+    return graphs
+
+
+def modes_phase(dev, batches) -> dict:
+    """Phase 13, one main path with the counts from 0: 13a-13e. Returns
+    its launch counts, graph replays included."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    log(f"phase 13a: fuse='xla' (a CUDA graph a segment) against fuse='op', "
+        f"phase 3's job ({len(batches)} x {N_EVENTS} x {DIM}, int8_ef) and "
+        f"the walk {MODES_WALK}")
+    graphs = fuse_modes_check(dev, batches)
+    log("phase 13b: measured_costs=True on the same job")
+    measured_costs_check(dev, batches)
+    log(f"phase 13c: a fusion-fed job ({FUSION_SIDE}-wide side stream, "
+        f"WindowJoin(tolerance={FUSION_TOL}), concat -> normalize -> train "
+        "-> drift)")
+    fusion_check(dev)
+    log(f"phase 13d: the stratified reservoir ({STRAT_CLASSES} classes, "
+        f"k {STRAT_K})")
+    stratified_check(dev, batches)
+    log(f"phase 13e: dl_train_op ({TRAIN_OP_LAYERS} layers at qwen2-1.5b's "
+        f"width, in-place optimizer) under fuse='xla' against fuse='op', "
+        f"{TRAIN_MODES_STEPS} steps")
+    graphs.update(train_modes_check(dev))
+    counts = ops.launch_counts()
+    replayed = graph_launches(graphs)
+    log(f"  phase 13 launches: wrappers {counts}, graph replays {replayed}")
+    for k, v in replayed.items():
+        counts[k] += v
+    if not (counts["detector_scan"] > 0 and counts["ef_int8_roundtrip"] > 0
+            and replayed.get("detector_scan", 0) > 0):
+        raise AssertionError(f"phase 13: the path's kernels: {counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def check_no_nan(states, what: str):
     import torch
     from repro_torch._tree import tree_leaves
@@ -3231,6 +3818,9 @@ def main(argv=None) -> int:
 
     # -- phase 12: training ----------------------------------------------------
     path_counts["training"] = training_phase(dev)
+
+    # -- phase 13: the orchestrator's other modes -------------------------------
+    path_counts["modes"] = modes_phase(dev, batches)
 
     counts = {k: sum(c[k] for c in path_counts.values())
               for k in ops.launch_counts()}

@@ -104,7 +104,9 @@ class StreamJob:
     # user-supplied operator graph (linear Pipeline or fan-out OpGraph);
     # None -> the standard S2CE chain
     pipeline: Optional[OpGraph] = None
-    # measured per-op costs for placement: not ported yet, raises
+    # measure per-op costs from a counted run of the first batch
+    # (selftune.measure_operator_costs) and optimize placement against
+    # the measurement instead of the declared OperatorCost guesses
     measured_costs: bool = False
     # elastic cloud-pool sizing (dist/elastic): starting worker count and cap
     workers: int = 1
@@ -159,10 +161,6 @@ class Orchestrator:
             raise RuntimeError(
                 f"StreamJob {job.name!r} asks for device {job.device!r} but "
                 "CUDA is not available; pass device='cpu' to run on the CPU")
-        if job.measured_costs:
-            raise NotImplementedError(
-                "StreamJob(measured_costs=True) is not ported yet: see "
-                "ROADMAP.md, 'Modules to port', core/selftune.py")
         # the cluster topology placement runs over: the job's ClusterSpec,
         # or the classic two-pool spec from edge/cloud resources. The SLA
         # error budget picks the cheapest admissible uplink codec, which
@@ -385,6 +383,39 @@ class Orchestrator:
             # a probe alone never forces a migration
             self.set_cluster(spec_now)
 
+    def _measure_costs(self, batches):
+        """Close the self-tuning loop: peek the first batch, measure every
+        op's cost at its true input signature
+        (:func:`repro_torch.core.selftune.measure_operator_costs`, a
+        counted run on the job's device), and install the measurements on
+        the pipeline and controller so the INITIAL plan — and every
+        replan after it — optimizes against what the ops do, not the
+        hand-written guesses. Returns the stream with the peeked batch
+        put back in front."""
+        import itertools
+
+        from repro_torch.core import selftune
+        it = iter(batches)
+        try:
+            first = next(it)
+        except StopIteration:
+            return iter(())
+        bd = {k: torch.as_tensor(v).to(self.device)
+              for k, v in first.data.items()}
+        # the measurement sees the same batch signature run() feeds,
+        # including the per-step seed (any seed: it prices, not learns)
+        bd.setdefault("rng", torch.zeros((), dtype=torch.int64,
+                                         device=self.device))
+        measured, notes = selftune.measure_operator_costs(self.pipeline, bd)
+        if measured:
+            self.pipeline.set_measured_costs(measured)
+            self.ops = self.pipeline.costs()
+            self.controller.ops = self.ops
+        self.metrics.decisions.append(
+            f"0:measured-costs {len(measured)}/{len(self.pipeline.ops)} ops"
+            + (f" ({len(notes)} kept declared)" if notes else ""))
+        return itertools.chain([first], it)
+
     # -- step primitives ----------------------------------------------------
     # run() composes these; the fleet orchestrator (core/fleet) drives
     # them directly so N tenant jobs can interleave batch execution with
@@ -432,9 +463,11 @@ class Orchestrator:
         t0 = time.perf_counter()
         bd = {k: torch.as_tensor(v).to(self.device)
               for k, v in batch.data.items()}
-        # a fresh per-step seed, so randomness advances every batch
+        # a fresh per-step seed, so randomness advances every batch; a
+        # tensor on the job's device, which a captured segment
+        # (fuse="xla") copies into its graph like any other input
         bd["rng"] = torch.tensor(step_seed(self._root_seed, step),
-                                 dtype=torch.int64)
+                                 dtype=torch.int64, device=self.device)
         if self.is_graph:
             self.states, out = self.pipeline.run(self.states, bd,
                                                  self.frontier,
@@ -520,6 +553,8 @@ class Orchestrator:
         pins the partition (reference runs / ablations); otherwise the
         offload controller's plan drives which segment each op executes
         in, re-partitioning on migration."""
+        if self.job.measured_costs:
+            batches = self._measure_costs(batches)
         self.begin(rate_fn(0) if rate_fn else 1e4, seed=seed,
                    fixed_cut=fixed_cut, fixed_frontier=fixed_frontier)
         for step, batch in enumerate(batches):

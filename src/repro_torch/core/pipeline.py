@@ -32,17 +32,30 @@ downward-closed cut reproduces the unpartitioned reference exactly
 (``tests/test_torch_orchestrator.py`` checks every cut). ``OpGraph``
 additionally restricts each op's input dict to its declared ``reads``,
 so the per-op callable sees the same input signature under every
-frontier. The JAX package's ``fuse="xla"`` (one fused program per
-segment) is not ported yet and raises (ROADMAP).
+frontier.
+
+``fuse="xla"`` instead runs each segment as one program, the port's
+counterpart of the JAX package's one fused XLA program per segment: on
+the card, each ``(segment, batch signature)`` is captured once into a
+``torch.cuda.CUDAGraph`` and replayed for every later batch (the same
+``compiles``/``cache_hits`` bookkeeping as the reference: a capture is a
+compile, a replay of a cached segment a hit). Op boundaries keep op
+semantics: the graph replays each op's own kernels, nothing is fused
+into a neighbour's arithmetic. The CPU has no graph: there the segment
+is the same composition as one callable. A capture that fails raises,
+naming the op; there is no fallback to per-op dispatch. Host ops
+(``Op.jit=False``) only compose under ``fuse="op"``.
 
 On the card, the drift op's DDM/EDDM/Page-Hinkley scan and the hash op
 run the port's CUDA kernels (``kernels/ops.py``); the batch ``rng``
-channel is a per-step integer seed (a 0-dim int64 CPU tensor) from
-which the sample op builds its ``torch.Generator``.
+channel is a per-step seed, a 0-dim int64 tensor on the batch's device,
+which the sample op mixes with each item's index
+(``streams/sampling.py``) without a read on the host.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace
 from typing import (Any, Callable, Dict, FrozenSet, Iterable, Iterator, List,
                     Optional, Sequence, Tuple)
@@ -50,7 +63,7 @@ from typing import (Any, Callable, Dict, FrozenSet, Iterable, Iterator, List,
 import torch
 
 from repro_torch import resolve_device
-from repro_torch._tree import tree_flatten, tree_map
+from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.core.costmodel import OperatorCost
 from repro_torch.kernels import ops as kops
 from repro_torch.ml import metrics as mmetrics
@@ -85,6 +98,11 @@ class Op:
 
     ``init`` builds the state on the CPU; :meth:`OpGraph.init_states`
     places it on the job's device.
+
+    ``jit=False`` marks a *host op*, as in the JAX package: an op that
+    manages its own device programs and host control flow (the serving
+    ops loop over an engine's steps and read their seeds on the host).
+    Host ops are only valid under ``fuse="op"``.
     """
     name: str
     fn: StepFn
@@ -95,6 +113,7 @@ class Op:
     reads: Optional[Tuple[str, ...]] = None
     writes: Optional[Tuple[str, ...]] = None
     deletes: Tuple[str, ...] = ()
+    jit: bool = True
 
     def __post_init__(self):
         for f in ("reads", "writes", "deletes"):
@@ -132,13 +151,18 @@ class OpGraph:
         if fuse not in ("op", "xla"):
             raise ValueError(f"fuse mode {fuse!r} not in ('op', 'xla')")
         if fuse == "xla":
-            raise NotImplementedError(
-                "fuse='xla' (one fused program per segment) is not ported "
-                "yet: see ROADMAP.md, 'Modules to port', fuse='xla'")
+            host = [op.name for op in ops if not op.jit]
+            if host:
+                raise ValueError(
+                    f"fuse='xla' cannot fuse host ops (jit=False): {host}; "
+                    "host ops manage their own executables and only "
+                    "compose under fuse='op'")
         self.ops = ops
         self.fuse = fuse
         self._segments: Dict[tuple, Callable] = {}   # (idxs, sig) -> fn
-        self.compiles = 0          # cache misses (segment re-fusions)
+        # cache misses (a segment composed, or under fuse="xla" on the
+        # card captured) and hits (a cached segment run or replayed)
+        self.compiles = 0
         self.cache_hits = 0
         # measured per-op costs overriding the declared OperatorCost
         # guesses in costs()
@@ -389,11 +413,18 @@ class OpGraph:
 
     def _fuse_ops(self, idxs: Tuple[int, ...]) -> Callable:
         """The segment as a composition of the shared per-op steps (the
-        cut-invariant segment form)."""
-        def segment(states: Dict[str, Any], env: Batch):
+        cut-invariant segment form, and under ``fuse="xla"`` the function
+        a CUDA graph captures). ``current``, a one-item list, names the
+        op running (None once the segment is done), so a failure can say
+        which op it came from."""
+        def segment(states: Dict[str, Any], env: Batch, current=None):
             states = dict(states)
             for i in idxs:
+                if current is not None:
+                    current[0] = self.ops[i].name
                 states, env = self._apply(i, states, env)
+            if current is not None:
+                current[0] = None
             return states, env
 
         return segment
@@ -401,16 +432,30 @@ class OpGraph:
     def _segment_fn(self, idxs: Tuple[int, ...], batch: Batch) -> Callable:
         """Compose (or fetch) the segment for the op subset ``idxs`` at
         this batch signature — the segment cache, with the same
-        ``compiles``/``cache_hits`` bookkeeping as the JAX package."""
+        ``compiles``/``cache_hits`` bookkeeping as the JAX package. Under
+        ``fuse="xla"`` a batch on the card gets a :class:`GraphSegment`
+        (captured at its first call, replayed after); on the CPU the
+        composition itself runs."""
         key = (idxs, self._sig(batch))
         fn = self._segments.get(key)
         if fn is None:
             fn = self._fuse_ops(idxs)
+            if self.fuse == "xla" and any(
+                    isinstance(t, torch.Tensor) and t.is_cuda
+                    for t in tree_flatten(batch)[0]):
+                fn = GraphSegment(fn, tuple(self.ops[i].name for i in idxs))
             self._segments[key] = fn
             self.compiles += 1
         else:
             self.cache_hits += 1
         return fn
+
+    @property
+    def graph_segments(self) -> List["GraphSegment"]:
+        """The CUDA-graph segments of the cache (``fuse="xla"`` on the
+        card), in the order they were first run."""
+        return [fn for fn in self._segments.values()
+                if isinstance(fn, GraphSegment)]
 
     def _run_segments(self, states: Dict[str, Any], batch: Batch,
                       segments: Sequence[Tuple[int, ...]],
@@ -486,6 +531,143 @@ class OpGraph:
         graph list order — the composition of the shared per-op steps.
         Any downward-closed cut must reproduce this bitwise."""
         return self.run(states, batch, frontier=())
+
+
+class GraphSegment:
+    """A segment under ``fuse="xla"`` on the card: captured into one
+    ``torch.cuda.CUDAGraph`` after its first call and replayed at every
+    later call.
+
+    Every leaf of ``(states, batch)`` must be a tensor on one CUDA device
+    (a CPU tensor read during capture would be frozen into the graph).
+    The first call runs the batch's own work on a side stream, as
+    ``fuse="op"`` would (the warm-up ``torch.cuda.graph`` asks for), and
+    returns its outputs; the segment is then captured on static copies of
+    the leaves. The capture launches nothing, so the kernels' launch
+    counts are put back after it; a replay launches every kernel of the
+    graph without passing through the wrappers (``replays`` times the
+    graph's kernel nodes counts them).
+
+    A later call copies the leaves into the static inputs and replays.
+    The replay writes into the same tensors every time, so every output
+    that is not a static input comes back as a clone: no state kept
+    between batches, handed to another segment or recorded aliases a
+    buffer the next replay overwrites. A static input that the segment
+    wrote in place (the optimizers update parameters in place) is copied
+    back into the caller's leaf, and an output that is a static input
+    comes back as the caller's leaf, as under ``fuse="op"``. In-place
+    writes are found by the tensors' version counters during capture: the
+    port's hand kernels write only into tensors their wrappers make.
+    A failing op raises ``RuntimeError`` naming it; nothing falls back to
+    per-op dispatch."""
+
+    def __init__(self, segment: Callable, names: Tuple[str, ...]):
+        self.segment = segment
+        self.names = names
+        self.graph = None            # the CUDAGraph, kept to list its nodes
+        self.replays = 0
+        self.capture_ms = 0.0        # capture, host clock
+
+    @staticmethod
+    def _aliases(leaves) -> Tuple[int, ...]:
+        """For each leaf, the first position of the same tensor."""
+        first: Dict[int, int] = {}
+        return tuple(first.setdefault(id(t), i) for i, t in enumerate(leaves))
+
+    def __call__(self, states: Dict[str, Any], env: Batch):
+        leaves, treedef = tree_flatten((states, env))
+        if self.graph is None:
+            return self._first_call(leaves, treedef)
+        if treedef != self._in_def or self._aliases(leaves) != self._slots \
+                or any((t.shape, t.dtype, t.device)
+                       != (s.shape, s.dtype, s.device)
+                       for s, t in zip(self._ins, leaves)):
+            raise ValueError(f"fuse='xla' segment {list(self.names)}: the "
+                             "states' structure, shapes or devices changed "
+                             "since the segment was captured")
+        for i, (s, t) in enumerate(zip(self._ins, leaves)):
+            if self._slots[i] == i:
+                s.copy_(t)
+        self.graph.replay()
+        self.replays += 1
+        for i in self._written:
+            leaves[i].copy_(self._ins[i])
+        return tree_unflatten(self._out_def, [
+            o.clone() if j is None else leaves[j]
+            for o, j in zip(self._outs, self._out_src)])
+
+    def _fail(self, what: str, current, e: Exception):
+        where = (f"op {current[0]!r}" if current[0] is not None
+                 else "the end of the segment")
+        return RuntimeError(
+            f"fuse='xla' segment {list(self.names)}: {what} failed at "
+            f"{where} ({type(e).__name__}: {e})")
+
+    def _device(self, leaves) -> torch.device:
+        where = {str(t.device) if isinstance(t, torch.Tensor)
+                 else type(t).__name__ for t in leaves}
+        if len(where) != 1 or not next(iter(where)).startswith("cuda"):
+            raise ValueError(
+                f"fuse='xla' segment {list(self.names)}: every state and "
+                f"batch leaf must be a tensor on one CUDA device; got "
+                f"{sorted(where)}")
+        return leaves[0].device
+
+    def _first_call(self, leaves, treedef):
+        dev = self._device(leaves)
+        current = [None]
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        try:
+            with torch.cuda.stream(side):
+                out = self.segment(*tree_unflatten(treedef, leaves),
+                                   current=current)
+        except Exception as e:
+            raise self._fail("the first run (the warm-up before capture)",
+                             current, e) from e
+        main.wait_stream(side)
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(main)
+        t0 = time.perf_counter()
+        self._capture(leaves, treedef, dev, current)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def _capture(self, leaves, treedef, dev, current) -> None:
+        slots = self._aliases(leaves)
+        ins = [t.clone() if slots[i] == i else None
+               for i, t in enumerate(leaves)]
+        ins = [ins[j] for j in slots]
+        versions = [s._version for s in ins]
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        counts = kops.launch_counts()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = self.segment(*tree_unflatten(treedef, ins),
+                                   current=current)
+        except Exception as e:
+            raise self._fail("the CUDA-graph capture", current, e) from e
+        finally:
+            kops.restore_launch_counts(counts)
+        outs, out_def = tree_flatten(out)
+        host = [i for i, o in enumerate(outs)
+                if not (isinstance(o, torch.Tensor) and o.device == dev)]
+        if host:
+            raise RuntimeError(
+                f"fuse='xla' segment {list(self.names)}: {len(host)} output "
+                "leaves are not tensors on the card; computed on the host "
+                "during capture, they would be frozen into the graph")
+        src: Dict[int, int] = {}
+        for i, s in enumerate(ins):
+            src.setdefault(id(s), i)
+        self._in_def, self._slots, self._ins = treedef, slots, ins
+        self._written = [i for i, s in enumerate(ins)
+                         if slots[i] == i and s._version != versions[i]]
+        self._outs, self._out_def = outs, out_def
+        self._out_src = [src.get(id(o)) for o in outs]
+        self.graph = graph
 
 
 class Pipeline(OpGraph):
@@ -596,12 +778,11 @@ def sketch_op(dim: int) -> Op:
 
 def sample_op(dim: int, rate: float, reservoir_k: int = 256) -> Op:
     """Reservoir update + Bernoulli thinning; emits the keep `mask` and
-    threads the stream `rng`."""
+    threads the stream `rng` (a device seed: no host read)."""
     def fn(state, batch):
         state = samp.reservoir_update(state, batch["x"], batch["y"])
-        mask, rng = samp.bernoulli_thin(int(batch["rng"]), batch["x"], rate)
-        return state, {**batch, "mask": mask,
-                       "rng": torch.tensor(rng, dtype=torch.int64)}
+        mask, rng = samp.bernoulli_thin(batch["rng"], batch["x"], rate)
+        return state, {**batch, "mask": mask, "rng": rng}
     cost = OperatorCost("sample", flops_per_event=20,
                         bytes_per_event=2 * _ev(dim),
                         out_bytes_per_event=_ev(dim) * rate)
@@ -746,8 +927,10 @@ def standard_stream_pipeline(dim: int, sample_rate: float = 0.5,
     (the op-graph form of the orchestrator's stages).
 
     ``fuse="op"`` keeps every cut bitwise-identical to the reference —
-    required when the placement migrates live state. ``fuse="xla"`` is
-    not ported yet and raises."""
+    required when the placement migrates live state. ``fuse="xla"`` runs
+    each segment as one CUDA graph on the card (one callable on the
+    CPU): allclose to ``fuse="op"``, as the reference's fused segments
+    are."""
     return Pipeline([
         normalize_op(dim),
         sketch_op(dim),

@@ -74,7 +74,7 @@ def op_breakdown(orch, batches, first_step: int) -> dict:
     for step, b in enumerate(batches, start=first_step):
         env = timed("copy_to_card", lambda: {
             k: torch.as_tensor(v).to(dev) for k, v in b.data.items()})
-        env["rng"] = torch.tensor(step, dtype=torch.int64)
+        env["rng"] = torch.tensor(step, dtype=torch.int64, device=dev)
         for i, op in enumerate(pipe.ops):
             if i == cut and uplink is not None:
                 env = timed("uplink", lambda: uplink(env))

@@ -1,5 +1,6 @@
-"""Chip constants of the analytic cost model, and the roofline flops
-rules that declare a DL op's cost.
+"""Chip constants of the analytic cost model, the roofline flops rules
+that declare a DL op's cost, and the per-event costs a counted op step
+measures (:func:`op_event_costs`).
 
 These are the modelled-cluster numbers the placement cost model prices
 plans with (``core/costmodel.py``'s ``Resource`` defaults and the
@@ -11,9 +12,23 @@ not a measurement of the card the port runs on.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 PEAK_FLOPS = 197e12        # modelled flop/s per chip
 HBM_BW = 819e9             # modelled memory bytes/s per chip
 LINK_BW = 50e9             # modelled link bytes/s per link
+
+
+def op_event_costs(count, n_events: int) -> Tuple[float, float]:
+    """Per-event ``(flops, bytes)`` of one counted pipeline-op step — the
+    measured replacements for the hand-written
+    ``OperatorCost.flops_per_event`` / ``bytes_per_event`` guesses
+    (:func:`repro_torch.core.selftune.measure_operator_costs` divides a
+    whole batch step by its event count). ``count`` is the
+    :class:`~repro_torch.launch.op_count.OpCount` the step ran under: the
+    port's counterpart of the reference's compiled cost analysis."""
+    n = max(int(n_events), 1)
+    return count.flops / n, count.bytes / n
 
 
 def model_flops(cfg, shape) -> float:

@@ -18,7 +18,6 @@ import math
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +77,12 @@ def kmeans_init(k: int, dim: int, seed: int = 0, device="cpu") -> KMeansState:
     return KMeansState(c.to(device), torch.ones((k,), device=device))
 
 
+def _one_hot(idx: torch.Tensor, k: int) -> torch.Tensor:
+    """``F.one_hot(idx, k)`` without its check of the values, which reads
+    them on the host for a CPU tensor (a CUDA graph holds no host read)."""
+    return (idx[..., None] == torch.arange(k, device=idx.device)).long()
+
+
 def kmeans_assign(state: KMeansState, x: torch.Tensor) -> torch.Tensor:
     d2 = torch.square(x[:, None, :] - state.centers[None]).sum(-1)
     return torch.argmin(d2, dim=-1)
@@ -86,7 +91,7 @@ def kmeans_assign(state: KMeansState, x: torch.Tensor) -> torch.Tensor:
 def kmeans_update(state: KMeansState, x: torch.Tensor) -> KMeansState:
     a = kmeans_assign(state, x)
     k = state.centers.shape[0]
-    one = F.one_hot(a, k).to(x.dtype)                    # (n, k)
+    one = _one_hot(a, k).to(x.dtype)                     # (n, k)
     batch_counts = one.sum(0)
     batch_sums = one.T @ x
     counts = state.counts + batch_counts
@@ -126,7 +131,7 @@ def _bin_index(state: AnomalyState, z: torch.Tensor) -> torch.Tensor:
 def anomaly_update(state: AnomalyState, x: torch.Tensor) -> AnomalyState:
     z = x @ state.proj                                    # (n, m)
     bins = state.counts.shape[1]
-    one = F.one_hot(_bin_index(state, z), bins).float()   # (n, m, bins)
+    one = _one_hot(_bin_index(state, z), bins).float()    # (n, m, bins)
     return state._replace(counts=state.counts + one.sum(0),
                           n=state.n + x.shape[0])
 

@@ -65,6 +65,15 @@ def _group(q: torch.Tensor, n_kv: int):
     return q.reshape(B, S, n_kv, H // n_kv, Dh)
 
 
+def _int_on(x, device) -> torch.Tensor:
+    """``torch.as_tensor(x).to(device)``, made on ``device`` where ``x`` is
+    a Python int: a tensor built on the host would be copied to the card,
+    which a CUDA graph cannot capture."""
+    if isinstance(x, int):
+        return torch.full((), x, dtype=torch.int64, device=device)
+    return torch.as_tensor(x).to(device)
+
+
 def _make_mask(S, T, causal, q_offset, kv_len, B, device):
     """(B, S, T) bool validity mask."""
     ar_s = torch.arange(S, device=device)
@@ -83,7 +92,7 @@ def _make_mask(S, T, causal, q_offset, kv_len, B, device):
     if m.dim() == 2:
         m = m[None].expand(B, S, T)
     if kv_len is not None:
-        kl = torch.as_tensor(kv_len).to(device).reshape(-1, 1, 1)
+        kl = _int_on(kv_len, device).reshape(-1, 1, 1)
         m = m & (torch.arange(T, device=device)[None, None, :] < kl)
     return m
 
@@ -98,7 +107,7 @@ def dense_attention(q, k, v, *, causal: bool, q_offset=0,
     s = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
     mask = _make_mask(S, T, causal, q_offset, kv_len, B, q.device)
     s = torch.where(mask[:, None, None], s,
-                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+                    torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
@@ -121,17 +130,17 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int = 512, q_offset=0,
     qg = _group(q, KV).float()
     scale = 1.0 / math.sqrt(Dh)
 
-    qoff = torch.as_tensor(q_offset).to(dev)
+    qoff = _int_on(q_offset, dev)
     if qoff.dim() == 0:
         qpos_b = (torch.arange(S, device=dev)[None] + qoff).expand(B, S)
     else:
         qpos_b = torch.arange(S, device=dev)[None] + qoff.reshape(-1, 1)
-    kl = None if kv_len is None else torch.as_tensor(kv_len).to(dev).reshape(-1)
+    kl = None if kv_len is None else _int_on(kv_len, dev).reshape(-1)
 
     m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KV, G, S, Dv), dtype=torch.float32, device=dev)
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
     for blk in range(nblk):
         kb = k[:, blk * chunk:(blk + 1) * chunk]
         vb = v[:, blk * chunk:(blk + 1) * chunk]

@@ -108,11 +108,25 @@ def rope_freqs(d_head: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, d_head, 2, dtype=np.float32) / d_head))
 
 
+_ROPE_FREQS: dict = {}
+
+
+def _rope_freqs_on(d_head: int, theta: float, device) -> torch.Tensor:
+    """:func:`rope_freqs` on ``device``, made at first use and kept: a copy
+    from the host at every call could not be captured in a CUDA graph."""
+    key = (d_head, float(theta), torch.device(device))
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        freqs = torch.from_numpy(rope_freqs(d_head, theta)).to(device)
+        _ROPE_FREQS[key] = freqs
+    return freqs
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, Dh); positions: (B, S) or (S,)."""
     d = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(d, theta)).to(x.device)   # (d/2,)
+    freqs = _rope_freqs_on(d, theta, x.device)                   # (d/2,)
     if positions.dim() == 1:
         positions = positions[None, :]
     ang = positions.to(x.device)[..., None].float() * freqs      # (B,S,d/2)
@@ -208,7 +222,9 @@ def lm_logits(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab_size:
         pad = cfg.padded_vocab - cfg.vocab_size
         mask = torch.cat([
-            torch.zeros((cfg.vocab_size,), dtype=torch.float32),
-            torch.full((pad,), -1e30, dtype=torch.float32)]).to(logits.device)
+            torch.zeros((cfg.vocab_size,), dtype=torch.float32,
+                        device=logits.device),
+            torch.full((pad,), -1e30, dtype=torch.float32,
+                       device=logits.device)])
         logits = logits + mask
     return logits

@@ -125,7 +125,7 @@ def _sincos_at(cfg, S, offset, device):
     pos = (torch.arange(S, device=device) + offset).float()[:, None]
     d = cfg.d_model
     div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
-                    * (-torch.log(torch.tensor(10000.0, device=device)) / d))
+                    * (-torch.log(torch.full((), 10000.0, device=device)) / d))
     pe = torch.zeros((S, d), dtype=torch.float32, device=device)
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)

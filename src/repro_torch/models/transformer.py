@@ -344,8 +344,13 @@ def frontend_memory(params, cfg: ArchConfig, batch: dict):
 # ---------------------------------------------------------------------------
 
 def _positions(B, S, offset=0, device="cpu"):
-    off = torch.as_tensor(offset).to(device).reshape(-1, 1)
-    return torch.arange(S, device=device)[None, :] + off
+    """(1 or B, S) positions from ``offset``, an int or a per-sequence
+    tensor. An int stays a scalar operand: a tensor built from it would be
+    a host-to-card copy, which a CUDA graph cannot capture."""
+    pos = torch.arange(S, device=device)[None, :]
+    if isinstance(offset, torch.Tensor):
+        return pos + offset.to(device).reshape(-1, 1)
+    return pos + offset
 
 
 def forward_lm(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
@@ -368,11 +373,13 @@ def forward_lm(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
         x, _ = run_stack(params["stack"], cfg, pat, x, positions=positions,
                          memory=memory, caches=None, impl=impl)
     x = apply_norm(params["final_norm"], cfg, x)
-    return lm_logits(params["embed"], cfg, x), _no_aux()
+    return lm_logits(params["embed"], cfg, x), _no_aux(x.device)
 
 
-def _no_aux():
-    return torch.zeros((), dtype=torch.float32)
+def _no_aux(device):
+    """The auxiliary loss of a family that has none, on the model's device
+    (a CPU zero moved to the card would be a copy no CUDA graph captures)."""
+    return torch.zeros((), dtype=torch.float32, device=device)
 
 
 def encode(params, cfg: ArchConfig, batch: dict, impl: str):
@@ -407,7 +414,7 @@ def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked"):
         x, _ = run_stack(params["dec"]["stack"], cfg, pat, x, positions=pos_d,
                          memory=memory, caches=None, impl=impl)
     x = apply_norm(params["final_norm"], cfg, x)
-    return lm_logits(params["embed"], cfg, x), _no_aux()
+    return lm_logits(params["embed"], cfg, x), _no_aux(x.device)
 
 
 def lm_loss(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):

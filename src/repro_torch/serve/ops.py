@@ -3,7 +3,7 @@ over the pipeline substrate, as the JAX package's ``serve/ops.py``. The
 prefill->decode crossing is a real link hop and the KV cache is the
 state the placement DP prices against ``mem_cap``.
 
-Both ops are host ops built around one
+Both ops are host ops (``Op.jit=False``) built around one
 :class:`~repro_torch.serve.engine.ServeEngine`: they call the engine's
 own ``_prefill``/``_decode`` steps with the same seed threading, so the
 graph path is bitwise-identical to ``ServeEngine._serve_wave``. The KV
@@ -80,8 +80,8 @@ def prefill_op(engine: ServeEngine, *, prompt_len: int,
             # the KV cache is what this op emits downstream, per event
             out_bytes_per_event=kvb / B,
             state_bytes=param_bytes(cfg))
-    return Op("prefill", fn, cost, reads=("tokens", "rng") + extras,
-              writes=("kv", "tok", "rng"))
+    return Op("prefill", fn, cost, jit=False,
+              reads=("tokens", "rng") + extras, writes=("kv", "tok", "rng"))
 
 
 def decode_op(engine: ServeEngine, *, max_new_tokens: int,
@@ -117,7 +117,7 @@ def decode_op(engine: ServeEngine, *, max_new_tokens: int,
             # the decode-resident state the DP prices against mem_cap:
             # the weights AND the live KV cache
             state_bytes=pb + kvb, downlink_ok=True)
-    return Op("decode", fn, cost, reads=("kv", "tok", "rng"),
+    return Op("decode", fn, cost, jit=False, reads=("kv", "tok", "rng"),
               writes=("out_tokens", "rng"), deletes=("kv", "tok"))
 
 

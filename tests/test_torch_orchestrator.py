@@ -301,17 +301,20 @@ def test_orchestrator_runs_on_the_card_unless_asked_for_the_cpu():
 
 
 def test_unported_options_raise():
-    """``measured_costs`` and ``fuse="xla"`` are not ported; a live
-    topology (``membership=``) is, and, as in the JAX package, it
-    excludes a static ``cluster=``."""
+    """A live topology (``membership=``) excludes a static ``cluster=``,
+    as in the JAX package. ``measured_costs`` and ``fuse="xla"`` are
+    ported (``tests/test_torch_selftune.py``,
+    ``tests/test_torch_fuse_segments.py``); what stays unported is the
+    execution-config tuner's scoring, which needs the dry run."""
+    from repro_torch.core import selftune
     from repro_torch.core.costmodel import ClusterSpec
     from repro_torch.core.membership import MembershipDirectory
     with pytest.raises(ValueError, match="not both"):
         torch_orch.Orchestrator(torch_orch.StreamJob(
             "m", device="cpu", cluster=ClusterSpec.edge_cloud(),
             membership=MembershipDirectory(ClusterSpec.edge_cloud())))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_orch.Orchestrator(torch_orch.StreamJob(
-            "m", device="cpu", measured_costs=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpl.standard_stream_pipeline(8, fuse="xla")
+    for call in (lambda: selftune.tune("qwen2-1.5b", "train_4k", []),
+                 lambda: selftune.evaluate_candidate(
+                     "qwen2-1.5b", "train_4k", selftune.Candidate({}))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
