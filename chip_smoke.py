@@ -48,7 +48,9 @@ path on the card, and checks what comes out. Phases:
    phase 2: flash attention in bf16 and fp32 at head dims 64, 16 and 128
    (prefill S = T = 512, a decode step, causal; B 8, 16 heads) and at
    llama-3.2-vision-90b's cross-attention (64 heads on 8 KV heads, 1,600
-   image tokens, batch 1 and 2, prefill and decode), on strided
+   image tokens, batch 1, 2 and 8, prefill and decode; batch 8, the
+   vision model's serving batch, has rows of its own in the ``kernels``
+   line with phase 14's vision launches), on strided
    model-layout inputs, each call one CUDA kernel by ``torch.profiler``,
    with ``library_ms`` from the fastest fused SDPA backend on 4-D
    inputs (flash, memory-efficient, cuDNN; refusals logged); then
@@ -162,10 +164,23 @@ path on the card, and checks what comes out. Phases:
     the caller's tensors the updated ones. Graph replays count as
     launches: each replay launches every hand kernel its graph holds, and
     a hand kernel (a ``__global__`` of the port's sources) in a captured
-    graph without a counter fails the phase.
+    graph without a counter fails the phase;
+14. the families of slice 13 served as phase 6 serves its models:
+    granite-moe-1b-a400m and deepseek-v2-lite-16b in full,
+    llama-3.2-vision-90b cut to 5 layers (the gated cross layer at
+    index 4) and jamba-1.5-large-398b to 2 (Mamba + MoE, attention +
+    dense), each cut logged: tok/s, peak GiB, launches (flash on the
+    vision path and nothing else on any), kernel against chunked
+    prefill logits (vision's gates opened, its patches drawn from a
+    seed), one profiled decode step (launches, idle share), a negative
+    control (the vision check must fail with flash's output rolled over
+    the batch), and the MoE routing of granite's and deepseek's smoke
+    configs on the card against the CPU (ids, keep masks and the sort
+    bitwise, near ties logged, logits within 1e-4).
 
 The launch counts are set to 0 just before each main path (phases 3-5
-as one, each model of phase 6, phases 7, 8, 9, 10, 11, 12 and 13) and read
+as one, each model of phases 6 and 14, phases 7, 8, 9, 10, 11, 12 and
+13) and read
 just after it; every kernel must have launched on a main path. A line
 ``{"kernels": [...]}`` reports each kernel, the line before the last
 gives the card's name and power limit, and the last line is
@@ -250,7 +265,7 @@ WKV_H, WKV_HS, WKV_CHUNK = 32, 64, 32      # rwkv6-1.6b's heads, head size, chun
 WKV_STRONG = 20.0      # the strong-decay check's largest -lw a step
 WKV_CHUNK64_ROW = "rwkv6_wkv/chunk64"   # RWKVConfig's default chunk
 FLASH_VLM_T = 1600
-FLASH_VLM_BATCHES = (1, 2)
+FLASH_VLM_BATCHES = (1, 2, 8)    # 8: the vision model's serving batch
 FLASH_LIBRARY_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
                           "CUDNN_ATTENTION")
 L2_BYTES = 50 * 2 ** 20             # the H100's L2 cache
@@ -285,6 +300,31 @@ MAMBA_TOL = 1e-5       # rtol and atol, fp32 against the per-step plain scan
 # prefill logits of impl="kernel" against impl="chunked" on the card, in
 # bf16: max |difference| <= LOGITS_RTOL * max |chunked logits|
 LOGITS_RTOL = 5e-2
+
+# phase 14: the families served at full width; two cut in depth to fit
+# one card (80 GB): (arch, config overrides, why)
+FAMILY_MODELS = (
+    ("granite-moe-1b-a400m", {}, None),
+    ("deepseek-v2-lite-16b", {}, None),
+    ("llama-3.2-vision-90b", {"n_layers": 5},
+     "90B parameters do not fit one card; 4 attention layers and the "
+     "gated cross layer at index 4 keep every layer kind at full width"),
+    ("jamba-1.5-large-398b", {"n_layers": 2, "attn_period": 2},
+     "398B parameters do not fit one card, and one full-width MoE layer "
+     "is ~9.7B: layer 0 Mamba + MoE, layer 1 attention + dense"),
+)
+VLM_GATE = 1.0          # the vision gates, opened for the checks
+# the vision checks' image patches: N(0, VLM_PATCH_SCALE^2). The seeded
+# weights' fan-in scales leave cross-attention's scores at std ~0.04
+# per unit of patch scale: at unit scale the attention is near uniform
+# over the 1,600 patches, its output ~0.07 a coordinate, and a wrong
+# flash output (each request given another's) moved the prefill logits
+# by 0.8% of their largest, under the 5% the check allows
+VLM_PATCH_SCALE = 32.0
+MOE_CPU_MODELS = ("granite-moe-1b-a400m", "deepseek-v2-lite-16b")
+MOE_CPU_B, MOE_CPU_S = 4, 64
+MOE_CPU_TOL = 1e-4      # rtol and atol, fp32 logits, card against CPU
+MOE_NEAR_TIE = 1e-6     # K-th and (K+1)-th router probabilities closer
 
 # phases 10-11: the port's counterparts of examples/dynamic_topology.py and
 # examples/fleet_pipeline.py at the dense job's width
@@ -1732,6 +1772,85 @@ def edge_serving_cluster():
                cm.Link("cloud0", "edge0", bw=2e7, latency=5e-3)])
 
 
+def serve_requests(cfg, params, prompts, arch: str):
+    """Serve ``prompts`` through ``ServeEngine(impl="kernel")`` (after a
+    short untimed wave, so the rates do not carry the first use of the
+    card's libraries at these shapes), with the launch counts set to 0
+    just before and read just after. Checks that every request got
+    NEW_TOKENS tokens inside the vocabulary. Returns ``(launch counts,
+    throughput, requests)``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    ServeEngine(cfg, params, batch_size=SERVE_BATCH, max_len=MAX_LEN
+                ).run([Request(0, prompts[0][:64], max_new_tokens=2)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    eng = ServeEngine(cfg, params, batch_size=SERVE_BATCH,
+                      max_len=MAX_LEN, impl="kernel", seed=0)
+    reqs = [Request(i, p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    eng.run(reqs)
+    counts = ops.launch_counts()
+    tp = eng.throughput()
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"  prefill_tok_per_s={tp['prefill_tok_per_s']!r} "
+        f"decode_tok_per_s={tp['decode_tok_per_s']!r} "
+        f"prefill_s={eng.metrics['prefill_s']!r} "
+        f"decode_s={eng.metrics['decode_s']!r} "
+        f"peak_gib={torch.cuda.max_memory_allocated() / 2 ** 30!r} "
+        f"launches={launched}")
+    for r in reqs:
+        if len(r.out_tokens) != NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"{arch}: request {r.rid} got "
+                                 f"{r.out_tokens}")
+    return counts, tp, reqs
+
+
+def logits_gap(cfg, params, batch):
+    """Prefill logits under ``impl="kernel"`` against ``impl="chunked"``
+    on ``batch``: ``(max |difference|, max |chunked logits|, argmax
+    agreements, kernel prefill logits, its caches)``."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    lk, caches = zoo.prefill(params, cfg, batch, MAX_LEN, impl="kernel")
+    lc, _ = zoo.prefill(params, cfg, batch, MAX_LEN, impl="chunked")
+    real = slice(0, cfg.vocab_size)
+    diff = float((lk[..., real] - lc[..., real]).abs().max())
+    scale = float(lc[..., real].abs().max())
+    same_argmax = int((lk[:, 0, real].argmax(-1)
+                       == lc[:, 0, real].argmax(-1)).sum())
+    del lc
+    torch.cuda.empty_cache()
+    return diff, scale, same_argmax, lk, caches
+
+
+def logits_check(cfg, params, batch, arch: str):
+    """Finite prefill and decode logits, and prefill logits of
+    ``impl="kernel"`` within ``LOGITS_RTOL`` of ``impl="chunked"``'s
+    largest. Returns the caches after the decode step and the step's
+    next tokens."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    diff, scale, same_argmax, lk, caches = logits_gap(cfg, params, batch)
+    nxt = torch.argmax(lk[:, 0, :cfg.vocab_size], -1)[:, None]
+    ld, caches = zoo.decode_step(params, cfg, caches, nxt, impl="kernel")
+    real = slice(0, cfg.vocab_size)
+    for what, t in (("prefill", lk), ("decode", ld)):
+        if not torch.isfinite(t[..., real]).all():
+            raise AssertionError(f"{arch}: non-finite {what} logits")
+    log(f"  prefill logits kernel vs chunked: max_abs_diff={diff!r} "
+        f"max_abs={scale!r} rel={diff / scale!r} (tol {LOGITS_RTOL}) "
+        f"argmax agree {same_argmax}/{lk.shape[0]}")
+    if not diff <= LOGITS_RTOL * scale:
+        raise AssertionError(f"{arch}: kernel and chunked prefill logits "
+                             f"differ by {diff!r}")
+    return caches, torch.argmax(ld[:, 0, :cfg.vocab_size], -1)[:, None]
+
+
 def serving_phases(dev):
     """Phase 6 (each model served) and phase 7 (rwkv6's serving graph at
     the {decode} frontier). Returns the launch counts of each path and
@@ -1742,7 +1861,7 @@ def serving_phases(dev):
     from repro_torch.core.placement import Objective, place_frontier
     from repro_torch.kernels import ops
     from repro_torch.models import model_zoo as zoo
-    from repro_torch.serve.engine import Request, ServeEngine, wave_inputs
+    from repro_torch.serve.engine import ServeEngine, wave_inputs
     from repro_torch.serve.ops import serve_wave_batch, serving_graph
 
     paths, rates = {}, {}
@@ -1758,52 +1877,14 @@ def serving_phases(dev):
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, size=PROMPT
                                 ).astype(np.int32) for _ in range(N_REQUESTS)]
-        # a short wave first, so the rates do not carry the first use of
-        # the card's libraries at these shapes
-        ServeEngine(cfg, params, batch_size=SERVE_BATCH, max_len=MAX_LEN
-                    ).run([Request(0, prompts[0][:64], max_new_tokens=2)])
-        ops.reset_launch_counts()
-        eng = ServeEngine(cfg, params, batch_size=SERVE_BATCH,
-                          max_len=MAX_LEN, impl="kernel", seed=0)
-        reqs = [Request(i, p, max_new_tokens=NEW_TOKENS)
-                for i, p in enumerate(prompts)]
-        eng.run(reqs)
-        paths[f"serve/{arch}"] = ops.launch_counts()
-        tp = eng.throughput()
+        paths[f"serve/{arch}"], tp, reqs = serve_requests(cfg, params,
+                                                         prompts, arch)
         rates[f"prefill_tok_per_s/{arch}"] = tp["prefill_tok_per_s"]
         rates[f"decode_tok_per_s/{arch}"] = tp["decode_tok_per_s"]
-        launched = {k: v for k, v in paths[f"serve/{arch}"].items() if v}
-        log(f"  prefill_tok_per_s={tp['prefill_tok_per_s']!r} "
-            f"decode_tok_per_s={tp['decode_tok_per_s']!r} "
-            f"prefill_s={eng.metrics['prefill_s']!r} "
-            f"decode_s={eng.metrics['decode_s']!r} launches={launched}")
-        for r in reqs:
-            if len(r.out_tokens) != NEW_TOKENS or not all(
-                    0 <= t < cfg.vocab_size for t in r.out_tokens):
-                raise AssertionError(f"{arch}: request {r.rid} got "
-                                     f"{r.out_tokens}")
-
-        # logits: finite, and impl="kernel" against impl="chunked"
-        batch = wave_inputs(cfg, prompts[:SERVE_BATCH], dev)
-        lk, caches = zoo.prefill(params, cfg, batch, MAX_LEN, impl="kernel")
-        lc, _ = zoo.prefill(params, cfg, batch, MAX_LEN, impl="chunked")
-        nxt = torch.argmax(lk[:, 0, :cfg.vocab_size], -1)[:, None]
-        ld, _ = zoo.decode_step(params, cfg, caches, nxt, impl="kernel")
-        real = slice(0, cfg.vocab_size)
-        for what, t in (("prefill", lk), ("decode", ld)):
-            if not torch.isfinite(t[..., real]).all():
-                raise AssertionError(f"{arch}: non-finite {what} logits")
-        diff = float((lk[..., real] - lc[..., real]).abs().max())
-        scale = float(lc[..., real].abs().max())
-        same_argmax = int((lk[:, 0, real].argmax(-1)
-                           == lc[:, 0, real].argmax(-1)).sum())
-        log(f"  prefill logits kernel vs chunked: max_abs_diff={diff!r} "
-            f"max_abs={scale!r} rel={diff / scale!r} (tol {LOGITS_RTOL}) "
-            f"argmax agree {same_argmax}/{SERVE_BATCH}")
-        if not diff <= LOGITS_RTOL * scale:
-            raise AssertionError(f"{arch}: kernel and chunked prefill logits "
-                                 f"differ by {diff!r}")
-        del lk, lc, ld, caches
+        caches, _ = logits_check(cfg, params,
+                                 wave_inputs(cfg, prompts[:SERVE_BATCH], dev),
+                                 arch)
+        del caches
 
         if arch == "rwkv6-1.6b":
             log("phase 7: rwkv6 serving graph at the {decode} frontier")
@@ -1839,9 +1920,251 @@ def serving_phases(dev):
                 raise AssertionError("rwkv6 serving graph at {decode} "
                                      "differs from the engine")
             del graph, geng, states, out
-        del params, eng
+        del params
         torch.cuda.empty_cache()
     return paths, rates
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the MoE, MLA, hybrid and vision families served
+# ---------------------------------------------------------------------------
+
+def family_configs():
+    """``(config, cuts)`` of phase 14's models: each at full width, the
+    two that do not fit one card with their depth cut (``cuts`` says how
+    and why)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    out = []
+    for arch, over, why in FAMILY_MODELS:
+        cfg = get_config(arch)
+        cuts = {k: f"{getattr(cfg, k)} -> {v}" for k, v in over.items()}
+        out.append((replace(cfg, **over), {**cuts, "why": why} if over
+                    else {}))
+    return out
+
+
+def open_vlm_gates(params) -> None:
+    """Set every ``gate_attn`` and ``gate_mlp`` of a vision model to
+    VLM_GATE: at their initial 0 the gated cross layer adds nothing, and
+    a check of its cross-attention would pass whatever the flash kernel
+    returned."""
+    def visit(tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                if k in ("gate_attn", "gate_mlp"):
+                    v.fill_(VLM_GATE)
+                else:
+                    visit(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                visit(v)
+    visit(params)
+
+
+def decode_step_profile(cfg, params, caches, tokens) -> dict:
+    """One decode step under ``torch.profiler``: its wall ms, the card's
+    kernel ms, idle share and kernel launches (``None`` where the
+    profiler traced no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_stream import _device_events
+    from repro_torch.models import model_zoo as zoo
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        zoo.decode_step(params, cfg, caches, tokens, impl="kernel")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [r for r in _device_events(prof)
+            if not r[2].startswith(("Memcpy", "Memset"))]
+    if not rows:
+        return {"wall_ms": wall_ms, "kernel_ms": None, "idle_share": None,
+                "launches": None}
+    kernel_ms = sum(r[0] for r in rows)
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms,
+            "idle_share": 1.0 - kernel_ms / wall_ms,
+            "launches": sum(r[1] for r in rows)}
+
+
+def vlm_flash_check(cfg, params, batch) -> None:
+    """The vision model's logits check must fail if the flash kernel's
+    output is wrong: with each request's cross-attention output swapped
+    for another request's (a plausible but wrong output), the prefill
+    logits under ``impl="kernel"`` must leave ``LOGITS_RTOL``."""
+    from repro_torch.kernels import ops
+    real = ops.flash_attention
+
+    def perturbed(*a, **k):
+        return real(*a, **k).roll(1, dims=0)
+    ops.flash_attention = perturbed
+    try:
+        diff, scale, same, lk, caches = logits_gap(cfg, params, batch)
+    finally:
+        ops.flash_attention = real
+    del lk, caches
+    fails = not diff <= LOGITS_RTOL * scale
+    log(f"  negative control, flash output rolled over the batch: "
+        f"max_abs_diff={diff!r} max_abs={scale!r} rel={diff / scale!r} "
+        f"argmax agree {same}/{SERVE_BATCH}; the check fails: {fails}")
+    if not fails:
+        raise AssertionError("the vlm logits check passes a wrong flash "
+                             "output: it cannot see the kernel")
+
+
+class RoutingRecorder:
+    """Records, at every MoE layer, each token's expert ids, the keep
+    mask of its assignments and whether its K-th and (K+1)-th router
+    probabilities lie within MOE_NEAR_TIE."""
+
+    def __init__(self):
+        self.layers = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._moe, self._top_k = moe, moe.top_k
+        self._dispatch = moe._dispatch_group
+        rec = self
+
+        def top_k(probs, k):
+            vals, idx = rec._top_k(probs, k)
+            srt = torch.sort(probs, dim=-1, descending=True).values
+            near = (srt[..., k - 1] - srt[..., k]) <= MOE_NEAR_TIE
+            rec.layers.append({"ids": idx.reshape(-1, k).cpu(),
+                               "near": near.reshape(-1).cpu()})
+            return vals, idx
+
+        def dispatch(cfg, C, xf, expert_ids):
+            out = rec._dispatch(cfg, C, xf, expert_ids)
+            rec.layers[-1]["keep"] = out[3].cpu()
+            rec.layers[-1]["order"] = out[2].cpu()
+            return out
+        moe.top_k, moe._dispatch_group = top_k, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.top_k, self._moe._dispatch_group = self._top_k, \
+            self._dispatch
+
+
+def moe_card_vs_cpu(dev) -> None:
+    """A smoke-size fp32 prefill of granite and deepseek on the card and
+    on the CPU from the same weights (fp32 caches, so that no bf16
+    rounding of a key flips between the two): expert ids, keep masks and
+    the dispatch's sort bitwise, logits within rtol = atol = MOE_CPU_TOL,
+    except at a near tie (a token whose K-th and (K+1)-th router probabilities
+    lie within MOE_NEAR_TIE, where fp32 products may round the other
+    way), which is logged and whose sequence is left out of the logits
+    comparison."""
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+
+    for arch in MOE_CPU_MODELS:
+        cfg = replace(get_config(arch, smoke=True), kv_cache_dtype="float32")
+        cpu_params = zoo.init_params(cfg, seed=0, device="cpu")
+        card_params = tree_map(lambda t: t.to(dev), cpu_params)
+        rng = np.random.default_rng(2)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(MOE_CPU_B, MOE_CPU_S)).astype(np.int32))
+        logits, layers = {}, {}
+        for where, params in (("cpu", cpu_params), ("card", card_params)):
+            with RoutingRecorder() as rec:
+                lg, _ = zoo.prefill(params, cfg, {"tokens": toks.to(
+                    params["embed"]["tok"].device)}, MOE_CPU_S,
+                    impl="kernel")
+            logits[where], layers[where] = lg.float().cpu(), rec.layers
+        near = torch.zeros(MOE_CPU_B * MOE_CPU_S, dtype=torch.bool)
+        for a, b in zip(layers["cpu"], layers["card"]):
+            near |= a["near"] | b["near"]
+        ok = ~near
+        for i, (a, b) in enumerate(zip(layers["cpu"], layers["card"])):
+            if not torch.equal(a["ids"][ok], b["ids"][ok]):
+                raise AssertionError(f"{arch} layer {i}: expert ids differ "
+                                     "between the card and the CPU")
+            if near.any():
+                continue     # the near tie moves later tokens' slots
+            if not (torch.equal(a["keep"], b["keep"])
+                    and torch.equal(a["order"], b["order"])):
+                raise AssertionError(f"{arch} layer {i}: keep masks or the "
+                                     "stable sort differ")
+        rows = ~near.reshape(MOE_CPU_B, MOE_CPU_S).any(-1)
+        real = slice(0, cfg.vocab_size)
+        a, b = logits["card"][rows][..., real], logits["cpu"][rows][..., real]
+        excess = float(((a - b).abs() - MOE_CPU_TOL * (1 + b.abs())).max())
+        ties = torch.nonzero(near).reshape(-1).tolist()
+        log(f"  {arch} (smoke, fp32, {len(layers['cpu'])} MoE layers, "
+            f"{MOE_CPU_B} x {MOE_CPU_S} tokens): expert ids, keep masks "
+            f"and sort bitwise; near ties {ties}; logits max |card - cpu| "
+            f"{float((a - b).abs().max())!r} of max |cpu| "
+            f"{float(b.abs().max())!r} (rtol = atol = {MOE_CPU_TOL})")
+        if not excess <= 0:
+            raise AssertionError(f"{arch}: card and CPU logits differ")
+
+
+def families_phase(dev) -> dict:
+    """Phase 14: granite-moe-1b-a400m, deepseek-v2-lite-16b,
+    llama-3.2-vision-90b and jamba-1.5-large-398b served at full width as
+    phase 6 serves its models, each one main path; the vision model's
+    flash launches and its negative control; then the MoE routing on the
+    card against the CPU. Returns each path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve.engine import wave_inputs
+
+    paths = {}
+    for cfg, cuts in family_configs():
+        arch = cfg.name
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = zoo.init_params(cfg, seed=0, device=dev)
+        if cfg.family == "vlm":
+            open_vlm_gates(params)
+        torch.cuda.synchronize()
+        n_params = zoo.param_count(cfg)
+        log(f"phase 14: serving {arch} ({cfg.family}, {n_params} parameters, "
+            f"{cfg.param_dtype}, {cfg.n_layers} layers), weights drawn in "
+            f"{time.perf_counter() - t0:.2f} s, "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30!r} GiB at the "
+            f"draw's peak" + (f"; reduced: {cuts}" if cuts else ""))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, size=PROMPT
+                                ).astype(np.int32) for _ in range(N_REQUESTS)]
+        counts, _, _ = serve_requests(cfg, params, prompts, arch)
+        paths[f"serve/{arch}"] = counts
+        # the path's kernels: flash in vision's gated cross-attention,
+        # nothing anywhere else (self-attention and MLA refuse flash, the
+        # Mamba mixer runs its own scan, as the reference's do)
+        want = {"flash_attention"} if cfg.family == "vlm" else set()
+        if {k for k, v in counts.items() if v} != want:
+            raise AssertionError(f"{arch}: launches {counts}, expected "
+                                 f"only {sorted(want)}")
+
+        batch = wave_inputs(cfg, prompts[:SERVE_BATCH], dev)
+        if cfg.family == "vlm":
+            g = torch.Generator(device=dev).manual_seed(14)
+            batch["patches"] = VLM_PATCH_SCALE * torch.randn(
+                batch["patches"].shape, generator=g, device=dev)
+        caches, nxt = logits_check(cfg, params, batch, arch)
+        prof = decode_step_profile(cfg, params, caches, nxt)
+        log(f"  one profiled decode step: {prof}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30!r} GiB")
+        del caches
+        if cfg.family == "vlm":
+            vlm_flash_check(cfg, params, batch)
+        del params, batch
+        torch.cuda.empty_cache()
+    log(f"phase 14: MoE routing on the card against the CPU "
+        f"({', '.join(MOE_CPU_MODELS)} smoke configs)")
+    moe_card_vs_cpu(dev)
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -3822,6 +4145,13 @@ def main(argv=None) -> int:
     # -- phase 13: the orchestrator's other modes -------------------------------
     path_counts["modes"] = modes_phase(dev, batches)
 
+    # -- phase 14: the MoE, MLA, hybrid and vision families served -------------
+    torch.cuda.empty_cache()
+    log(f"phase 14: the MoE, MLA, hybrid and vision families served "
+        f"({N_REQUESTS} requests x {PROMPT} tokens, {NEW_TOKENS} greedy new "
+        f"tokens, batch {SERVE_BATCH})")
+    path_counts.update(families_phase(dev))
+
     counts = {k: sum(c[k] for c in path_counts.values())
               for k in ops.launch_counts()}
     missing = sorted(k for k, v in counts.items() if v <= 0)
@@ -3846,14 +4176,20 @@ def main(argv=None) -> int:
         if not same or gap > 1e-3:
             raise AssertionError(f"{codec}: card and CPU runs disagree")
 
+    # the vision model's cross-attention shapes at its serving batch: rows
+    # of their own, with the launches of that path
+    vlm_path = "serve/" + next(c.name for c, _ in family_configs()
+                               if c.family == "vlm")
+    vlm_rows = {f"flash_attention/vlm_b{SERVE_BATCH}{tag}": path_counts[
+        vlm_path]["flash_attention"] for tag in ("", "_decode")}
     kernels = []
     for k, row in rows.items():
-        if k != row["name"] and k != WKV_CHUNK64_ROW:
+        if k != row["name"] and k != WKV_CHUNK64_ROW and k not in vlm_rows:
             continue        # a further shape of a kernel: logged above
         # the chunk-64 row is the WKV kernel (one counter for every chunk)
         kernels.append({"name": k, "route": row["route"],
                         "source": row["source"], "replaces": row["replaces"],
-                        "launches": counts[row["name"]],
+                        "launches": vlm_rows.get(k, counts[row["name"]]),
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

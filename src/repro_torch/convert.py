@@ -12,7 +12,9 @@ carries one state, such as an edge node's ``CountMin`` (table, seeds) or
 :func:`params_from_numpy` does the same for a model's parameter tree,
 and :func:`opt_state_from_numpy` / :func:`step_from_numpy` for a
 trainer's optimizer state and step, so both packages continue training
-from the same step.
+from the same step. :func:`cache_from_numpy` carries a serving cache
+(a whole cache tree, or one ``KVCache``, ``MLACache`` or ``MambaState``),
+so both packages decode on from the same cache.
 
 Every entry point defaults to ``device="cuda"`` and raises where CUDA is
 not available; pass ``device="cpu"`` to build on the CPU.
@@ -74,10 +76,12 @@ def states_from_numpy(pipeline, states_np: Dict[str, Any],
             for name in pipeline.names}
 
 
-def _tree_from_numpy(template, tree_np, device, what: str):
+def _tree_from_numpy(template, tree_np, device, what: str,
+                     host_leaf=lambda path: False):
     """``tree_np`` (numpy leaves, bf16 ones included) on ``device``, leaf
     for leaf onto ``template`` (tensors, ``meta`` ones included): each
-    leaf takes its template leaf's dtype. Raises on a missing, extra or
+    leaf takes its template leaf's dtype; a leaf whose path
+    ``host_leaf`` names goes to the CPU. Raises on a missing, extra or
     misshaped leaf."""
     want, treedef = tree_flatten_with_path(template)
     have = dict(tree_flatten_with_path(tree_np)[0])
@@ -95,7 +99,8 @@ def _tree_from_numpy(template, tree_np, device, what: str):
                              f"has {tuple(t.shape)}")
         # through fp32, which holds every bf16 value exactly
         a = np.array(a, dtype=np.float32 if t.is_floating_point() else None)
-        leaves.append(torch.from_numpy(a).to(device=device, dtype=t.dtype))
+        dev = torch.device("cpu") if host_leaf(p) else device
+        leaves.append(torch.from_numpy(a).to(device=dev, dtype=t.dtype))
     return tree_unflatten(treedef, leaves)
 
 
@@ -106,6 +111,17 @@ def params_from_numpy(cfg, params_np, device="cuda"):
     misshaped leaf."""
     return _tree_from_numpy(zoo.param_shapes(cfg), params_np,
                             resolve_device(device), "parameter")
+
+
+def cache_from_numpy(template, cache_np, device="cuda"):
+    """A serving cache on ``device``, leaf for leaf from the JAX package's
+    (``jax.tree.map(np.asarray, caches)``) onto the port's ``template``
+    of it (``zoo.init_caches(..., device="meta")``, or one cache such as
+    ``init_mla_cache``'s): each leaf in its template leaf's dtype, every
+    ``length`` on the CPU, where the port keeps it. Raises on a missing,
+    extra or misshaped leaf."""
+    return _tree_from_numpy(template, cache_np, resolve_device(device),
+                            "cache", lambda p: p.endswith(".length"))
 
 
 def opt_state_from_numpy(optimizer, params, state_np, device="cuda"):

@@ -131,18 +131,22 @@ _COUNTERS = (_pp.LAUNCHES, _ef.LAUNCHES, _ds.LAUNCHES, _fa.LAUNCHES,
 
 
 def flash_supported(q, k, v, causal, q_offset, kv_len) -> bool:
-    """The JAX package's rule (``kernels/ops.py::flash_supported``) for
-    when ``attention(impl=...)`` takes the flash kernel: plain causal or
-    full attention with no query offset and no KV length. A tensor
-    offset, even a zero one, refuses it: ``self_attention`` always passes
-    one, so only cross-attention reaches the kernel. The reference's
-    other condition, that Pallas is available, is the caller's choice of
-    ``impl="kernel"`` here."""
+    """When ``attention(impl="kernel")`` takes the flash kernel: plain
+    causal or full attention with no query offset and no KV length, and
+    one head dim for q, k and v. A tensor offset, even a zero one,
+    refuses it: ``self_attention`` always passes one, so only
+    cross-attention reaches the kernel. The JAX package's rule
+    (``kernels/ops.py::flash_supported``) compares q's dim with k's only
+    and then crashes on MLA's uncached forward (keys nope + rope wide,
+    values ``v_head_dim``) inside its kernel; here v's dim is checked
+    too, so MLA takes the chunked path, the function the reference
+    means. The reference's other condition, that Pallas is available,
+    is the caller's choice of ``impl="kernel"`` here."""
     if kv_len is not None:
         return False
     if isinstance(q_offset, torch.Tensor) or q_offset:
         return False
-    return q.shape[-1] == k.shape[-1]
+    return q.shape[-1] == k.shape[-1] == v.shape[-1]
 
 
 def launch_counts() -> Dict[str, int]:

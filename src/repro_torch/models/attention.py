@@ -1,4 +1,5 @@
-"""Attention: GQA self-attention with a KV cache, and cross-attention.
+"""Attention: GQA self-attention with a KV cache, MLA (DeepSeek latent
+attention) and cross-attention.
 
 The JAX package's ``models/attention.py`` in PyTorch. Three execution
 paths, numerically equivalent (the tests hold each to the reference):
@@ -11,12 +12,13 @@ paths, numerically equivalent (the tests hold each to the reference):
                 Pallas kernel (:func:`repro_torch.kernels.ops.
                 flash_supported`): with no query offset and no KV length.
                 ``self_attention`` always derives its offset from the
-                positions tensor, so only ``cross_attention`` reaches the
+                positions tensor, and MLA's value dim differs from its
+                query dim, so only ``cross_attention`` reaches the
                 kernel, as in the reference.
 
 Without a device mesh the reference repeats no KV heads
 (``kv_repeat_factor`` is 1) and its sharding annotations are no-ops;
-both are left out. MLA (DeepSeek latent attention) is not ported yet.
+both are left out.
 """
 
 from __future__ import annotations
@@ -31,10 +33,6 @@ from repro_torch.models.layers import apply_rope, cast_like_xla
 from repro_torch.models.params import Spec
 
 NEG_INF = -1e30
-
-MLA_TODO = ("MLA (multi-head latent attention) is not ported yet: see "
-            "ROADMAP.md, 'Modules to port', item 8 (the moe/ssm/hybrid/vlm "
-            "families and MLA)")
 
 
 # ---------------------------------------------------------------------------
@@ -53,6 +51,27 @@ def attn_specs(cfg: ArchConfig, cross: bool = False):
         sp["bq"] = Spec((H, Dh), ("heads", "head_dim"), "zeros")
         sp["bk"] = Spec((KV, Dh), ("kv_heads", "head_dim"), "zeros")
         sp["bv"] = Spec((KV, Dh), ("kv_heads", "head_dim"), "zeros")
+    return sp
+
+
+def mla_specs(cfg: ArchConfig):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qdim = m.nope_head_dim + m.rope_head_dim
+    sp = {
+        "w_dkv": Spec((d, m.kv_lora_rank), ("embed", "lora")),
+        "w_kr": Spec((d, m.rope_head_dim), ("embed", "head_dim")),
+        "kv_norm": Spec((m.kv_lora_rank,), ("lora",), "ones"),
+        "w_uk": Spec((m.kv_lora_rank, H, m.nope_head_dim), ("lora", "heads", "head_dim")),
+        "w_uv": Spec((m.kv_lora_rank, H, m.v_head_dim), ("lora", "heads", "head_dim")),
+        "wo": Spec((H, m.v_head_dim, d), ("heads", "head_dim", "embed")),
+    }
+    if m.q_lora_rank:
+        sp["w_dq"] = Spec((d, m.q_lora_rank), ("embed", "lora"))
+        sp["q_norm"] = Spec((m.q_lora_rank,), ("lora",), "ones")
+        sp["w_uq"] = Spec((m.q_lora_rank, H, qdim), ("lora", "heads", "head_dim"))
+    else:
+        sp["wq"] = Spec((d, H, qdim), ("embed", "heads", "head_dim"))
     return sp
 
 
@@ -257,7 +276,82 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
 
 
 # ---------------------------------------------------------------------------
-# Cross-attention (enc-dec)
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor       # (B, T, r)  compressed latent
+    k_rope: torch.Tensor     # (B, T, dr) shared rope key
+    length: torch.Tensor     # () int32 — filled prefix; kept on the CPU
+
+
+def mla_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
+                  cache: Optional[MLACache] = None, impl: str = "chunked"):
+    """x: (B,S,D). Returns (out, new_cache); a given cache is updated in
+    place. Keys are nope + rope wide, values ``v_head_dim``: the flash
+    gate refuses the pair, so every impl runs the chunked/dense path."""
+    m = cfg.mla
+    B, S, d = x.shape
+    H = cfg.n_heads
+    dn, dr = m.nope_head_dim, m.rope_head_dim
+
+    if m.q_lora_rank:
+        cq = x @ p["w_dq"]
+        cq = cq * torch.rsqrt(torch.square(cq.float()).mean(-1, keepdim=True)
+                              + cfg.norm_eps).to(x.dtype)
+        q = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"].to(x.dtype))
+    else:
+        q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c = x @ p["w_dkv"]                                   # (B,S,r)
+    cf = c.float()
+    c = (cf * torch.rsqrt(torch.square(cf).mean(-1, keepdim=True)
+                          + cfg.norm_eps) * p["kv_norm"].float()).to(x.dtype)
+    kr = apply_rope((x @ p["w_kr"])[:, :, None, :], positions, cfg.rope_theta)
+    kr = kr[:, :, 0, :]                                  # (B,S,dr)
+
+    q_offset = 0
+    kv_len = None
+    new_cache = None
+    if cache is not None:
+        start = int(cache.length)
+        c_all = _write_cache(cache.c_kv, c, start)
+        kr_all = _write_cache(cache.k_rope, kr, start)
+        new_cache = MLACache(c_all, kr_all, cache.length + S)
+        c, kr = c_all.to(x.dtype), kr_all.to(x.dtype)
+        kv_len = cache.length + S
+        q_offset = cache.length
+
+    # expand latent -> per-head keys/values (the reference's naive path;
+    # the absorbed variant is a speed change)
+    k_nope = torch.einsum("btr,rhe->bthe", c, p["w_uk"].to(x.dtype))
+    vv = torch.einsum("btr,rhe->bthe", c, p["w_uv"].to(x.dtype))
+    T = k_nope.shape[1]
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, T, H, dr)], -1)
+    qq = torch.cat([q_nope, q_rope], -1)
+
+    o = attention(qq, k, vv, causal=True, impl=impl, chunk=cfg.attn_chunk,
+                  q_offset=q_offset, kv_len=kv_len)
+    out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
+    return out, new_cache
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                   device="cpu") -> MLACache:
+    m = cfg.mla
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, max_len, m.rope_head_dim), dtype=dtype,
+                           device=device),
+        length=torch.zeros((), dtype=torch.int32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec / VLM)
 # ---------------------------------------------------------------------------
 
 class CrossCache(NamedTuple):
@@ -269,7 +363,8 @@ def cross_attention(p, cfg: ArchConfig, x: torch.Tensor,
                     memory: Optional[torch.Tensor] = None,
                     cache: Optional[CrossCache] = None,
                     impl: str = "chunked"):
-    """K/V from `memory` (encoder output) or from `cache`."""
+    """K/V from `memory` (encoder output / image embeds) or from
+    `cache`."""
     q = _project(p, cfg, x, "q")
     if cache is None:
         if memory is None:

@@ -1,14 +1,14 @@
-"""Public model API of the port: build/init an architecture of the
-ported families (dense, rwkv, encdec) and run eval / prefill / decode,
-as the JAX package's ``models/model_zoo.py``.
+"""Public model API of the port: build/init any architecture of the repo
+and run eval / prefill / decode, as the JAX package's
+``models/model_zoo.py``.
 
 Cache layout mirrors the layer plan: ``{"prefix": [slot_cache...],
-"stack": stacked_slot_caches}`` (+ ``"memory"`` for enc-dec), with the
-reference's NamedTuples (``KVCache``, ``CrossCache``, ``RWKVState``) as
-leaves' parents. The reference donates the cache to its jitted decode
+"stack": stacked_slot_caches}`` (+ ``"memory"`` for enc-dec / VLM), with
+the reference's NamedTuples (``KVCache``, ``MLACache``, ``CrossCache``,
+``MambaState``, ``RWKVState``) as leaves' parents. The reference donates the cache to its jitted decode
 step; here :func:`decode_step` (and :func:`prefill`, on the cache it
 allocates) update the given cache IN PLACE and return it. Each
-``KVCache.length`` is a CPU int32 tensor, so reading the cache's length
+``KVCache.length`` and ``MLACache.length`` is a CPU int32 tensor, so reading the cache's length
 costs no device sync.
 """
 
@@ -22,10 +22,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import params as pmod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, dtype_of, embed_tokens, lm_logits
 from repro_torch.models.transformer import (
-    Slot, check_family, forward_lm, layer_plan, lm_loss, model_specs,
+    Slot, forward_lm, layer_plan, lm_loss, model_specs,
     run_prefix, run_stack,
 )
 from repro_torch.models.transformer import encode as _encode
@@ -38,19 +39,16 @@ __all__ = [
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     """Random parameters from ``seed``, materialized on ``device``."""
-    check_family(cfg)
     return pmod.materialize(model_specs(cfg), seed, dtype_of(cfg.param_dtype),
                             resolve_device(device))
 
 
 def param_shapes(cfg: ArchConfig):
     """The parameter tree as ``meta`` tensors (no storage)."""
-    check_family(cfg)
     return pmod.shape_tree(model_specs(cfg), dtype_of(cfg.param_dtype))
 
 
 def param_count(cfg: ArchConfig) -> int:
-    check_family(cfg)
     return pmod.param_count(model_specs(cfg))
 
 
@@ -74,10 +72,17 @@ def _slot_cache(cfg: ArchConfig, slot: Slot, batch: int, max_len: int,
     if slot.mixer == "attn":
         return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len, dtype,
                                              device)}
+    if slot.mixer == "mla":
+        return {"kv": attn_mod.init_mla_cache(cfg, batch, max_len, dtype,
+                                              device)}
+    if slot.mixer == "cross":
+        return {"cross": _cross(cfg, batch, src_len, dtype, device)}
     if slot.mixer == "attn_cross":
         return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len, dtype,
                                              device),
                 "cross": _cross(cfg, batch, src_len, dtype, device)}
+    if slot.mixer == "mamba":
+        return {"mamba": ssm_mod.init_mamba_state(cfg, batch, device)}
     if slot.mixer == "rwkv":
         return {"rwkv": rwkv_mod.init_rwkv_state(cfg, batch, device)}
     raise ValueError(slot.mixer)
@@ -95,7 +100,6 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     """A zeroed cache tree on ``device`` (the card unless asked
     otherwise); ``device="meta"`` gives shapes only. Lengths stay on the
     CPU."""
-    check_family(cfg)
     device = resolve_device(device)
     dtype = dtype or dtype_of(cfg.kv_cache_dtype)
     if cfg.family == "encdec":
@@ -108,7 +112,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
         "stack": (_stack_cache(cfg, pat, rep, batch, max_len, src_len, dtype,
                                device) if rep else []),
     }
-    if cfg.family == "encdec":
+    if cfg.family in ("encdec", "vlm"):
         out["memory"] = torch.zeros((batch, src_len, cfg.d_model),
                                     dtype=dtype_of(cfg.compute_dtype),
                                     device=device)
@@ -150,13 +154,13 @@ def forward_cached(params, cfg: ArchConfig, tokens, caches, *, offset,
         pre, rep, pat = layer_plan(cfg, cfg.n_layers)
         prefix_params, stack_params = params["prefix"], params["stack"]
     new = dict(caches)
-    x, pc = run_prefix(prefix_params, cfg, pre, x, positions=positions,
-                       memory=memory, caches=caches["prefix"], impl=impl)
+    x, pc, _ = run_prefix(prefix_params, cfg, pre, x, positions=positions,
+                          memory=memory, caches=caches["prefix"], impl=impl)
     new["prefix"] = pc
     if rep:
-        x, sc = run_stack(stack_params, cfg, pat, x, positions=positions,
-                          memory=memory, caches=caches["stack"] or None,
-                          impl=impl)
+        x, sc, _ = run_stack(stack_params, cfg, pat, x, positions=positions,
+                             memory=memory, caches=caches["stack"] or None,
+                             impl=impl)
         new["stack"] = sc
     x = apply_norm(params["final_norm"], cfg, x)
     return lm_logits(params["embed"], cfg, x[:, -1:, :]), new
@@ -185,6 +189,9 @@ def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
     if cfg.family == "encdec":
         memory = _encode(params, cfg, batch, impl)
         src_len = memory.shape[1]
+    elif cfg.family == "vlm":
+        memory = tfm.frontend_memory(params, cfg, batch)
+        src_len = memory.shape[1]
     caches = init_caches(cfg, B, max_len, src_len, device=dev)
     # cross caches start empty -> computed from memory on first pass
     caches = _clear_cross(caches)
@@ -206,6 +213,8 @@ def decode_step(params, cfg: ArchConfig, caches, tokens, *,
 
 
 def _cache_length(caches) -> torch.Tensor:
+    """The filled prefix of the first KV or MLA cache; 0 for a cache tree
+    with no attention leaf (pure ssm, rwkv), as in the reference."""
     leaves = []
 
     def visit(t):
@@ -213,7 +222,7 @@ def _cache_length(caches) -> torch.Tensor:
             [visit(v) for v in t.values()]
         elif isinstance(t, list):
             [visit(v) for v in t]
-        elif isinstance(t, attn_mod.KVCache):
+        elif isinstance(t, (attn_mod.KVCache, attn_mod.MLACache)):
             leaves.append(t.length)
     visit({k: v for k, v in caches.items() if k != "memory"})
     if not leaves:

@@ -1,6 +1,5 @@
-"""Unified LM assembly, ported from the JAX package's
-``models/transformer.py`` for the dense, RWKV6 and encoder-decoder
-families.
+"""Unified LM assembly for every architecture family, ported from the
+JAX package's ``models/transformer.py``.
 
 A config compiles to a *layer plan*: a short prefix plus a periodic
 pattern of per-layer "slots" over stacked parameters (every leaf of the
@@ -11,13 +10,14 @@ rematerialisation (``cfg.remat``, :func:`_remat_wrap`) when it runs
 under autograd. The reference's gather barrier (``_diff_barrier``) has
 no counterpart: it is an XLA scheduling barrier (it keeps the partitioner
 from hoisting FSDP all-gathers out of the scan) with no numeric effect.
-Slot mixers ported: ``attn``,
-``attn_cross``, ``rwkv``; slot MLPs: ``dense``, ``rwkv_cm``. The moe,
-ssm, hybrid and vlm families and MLA raise ``NotImplementedError``.
+Slot mixers: attn | mla | cross | attn_cross | mamba | rwkv; slot MLPs:
+dense | moe | rwkv_cm | none.
 
 Families:
-  dense          -> decoder-only stack
-  rwkv           -> recurrent mixers, O(1) decode state
+  dense/moe      -> decoder-only stack (MLA where ``cfg.mla`` is set)
+  rwkv/ssm       -> recurrent mixers, O(1) decode state
+  hybrid (jamba) -> periodic (mamba + 1 attn a period), alternating MoE
+  vlm            -> gated cross-attention layer every N (image stub memory)
   encdec         -> bidirectional encoder stack + decoder with cross-attn
 """
 
@@ -33,27 +33,14 @@ from repro_torch._tree import (tree_flatten, tree_flatten_with_path,
                                tree_map, tree_unflatten)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, cot_cast, dtype_of, embed_specs, embed_tokens,
     lm_logits, mlp_specs, norm_specs, sincos_pos_embed,
 )
 from repro_torch.models.params import Spec, stack_specs
-
-PORTED_FAMILIES = ("dense", "rwkv", "encdec")
-
-FAMILY_TODO = ("the {} family is not ported yet: see ROADMAP.md, 'Modules "
-               "to port', item 8 (the moe/ssm/hybrid/vlm families and MLA)")
-
-
-def check_family(cfg: ArchConfig) -> None:
-    """Raise for a configuration this port cannot run yet."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(FAMILY_TODO.format(cfg.family))
-    if cfg.mla is not None:
-        raise NotImplementedError(attn.MLA_TODO)
-    if cfg.moe.num_experts:
-        raise NotImplementedError(FAMILY_TODO.format("moe"))
 
 
 # ---------------------------------------------------------------------------
@@ -62,23 +49,34 @@ def check_family(cfg: ArchConfig) -> None:
 
 @dataclass(frozen=True)
 class Slot:
-    mixer: str            # attn|attn_cross|rwkv
-    mlp: str              # dense|rwkv_cm
+    mixer: str            # attn|mla|cross|attn_cross|mamba|rwkv
+    mlp: str              # dense|moe|rwkv_cm|none
     causal: bool = True
+    gated: bool = False   # vlm-style gated cross layer
 
 
 def _slot_list(cfg: ArchConfig, n_layers: int, decoder: bool = True):
-    check_family(cfg)
+    moe_mask = cfg.moe_layer_mask(n_layers)
+    attn_mask = cfg.attn_layer_mask() if cfg.family == "hybrid" else None
+    cross_mask = cfg.cross_layer_mask() if cfg.family == "vlm" else None
     slots = []
-    for _ in range(n_layers):
+    for i in range(n_layers):
+        mlp = "moe" if (moe_mask[i] and cfg.moe.num_experts) else "dense"
         if cfg.family == "rwkv":
             slots.append(Slot("rwkv", "rwkv_cm"))
+        elif cfg.family == "ssm":
+            slots.append(Slot("mamba", mlp))
+        elif cfg.family == "hybrid":
+            slots.append(Slot("attn" if attn_mask[i] else "mamba", mlp))
+        elif cfg.family == "vlm":
+            slots.append(Slot("cross", mlp, gated=True) if cross_mask[i]
+                         else Slot("attn", mlp))
         elif cfg.family == "encdec" and decoder:
-            slots.append(Slot("attn_cross", "dense"))
+            slots.append(Slot("attn_cross", mlp))
         elif cfg.family == "encdec":
-            slots.append(Slot("attn", "dense", causal=False))
+            slots.append(Slot("attn", mlp, causal=False))
         else:
-            slots.append(Slot("attn", "dense"))
+            slots.append(Slot("mla" if cfg.mla is not None else "attn", mlp))
     return slots
 
 
@@ -104,10 +102,14 @@ def layer_plan(cfg: ArchConfig, n_layers: int, decoder: bool = True):
 # ---------------------------------------------------------------------------
 
 def _mixer_specs(cfg: ArchConfig, slot: Slot):
-    if slot.mixer == "attn":
+    if slot.mixer in ("attn", "cross"):
         return attn.attn_specs(cfg)
+    if slot.mixer == "mla":
+        return attn.mla_specs(cfg)
     if slot.mixer == "attn_cross":
         return {"self": attn.attn_specs(cfg), "cross": attn.attn_specs(cfg)}
+    if slot.mixer == "mamba":
+        return ssm_mod.mamba_specs(cfg)
     if slot.mixer == "rwkv":
         return rwkv_mod.rwkv_time_mix_specs(cfg)
     raise ValueError(slot.mixer)
@@ -116,17 +118,23 @@ def _mixer_specs(cfg: ArchConfig, slot: Slot):
 def _mlp_specs(cfg: ArchConfig, slot: Slot):
     if slot.mlp == "dense":
         return mlp_specs(cfg)
+    if slot.mlp == "moe":
+        return moe_mod.moe_specs(cfg)
     if slot.mlp == "rwkv_cm":
         return rwkv_mod.rwkv_channel_mix_specs(cfg)
-    raise ValueError(slot.mlp)
+    return {}
 
 
 def slot_specs(cfg: ArchConfig, slot: Slot):
     sp = {"norm1": norm_specs(cfg), "mixer": _mixer_specs(cfg, slot)}
     if slot.mixer == "attn_cross":
         sp["norm_cross"] = norm_specs(cfg)
-    sp["norm2"] = norm_specs(cfg)
-    sp["mlp"] = _mlp_specs(cfg, slot)
+    if slot.mlp != "none":
+        sp["norm2"] = norm_specs(cfg)
+        sp["mlp"] = _mlp_specs(cfg, slot)
+    if slot.gated:
+        sp["gate_attn"] = Spec((), (), "zeros")
+        sp["gate_mlp"] = Spec((), (), "zeros")
     return sp
 
 
@@ -160,8 +168,10 @@ def model_specs(cfg: ArchConfig):
 
 def apply_slot(p, cfg: ArchConfig, slot: Slot, x, *, positions, memory,
                cache, impl: str):
-    """Returns (x, new_cache). The reference also returns an auxiliary
-    loss, which only its MoE MLPs make non-zero."""
+    """Returns (x, new_cache, aux). ``aux`` is the MoE MLP's auxiliary
+    loss, a tensor, or the Python float 0.0 where the slot has none (a
+    zero tensor a layer would cost every model a launch a layer)."""
+    aux = 0.0
     h = apply_norm(p["norm1"], cfg, x)
     new_cache = cache
 
@@ -171,6 +181,17 @@ def apply_slot(p, cfg: ArchConfig, slot: Slot, x, *, positions, memory,
             cache=cache.get("kv") if cache else None,
             causal=slot.causal, impl=impl)
         new_cache = {"kv": kv} if cache else None
+    elif slot.mixer == "mla":
+        o, kv = attn.mla_attention(
+            p["mixer"], cfg, h, positions=positions,
+            cache=cache.get("kv") if cache else None, impl=impl)
+        new_cache = {"kv": kv} if cache else None
+    elif slot.mixer == "cross":
+        o, cc = attn.cross_attention(
+            p["mixer"], cfg, h, memory=memory,
+            cache=cache.get("cross") if cache and cache.get("cross") is not None else None,
+            impl=impl)
+        new_cache = {"cross": cc} if cache else None
     elif slot.mixer == "attn_cross":
         o, kv = attn.self_attention(
             p["mixer"]["self"], cfg, h, positions=positions,
@@ -183,6 +204,13 @@ def apply_slot(p, cfg: ArchConfig, slot: Slot, x, *, positions, memory,
             cache=cache.get("cross") if cache and cache.get("cross") is not None else None,
             impl=impl)
         new_cache = {"kv": kv, "cross": cc} if cache else None
+    elif slot.mixer == "mamba":
+        st = cache.get("mamba") if cache else None
+        if st is not None and x.shape[1] == 1:
+            o, st = ssm_mod.mamba_decode_step(p["mixer"], cfg, h, st)
+        else:
+            o, st = ssm_mod.mamba_mixer(p["mixer"], cfg, h, st)
+        new_cache = {"mamba": st} if cache else None
     elif slot.mixer == "rwkv":
         st = cache.get("rwkv") if cache else None
         o, tm_shift, wkv = rwkv_mod.rwkv_time_mix(p["mixer"], cfg, h, st,
@@ -191,6 +219,8 @@ def apply_slot(p, cfg: ArchConfig, slot: Slot, x, *, positions, memory,
     else:
         raise ValueError(slot.mixer)
 
+    if slot.gated:
+        o = o * torch.tanh(p["gate_attn"].to(o.dtype))
     if slot.mixer == "rwkv":
         x = x + o
         h = apply_norm(p["norm2"], cfg, x)
@@ -200,11 +230,20 @@ def apply_slot(p, cfg: ArchConfig, slot: Slot, x, *, positions, memory,
         x = x + o2
         if cache:
             new_cache = {"rwkv": rwkv_mod.RWKVState(tm_shift, cm_shift, wkv)}
-        return cot_cast(x), new_cache
+        return cot_cast(x), new_cache, aux
 
     x = x + o
-    x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["norm2"], cfg, x))
-    return cot_cast(x), new_cache
+    if slot.mlp != "none":
+        h = apply_norm(p["norm2"], cfg, x)
+        if slot.mlp == "moe":
+            o2, a = moe_mod.apply_moe(p["mlp"], cfg, h)
+            aux = aux + a
+        else:
+            o2 = apply_mlp(p["mlp"], cfg, h)
+        if slot.gated:
+            o2 = o2 * torch.tanh(p["gate_mlp"].to(o2.dtype))
+        x = x + o2
+    return cot_cast(x), new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -288,41 +327,51 @@ def run_stack(params, cfg: ArchConfig, pattern, x, *, positions, memory,
               caches, impl):
     """params: stacked slot-param list; caches: stacked cache trees or
     None (updated in place where given). Without caches and under
-    autograd each layer runs under ``cfg.remat``."""
+    autograd each layer runs under ``cfg.remat``. Returns (x, caches,
+    aux), aux summed over the layers."""
     n = len(tree_flatten_with_path(params)[0][0][1])
     layers = _layers(params, n)
+    aux = 0.0
     if caches is None:
         def body(x, lp):
+            a_layer = 0.0
             for i, slot in enumerate(pattern):
-                x, _ = apply_slot(lp[i], cfg, slot, x, positions=positions,
-                                  memory=memory, cache=None, impl=impl)
-            return x
+                x, _, a = apply_slot(lp[i], cfg, slot, x, positions=positions,
+                                     memory=memory, cache=None, impl=impl)
+                a_layer = a_layer + a
+            return x, a_layer
         if torch.is_grad_enabled():
             body = _remat_wrap(body, cfg)
         for lp in layers:
-            x = body(x, lp)
-        return x, None
+            x, a = body(x, lp)
+            aux = aux + a
+        return x, None, aux
     per_layer = []
     for l, lp in enumerate(layers):
         lc = _layer(caches, l)
         new_caches = []
+        a_layer = 0.0
         for i, slot in enumerate(pattern):
-            x, nc = apply_slot(lp[i], cfg, slot, x, positions=positions,
-                               memory=memory, cache=lc[i], impl=impl)
+            x, nc, a = apply_slot(lp[i], cfg, slot, x, positions=positions,
+                                  memory=memory, cache=lc[i], impl=impl)
             new_caches.append(nc)
+            a_layer = a_layer + a
         per_layer.append(new_caches)
-    return x, _write_back(caches, per_layer)
+        aux = aux + a_layer
+    return x, _write_back(caches, per_layer), aux
 
 
 def run_prefix(params, cfg: ArchConfig, slots, x, *, positions, memory,
                caches, impl):
+    aux = 0.0
     new_caches = []
     for i, slot in enumerate(slots):
         c = caches[i] if caches is not None else None
-        x, nc = apply_slot(params[i], cfg, slot, x, positions=positions,
-                           memory=memory, cache=c, impl=impl)
+        x, nc, a = apply_slot(params[i], cfg, slot, x, positions=positions,
+                              memory=memory, cache=c, impl=impl)
         new_caches.append(nc)
-    return x, (new_caches if caches is not None else None)
+        aux = aux + a
+    return x, (new_caches if caches is not None else None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -354,9 +403,7 @@ def _positions(B, S, offset=0, device="cpu"):
 
 
 def forward_lm(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
-    """Eval forward. Returns (logits, aux_loss); the auxiliary loss is 0
-    for every ported family."""
-    check_family(cfg)
+    """Eval forward. Returns (logits fp32, aux_loss fp32 scalar)."""
     if cfg.family == "encdec":
         return _forward_encdec(params, cfg, batch, impl=impl)
     tokens = batch["tokens"]
@@ -367,19 +414,26 @@ def forward_lm(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
     memory = frontend_memory(params, cfg, batch)
     pre, rep, pat = layer_plan(cfg, cfg.n_layers)
     positions = _positions(B, S, device=x.device)
-    x, _ = run_prefix(params["prefix"], cfg, pre, x, positions=positions,
-                      memory=memory, caches=None, impl=impl)
+    x, _, aux1 = run_prefix(params["prefix"], cfg, pre, x,
+                            positions=positions, memory=memory, caches=None,
+                            impl=impl)
+    aux2 = 0.0
     if rep:
-        x, _ = run_stack(params["stack"], cfg, pat, x, positions=positions,
-                         memory=memory, caches=None, impl=impl)
+        x, _, aux2 = run_stack(params["stack"], cfg, pat, x,
+                               positions=positions, memory=memory,
+                               caches=None, impl=impl)
     x = apply_norm(params["final_norm"], cfg, x)
-    return lm_logits(params["embed"], cfg, x), _no_aux(x.device)
+    return lm_logits(params["embed"], cfg, x), aux_tensor(aux1 + aux2,
+                                                          x.device)
 
 
-def _no_aux(device):
-    """The auxiliary loss of a family that has none, on the model's device
-    (a CPU zero moved to the card would be a copy no CUDA graph captures)."""
-    return torch.zeros((), dtype=torch.float32, device=device)
+def aux_tensor(aux, device) -> torch.Tensor:
+    """The auxiliary loss as an fp32 scalar tensor on the model's device:
+    a model with no MoE slot summed Python zeros (a CPU zero moved to the
+    card would be a copy no CUDA graph captures)."""
+    if isinstance(aux, torch.Tensor):
+        return aux
+    return torch.full((), float(aux), dtype=torch.float32, device=device)
 
 
 def encode(params, cfg: ArchConfig, batch: dict, impl: str):
@@ -391,11 +445,12 @@ def encode(params, cfg: ArchConfig, batch: dict, impl: str):
                                   ).to(mem_in.dtype)[None]
     pre, rep, pat = layer_plan(cfg, cfg.enc_layers, decoder=False)
     pos = _positions(x.shape[0], Se, device=x.device)
-    x, _ = run_prefix(params["enc"]["prefix"], cfg, pre, x, positions=pos,
-                      memory=None, caches=None, impl=impl)
-    if rep:
-        x, _ = run_stack(params["enc"]["stack"], cfg, pat, x, positions=pos,
+    x, _, _ = run_prefix(params["enc"]["prefix"], cfg, pre, x, positions=pos,
                          memory=None, caches=None, impl=impl)
+    if rep:
+        x, _, _ = run_stack(params["enc"]["stack"], cfg, pat, x,
+                            positions=pos, memory=None, caches=None,
+                            impl=impl)
     return apply_norm(params["enc"]["final_norm"], cfg, x)
 
 
@@ -408,13 +463,17 @@ def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked"):
         x = x + sincos_pos_embed(Sd, cfg.d_model, device=x.device).to(x.dtype)[None]
     pre, rep, pat = layer_plan(cfg, cfg.dec_layers, decoder=True)
     pos_d = _positions(B, Sd, device=x.device)
-    x, _ = run_prefix(params["dec"]["prefix"], cfg, pre, x, positions=pos_d,
-                      memory=memory, caches=None, impl=impl)
+    x, _, aux1 = run_prefix(params["dec"]["prefix"], cfg, pre, x,
+                            positions=pos_d, memory=memory, caches=None,
+                            impl=impl)
+    aux2 = 0.0
     if rep:
-        x, _ = run_stack(params["dec"]["stack"], cfg, pat, x, positions=pos_d,
-                         memory=memory, caches=None, impl=impl)
+        x, _, aux2 = run_stack(params["dec"]["stack"], cfg, pat, x,
+                               positions=pos_d, memory=memory, caches=None,
+                               impl=impl)
     x = apply_norm(params["final_norm"], cfg, x)
-    return lm_logits(params["embed"], cfg, x), _no_aux(x.device)
+    return lm_logits(params["embed"], cfg, x), aux_tensor(aux1 + aux2,
+                                                          x.device)
 
 
 def lm_loss(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):

@@ -40,7 +40,9 @@ from repro_torch.serve import engine as tengine
 from repro_torch.serve import ops as tops
 from repro_torch.serve import sampling as tsampling
 
-ARCHS = ("qwen2-1.5b", "rwkv6-1.6b", "seamless-m4t-medium")
+ARCHS = ("qwen2-1.5b", "rwkv6-1.6b", "seamless-m4t-medium",
+         "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+         "jamba-1.5-large-398b", "llama-3.2-vision-90b")
 _CACHE = {}
 
 

@@ -63,7 +63,6 @@ from repro_torch.core.pipeline import OpGraph
 from repro_torch.dist import checkpoint as tckpt
 from repro_torch.launch.roofline import dl_operator_cost
 from repro_torch.models import model_zoo as tzoo
-from repro_torch.models import transformer as tfm
 from repro_torch.serve.ops import param_bytes
 from repro_torch.streams import drift as tdrift
 from repro_torch.streams.generators import DriftSpec, TokenStream
@@ -72,7 +71,9 @@ from repro_torch.train.ops import dl_train_op, train_state_bytes
 from repro_torch.train.train_step import (clip_by_global_norm, global_norm,
                                           make_train_step)
 
-ARCHS = ("qwen2-1.5b", "rwkv6-1.6b", "seamless-m4t-medium")
+ARCHS = ("qwen2-1.5b", "rwkv6-1.6b", "seamless-m4t-medium",
+         "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+         "jamba-1.5-large-398b", "llama-3.2-vision-90b")
 GRAD_TOL = 1e-4          # of each leaf's largest |grad|, fp32
 ZERO_GRAD_TOL = 1e-6     # of the tree's largest |grad|: leaves zero in exact math
 BF16_ULPS = 4.0
@@ -124,6 +125,10 @@ def _batch(cfg, B, S, seed):
     if cfg.family == "encdec":
         fr = rng.normal(size=(B, S, cfg.frontend_dim)).astype(np.float32)
         jb["frames"], tb["frames"] = jnp.asarray(fr), torch.from_numpy(fr)
+    if cfg.family == "vlm":
+        pa = rng.normal(size=(B, cfg.frontend_len, cfg.frontend_dim)
+                        ).astype(np.float32)
+        jb["patches"], tb["patches"] = jnp.asarray(pa), torch.from_numpy(pa)
     return jb, tb
 
 
@@ -475,11 +480,6 @@ def test_train_step_int8_grad_compression():
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_one_train_step(arch):
     cfg = tget(arch, smoke=True)
-    if cfg.family not in tfm.PORTED_FAMILIES or cfg.mla is not None \
-            or cfg.moe.num_experts:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tzoo.init_params(cfg, seed=1, device="cpu")
-        return
     params = tzoo.init_params(cfg, seed=1, device="cpu")
     _, batch = _batch(cfg, 2, 16, seed=1)
     leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
@@ -585,10 +585,13 @@ def test_train_state_bytes_counts_params_and_moments(arch):
     sb = train_state_bytes(tc, O.adamw(1e-3))
     assert sb >= 2 * param_bytes(tc)
     assert sb == j_train_state_bytes(jc, JO.adamw(1e-3))
-    # the full config, from meta tensors: bf16 params, fp32 master, m, v
+    # the full config, from meta tensors: bf16 params, an fp32 master
+    # where the config keeps one, m and v in its optimizer-state dtype
     full = tget(arch)
+    moment = 4 if full.opt_state_dtype == "float32" else 2
+    master = 4 if full.fp32_master else 0
     assert train_state_bytes(full, O.make_optimizer(full)) == \
-        (2 + 4 + 4 + 4) * tzoo.param_count(full)
+        (2 + master + 2 * moment) * tzoo.param_count(full)
 
 
 # ---------------------------------------------------------------------------
