@@ -176,11 +176,25 @@ path on the card, and checks what comes out. Phases:
     control (the vision check must fail with flash's output rolled over
     the batch), and the MoE routing of granite's and deepseek's smoke
     configs on the card against the CPU (ids, keep masks and the sort
-    bitwise, near ties logged, logits within 1e-4).
+    bitwise, near ties logged, logits within 1e-4);
+15. the launchers and the mesh: (a) ``python -m repro_torch.launch.serve``
+    (its ``main``) for rwkv6-1.6b at full width with phase 6's traffic,
+    its greedy tokens equal to ``ServeEngine``'s driven directly on the
+    same weights and prompts, WKV launched 24 times a prefill and a
+    decode step; (b) ``python -m repro_torch.launch.train`` for
+    granite-moe-1b-a400m at full width, 4 steps of 8 x 512 with
+    Adafactor and one checkpoint at the last step: ms a step, tok/s,
+    peak GiB, the save's caller-thread and write seconds; (c) the
+    launcher's ``--elastic`` cycle at smoke width (1 -> 2 workers,
+    capped at the one card: a (1, 1) mesh), the state through
+    ``rescale_cycle`` and the final state bitwise, and ``--resume``
+    from a step-3 checkpoint bitwise at step 6; (d) ``use_mesh(None)``
+    on the card leaving a train step bitwise. Each phase logs the
+    seconds since the start.
 
 The launch counts are set to 0 just before each main path (phases 3-5
 as one, each model of phases 6 and 14, phases 7, 8, 9, 10, 11, 12 and
-13) and read
+13, and each launcher of phase 15) and read
 just after it; every kernel must have launched on a main path. A line
 ``{"kernels": [...]}`` reports each kernel, the line before the last
 gives the card's name and power limit, and the last line is
@@ -2160,7 +2174,9 @@ def families_phase(dev) -> dict:
         if cfg.family == "vlm":
             vlm_flash_check(cfg, params, batch)
         del params, batch
-        torch.cuda.empty_cache()
+        free_card()
+        log(f"  after {arch}: {torch.cuda.memory_allocated() / 2 ** 30!r} "
+            f"GiB held")
     log(f"phase 14: MoE routing on the card against the CPU "
         f"({', '.join(MOE_CPU_MODELS)} smoke configs)")
     moe_card_vs_cpu(dev)
@@ -3890,6 +3906,296 @@ def modes_phase(dev, batches) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the launchers (launch.serve, launch.train) and the mesh
+# ---------------------------------------------------------------------------
+
+LAUNCH_SERVE_ARCH = "rwkv6-1.6b"
+LAUNCH_TRAIN_ARCH = "granite-moe-1b-a400m"
+LAUNCH_TRAIN_STEPS = 4           # TRAIN_B x TRAIN_S tokens a step
+# factored second moments: the one checkpoint holds the parameters
+# (bf16 widened to fp32 on disk, 5.3 GB) and ~2 MB of optimizer state;
+# AdamW's fp32 master and moments would add 16 GB to write
+LAUNCH_TRAIN_OPT = "adafactor"
+LAUNCH_SMOKE = ("--arch", "qwen2-1.5b", "--smoke", "--steps", "6",
+                "--batch", "2", "--seq", "16", "--ckpt-every", "3")
+
+
+def launcher_main(main, argv):
+    """``main(argv)`` with the lines it prints logged, indented; returns
+    ``(its result, its lines)``."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = main(argv)
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        log(f"    | {ln}")
+    return res, lines
+
+
+def launch_serve_check(dev) -> dict:
+    """15a: ``python -m repro_torch.launch.serve`` for rwkv6-1.6b at full
+    width (its seed-0 weights) with phase 6's traffic, through its
+    ``main``; the launch counts from 0 around it. Its greedy tokens must
+    be those of ``ServeEngine`` driven directly on the same weights and
+    prompts, and WKV must launch 24 times a prefill and a decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as lserve
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(LAUNCH_SERVE_ARCH)
+    argv = ["--arch", LAUNCH_SERVE_ARCH, "--requests", str(N_REQUESTS),
+            "--prompt-len", str(PROMPT), "--new-tokens", str(NEW_TOKENS),
+            "--batch-size", str(SERVE_BATCH), "--max-len", str(MAX_LEN),
+            "--device", dev.type]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    (done, eng), _ = launcher_main(lserve.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    tp = eng.throughput()
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, PROMPT)
+                    .astype(np.int32), max_new_tokens=NEW_TOKENS)
+            for i in range(N_REQUESTS)]
+    ServeEngine(cfg, eng.params, batch_size=SERVE_BATCH, max_len=MAX_LEN
+                ).run(reqs)
+    same = [r.out_tokens for r in done] == [r.out_tokens for r in reqs]
+    waves = -(-N_REQUESTS // SERVE_BATCH)
+    want_wkv = cfg.n_layers * NEW_TOKENS * waves
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"  launch.serve {LAUNCH_SERVE_ARCH}: prefill_tok_per_s="
+        f"{tp['prefill_tok_per_s']!r} decode_tok_per_s="
+        f"{tp['decode_tok_per_s']!r} wall_s={wall!r} (weights drawn "
+        f"included) peak_gib={torch.cuda.max_memory_allocated() / 2**30!r} "
+        f"launches={launched} (WKV expected {want_wkv}); tokens equal "
+        f"the engine's driven directly: {same}")
+    log(f"    {nvidia_smi_line()}")
+    if not same:
+        raise AssertionError("launch.serve: tokens differ from the engine's")
+    if counts["rwkv6_wkv"] != want_wkv or set(launched) != {"rwkv6_wkv"}:
+        raise AssertionError(f"launch.serve: launches {launched}")
+    del done, eng, reqs
+    free_card()
+    return counts
+
+
+def launch_train_check(dev) -> dict:
+    """15b: ``python -m repro_torch.launch.train`` for
+    granite-moe-1b-a400m at full width (bf16, remat full), LAUNCH_TRAIN_
+    STEPS steps of TRAIN_B x TRAIN_S on the drifting stream, one
+    ``AsyncCheckpointer`` save at the last step; ms a step, tok/s, peak
+    GiB, the save's caller-thread and write seconds. The checkpoint must
+    be published at the last step and the params finite on the card."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ltrain
+
+    d = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_launch_"))
+    argv = ["--arch", LAUNCH_TRAIN_ARCH, "--steps", str(LAUNCH_TRAIN_STEPS),
+            "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--optimizer",
+            LAUNCH_TRAIN_OPT, "--ckpt-every", str(LAUNCH_TRAIN_STEPS),
+            "--ckpt-dir", str(d), "--device", dev.type]
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        out, _ = launcher_main(ltrain.main, argv)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        nbytes = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+        latest = ckpt.latest_step(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    st = out["stats"]
+    steady = statistics.median(st["step_s"][1:])
+    n_active = get_config(LAUNCH_TRAIN_ARCH).param_counts()["active"]
+    mfu = 6.0 * n_active * TRAIN_B * TRAIN_S / (steady * BF16_DENSE_PEAK)
+    log(f"  launch.train {LAUNCH_TRAIN_ARCH} ({LAUNCH_TRAIN_OPT}): "
+        f"step_ms={[t * 1e3 for t in st['step_s']]!r} median_ms (after the "
+        f"first)={steady * 1e3!r} tok_per_s={TRAIN_B * TRAIN_S / steady!r} "
+        f"mfu={mfu!r} "
+        f"launcher_tok_per_s={st['tok_per_s']!r} (first step and the "
+        f"write included) peak_gib={peak!r} checkpoint: step {latest}, "
+        f"{nbytes} bytes, caller-thread s={st['save_s']!r}, write wait "
+        f"s={st['write_s']!r}")
+    log(f"    {nvidia_smi_line()}")
+    leaves = [t for t in tree_leaves(out["params"])
+              if isinstance(t, torch.Tensor)]
+    if latest != LAUNCH_TRAIN_STEPS or not all(
+            t.device.type == dev.type and bool(torch.isfinite(t).all())
+            for t in leaves):
+        raise AssertionError("launch.train: no checkpoint at the last step, "
+                             "or params off the card or not finite")
+    if any(counts.values()):
+        raise AssertionError(f"launch.train launched a hand kernel: {counts}")
+    del out, leaves
+    free_card()
+    return counts
+
+
+def launch_elastic_check(dev) -> None:
+    """15c: the smoke config through ``launch.train`` on the card:
+    ``--elastic --elastic-demand 8`` grows 1 -> 2 workers through the
+    checkpoint cycle, capped at the one card, so the mesh is (1, 1): the
+    state entering ``rescale_cycle`` and the state leaving it bitwise and
+    on the card, and the run's final params and state bitwise the same
+    run's without ``--elastic``; then ``--resume`` from that run's step-3
+    checkpoint alone ends bitwise on its step 6."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import dist
+    from repro_torch._tree import tree_map
+    from repro_torch.dist import elastic as el
+    from repro_torch.launch import train as ltrain
+
+    cycles = []
+    orig = el.rescale_cycle
+
+    def copy(tree):     # the next steps update the trees in place
+        return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                        else t, dist.gather_tree(tree))
+
+    def recorded(directory, step, tree, *a, **kw):
+        before = copy(tree)
+        out, mesh = orig(directory, step, tree, *a, **kw)
+        cycles.append((before, copy(out), tuple(mesh.shape)))
+        return out, mesh
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_"))
+    base = list(LAUNCH_SMOKE) + ["--device", dev.type]
+    el.rescale_cycle = recorded
+    try:
+        grown, lines = launcher_main(ltrain.main, base + [
+            "--elastic", "--elastic-demand", "8", "--max-workers", "2",
+            "--ckpt-dir", str(root / "elastic")])
+    finally:
+        el.rescale_cycle = orig
+    try:
+        plain, _ = launcher_main(ltrain.main, base + [
+            "--ckpt-dir", str(root / "plain")])
+        (root / "resumed").mkdir()
+        shutil.copytree(root / "plain" / "step_0000000003",
+                        root / "resumed" / "step_0000000003")
+        resumed, rlines = launcher_main(ltrain.main, base + [
+            "--resume", "--ckpt-dir", str(root / "resumed")])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    grew = any("elastic grow -> 2 workers" in ln and "on a (1, 1) mesh" in ln
+               for ln in lines)
+    cycle_ok = (len(cycles) == 1 and cycles[0][2] == (1, 1)
+                and bitwise_trees(cycles[0][0], cycles[0][1])
+                and states_on(cycles[0][1], dev.type))
+    same = all(bitwise_trees(grown[k], plain[k]) for k in ("params", "opt"))
+    resumed_same = any("resumed from step 3" in ln for ln in rlines) and all(
+        bitwise_trees(resumed[k], plain[k]) for k in ("params", "opt"))
+    log(f"  elastic grow to 2 workers on a (1, 1) mesh: {grew}; the cycle's "
+        f"state in = out, on the card: {cycle_ok}; final state bitwise the "
+        f"run without --elastic: {same}; --resume from step 3 bitwise at "
+        f"step 6: {resumed_same}")
+    if not (grew and cycle_ok and same and resumed_same):
+        raise AssertionError("launch.train: the elastic cycle or the resume "
+                             "is not bitwise")
+
+
+def degenerate_mesh_check(dev) -> None:
+    """15d: ``use_mesh(None)`` on the card (a (1, 1) ``DeviceMesh`` over
+    a world of one) leaves a qwen2-1.5b smoke train step bitwise the
+    step without it."""
+    import numpy as np
+    import torch
+    from repro_torch import dist
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import build_rules
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("qwen2-1.5b", smoke=True).with_overrides(
+        recipe="tp_fsdp")
+    tok = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (TRAIN_B, CKPT_S)).astype(np.int32)).to(dev)
+    p0 = zoo.init_params(cfg, seed=0, device=dev)
+    outs = []
+    for under in (False, True):
+        opt = make_optimizer(cfg, "adamw", lr=3e-3, total_steps=2, warmup=1)
+        params = tree_map(torch.clone, p0)
+        state = opt.init(params)
+        fn = make_train_step(cfg, opt)
+        if under:
+            with dist.use_mesh(None, build_rules(cfg), device=dev) as mesh:
+                shape, kind = tuple(mesh.shape), mesh.device_type
+                for i in range(2):
+                    params, state, _, _ = fn(params, state, i, {"tokens": tok})
+        else:
+            for i in range(2):
+                params, state, _, _ = fn(params, state, i, {"tokens": tok})
+        outs.append((params, state))
+    same = bitwise_trees(outs[0], outs[1])
+    log(f"  use_mesh(None): a {shape} {kind} mesh; 2 AdamW steps bitwise "
+        f"the steps without it: {same}")
+    if not (same and shape == (1, 1) and kind == dev.type):
+        raise AssertionError("use_mesh(None) changed the train step")
+
+
+def launchers_phase(dev) -> dict:
+    """Phase 15. Returns the launch counts of its two main paths."""
+    paths = {}
+    log(f"phase 15a: python -m repro_torch.launch.serve --arch "
+        f"{LAUNCH_SERVE_ARCH} ({N_REQUESTS} requests x {PROMPT} tokens, "
+        f"{NEW_TOKENS} new, batch {SERVE_BATCH})")
+    paths[f"launch_serve/{LAUNCH_SERVE_ARCH}"] = launch_serve_check(dev)
+    log(f"phase 15b: python -m repro_torch.launch.train --arch "
+        f"{LAUNCH_TRAIN_ARCH} ({LAUNCH_TRAIN_STEPS} steps of {TRAIN_B} x "
+        f"{TRAIN_S}, one checkpoint)")
+    paths[f"launch_train/{LAUNCH_TRAIN_ARCH}"] = launch_train_check(dev)
+    log("phase 15c: launch.train --elastic and --resume at smoke width")
+    launch_elastic_check(dev)
+    log("phase 15d: use_mesh(None) on the card")
+    degenerate_mesh_check(dev)
+    return paths
+
+
+def free_card() -> None:
+    """Collect garbage, then return the cache's free blocks to the card.
+    A reference cycle can hold a model's tensors until the collector
+    runs (``torch.utils.checkpoint`` and a first import inside a call
+    leave cycles that reach the caller's frames), so a phase collects
+    before it draws the next model's weights."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def since(t0: float) -> None:
+    """The seconds since ``t0`` and the card's memory held (allocated,
+    then after a garbage collection, and reserved)."""
+    import gc
+    import torch
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    gc.collect()
+    log(f"  [{time.perf_counter() - t0:.1f} s since the start; {held:.2f} "
+        f"GiB allocated, {torch.cuda.memory_allocated() / 2 ** 30:.2f} after "
+        f"a collection, {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
+        f"reserved]")
+
+
 def check_no_nan(states, what: str):
     import torch
     from repro_torch._tree import tree_leaves
@@ -4033,6 +4339,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
 
     # -- phase 2 ------------------------------------------------------------
+    since(t_all)
     rows = {}
     record = recorder(rows, bw, flops, tensor)
     kg = torch.Generator(device=dev).manual_seed(1234)  # phases 2 and 6
@@ -4040,6 +4347,7 @@ def main(argv=None) -> int:
     kernel_checks(dev, kg, record)
 
     # -- phases 3-5 drive the main path with the counts from 0 ----------------
+    since(t_all)
     batches = dense_batches(N_BATCHES, N_EVENTS, DIM)
     # one short run first, so phase 3's rates do not carry the first
     # use of the card's libraries and allocator
@@ -4106,6 +4414,7 @@ def main(argv=None) -> int:
     path_counts = {"orchestrator": ops.launch_counts()}
 
     # -- phases 6-7: model serving, each model one main path ------------------
+    since(t_all)
     # the serving kernels are checked here, not in phase 2, so that
     # phases 3-5 follow the same phase 2 as before they were added
     log("phase 6: serving kernels vs plain versions at the serving "
@@ -4114,6 +4423,7 @@ def main(argv=None) -> int:
     path_counts.update(serving_phases(dev)[0])
 
     # -- phases 8-9: edge summarization and the Mamba scan ---------------------
+    since(t_all)
     log("phase 8: edge summarization (feeder -> count-min -> Misra-Gries): "
         "kernels vs plain versions")
     first = torch.from_numpy(first_token_batch()).to(dev)
@@ -4129,6 +4439,7 @@ def main(argv=None) -> int:
     path_counts["mamba"] = mamba_phase(dev, kg, record)
 
     # -- phases 10-11: dynamic topology and the multi-tenant fleet -------------
+    since(t_all)
     torch.cuda.empty_cache()
     log(f"phase 10: dynamic topology ({TOPO_STEPS} x {N_EVENTS} events, dim "
         f"{DIM}; edge_rack silent after step {TOPO_LAST_BEAT})")
@@ -4140,17 +4451,26 @@ def main(argv=None) -> int:
     path_counts["fleet"] = fleet_phase(dev)
 
     # -- phase 12: training ----------------------------------------------------
+    since(t_all)
     path_counts["training"] = training_phase(dev)
 
     # -- phase 13: the orchestrator's other modes -------------------------------
+    since(t_all)
     path_counts["modes"] = modes_phase(dev, batches)
 
     # -- phase 14: the MoE, MLA, hybrid and vision families served -------------
     torch.cuda.empty_cache()
+    since(t_all)
     log(f"phase 14: the MoE, MLA, hybrid and vision families served "
         f"({N_REQUESTS} requests x {PROMPT} tokens, {NEW_TOKENS} greedy new "
         f"tokens, batch {SERVE_BATCH})")
     path_counts.update(families_phase(dev))
+
+    # -- phase 15: the launchers and the mesh ----------------------------------
+    torch.cuda.empty_cache()
+    since(t_all)
+    path_counts.update(launchers_phase(dev))
+    since(t_all)
 
     counts = {k: sum(c[k] for c in path_counts.values())
               for k in ops.launch_counts()}

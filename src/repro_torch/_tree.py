@@ -8,7 +8,7 @@ flattening here lists leaves in the order the JAX package lists them.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 _LEAF = ("leaf",)
 
@@ -33,51 +33,67 @@ def _children(node):
     return None
 
 
-def tree_flatten_with_path(tree) -> Tuple[List[Tuple[str, Any]], tuple]:
-    """``([(path, leaf), ...], treedef)`` in pytree order."""
+def _flatten(node, path, out, is_leaf):
+    ch = None if is_leaf is not None and is_leaf(node) else _children(node)
+    if ch is None:
+        out.append((path, node))
+        return _LEAF
+    kind, aux, items = ch
+    return (kind, aux, tuple(_flatten(c, path + k, out, is_leaf)
+                             for k, c in items))
+
+
+def tree_flatten_with_path(tree, is_leaf: Optional[Callable] = None
+                           ) -> Tuple[List[Tuple[str, Any]], tuple]:
+    """``([(path, leaf), ...], treedef)`` in pytree order. ``is_leaf``
+    marks further nodes as leaves (a logical-axes tuple, for one).
+
+    The walks are module-level functions, not closures that call
+    themselves: such a closure is a reference cycle, and the leaves it
+    captured (a model's parameters, on the card) would live until the
+    garbage collector ran."""
     out: List[Tuple[str, Any]] = []
-
-    def rec(node, path):
-        ch = _children(node)
-        if ch is None:
-            out.append((path, node))
-            return _LEAF
-        kind, aux, items = ch
-        return (kind, aux, tuple(rec(c, path + k) for k, c in items))
-
-    treedef = rec(tree, "")
+    treedef = _flatten(tree, "", out, is_leaf)
     return out, treedef
 
 
-def tree_flatten(tree) -> Tuple[List[Any], tuple]:
-    flat, treedef = tree_flatten_with_path(tree)
+def tree_flatten(tree, is_leaf: Optional[Callable] = None
+                 ) -> Tuple[List[Any], tuple]:
+    flat, treedef = tree_flatten_with_path(tree, is_leaf)
     return [leaf for _, leaf in flat], treedef
 
 
+def _unflatten(td, it):
+    if td == _LEAF:
+        return next(it)
+    kind, aux, subs = td
+    vals = [_unflatten(s, it) for s in subs]
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return dict(zip(aux, vals))
+    if kind == "nt":
+        return aux(*vals)
+    if kind == "list":
+        return vals
+    return tuple(vals)
+
+
 def tree_unflatten(treedef: tuple, leaves) -> Any:
-    it = iter(leaves)
-
-    def rec(td):
-        if td == _LEAF:
-            return next(it)
-        kind, aux, subs = td
-        vals = [rec(s) for s in subs]
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return dict(zip(aux, vals))
-        if kind == "nt":
-            return aux(*vals)
-        if kind == "list":
-            return vals
-        return tuple(vals)
-
-    return rec(treedef)
+    return _unflatten(treedef, iter(leaves))
 
 
-def tree_map(fn: Callable, tree) -> Any:
-    leaves, treedef = tree_flatten(tree)
-    return tree_unflatten(treedef, [fn(x) for x in leaves])
+def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None
+             ) -> Any:
+    """``fn`` over the leaves of ``tree`` and, leaf for leaf, of ``rest``
+    (trees flattened to as many leaves, ``rest`` under ``is_leaf`` too)."""
+    leaves, treedef = tree_flatten(tree, is_leaf)
+    others = [tree_flatten(r, is_leaf)[0] for r in rest]
+    for o in others:
+        if len(o) != len(leaves):
+            raise ValueError(f"tree_map: {len(o)} leaves against "
+                             f"{len(leaves)}")
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
 
 
 def tree_leaves(tree) -> List[Any]:

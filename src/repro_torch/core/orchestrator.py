@@ -26,8 +26,9 @@ and an SLA. The orchestrator:
      geometry must not leak into the new one),
   4. reacts to drift alarms through each op's declared drift response,
   5. drives elastic grow/shrink plans through the state-carrying
-     ``elastic.rescale_cycle`` (checkpoint.save -> restore -> back on the
-     job's device — the same path failure recovery takes), and drains a
+     ``elastic.rescale_cycle`` (checkpoint.save -> rebuild_mesh ->
+     reshard_tree -> resume, the states back on the job's device — the
+     same path failure recovery takes), and drains a
      live :class:`~repro_torch.core.membership.MembershipDirectory`
      every step: a failed or departed pool the plan uses takes that
      path involuntarily and forces a replan without it, a joined pool
@@ -58,6 +59,7 @@ from repro_torch.core import membership as ms
 from repro_torch.core.costmodel import (CLOUD_POD, EDGE_NODE, ClusterSpec,
                                         Resource)
 from repro_torch.core.offload import OffloadController
+from repro_torch.dist import local_tree
 from repro_torch.core.pipeline import (OpGraph, Pipeline,
                                        standard_stream_pipeline)
 from repro_torch.core.placement import Objective
@@ -305,19 +307,22 @@ class Orchestrator:
     # -- elastic rescale: the ROADMAP save->rebuild->reshard->resume cycle --
     def _apply_rescale(self, step: int, plan) -> None:
         """Drive an elastic grow/shrink through ``elastic.rescale_cycle``:
-        the op states round-trip a published checkpoint and come back on
-        the job's device — the same machinery a failure recovery takes,
-        so values are preserved bitwise. The job's device does not
-        change, so the EF residuals stay where they are."""
+        the op states round-trip a published checkpoint and come back
+        replicated on the rebuilt mesh — the same machinery a failure
+        recovery takes, so values are preserved bitwise. Each state goes
+        back to the ops as this rank's local tensor, on the job's device,
+        so the EF residuals stay where they are."""
         if self._ckpt_dir is None:
             self._ckpt_dir = tempfile.mkdtemp(
                 prefix=f"s2ce-{self.job.name}-elastic-")
-        self.states, devices = elastic.rescale_cycle(
-            self._ckpt_dir, step, self.states, plan.workers, self.device,
+        axes = elastic.replicated_axes(self.states)
+        states, mesh = elastic.rescale_cycle(
+            self._ckpt_dir, step, self.states, axes, {}, plan.workers,
             meta={"reason": plan.reason, "job": self.job.name}, keep=2)
+        self.states = local_tree(states)
         self.metrics.decisions.append(
             f"{step}:elastic-{plan.action} workers={plan.workers} "
-            f"devices={len(devices)} ({plan.reason})")
+            f"mesh={tuple(mesh.shape)} ({plan.reason})")
 
     # -- dynamic topology: membership events drive the run ------------------
     def set_cluster(self, spec) -> None:

@@ -6,7 +6,10 @@ versus fp32 with a per-element error bounded by ``scale/2``.
 ``ef_quantize``/``ef_roundtrip`` add error feedback (residual carry):
 quantization error is folded into the next round's payload instead of
 being lost, so the accumulated error over a stream of updates stays
-bounded by one quantum.
+bounded by one quantum. ``compressed_allreduce_mean`` is the collective
+form: each participant quantizes its local tensor, the mean runs over
+the *dequantized* values, and a scalar error estimate rides along for
+monitoring.
 
 ``topk_sparsify`` is the orthogonal axis: ship only the ``k``
 largest-magnitude coordinates (``8k`` wire bytes instead of ``4d``),
@@ -130,3 +133,36 @@ def ef_topk_int8_roundtrip(residual: torch.Tensor, x: torch.Tensor, k: int
     ties at the threshold are all kept (identical to exact top-k for
     tie-free inputs); the EF identity holds for any selection."""
     return kops.ef_topk_int8_roundtrip(residual, x, int(k))
+
+
+def compressed_allreduce_mean(x: torch.Tensor, group=None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean of int8-compressed per-worker tensors.
+
+    With ``group`` (a process group, or the name of a dim of the active
+    ``DeviceMesh``), each rank quantizes its own tensor and
+    ``all_reduce(AVG)`` over the group averages the dequantized values
+    and the error: the wire-equivalent path. Without it, the leading dim
+    of ``x`` is the worker dim (host-side simulation of the uplink).
+
+    Returns ``(mean, err)`` where ``err`` is the mean per-worker max
+    quantization error — finite by construction, useful as an SLA
+    telemetry signal.
+    """
+    if group is not None:
+        import torch.distributed as tdist
+        if isinstance(group, str):
+            from repro_torch.dist import current_mesh
+            group = current_mesh().get_group(group)
+        xf = x.float()
+        deq = int8_roundtrip(xf)
+        err = torch.max(torch.abs(deq - xf)).reshape(1)
+        tdist.all_reduce(deq, op=tdist.ReduceOp.AVG, group=group)
+        tdist.all_reduce(err, op=tdist.ReduceOp.AVG, group=group)
+        return deq, err[0]
+    xf = x.float()
+    deq = torch.stack([int8_roundtrip(w) for w in xf])
+    gap = torch.abs(deq - xf)
+    per_worker = gap.reshape(gap.shape[0], -1).amax(dim=1) if gap.dim() > 1 \
+        else gap
+    return deq.mean(dim=0), per_worker.mean()

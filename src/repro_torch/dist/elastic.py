@@ -1,31 +1,34 @@
-"""Elastic worker management: add/remove-worker rescale decisions.
+"""Elastic worker management: add/remove-worker resharding decisions.
 
-Two layers:
+Two layers, as in the JAX package's ``dist/elastic.py``:
 
-  * mechanism — :func:`rescale_cycle` drives a rescale through the
-    checkpoint: the state tree is saved, restored and placed back on the
-    job's device, and the usable devices of the new (data, model) layout
-    are listed. The port's "mesh" is that list of CUDA devices; sharded
-    layouts over it come with the rest of ``dist`` (ROADMAP).
+  * mechanism — :func:`rebuild_mesh` carves a new (data, model) mesh out
+    of the surviving devices (the ranks of the process group) after
+    failures/scale events, and :func:`reshard_tree` moves a
+    checkpoint/parameter tree onto it (values preserved; layout
+    re-derived from the logical rules). :func:`rescale_cycle` drives a
+    rescale through both and the checkpoint.
   * policy — :class:`ElasticController` watches offered vs. achieved
     stream rate and emits :class:`ScalePlan` grow/shrink/hold decisions
     with hysteresis; the orchestrator logs these next to its offload
     decisions.
 
 Data-parallel worker counts stay powers of two so global batches keep
-dividing evenly.
+dividing evenly (see api.logical_to_spec's divisibility contract).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Optional, Sequence
 
 import torch
 
+from repro_torch._tree import tree_leaves, tree_map
+
 
 # ---------------------------------------------------------------------------
-# Mechanism: device list + checkpoint round-trip
+# Mechanism: mesh rebuild + tree resharding
 # ---------------------------------------------------------------------------
 
 def _pow2_floor(n: int) -> int:
@@ -45,33 +48,107 @@ def factor_mesh(n_devices: int, prefer_model: int = 1):
     return data, model
 
 
-def usable_devices(device) -> List[torch.device]:
-    """The devices a job on ``device`` may spread over: every visible
-    CUDA device for a CUDA job, the one CPU for a CPU job."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [device]
+def _default_device_type() -> str:
+    return "cuda" if torch.cuda.is_available() else "cpu"
 
 
-def rescale_cycle(directory, step: int, tree, new_workers: int, device, *,
-                  prefer_model: int = 1, meta: Optional[dict] = None,
-                  keep: Optional[int] = None):
+def rebuild_mesh(devices: Sequence, failed: Sequence = (),
+                 prefer_model: int = 1, *, device_type: Optional[str] = None):
+    """New ("data","model") ``DeviceMesh`` over the devices that survived.
+
+    ``devices`` and ``failed`` entries are ranks (ints) or objects with an
+    ``.id`` (the rank). Every rank of the world calls it. ``device_type``
+    defaults to ``cuda`` where a card is visible, else ``cpu``.
+    """
+    from repro_torch.dist import device_mesh
+
+    failed_ids = {getattr(f, "id", f) for f in failed}
+    alive = [getattr(d, "id", d) for d in devices
+             if getattr(d, "id", d) not in failed_ids]
+    if not alive:
+        raise RuntimeError("no surviving devices to rebuild a mesh from")
+    data, model = factor_mesh(len(alive), prefer_model)
+    return device_mesh(device_type or _default_device_type(),
+                       alive[:data * model], (data, model),
+                       ("data", "model"))
+
+
+def reshard_tree(tree, axes_tree, rules: dict, mesh):
+    """Re-place a tree onto ``mesh`` per its logical axes (values kept).
+
+    Layouts are re-derived through ``rules["param"]`` with the usual
+    divisibility fallback, so a tree sharded for an 8-way mesh restores
+    cleanly onto a degraded 4-way one. A DTensor leaf is gathered first;
+    a plain leaf must hold the same full value on every rank (the
+    SPMD program's replicated state), and each rank keeps its slice of
+    it, with no communication. On a mesh of one device, or on a rank
+    outside ``mesh``, every leaf comes back as a plain tensor.
+    """
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.dist import spans_devices
+    from repro_torch.dist.api import (is_axes, logical_to_spec,
+                                      spec_to_placements)
+
+    spans = spans_devices(mesh)
+
+    def leaf(x, ax):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        if not spans:
+            return x
+        spec = logical_to_spec(ax, rules.get("param", {}), mesh, x.shape)
+        return distribute_tensor(x, mesh, spec_to_placements(spec, mesh),
+                                 src_data_rank=None)
+
+    return tree_map(leaf, tree, axes_tree, is_leaf=is_axes)
+
+
+def replicated_axes(tree):
+    """Logical-axes tree marking every dim of every leaf unsharded — the
+    ``axes_tree`` to pass :func:`reshard_tree`/:func:`rescale_cycle` for
+    state with no sharding recipe (e.g. optimizer accumulators)."""
+    return tree_map(lambda x: tuple(None for _ in getattr(x, "shape", ())),
+                    tree)
+
+
+def rescale_cycle(directory, step: int, tree, axes_tree, rules: dict,
+                  new_workers: int, *, prefer_model: int = 1,
+                  meta: Optional[dict] = None, keep: Optional[int] = None):
     """Drive a :class:`ScalePlan` through the state-carrying machinery:
-    ``checkpoint.save -> restore -> place on the job's device``, and hand
-    back the tree, ready to resume, with the devices of the new layout.
-    ``keep`` bounds the published step dirs (checkpoint GC). Returns
-    ``(tree_on_device, devices)``."""
-    from repro_torch.dist import checkpoint as ckpt
+    ``checkpoint.save -> rebuild_mesh -> reshard_tree`` and hand back the
+    tree resident on the new mesh, ready to resume.
 
-    ckpt.save(directory, int(step), tree, keep=keep,
-              meta={"workers": int(new_workers), **(meta or {})})
-    restored, _ = ckpt.restore(directory, tree, step=int(step))
-    devices = usable_devices(device)
-    n = max(1, min(len(devices), int(new_workers) * int(prefer_model)))
-    data, model = factor_mesh(n, prefer_model)
-    return restored, devices[:data * model]
+    Every rank of the world calls it. DTensor leaves are gathered, rank 0
+    writes the checkpoint, and every rank restores it (each leaf on its
+    device) before the new mesh is carved out of the first
+    ``new_workers * prefer_model`` ranks (capped at the world, as the
+    reference caps at its devices). ``keep`` bounds the published step
+    dirs (checkpoint GC). Returns ``(tree_on_new_mesh, mesh)``.
+    """
+    import torch.distributed as tdist
+
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.dist import gather_tree, world_ranks
+
+    full = gather_tree(tree)
+    ranks = world_ranks()
+    if tdist.get_rank() == 0:
+        ckpt.save(directory, int(step), full, keep=keep,
+                  meta={"workers": int(new_workers), **(meta or {})})
+    if len(ranks) > 1:
+        tdist.barrier()
+    restored, _ = ckpt.restore(directory, full, step=int(step))
+    if len(ranks) > 1:      # no rank's next save may GC a step being read
+        tdist.barrier()
+    n = max(1, min(len(ranks), int(new_workers) * int(prefer_model)))
+    tensors = [x for x in tree_leaves(full) if isinstance(x, torch.Tensor)]
+    kind = tensors[0].device.type if tensors else None
+    mesh = rebuild_mesh(ranks[:n], prefer_model=prefer_model,
+                        device_type=kind)
+    return reshard_tree(restored, axes_tree, rules, mesh), mesh
 
 
 # ---------------------------------------------------------------------------

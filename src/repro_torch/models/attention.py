@@ -16,9 +16,12 @@ paths, numerically equivalent (the tests hold each to the reference):
                 query dim, so only ``cross_attention`` reaches the
                 kernel, as in the reference.
 
-Without a device mesh the reference repeats no KV heads
-(``kv_repeat_factor`` is 1) and its sharding annotations are no-ops;
-both are left out.
+Under tensor parallelism KV heads are duplicated (``kv_repeat_factor``,
+standard Megatron-GQA duplication) so both q and kv shard evenly over
+``heads``; the repeat keeps each query head on its own KV head, so the
+values are those of plain GQA grouping. The cache keeps the model's
+``n_kv_heads``: the repeat is taken after it. Without a mesh the factor
+is 1 and every ``shard`` is the identity.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import axis_size, shard
 from repro_torch.models.layers import apply_rope, cast_like_xla
 from repro_torch.models.params import Spec
 
@@ -73,6 +77,26 @@ def mla_specs(cfg: ArchConfig):
     else:
         sp["wq"] = Spec((d, H, qdim), ("embed", "heads", "head_dim"))
     return sp
+
+
+# ---------------------------------------------------------------------------
+# KV repeat for TP (Megatron-GQA duplication)
+# ---------------------------------------------------------------------------
+
+def kv_repeat_factor(cfg: ArchConfig) -> int:
+    tp = axis_size("heads")
+    if tp <= cfg.n_kv_heads:
+        return 1
+    rep = tp // cfg.n_kv_heads
+    if (cfg.n_kv_heads * rep) > cfg.n_heads or cfg.n_heads % (cfg.n_kv_heads * rep):
+        return 1  # cannot repeat evenly; fall back to plain GQA grouping
+    return rep
+
+
+def _expand_kv(k: torch.Tensor, rep: int) -> torch.Tensor:
+    if rep == 1:
+        return k
+    return torch.repeat_interleave(k, rep, dim=2)
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +267,7 @@ def self_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
     if cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", None, "heads", None)
 
     new_cache = None
     kv_len = None
@@ -258,9 +283,14 @@ def self_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
         k, v = k_all.to(x.dtype), v_all.to(x.dtype)
         kv_len = cache.length + q.shape[1]
         q_offset = cache.length
+    rep = kv_repeat_factor(cfg)
+    kvh = "heads" if rep > 1 else "kv_heads"
+    k = shard(_expand_kv(k, rep), "batch", "kv_seq", kvh, None)
+    v = shard(_expand_kv(v, rep), "batch", "kv_seq", kvh, None)
 
     o = attention(q, k, v, causal=causal, impl=impl, chunk=cfg.attn_chunk,
                   q_offset=q_offset, kv_len=kv_len)
+    o = shard(o, "batch", None, "heads", None)
     out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
     return out, new_cache
 
@@ -331,6 +361,9 @@ def mla_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
     T = k_nope.shape[1]
     k = torch.cat([k_nope, kr[:, :, None, :].expand(B, T, H, dr)], -1)
     qq = torch.cat([q_nope, q_rope], -1)
+    qq = shard(qq, "batch", None, "heads", None)
+    k = shard(k, "batch", "kv_seq", "heads", None)
+    vv = shard(vv, "batch", "kv_seq", "heads", None)
 
     o = attention(qq, k, vv, causal=True, impl=impl, chunk=cfg.attn_chunk,
                   q_offset=q_offset, kv_len=kv_len)
@@ -366,6 +399,7 @@ def cross_attention(p, cfg: ArchConfig, x: torch.Tensor,
     """K/V from `memory` (encoder output / image embeds) or from
     `cache`."""
     q = _project(p, cfg, x, "q")
+    q = shard(q, "batch", None, "heads", None)
     if cache is None:
         if memory is None:
             raise ValueError("cross_attention needs memory or a cache")
@@ -375,6 +409,10 @@ def cross_attention(p, cfg: ArchConfig, x: torch.Tensor,
     else:
         k, v = cache.k.to(x.dtype), cache.v.to(x.dtype)
         new_cache = cache
+    rep = kv_repeat_factor(cfg)
+    kvh = "heads" if rep > 1 else "kv_heads"
+    k = shard(_expand_kv(k, rep), "batch", None, kvh, None)
+    v = shard(_expand_kv(v, rep), "batch", None, kvh, None)
     o = attention(q, k, v, causal=False, impl=impl, chunk=cfg.attn_chunk)
     out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
     return out, new_cache

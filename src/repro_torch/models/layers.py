@@ -4,8 +4,8 @@ The JAX package's ``models/layers.py`` in PyTorch, with its casts kept
 operation for operation (reductions in fp32, results dropped to the
 activation dtype where the reference drops them). All functions are
 pure; parameters are plain dicts materialized from Spec trees
-(:mod:`repro_torch.models.params`). The reference's sharding annotations
-are no-ops without a device mesh and are left out. Every function is
+(:mod:`repro_torch.models.params`). Activation sharding annotations use
+logical axes via :func:`repro_torch.dist.shard`. Every function is
 differentiable by torch autograd; :func:`cot_cast` is the reference's
 backward-only cast of the residual stream's cotangent.
 """
@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import shard
 from repro_torch.models.params import Spec
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -186,8 +187,10 @@ def apply_mlp(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D)."""
     if cfg.mlp_act.endswith("_glu"):
         h = _act(cfg.mlp_act, x @ p["w_gate"]) * (x @ p["w_up"])
+        h = shard(h, "batch", None, "ff")
         return h @ p["w_down"]
     h = _act(cfg.mlp_act, x @ p["w_up"] + p["b_up"].to(x.dtype))
+    h = shard(h, "batch", None, "ff")
     return h @ p["w_down"] + p["b_down"].to(x.dtype)
 
 
@@ -205,7 +208,8 @@ def embed_specs(cfg: ArchConfig):
 
 def embed_tokens(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     tok = p["tok"]
-    return tok.to(dtype_of(cfg.compute_dtype))[tokens.to(tok.device).long()]
+    x = tok.to(dtype_of(cfg.compute_dtype))[tokens.to(tok.device).long()]
+    return shard(x, "batch", None, "embed")
 
 
 def lm_logits(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -227,4 +231,4 @@ def lm_logits(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
             torch.full((pad,), -1e30, dtype=torch.float32,
                        device=logits.device)])
         logits = logits + mask
-    return logits
+    return shard(logits, "batch", None, "vocab")

@@ -14,11 +14,13 @@ costs no device sync.
 
 from __future__ import annotations
 
+import re
+
 import torch
 
 from repro_torch import resolve_device
-from repro_torch._tree import tree_map
-from repro_torch.configs.base import ArchConfig
+from repro_torch._tree import tree_flatten_with_path, tree_map, tree_unflatten
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import params as pmod
 from repro_torch.models import rwkv as rwkv_mod
@@ -32,8 +34,9 @@ from repro_torch.models.transformer import (
 from repro_torch.models.transformer import encode as _encode
 
 __all__ = [
-    "model_specs", "init_params", "param_shapes", "param_count",
-    "forward_lm", "lm_loss", "init_caches", "prefill", "decode_step",
+    "model_specs", "init_params", "param_axes", "param_shapes",
+    "param_count", "forward_lm", "lm_loss", "init_caches", "prefill",
+    "decode_step", "cache_axes", "constrain_caches", "input_specs",
 ]
 
 
@@ -41,6 +44,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     """Random parameters from ``seed``, materialized on ``device``."""
     return pmod.materialize(model_specs(cfg), seed, dtype_of(cfg.param_dtype),
                             resolve_device(device))
+
+
+def param_axes(cfg: ArchConfig):
+    """The parameter tree's logical axes (``Spec.axes`` leaf for leaf)."""
+    return pmod.axes_of(model_specs(cfg))
 
 
 def param_shapes(cfg: ArchConfig):
@@ -158,22 +166,33 @@ def forward_cached(params, cfg: ArchConfig, tokens, caches, *, offset,
                           memory=memory, caches=caches["prefix"], impl=impl)
     new["prefix"] = pc
     if rep:
+        which = "dec/stack" if cfg.family == "encdec" else "stack"
         x, sc, _ = run_stack(stack_params, cfg, pat, x, positions=positions,
                              memory=memory, caches=caches["stack"] or None,
-                             impl=impl)
+                             impl=impl, stack_axes=tfm._stack_axes(cfg, which))
         new["stack"] = sc
     x = apply_norm(params["final_norm"], cfg, x)
     return lm_logits(params["embed"], cfg, x[:, -1:, :]), new
 
 
-def _clear_cross(caches):
-    def clear(tree):
-        if isinstance(tree, dict):
-            return {k: (None if k == "cross" else clear(v)) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [clear(v) for v in tree]
-        return tree
-    return clear(caches)
+def _clear_cross(tree):
+    """The cache tree with every ``cross`` entry ``None`` (a module-level
+    recursion: a closure calling itself is a reference cycle)."""
+    if isinstance(tree, dict):
+        return {k: (None if k == "cross" else _clear_cross(v))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clear_cross(v) for v in tree]
+    return tree
+
+
+def constrain_caches(caches):
+    """Apply logical-axis sharding constraints to a cache tree (no-op
+    without an active mesh)."""
+    from repro_torch.dist import mesh_active, shard
+    if not mesh_active():
+        return caches
+    return tree_map(lambda x, ax: shard(x, *ax), caches, cache_axes(caches))
 
 
 def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
@@ -192,7 +211,8 @@ def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
     elif cfg.family == "vlm":
         memory = tfm.frontend_memory(params, cfg, batch)
         src_len = memory.shape[1]
-    caches = init_caches(cfg, B, max_len, src_len, device=dev)
+    caches = constrain_caches(init_caches(cfg, B, max_len, src_len,
+                                          device=dev))
     # cross caches start empty -> computed from memory on first pass
     caches = _clear_cross(caches)
     logits, caches = forward_cached(params, cfg, tokens, caches, offset=0,
@@ -212,20 +232,85 @@ def decode_step(params, cfg: ArchConfig, caches, tokens, *,
                           memory=memory, impl=impl)
 
 
+def _lengths(t, out: list) -> None:
+    """Append every KV and MLA cache's length under ``t`` to ``out``."""
+    if isinstance(t, dict):
+        for v in t.values():
+            _lengths(v, out)
+    elif isinstance(t, list):
+        for v in t:
+            _lengths(v, out)
+    elif isinstance(t, (attn_mod.KVCache, attn_mod.MLACache)):
+        out.append(t.length)
+
+
 def _cache_length(caches) -> torch.Tensor:
     """The filled prefix of the first KV or MLA cache; 0 for a cache tree
     with no attention leaf (pure ssm, rwkv), as in the reference."""
     leaves = []
-
-    def visit(t):
-        if isinstance(t, dict):
-            [visit(v) for v in t.values()]
-        elif isinstance(t, list):
-            [visit(v) for v in t]
-        elif isinstance(t, (attn_mod.KVCache, attn_mod.MLACache)):
-            leaves.append(t.length)
-    visit({k: v for k, v in caches.items() if k != "memory"})
+    _lengths({k: v for k, v in caches.items() if k != "memory"}, leaves)
     if not leaves:
         return torch.zeros((), dtype=torch.int32)
     l0 = leaves[0]
     return l0.reshape(-1)[0] if l0.dim() else l0
+
+
+_CACHE_FIELD_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", None),
+    "v": ("batch", "kv_seq", "kv_heads", None),
+    "c_kv": ("batch", "kv_seq", None),
+    "k_rope": ("batch", "kv_seq", None),
+    "length": (),
+    "conv": ("batch", None, "dinner"),
+    "h": ("batch", "dinner", None),
+    "tm_shift": ("batch", None),
+    "cm_shift": ("batch", None),
+    "wkv": ("batch", "heads", None, None),
+    "memory": ("batch", None, None),
+}
+
+
+def cache_axes(caches):
+    """Logical-axes tree mirroring a cache tree: each leaf's axes by its
+    field name (the innermost NamedTuple field or dict key that names
+    one), with ``layers`` in front on a stacked leaf."""
+    flat, treedef = tree_flatten_with_path(caches)
+    out = []
+    for path, x in flat:
+        names = [a or b for a, b in re.findall(r"\.(\w+)|\['(\w+)'\]",
+                                                path)]
+        name = next(n for n in reversed(names) if n in _CACHE_FIELD_AXES)
+        base = _CACHE_FIELD_AXES[name]
+        rank = len(x.shape)
+        if rank == len(base) + 1:
+            base = ("layers",) + base
+        if rank != len(base):
+            raise ValueError(f"cache leaf {path}: rank {rank} vs {base}")
+        out.append(base)
+    return tree_unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# Input specs (``meta`` tensors: shapes and dtypes, no storage)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: InputShape) -> dict:
+    """Global-shape inputs for a (arch x shape) cell, as ``meta``
+    tensors (the reference's ShapeDtypeStruct stand-ins)."""
+    B, S = shape.global_batch, shape.seq_len
+    f = dtype_of(cfg.compute_dtype)
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": spec((B, S), torch.int32)}
+        if cfg.family == "vlm":
+            out["patches"] = spec((B, cfg.frontend_len, cfg.frontend_dim), f)
+        if cfg.family == "encdec":
+            out["frames"] = spec((B, S, cfg.frontend_dim), f)
+        return out
+    # decode: one new token against caches of length S
+    src_len = cfg.frontend_len if cfg.family in ("encdec", "vlm") else 0
+    return {"tokens": spec((B, 1), torch.int32),
+            "caches": init_caches(cfg, B, S, src_len, device="meta")}

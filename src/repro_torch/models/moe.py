@@ -5,10 +5,11 @@ a stable sort over expert ids plus a positional scatter into an
 ``(E, C, d)`` buffer; overflow beyond capacity is dropped (GShard/Switch
 semantics) into the slot ``E*C``; only int32 indices are scattered and
 the payload moves by gather. The dispatch is *grouped*: tokens are
-reshaped to ``(G, t/G, d)`` and the sort and scatter run per group. The
-reference takes G from its ``expert_groups`` mesh axis, which is 1
-without a mesh; here G is 1 (the group dimension stays, so that a
-sharded port can give it meaning). Shared experts run densely.
+reshaped to ``(G, t/G, d)`` and the sort and scatter run per group, so
+capacity, and so which tokens are dropped, is decided per group. G is
+the size of the ``expert_groups`` axis under the active mesh (1 without
+one), falling back to 1 where it does not divide the tokens, as in the
+reference. Shared experts run densely.
 
 Nothing here reads a value back to the host: per-expert counts come
 from ``scatter_add_`` into a length-E tensor (``torch.bincount``'s
@@ -25,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import axis_size, shard
 from repro_torch.models.layers import _act
 from repro_torch.models.params import Spec
 
@@ -119,9 +121,11 @@ def apply_moe(p, cfg: ArchConfig, x: torch.Tensor,
     B, S, D = x.shape
     t = B * S
     E, K = e.num_experts, e.top_k
-    G = 1
+    G = max(1, axis_size("expert_groups"))
+    if t % G:
+        G = 1
     tg = t // G
-    xg = x.reshape(G, tg, D)
+    xg = shard(x.reshape(G, tg, D), "expert_groups", None, None)
 
     logits = (xg @ p["router"].to(xg.dtype)).float()
     if e.router_jitter and gen is not None:
@@ -142,6 +146,7 @@ def apply_moe(p, cfg: ArchConfig, x: torch.Tensor,
     groups = [_dispatch_group(cfg, C, xg[g], expert_ids[g])
               for g in range(G)]
     buf = torch.stack([gr[0] for gr in groups])                    # (G,E,C,D)
+    buf = shard(buf, "expert_groups", "experts", None, None)
 
     if "w_gate" in p:
         h = _act(cfg.mlp_act, torch.einsum(
@@ -150,12 +155,15 @@ def apply_moe(p, cfg: ArchConfig, x: torch.Tensor,
     else:
         h = _act(cfg.mlp_act, torch.einsum(
             "gecd,edf->gecf", buf, p["w_up"].to(buf.dtype)))
+    h = shard(h, "expert_groups", "experts", None, "ff")
     out_buf = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(buf.dtype))
+    out_buf = shard(out_buf, "expert_groups", "experts", None, None)
 
     gate_flat = gate_vals.reshape(G, tg * K)
     y = torch.stack([
         _combine_group(out_buf[g], dest, order, keep, gate_flat[g], tg, K, D)
         for g, (_, dest, order, keep) in enumerate(groups)])
+    y = shard(y, "expert_groups", None, None)
     y = y.reshape(B, S, D)
 
     if e.num_shared:

@@ -7,6 +7,7 @@ The same tree yields:
   * shapes without storage   (:func:`shape_tree`, tensors on the ``meta``
                               device)
   * the parameter count      (:func:`param_count`)
+  * logical axes             (:func:`axes_of`, consumed by dist.sharding)
 
 Each leaf draws from its own ``torch.Generator``, seeded from the model
 seed and the crc32 of the leaf's path (``embed/tok``, ``stack/0/mixer/wq``),
@@ -101,6 +102,12 @@ def shape_tree(tree, dtype=torch.float32):
     storage."""
     return _map_with_path(
         lambda _, s: torch.empty(s.shape, dtype=dtype, device="meta"), tree)
+
+
+def axes_of(tree):
+    """The tree's logical axes: each Spec replaced by its ``axes`` tuple
+    (what ``dist.sharding`` maps onto a mesh)."""
+    return _map_with_path(lambda _, s: s.axes, tree)
 
 
 def spec_leaves(tree):

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import shard
 from repro_torch.models.layers import groupnorm_heads
 from repro_torch.models.params import Spec
 
@@ -146,6 +147,9 @@ def rwkv_time_mix(p, cfg: ArchConfig, x: torch.Tensor,
     k = (mixed["k"] @ p["wk"].to(dt)).reshape(B, S, H, hs)
     v = (mixed["v"] @ p["wv"].to(dt)).reshape(B, S, H, hs)
     g = F.silu(mixed["g"] @ p["wg"].to(dt))
+    r = shard(r, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "heads", None)
+    v = shard(v, "batch", None, "heads", None)
 
     dec = torch.tanh(mixed["w"] @ p["dec_w1"].to(dt)) @ p["dec_w2"].to(dt)
     lw = -torch.exp(p["w0"].float() + dec.float())
@@ -175,6 +179,7 @@ def rwkv_channel_mix(p, cfg: ArchConfig, x: torch.Tensor,
     xk = x + dx * p["mu_k"].to(dt)
     xr = x + dx * p["mu_r"].to(dt)
     kk = torch.square(F.relu(xk @ p["wk"].to(dt)))
+    kk = shard(kk, "batch", None, "ff")
     vv = kk @ p["wv"].to(dt)
     out = torch.sigmoid(xr @ p["wr"].to(dt)) * vv
     return out, x[:, -1, :]

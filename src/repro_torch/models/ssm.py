@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import shard
 from repro_torch.models.params import Spec
 
 
@@ -106,6 +107,7 @@ def mamba_mixer(p, cfg: ArchConfig, x: torch.Tensor,
 
     xz = x @ p["in_proj"].to(x.dtype)
     x_in, z = torch.chunk(xz, 2, dim=-1)
+    x_in = shard(x_in, "batch", None, "dinner")
     x_conv, conv_state = _causal_conv(p, x_in,
                                       state.conv if state else None)
     x_conv = F.silu(x_conv)
@@ -141,6 +143,7 @@ def mamba_mixer(p, cfg: ArchConfig, x: torch.Tensor,
 
     y = (y + xf * p["D"].float()).to(x.dtype)
     y = y * F.silu(z)
+    y = shard(y, "batch", None, "dinner")
     out = y @ p["out_proj"].to(x.dtype)
     if state is not None:
         return out, _write_state(state, conv_state, h)

@@ -32,6 +32,8 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch._tree import (tree_flatten, tree_flatten_with_path,
                                tree_map, tree_unflatten)
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import mesh_active, shard, shard_param
+from repro_torch.dist.api import is_axes
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -173,6 +175,7 @@ def apply_slot(p, cfg: ArchConfig, slot: Slot, x, *, positions, memory,
     zero tensor a layer would cost every model a launch a layer)."""
     aux = 0.0
     h = apply_norm(p["norm1"], cfg, x)
+    h = shard(h, "batch", None, "embed")
     new_cache = cache
 
     if slot.mixer == "attn":
@@ -197,8 +200,10 @@ def apply_slot(p, cfg: ArchConfig, slot: Slot, x, *, positions, memory,
             p["mixer"]["self"], cfg, h, positions=positions,
             cache=cache.get("kv") if cache else None,
             causal=slot.causal, impl=impl)
+        o = shard(o, "batch", "seq_sp", "embed")   # reduce-scatter form
         x = x + o
         h2 = apply_norm(p["norm_cross"], cfg, x)
+        h2 = shard(h2, "batch", None, "embed")
         o, cc = attn.cross_attention(
             p["mixer"]["cross"], cfg, h2, memory=memory,
             cache=cache.get("cross") if cache and cache.get("cross") is not None else None,
@@ -222,19 +227,23 @@ def apply_slot(p, cfg: ArchConfig, slot: Slot, x, *, positions, memory,
     if slot.gated:
         o = o * torch.tanh(p["gate_attn"].to(o.dtype))
     if slot.mixer == "rwkv":
+        o = shard(o, "batch", "seq_sp", "embed")
         x = x + o
         h = apply_norm(p["norm2"], cfg, x)
+        h = shard(h, "batch", None, "embed")
         o2, cm_shift = rwkv_mod.rwkv_channel_mix(
             p["mlp"], cfg, h,
             rwkv_mod.RWKVState(tm_shift, cm_prev, wkv) if st is not None else None)
         x = x + o2
         if cache:
             new_cache = {"rwkv": rwkv_mod.RWKVState(tm_shift, cm_shift, wkv)}
-        return cot_cast(x), new_cache, aux
+        return shard(cot_cast(x), "batch", "seq_sp", "embed"), new_cache, aux
 
+    o = shard(o, "batch", "seq_sp", "embed")       # reduce-scatter form
     x = x + o
     if slot.mlp != "none":
         h = apply_norm(p["norm2"], cfg, x)
+        h = shard(h, "batch", None, "embed")
         if slot.mlp == "moe":
             o2, a = moe_mod.apply_moe(p["mlp"], cfg, h)
             aux = aux + a
@@ -242,8 +251,9 @@ def apply_slot(p, cfg: ArchConfig, slot: Slot, x, *, positions, memory,
             o2 = apply_mlp(p["mlp"], cfg, h)
         if slot.gated:
             o2 = o2 * torch.tanh(p["gate_mlp"].to(o2.dtype))
+        o2 = shard(o2, "batch", "seq_sp", "embed")
         x = x + o2
-    return cot_cast(x), new_cache, aux
+    return shard(cot_cast(x), "batch", "seq_sp", "embed"), new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +309,17 @@ def _remat_wrap(fn, cfg: ArchConfig):
     return wrapped
 
 
+def _constrain_layer_params(lp, axes):
+    """Pin each sliced per-layer param to its sharded layout (the
+    reference's pin inside its scan body): ``axes`` is the stack's axes
+    tree, whose leading ``layers`` entry the slice has dropped."""
+    if axes is None:
+        return lp
+    return tree_map(
+        lambda x, ax: shard_param(x, ax[1:]) if isinstance(x, torch.Tensor)
+        and x.dim() + 1 == len(ax) else x, lp, axes, is_leaf=is_axes)
+
+
 def _write_back(stacked, per_layer):
     """The stacked cache tree after the loop. A leaf the stacked tree
     already holds is updated IN PLACE, layer by layer (a layer's KV
@@ -324,13 +345,15 @@ def _write_back(stacked, per_layer):
 
 
 def run_stack(params, cfg: ArchConfig, pattern, x, *, positions, memory,
-              caches, impl):
+              caches, impl, stack_axes=None):
     """params: stacked slot-param list; caches: stacked cache trees or
     None (updated in place where given). Without caches and under
-    autograd each layer runs under ``cfg.remat``. Returns (x, caches,
-    aux), aux summed over the layers."""
+    autograd each layer runs under ``cfg.remat``. ``stack_axes`` (the
+    stack's logical axes, :func:`stack_axes_for`) pins each layer's
+    params. Returns (x, caches, aux), aux summed over the layers."""
     n = len(tree_flatten_with_path(params)[0][0][1])
-    layers = _layers(params, n)
+    layers = [_constrain_layer_params(lp, stack_axes)
+              for lp in _layers(params, n)]
     aux = 0.0
     if caches is None:
         def body(x, lp):
@@ -378,6 +401,21 @@ def run_prefix(params, cfg: ArchConfig, slots, x, *, positions, memory,
 # Frontend stubs
 # ---------------------------------------------------------------------------
 
+def stack_axes_for(cfg: ArchConfig, which: str = "stack"):
+    """Logical-axes tree for the stacked layer params (sharding pins)."""
+    from repro_torch.models import params as pmod
+    node = model_specs(cfg)
+    for k in which.split("/"):
+        node = node[k]
+    return pmod.axes_of(node)
+
+
+def _stack_axes(cfg: ArchConfig, which: str = "stack"):
+    """:func:`stack_axes_for` under an active mesh, else None (nothing to
+    pin: the specs are not rebuilt on every forward of one device)."""
+    return stack_axes_for(cfg, which) if mesh_active() else None
+
+
 def frontend_memory(params, cfg: ArchConfig, batch: dict):
     """Project stubbed modality embeddings into d_model memory tokens."""
     if cfg.frontend == "none":
@@ -385,7 +423,8 @@ def frontend_memory(params, cfg: ArchConfig, batch: dict):
     key = "frames" if cfg.frontend == "audio_frames" else "patches"
     cd = dtype_of(cfg.compute_dtype)
     proj = params["frontend_proj"]
-    return batch[key].to(device=proj.device, dtype=cd) @ proj.to(cd)
+    mem = batch[key].to(device=proj.device, dtype=cd) @ proj.to(cd)
+    return shard(mem, "batch", None, "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -421,7 +460,8 @@ def forward_lm(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
     if rep:
         x, _, aux2 = run_stack(params["stack"], cfg, pat, x,
                                positions=positions, memory=memory,
-                               caches=None, impl=impl)
+                               caches=None, impl=impl,
+                               stack_axes=_stack_axes(cfg))
     x = apply_norm(params["final_norm"], cfg, x)
     return lm_logits(params["embed"], cfg, x), aux_tensor(aux1 + aux2,
                                                           x.device)
@@ -450,7 +490,7 @@ def encode(params, cfg: ArchConfig, batch: dict, impl: str):
     if rep:
         x, _, _ = run_stack(params["enc"]["stack"], cfg, pat, x,
                             positions=pos, memory=None, caches=None,
-                            impl=impl)
+                            impl=impl, stack_axes=_stack_axes(cfg, "enc/stack"))
     return apply_norm(params["enc"]["final_norm"], cfg, x)
 
 
@@ -470,7 +510,8 @@ def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked"):
     if rep:
         x, _, aux2 = run_stack(params["dec"]["stack"], cfg, pat, x,
                                positions=pos_d, memory=memory, caches=None,
-                               impl=impl)
+                               impl=impl,
+                               stack_axes=_stack_axes(cfg, "dec/stack"))
     x = apply_norm(params["final_norm"], cfg, x)
     return lm_logits(params["embed"], cfg, x), aux_tensor(aux1 + aux2,
                                                           x.device)

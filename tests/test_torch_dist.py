@@ -1,0 +1,619 @@
+"""The port's distributed substrate (``repro_torch.dist``, ``launch.mesh``
+and the models' mesh-dependent pieces) against the JAX package's, on the
+CPU: ``tests/test_dist.py`` and the sharding property of
+``tests/test_property.py`` mirrored, then the two packages on the same
+inputs.
+
+Specs, rules, logical axes, ``axis_size``, ``kv_repeat_factor`` and the
+MoE grouping must equal the reference's exactly. A mesh the reference
+only reads the shape of is a stand-in here (``_FakeMesh``); the meshes
+the port places tensors on are a 4-rank gloo world, spawned once for the
+file (``torch_dist_ranks.py``): ``reshard_tree``'s shards against
+``NamedSharding.devices_indices_map`` on the reference's (2, 2) mesh,
+``rebuild_mesh`` after failures against the reference's shapes and
+devices, ``compressed_allreduce_mean``'s group route against its host
+route (1e-6) and the mean (the reference's ``atol`` 2e-2), and one
+``tp_fsdp`` SGD step of qwen2-1.5b's smoke config on a (2, 2) mesh
+against the single-process step and the reference's unsharded step
+(``rtol`` 2e-3, ``atol`` 2e-4: the reference's bounds for its sharded
+step), each rank's local shapes as the rules say; the same for
+granite-moe-1b-a400m's smoke config under ``ep_fsdp``, against the
+single-process step with two token groups (the reference's grouping on
+that mesh).
+"""
+
+import dataclasses
+import time
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding
+
+from repro import dist as jdist
+from repro.configs import get_config as jget
+from repro.configs.base import InputShape as JInputShape
+from repro.dist import api as japi
+from repro.dist import compression as jcomp
+from repro.dist import elastic as jel
+from repro.dist import sharding as jsharding
+from repro.models import attention as jattn
+from repro.models import model_zoo as jzoo
+from repro.models import moe as jmoe
+from repro.train import optim as joptim
+from repro.train.train_step import make_train_step as jmake_train_step
+
+import torch_dist_ranks as ranks
+from repro_torch import convert, dist
+from repro_torch._tree import tree_flatten, tree_flatten_with_path, tree_map
+from repro_torch.configs import ARCH_IDS, get_config as tget
+from repro_torch.configs.base import DECODE_32K, PREFILL_32K, InputShape
+from repro_torch.dist import api
+from repro_torch.dist import compression as tcomp
+from repro_torch.dist import elastic as tel
+from repro_torch.dist import sharding
+from repro_torch.launch import mesh as tmesh
+from repro_torch.models import attention as tattn
+from repro_torch.models import model_zoo as tzoo
+from repro_torch.models import moe as tmoe
+from repro_torch.train.optim import constant_schedule, sgd
+from repro_torch.train.train_step import make_train_step
+
+RECIPES = ("dp", "fsdp", "tp_fsdp", "ep_fsdp", "ep_tp_fsdp")
+STEP_TOL = dict(rtol=2e-3, atol=2e-4)     # the reference's sharded-step bounds
+MEAN_ATOL = 2e-2                          # the reference's compressed mean
+ROUTE_TOL = 1e-6                          # group route against host route
+SPAWN_TIMEOUT_S = 300
+
+
+class _FakeMesh:
+    def __init__(self, shape):
+        self.shape = shape
+
+    @property
+    def axis_names(self):
+        return tuple(self.shape)
+
+
+class _FakeDeviceMesh:
+    """What ``spec_to_placements`` reads of a ``DeviceMesh``."""
+
+    def __init__(self, names, shape):
+        self.mesh_dim_names, self.shape = tuple(names), tuple(shape)
+
+
+def _is_axes(x):
+    return isinstance(x, tuple) and not hasattr(type(x), "_fields") and all(
+        a is None or isinstance(a, str) for a in x)
+
+
+def _jaxes(tree):
+    return jax.tree_util.tree_leaves(tree, is_leaf=_is_axes)
+
+
+def _taxes(tree):
+    return tree_flatten(tree, is_leaf=api.is_axes)[0]
+
+
+# ---------------------------------------------------------------------------
+# logical_to_spec
+# ---------------------------------------------------------------------------
+
+def test_shard_is_noop_outside_mesh():
+    x = torch.ones((4, 8))
+    assert not dist.mesh_active()
+    assert dist.shard(x, "batch", "embed") is x
+    assert dist.shard_param(x, ("embed", "ff")) is x
+    assert dist.pin_params({"w": x}, {"w": ("embed", "ff")})["w"] is x
+
+
+@pytest.mark.parametrize("mesh,rules,axes,shape", [
+    ({"data": 2, "model": 4}, {"batch": ("data", "model")}, ("batch",), (8,)),
+    ({"data": 2, "model": 4}, {"batch": ("data", "model")}, ("batch",), (6,)),
+    ({"data": 2, "model": 4}, {"batch": ("data", "model")}, ("batch",), (5,)),
+    ({"model": 4}, {"heads": ("model",), "ff": ("model",)}, ("heads", "ff"),
+     (8, 8)),
+    ({"data": 2}, {"batch": ("pod", "data")}, ("layers", "batch"), (3, 4)),
+    ({"pod": 2, "data": 4, "model": 2}, {"batch": ("pod", "data"),
+     "ff": "model"}, ("batch", None, "ff"), (16, 3, 6)),
+    ({"data": 2, "model": 4}, {"embed": "data", "ff": "model"},
+     ("embed", "ff"), None),
+])
+def test_logical_to_spec_matches_the_reference(mesh, rules, axes, shape):
+    """The reference's ``_FakeMesh`` cases (divisibility, no reused mesh
+    axis, absent mesh axes skipped) and a multipod one: the same spec,
+    dim for dim."""
+    want = japi.logical_to_spec(axes, rules, _FakeMesh(mesh), shape)
+    got = api.logical_to_spec(axes, rules, _FakeMesh(mesh), shape)
+    assert tuple(got) == tuple(want)
+    assert api.spec_is_replicated(got) == japi.spec_is_replicated(want)
+
+
+@settings(max_examples=60, deadline=None)
+@given(dims=st.lists(st.integers(1, 4096), min_size=1, max_size=3),
+       sizes=st.tuples(st.sampled_from([1, 2, 4, 8, 16]),
+                       st.sampled_from([1, 2, 4, 8, 16]),
+                       st.sampled_from([1, 2])),
+       recipe=st.sampled_from(RECIPES))
+def test_logical_to_spec_always_divides_and_matches(dims, sizes, recipe):
+    """Whatever the dims, mesh sizes and recipe: the chosen axes always
+    divide their dim, and the spec is the reference's."""
+    mesh = _FakeMesh({"pod": sizes[2], "data": sizes[0], "model": sizes[1]})
+    rules = sharding.build_rules(recipe=recipe)["act"]
+    names = ("batch", "heads", "ff")[:len(dims)]
+    got = api.logical_to_spec(names, rules, mesh, dims)
+    assert tuple(got) == tuple(japi.logical_to_spec(names, rules, mesh, dims))
+    for dim, part in zip(dims, got):
+        prod = 1
+        for a in ((part,) if isinstance(part, str) else (part or ())):
+            prod *= mesh.shape[a]
+        assert dim % prod == 0
+
+
+def test_spec_to_placements_follows_the_mesh_order():
+    from torch.distributed.tensor import Replicate, Shard
+
+    m = _FakeDeviceMesh(("pod", "data", "model"), (2, 2, 2))
+    spec = api.PartitionSpec(("pod", "data"), None, "model")
+    assert api.spec_to_placements(spec, m) == [Shard(0), Shard(0), Shard(2)]
+    assert api.spec_to_placements(api.PartitionSpec(None, None), m) == [
+        Replicate()] * 3
+    with pytest.raises(ValueError, match="axis order"):
+        api.spec_to_placements(api.PartitionSpec(("data", "pod")), m)
+
+
+def test_tree_walks_leave_no_reference_cycle():
+    """A flatten, an unflatten and a two-tree map with axes leaves: the
+    tensors die with the last name for them, with the collector off (a
+    walk that was a closure calling itself held them in a cycle)."""
+    import gc
+    import weakref
+    from repro_torch._tree import tree_unflatten
+
+    tree = {"a": [torch.ones(3), (torch.zeros(2),)], "b": None,
+            "c": tattn.KVCache(torch.ones(1), torch.ones(1), torch.ones(()))}
+    axes = {"a": [("x",), ((None,),)], "b": None,
+            "c": tattn.KVCache(("k",), ("v",), ())}
+    refs = [weakref.ref(t) for t in tree_flatten(tree)[0]]
+    gc.collect()
+    gc.disable()
+    try:
+        leaves, treedef = tree_flatten(tree)
+        again = tree_unflatten(treedef, leaves)
+        pairs = tree_map(lambda t, ax: (t, ax), again, axes,
+                         is_leaf=api.is_axes)
+        assert pairs["c"].length[1] == () and pairs["a"][0][1] == ("x",)
+        del tree, leaves, again, pairs
+        assert [r() for r in refs] == [None] * len(refs)
+    finally:
+        gc.enable()
+
+
+# ---------------------------------------------------------------------------
+# build_rules, param_sharding_tree, axes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("recipe", RECIPES)
+def test_build_rules_match_the_reference(recipe):
+    """Every recipe x the ten configurations x a prefill and a decode
+    shape, and with no config at all."""
+    for arch in ARCH_IDS:
+        for smoke in (False, True):
+            tc, jc = tget(arch, smoke=smoke), jget(arch, smoke=smoke)
+            for shp in (PREFILL_32K, DECODE_32K, None):
+                jshp = None if shp is None else JInputShape(
+                    shp.name, shp.seq_len, shp.global_batch, shp.kind)
+                assert sharding.build_rules(tc, shape=shp, recipe=recipe) \
+                    == jsharding.build_rules(jc, shape=jshp, recipe=recipe)
+    assert sharding.build_rules(recipe=recipe) == \
+        jsharding.build_rules(recipe=recipe)
+    with pytest.raises(ValueError, match="unknown recipe"):
+        sharding.build_rules(recipe="zero3")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_axes_and_input_specs_match_the_reference(arch):
+    """``param_axes`` of the full config and ``cache_axes`` of the smoke
+    config's caches, leaf for leaf; ``input_specs`` of a train, a prefill
+    and a decode cell, shape and dtype for shape and dtype;
+    ``param_sharding_tree``'s placements those of the reference's
+    ``NamedSharding`` specs on a (2, 4) mesh."""
+    tc, jc = tget(arch), jget(arch)
+    assert _taxes(tzoo.param_axes(tc)) == _jaxes(jzoo.param_axes(jc))
+
+    sc, sj = tget(arch, smoke=True), jget(arch, smoke=True)
+    src = sc.frontend_len if sc.family in ("encdec", "vlm") else 0
+    got = _taxes(tzoo.cache_axes(tzoo.init_caches(sc, 2, 16, src,
+                                                  device="cpu")))
+    want = _jaxes(jzoo.cache_axes(jzoo.init_caches(sj, 2, 16, src)))
+    assert got == want
+
+    for kind in ("train", "prefill", "decode"):
+        ts = InputShape("cell", 64, 4, kind)
+        got = [(tuple(t.shape), str(t.dtype).split(".")[-1])
+               for t in tree_flatten(tzoo.input_specs(sc, ts))[0]]
+        want = [(tuple(s.shape), str(s.dtype))
+                for s in jax.tree.leaves(jzoo.input_specs(
+                    sj, JInputShape("cell", 64, 4, kind)))]
+        assert got == want
+
+    rules = sharding.build_rules(tc, recipe="ep_tp_fsdp")
+    fake = _FakeDeviceMesh(("data", "model"), (2, 4))
+    got = [pl for _, pl in tree_flatten(
+        sharding.param_sharding_tree(tc, fake, rules),
+        is_leaf=lambda x: isinstance(x, tuple) and len(x) == 2
+        and x[0] is fake)[0]]
+    jm = jax.make_mesh((2, 4), ("data", "model"),
+                       devices=jax.devices()[:8])
+    want = [api.spec_to_placements(tuple(ns.spec), fake) for ns in
+            jax.tree.leaves(jsharding.param_sharding_tree(jc, jm, rules))]
+    assert got == want
+
+
+# ---------------------------------------------------------------------------
+# axis_size, use_mesh, mesh_context
+# ---------------------------------------------------------------------------
+
+def test_axis_size_defaults_to_one():
+    assert dist.axis_size("heads") == 1
+    rules = {"param": {}, "act": {"heads": ("model",)}}
+    for mod in (dist, jdist):
+        with mod.use_mesh(_FakeMesh({"data": 2, "model": 2}), rules):
+            assert mod.axis_size("heads") == 2      # mapped logical axis
+            assert mod.axis_size("data") == 2       # physical axis by name
+            assert mod.axis_size("no_such_axis") == 1
+    assert not dist.mesh_active()
+
+
+def test_use_mesh_degrades_to_single_device():
+    with dist.use_mesh(device="cpu") as mesh:
+        assert mesh.size() == 1 and mesh.mesh_dim_names == ("data", "model")
+        assert dist.mesh_active()
+        assert dist.current_rules() == {"param": {}, "act": {}}
+        x = torch.ones((4, 4))
+        assert dist.shard(x, "batch", None) is x
+    assert not dist.mesh_active() and dist.current_mesh() is None
+    with pytest.raises(ValueError, match=r"needs 8 devices, have 1"):
+        with dist.use_mesh({"data": 2, "model": 4}, device="cpu"):
+            pass
+
+
+def test_mesh_context_activates_recipe_rules():
+    cfg = tget("qwen2-1.5b", smoke=True).with_overrides(recipe="tp_fsdp")
+    with tmesh.mesh_context(cfg, device="cpu") as mesh:
+        assert dist.mesh_active() and tuple(mesh.shape) == (1, 1)
+        assert dist.current_rules() == sharding.build_rules(cfg)
+        assert dist.axis_size("heads") == 1
+    assert not dist.mesh_active()
+    with pytest.raises(RuntimeError, match="need 256 devices"):
+        tmesh.make_production_mesh(device="cpu")
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        tmesh.make_local_mesh(2, 2, device="cpu")
+
+
+def test_use_mesh_none_leaves_a_train_step_bitwise():
+    """A step under the degenerate mesh is the step without it."""
+    cfg = tget("qwen2-1.5b", smoke=True).with_overrides(recipe="tp_fsdp")
+    opt = sgd(constant_schedule(1e-2))
+    p0 = tzoo.init_params(cfg, 0, "cpu")
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32))
+    outs = []
+    for ctx in (None, "mesh"):
+        p = tree_map(torch.clone, p0)
+        fn = make_train_step(cfg, opt)
+        if ctx is None:
+            outs.append(fn(p, opt.init(p), 0, {"tokens": tok})[0])
+        else:
+            with dist.use_mesh(None, sharding.build_rules(cfg), device="cpu"):
+                outs.append(fn(p, opt.init(p), 0, {"tokens": tok})[0])
+    for a, b in zip(tree_flatten(outs[0])[0], tree_flatten(outs[1])[0]):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# kv_repeat_factor and the MoE grouping
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("model", [1, 2, 4, 8, 16])
+def test_kv_repeat_factor_matches_the_reference(model):
+    rules = sharding.build_rules(recipe="tp_fsdp")
+    mesh = _FakeMesh({"data": 2, "model": model})
+    for arch in ARCH_IDS:
+        tc, jc = tget(arch), jget(arch)
+        with dist.use_mesh(mesh, rules):
+            got = tattn.kv_repeat_factor(tc)
+        with jdist.use_mesh(mesh, rules):
+            want = jattn.kv_repeat_factor(jc)
+        assert got == want, arch
+    if model == 4:     # qwen2-1.5b: 12 heads on 2 KV heads
+        with dist.use_mesh(mesh, rules):
+            assert tattn.kv_repeat_factor(tget("qwen2-1.5b")) == 2
+
+
+def test_repeated_kv_heads_attend_as_grouped_ones():
+    """At smoke width the factor stays 1; with n_heads 8 on 2 KV heads
+    and model 4 it is 2: the repeated heads give the reference's output
+    (no mesh, plain grouping) within 1e-6, and the KV cache keeps the
+    model's 2 KV heads."""
+    over = dict(n_heads=8, n_kv_heads=2, d_head=8)
+    jc = dataclasses.replace(jget("qwen2-1.5b", smoke=True), **over)
+    tc = dataclasses.replace(tget("qwen2-1.5b", smoke=True), **over)
+    jp = jzoo.init_params(jc, 0)
+    pnp = jax.tree.map(lambda a: np.asarray(a[0]),
+                       jax.tree.map(np.asarray, jp)["stack"][0]["mixer"])
+    x = np.random.default_rng(2).normal(size=(2, 12, jc.d_model)
+                                        ).astype(np.float32)
+    want, _ = jattn.self_attention(jax.tree.map(jnp.asarray, pnp), jc,
+                                   jnp.asarray(x),
+                                   positions=jnp.arange(12)[None],
+                                   impl="dense")
+    rules = sharding.build_rules(recipe="tp_fsdp")
+    tp = {k: torch.tensor(v) for k, v in pnp.items()}
+    with dist.use_mesh(_FakeMesh({"data": 1, "model": 4}), rules):
+        assert tattn.kv_repeat_factor(tc) == 2
+        cache = tattn.init_kv_cache(tc, 2, 16, torch.float32)
+        got, cache = tattn.self_attention(
+            tp, tc, torch.from_numpy(x), positions=torch.arange(12)[None],
+            cache=cache, impl="dense")
+    assert tuple(cache.k.shape) == (2, 16, 2, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("cf", [2.0, 0.5])
+def test_moe_token_groups_match_the_reference(cf, monkeypatch):
+    """``expert_groups`` 2 (a data axis of 2): output and aux loss within
+    1e-5 of the reference's, each group's expert ids, destinations and
+    keep masks bitwise; at capacity factor 0.5 the groups drop other
+    assignments than one group of all the tokens would. The reference's
+    ``shard`` (a layout constraint, no value) is the identity here: its
+    constraint needs a mesh of real devices."""
+    jc = jget("granite-moe-1b-a400m", smoke=True)
+    jc = dataclasses.replace(jc, moe=dataclasses.replace(
+        jc.moe, capacity_factor=cf))
+    tc = tget("granite-moe-1b-a400m", smoke=True)
+    tc = dataclasses.replace(tc, moe=dataclasses.replace(
+        tc.moe, capacity_factor=cf))
+    p_np = jax.tree.map(np.asarray, jzoo.init_params(jc, 0))
+    moe_np = jax.tree.map(lambda a: a[0], p_np["stack"])[0]["mlp"]
+    x = np.random.default_rng(3).normal(size=(4, 16, jc.d_model)
+                                        ).astype(np.float32)
+    rules = {"param": {}, "act": {"expert_groups": ("pod", "data")}}
+    mesh = _FakeMesh({"data": 2, "model": 1})
+    monkeypatch.setattr(jmoe, "shard", lambda x, *axes: x)
+    with jdist.use_mesh(mesh, rules):
+        want_y, want_aux = jmoe.apply_moe(jax.tree.map(jnp.asarray, moe_np),
+                                          jc, jnp.asarray(x))
+    tp = jax.tree.map(torch.from_numpy, moe_np)
+    with dist.use_mesh(mesh, rules):
+        got_y, got_aux = tmoe.apply_moe(tp, tc, torch.from_numpy(x))
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), rtol=1e-5,
+                               atol=1e-5)
+    assert float(got_aux) == pytest.approx(float(want_aux), rel=1e-5)
+
+    t = 4 * 16
+    groups = x.reshape(2, t // 2, -1)
+    whole = []
+    for xf in (groups[0], groups[1], x.reshape(t, -1)):
+        probs = jax.nn.softmax(jnp.asarray(xf @ moe_np["router"]), axis=-1)
+        gv, ids = jax.lax.top_k(probs, jc.moe.top_k)
+        _, dest, _, keep = jmoe._dispatch_group(
+            jc, jmoe._capacity(jc, xf.shape[0]), jnp.asarray(xf), ids, gv)
+        tpr = torch.softmax(torch.from_numpy(xf) @ tp["router"], dim=-1)
+        _, tids = tmoe.top_k(tpr, tc.moe.top_k)
+        _, tdest, _, tkeep = tmoe._dispatch_group(
+            tc, tmoe._capacity(tc, xf.shape[0]), torch.from_numpy(xf), tids)
+        np.testing.assert_array_equal(tids.numpy(), np.asarray(ids))
+        np.testing.assert_array_equal(tdest.numpy(), np.asarray(dest))
+        np.testing.assert_array_equal(tkeep.numpy(), np.asarray(keep))
+        whole.append(tkeep.numpy())
+    if cf < 1.0:
+        grouped = np.concatenate([whole[0].reshape(t // 2, -1),
+                                  whole[1].reshape(t // 2, -1)])
+        assert not grouped.all()
+        with dist.use_mesh(_FakeMesh({"data": 1}), rules):
+            one_y, _ = tmoe.apply_moe(tp, tc, torch.from_numpy(x))
+        assert not np.allclose(one_y.numpy(), got_y.numpy())
+
+
+# ---------------------------------------------------------------------------
+# compression (host route) and the elastic mechanism in one process
+# ---------------------------------------------------------------------------
+
+def test_compressed_mean_host_side_matches_the_reference():
+    rng = np.random.default_rng(1)
+    for shape in ((8, 64), (4, 3, 5), (6,)):
+        x = rng.normal(size=shape).astype(np.float32)
+        mean, err = tcomp.compressed_allreduce_mean(torch.from_numpy(x))
+        jmean, jerr = jcomp.compressed_allreduce_mean(jnp.asarray(x))
+        np.testing.assert_allclose(mean.numpy(), np.asarray(jmean),
+                                   rtol=1e-6, atol=1e-7)
+        assert float(err) == pytest.approx(float(jerr), rel=1e-6)
+        np.testing.assert_allclose(mean.numpy(), x.mean(0), atol=MEAN_ATOL)
+
+
+def test_rescale_cycle_preserves_values(tmp_path):
+    """save -> rebuild_mesh -> reshard_tree in a world of one: the same
+    values back on a (1, 1) mesh, the checkpoint left behind."""
+    tree = {"params": {"w": torch.arange(32.0).reshape(8, 4)},
+            "opt": {"m": torch.ones((8, 4))}}
+    axes = {"params": {"w": ("embed", "ff")},
+            "opt": tel.replicated_axes(tree["opt"])}
+    assert axes["opt"] == {"m": (None, None)}
+    rules = {"param": {"embed": "data", "ff": "model"}, "act": {}}
+    out, mesh = tel.rescale_cycle(tmp_path, 7, tree, axes, rules,
+                                  new_workers=2)
+    assert tuple(mesh.shape) == (1, 1)
+    for a, b in zip(tree_flatten(out)[0], tree_flatten(tree)[0]):
+        assert torch.equal(a, b) and type(a) is torch.Tensor
+    assert dist.checkpoint.latest_step(tmp_path) == 7
+
+
+def test_factor_and_plans_match_the_reference():
+    for n in range(1, 20):
+        for pm in (1, 2, 4, 8):
+            assert tel.factor_mesh(n, pm) == jel.factor_mesh(n, pm)
+    for a, b in ((2, 4), (4, 2), (4, 6), (3, 3)):
+        assert dataclasses.astuple(tel.plan_reshard(a, b)) == \
+            dataclasses.astuple(jel.plan_reshard(a, b))
+
+
+# ---------------------------------------------------------------------------
+# a 4-rank gloo world: one spawn for the file
+# ---------------------------------------------------------------------------
+
+def _train_case(arch, recipe, jc_over=None):
+    jc = jget(arch, smoke=True).with_overrides(recipe=recipe)
+    tc = tget(arch, smoke=True).with_overrides(recipe=recipe)
+    jp = jzoo.init_params(jc, 0)
+    tokens = np.random.default_rng(0).integers(0, jc.vocab_size, (8, 32)
+                                               ).astype(np.int32)
+    tp = convert.params_from_numpy(tc, jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+    return jc, tc, jp, tokens, {"arch": arch, "recipe": recipe, "lr": 1e-2,
+                                "params": tp,
+                                "tokens": torch.from_numpy(tokens)}
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Spawn the 4 ranks once; each one's saved results, and the inputs."""
+    import torch.multiprocessing as mp
+
+    d = tmp_path_factory.mktemp("ranks")
+    cases = {"dense": _train_case("qwen2-1.5b", "tp_fsdp"),
+             "moe": _train_case("granite-moe-1b-a400m", "ep_fsdp")}
+    wx = np.random.default_rng(1).normal(size=(4, 64)).astype(np.float32)
+    payload = {"workers_x": torch.from_numpy(wx),
+               **{k: c[-1] for k, c in cases.items()}}
+    torch.save(payload, d / "payload.pt")
+    ctx = mp.start_processes(
+        ranks.run, args=(4, str(d / "store"), str(d), str(d / "payload.pt")),
+        nprocs=4, join=False, start_method="spawn")
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError("a rank hung")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    res = [torch.load(d / f"rank{r}.pt", weights_only=False)
+           for r in range(4)]
+    return {"res": res, "cases": cases, "workers_x": wx}
+
+
+def test_reshard_tree_shards_as_the_reference_places_them(world):
+    """Each rank's local shard is the slice JAX's ``devices_indices_map``
+    gives the same device of the reference's (2, 2) mesh (rank r, device
+    r, row-major), ``("data", "model")`` on one dim included; every leaf
+    round-trips bitwise."""
+    jm = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    tree = ranks.reshard_tree_input()
+    for r, res in enumerate(world["res"]):
+        assert res["coordinate"] == (r // 2, r % 2)
+        assert all(res["roundtrip"].values())
+        for k, full in tree.items():
+            spec = japi.logical_to_spec(ranks.RESHARD_AXES[k],
+                                        ranks.RESHARD_RULES["param"], jm,
+                                        tuple(full.shape))
+            idx = NamedSharding(jm, spec).devices_indices_map(
+                tuple(full.shape))[jax.devices()[r]]
+            want = np.asarray(full.numpy()[idx])
+            assert torch.equal(res["local"][k], torch.from_numpy(want)), k
+    assert world["res"][0]["placements"] == {"w": [0, 1], "b": [None, None],
+                                             "v": [0, 0], "s": [None, None]}
+
+
+def test_rebuild_mesh_after_failures_matches_the_reference(world):
+    devs = jax.devices()[:4]
+    for (failed, prefer), (shape, members) in zip(ranks.REBUILD_CASES,
+                                                  world["res"][0]["rebuild"]):
+        jm = jel.rebuild_mesh(devs, failed=failed, prefer_model=prefer)
+        assert shape == tuple(jm.devices.shape)
+        assert members == [d.id for d in jm.devices.flat]
+    for res in world["res"][1:]:
+        assert res["rebuild"] == world["res"][0]["rebuild"]
+
+
+def test_compressed_allreduce_group_route_matches_host_route(world):
+    wx = world["workers_x"]
+    host, herr = tcomp.compressed_allreduce_mean(torch.from_numpy(wx))
+    for res in world["res"]:
+        for key in ("cmean_mesh", "cmean_world"):
+            mean, err = res[key]
+            np.testing.assert_allclose(mean.numpy(), host.numpy(),
+                                       rtol=0, atol=ROUTE_TOL)
+            assert float(err) == pytest.approx(float(herr), abs=ROUTE_TOL)
+            np.testing.assert_allclose(mean.numpy(), wx.mean(0),
+                                       atol=MEAN_ATOL)
+
+
+def _expected_local(tc, rules, shape_tree):
+    fake = _FakeMesh({"data": 2, "model": 2})
+    out = {}
+    for (path, ax), t in zip(
+            tree_flatten_with_path(tzoo.param_axes(tc),
+                                   is_leaf=api.is_axes)[0],
+            tree_flatten(shape_tree)[0]):
+        spec = api.logical_to_spec(ax, rules["param"], fake, t.shape)
+        shp = list(t.shape)
+        for i, part in enumerate(spec):
+            for a in ((part,) if isinstance(part, str) else (part or ())):
+                shp[i] //= fake.shape[a]
+        out[path] = tuple(shp)
+    return out
+
+
+@pytest.mark.parametrize("case", ["dense", "moe"])
+def test_sharded_train_step_matches_single_process(world, case):
+    """One SGD step on a (2, 2) mesh: params within ``rtol`` 2e-3,
+    ``atol`` 2e-4 of the single-process step (the MoE under two token
+    groups, the reference's grouping on that mesh) and, for the dense
+    model, of the reference's unsharded step on the same converted
+    inputs; each rank holds the shapes the param rules give, its SGD
+    momentum too; the loss is the single-process loss."""
+    jc, tc, jp, tokens, payload = world["cases"][case]
+    rules = sharding.build_rules(tc)
+    opt = sgd(constant_schedule(payload["lr"]))
+    p = tree_map(torch.clone, payload["params"])
+    step = make_train_step(tc, opt, microbatches=1)
+    groups = _FakeMesh({"data": 2, "model": 1})
+    with dist.use_mesh(groups, rules if case == "moe" else {}):
+        single, _, _, m = step(p, opt.init(p), 0,
+                               {"tokens": torch.from_numpy(tokens)})
+    want_local = _expected_local(tc, rules, single)
+    moved = False
+    for res in world["res"]:
+        got = res[case]
+        assert got["loss"] == pytest.approx(float(m["loss"]), rel=1e-5)
+        assert got["local_shapes"] == want_local
+        assert got["state_local"] == {"['m']" + k: v
+                                      for k, v in want_local.items()}
+        for a, b, c in zip(tree_flatten(got["params"])[0],
+                           tree_flatten(single)[0],
+                           tree_flatten(payload["params"])[0]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), **STEP_TOL)
+            moved |= not torch.equal(b, c)
+    assert moved
+    full = {k: tuple(v.shape) for k, v in tree_flatten_with_path(single)[0]}
+    assert any(want_local[k] != full[k] for k in full)     # shards held
+    if case == "dense":
+        jopt = joptim.make_optimizer(jc, "sgd", lr=lambda s: payload["lr"])
+        jstep = jax.jit(jmake_train_step(jc, jopt, microbatches=1))
+        pj, *_ = jstep(jp, jopt.init(jp), jnp.asarray(0),
+                       {"tokens": jnp.asarray(tokens)})
+        for a, b in zip(tree_flatten(world["res"][0][case]["params"])[0],
+                        jax.tree.leaves(pj)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **STEP_TOL)
+
+
+def test_mesh_context_on_four_ranks_sizes_the_axes(world):
+    """Every rank saw axis_size("heads") == 2 under mesh_context((2, 2))."""
+    assert [r["axis_heads"] for r in world["res"]] == [2, 2, 2, 2]

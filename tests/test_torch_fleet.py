@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from repro.core import costmodel as jcm
 from repro.core import fleet as jfleet
 from repro.core import membership as jms
@@ -39,7 +41,6 @@ from repro_torch.core.sla import SLA, pick_codec
 from repro_torch.streams import generators as tgen
 from repro_torch.streams.generators import HyperplaneStream
 
-from test_torch_membership import _norm_decisions
 from test_torch_orchestrator import _compare_metrics
 
 
@@ -644,18 +645,22 @@ def test_fleet_with_a_failing_pool_matches_the_reference(monkeypatch):
     equal the reference's after every round, no tenant keeps the dead
     pool, and each tenant's ``JobMetrics`` (every event kept, worker
     counts pinned so no voluntary rescale reads the wall clock) and
-    normalised decisions equal the reference's. The port's states stay
-    on the CPU through the involuntary rescales."""
+    decisions equal the reference's, line for line, at equal device
+    counts: the reference's rescale sees one host device (``jax.devices``
+    cut to its first), as the port's world has one rank, so both name a
+    (1, 1) mesh. The port's states stay on the CPU through the
+    involuntary rescales."""
     dims = {"dl": 32, "sketch": 8}
     jf, tf = _feeds(jgen, 8, 64, dims), _feeds(tgen, 8, 64, dims)
     for name in jf:
         for a, b in zip(jf[name], tf[name]):
             np.testing.assert_array_equal(a.data["x"], b.data["x"])
     kw = dict(sample_rate=1.0, pin=True)
-    monkeypatch.setenv("JAX_PALLAS_INTERPRET", "1")
-    jfl, jchecks, jm = _fleet_run(jcm, jms, jfleet, jorch, jsla, jf, dims,
-                                  **kw)
-    monkeypatch.delenv("JAX_PALLAS_INTERPRET", raising=False)
+    with monkeypatch.context() as m:
+        m.setenv("JAX_PALLAS_INTERPRET", "1")
+        m.setattr(jax, "devices", lambda *a, _all=jax.devices: _all(*a)[:1])
+        jfl, jchecks, jm = _fleet_run(jcm, jms, jfleet, jorch, jsla, jf,
+                                      dims, **kw)
     tfl, tchecks, tm = _fleet_run(cm, tms, tfleet, torch_orch, tsla, tf,
                                   dims, device="cpu", **kw)
     assert tchecks == jchecks == [[]] * 8
@@ -672,8 +677,7 @@ def test_fleet_with_a_failing_pool_matches_the_reference(monkeypatch):
         assert tm[name].events == 8 * 64
         assert tm[name].migrations == jm[name].migrations
         assert tm[name].rescales == jm[name].rescales
-        assert _norm_decisions(tm[name].decisions) == \
-            _norm_decisions(jm[name].decisions)
+        assert tm[name].decisions == jm[name].decisions
         orch = tfl.orchestrators[name]
         assert "edge" not in set(orch._exec_assignment.values())
         assert orch._exec_assignment == \
@@ -681,6 +685,7 @@ def test_fleet_with_a_failing_pool_matches_the_reference(monkeypatch):
         assert all(t.device.type == "cpu" for t in tree_leaves(orch.states))
     assert any("elastic-recover" in ln for m in tm.values()
                for ln in m.decisions)
+    assert any("mesh=(1, 1)" in ln for ln in tm["dl"].decisions)
 
 
 def test_chip_smoke_phases_10_and_11_rehearse_on_the_cpu(monkeypatch):

@@ -5,11 +5,14 @@ package's ``tests/test_membership.py`` run against the port with
 and the same numpy batches — the directory's events, versions, specs and
 probe estimates equal, and the pool-loss, join and zero-event runs'
 ``JobMetrics`` equal to the reference's (preq within 1e-4), decisions
-included after one normalisation: the reference's rescale line names
-its mesh (``mesh=(1, 1)``), the port's the devices its states land on
-(``devices=1``)."""
+included: both packages' rescale lines name the mesh they rebuilt
+(``mesh=(d, m)``), compared at equal device counts."""
 
-import re
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
 import warnings
 
 import numpy as np
@@ -24,6 +27,7 @@ from repro.core import sla as jsla
 from repro.streams import generators as jgen
 
 from repro_torch._tree import tree_flatten_with_path
+from repro_torch.dist import elastic as elastic_mod
 from repro_torch.core import costmodel as cm
 from repro_torch.core import membership as tms
 from repro_torch.core import orchestrator as torch_orch
@@ -47,6 +51,8 @@ def StreamJob(*args, **kw):
     """The port's StreamJob on the CPU (its default is the card)."""
     return torch_orch.StreamJob(*args, device="cpu", **kw)
 
+
+_SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 LOOSE = SLA(max_latency_s=1e3, error_budget=11.0)
 
@@ -658,14 +664,38 @@ def test_directory_script_matches_the_reference():
     assert {POOL_JOINED, POOL_LEFT, POOL_FAILED, LINK_UPDATE} <= set(kinds)
 
 
-def _norm_decisions(decisions):
-    """The one normalisation between the packages' decision logs: the
-    reference's rescale line names the mesh it rebuilt (``mesh=(2, 1)``
-    over the test run's eight host devices), the port's the devices its
-    states land on (``devices=1``: a CPU job has one); both become
-    ``layout``."""
-    return [re.sub(r"mesh=\([^)]*\)|devices=\d+", "layout", ln)
-            for ln in decisions]
+_REF_RESCALE = """
+    import tempfile
+    from repro.core import orchestrator as jorch
+    from repro.dist import elastic
+    orch = jorch.Orchestrator(jorch.StreamJob(
+        "e", dim=8, ckpt_dir=tempfile.mkdtemp()))
+    for workers in (2, 4, 1):
+        orch._apply_rescale(3, elastic.plan_reshard(1, workers, reason="t"))
+    print("\\n".join(orch.metrics.decisions))
+"""
+
+
+def test_rescale_line_matches_the_reference_at_equal_device_counts(
+        tmp_path):
+    """Grow to 2 and 4 workers, shrink to 1: the reference in a process
+    with one host device (as ``tests/test_system.py`` runs it) and the
+    port in this one (a world of one rank) log the same lines, each
+    naming the mesh its states came back on: ``mesh=(1, 1)``."""
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=1",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(_SRC),
+                                           os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", textwrap.dedent(_REF_RESCALE)],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    want = out.stdout.strip().splitlines()
+    orch = Orchestrator(StreamJob("e", dim=8, ckpt_dir=str(tmp_path)))
+    for workers in (2, 4, 1):
+        orch._apply_rescale(3, elastic_mod.plan_reshard(1, workers,
+                                                        reason="t"))
+    assert orch.metrics.decisions == want
+    assert all("mesh=(1, 1)" in ln for ln in want), want
 
 
 def _pair_batches(n, dim=8, n_per=32, seed=0):
@@ -721,7 +751,9 @@ def test_topology_scenarios_match_the_reference(kind, monkeypatch):
     same numpy batches through both packages: ``JobMetrics`` equal
     (events, cuts, plan identities, codecs, drift alarms, preq within
     1e-4), migrations and rescales equal, and the decision logs equal
-    after the mesh/devices normalisation. The reference's top-k codec
+    line for line (``max_workers`` 1: the recovery's mesh is (1, 1) in
+    both, whatever the reference's host device count). The reference's
+    top-k codec
     runs its Pallas kernel in interpret mode, which keeps ties as the
     port does. Where the scenario rescales, the port's states come back
     bitwise and on the job's device."""
@@ -745,7 +777,7 @@ def test_topology_scenarios_match_the_reference(kind, monkeypatch):
     _compare_metrics(jm, tm)
     assert tm.migrations == jm.migrations and tm.rescales == jm.rescales
     assert tm.assignments == jm.assignments
-    assert _norm_decisions(tm.decisions) == _norm_decisions(jm.decisions)
+    assert tm.decisions == jm.decisions
     assert _plain(td.events) == _plain(jd.events)
     assert td.version == jd.version
     assert to._exec_assignment == jo._exec_assignment
