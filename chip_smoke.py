@@ -189,12 +189,25 @@ path on the card, and checks what comes out. Phases:
     capped at the one card: a (1, 1) mesh), the state through
     ``rescale_cycle`` and the final state bitwise, and ``--resume``
     from a step-3 checkpoint bitwise at step 6; (d) ``use_mesh(None)``
-    on the card leaving a train step bitwise. Each phase logs the
-    seconds since the start.
+    on the card leaving a train step bitwise;
+16. the dry run (``launch/dryrun.py``): (a) at full width over fake
+    worlds of 512 ranks, each a process of its own started beside (b):
+    qwen2-1.5b train_4k on the single pod (256 ranks) through
+    ``selftune.tune`` (the baseline and microbatches=2) and
+    granite-moe-1b-a400m prefill_32k on the multi-pod mesh through
+    ``python -m repro_torch.launch.dryrun``, both ``ok``, each record's
+    bytes a rank, flops, collectives and trace seconds logged; (b) the
+    analysis held to a real step: qwen2-1.5b's full config at phase 12's
+    shape on a (1, 1) mesh, the dry run's record (fake tensors) against
+    one real AdamW step on the card: argument bytes and ``OpCount``'s
+    operations exactly, the traced peak within 10% of
+    ``max_memory_allocated``, the step's ms; (c) one more leaf in the
+    real arguments must fail the argument check. No hand kernel
+    launches. Each phase logs the seconds since the start.
 
 The launch counts are set to 0 just before each main path (phases 3-5
-as one, each model of phases 6 and 14, phases 7, 8, 9, 10, 11, 12 and
-13, and each launcher of phase 15) and read
+as one, each model of phases 6 and 14, phases 7, 8, 9, 10, 11, 12, 13
+and 16, and each launcher of phase 15) and read
 just after it; every kernel must have launched on a main path. A line
 ``{"kernels": [...]}`` reports each kernel, the line before the last
 gives the card's name and power limit, and the last line is
@@ -4171,6 +4184,219 @@ def launchers_phase(dev) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry run (launch/dryrun.py) and its analysis against a real step
+# ---------------------------------------------------------------------------
+
+DRYRUN_TUNE = ("qwen2-1.5b", "train_4k")             # pod_16x16, through tune
+DRYRUN_TUNE_MB = 2                                    # the second candidate
+DRYRUN_CLI = ("granite-moe-1b-a400m", "prefill_32k")  # multipod_2x16x16
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_PEAK_TOL = 0.10           # traced peak against max_memory_allocated
+TUNE_SCRIPT = """
+import json
+from repro_torch.core import selftune as st
+best, res = st.tune({arch!r}, {shape!r}, [
+    st.Candidate({{}}, note="baseline"),
+    st.Candidate({{"microbatches": {mb}}}, note="microbatches={mb}")],
+    device={device!r})
+print(json.dumps({{"best": best.candidate.note, "results": [
+    {{"note": r.candidate.note, "ok": r.ok, "mem_gib": r.mem_gib,
+      "bound_s": r.bound_s, "record": r.record}} for r in res]}}))
+"""
+
+
+def dryrun_processes(device: str) -> dict:
+    """16a's two dry runs, each a process of its own (a fake world of 512
+    ranks cannot share a process with phase 15's real group), started
+    together: qwen2-1.5b train_4k on the single pod through
+    ``selftune.tune`` (the baseline and microbatches=2), and
+    granite-moe-1b-a400m prefill_32k on the multi-pod mesh through the
+    CLI. Fake tensors on ``device``: nothing is allocated on it."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    arch, shape = DRYRUN_TUNE
+    cmds = {
+        "tune": [sys.executable, "-c", TUNE_SCRIPT.format(
+            arch=arch, shape=shape, mb=DRYRUN_TUNE_MB, device=device)],
+        "cli": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                DRYRUN_CLI[0], "--shape", DRYRUN_CLI[1], "--mesh", "multi",
+                "--force", "--device", device],
+    }
+    return {k: subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+            for k, c in cmds.items()}
+
+
+def dryrun_line(rec: dict) -> str:
+    mem = rec["memory"]
+    return (f"argument {mem['argument_size_in_bytes']!r} B, temp "
+            f"{mem['temp_size_in_bytes']!r} B, total "
+            f"{mem['total_per_device'] / 2 ** 30!r} GiB a rank; flops "
+            f"{rec['cost']['flops']!r}, dot_flops {rec['cost']['dot_flops']!r}, "
+            f"bytes {rec['cost']['bytes accessed']!r}; collectives "
+            f"{json.dumps(rec['collectives'])}; dominant "
+            f"{rec['roofline']['dominant']}; trace_s {rec['trace_s']!r}")
+
+
+def dryrun_results(procs: dict) -> None:
+    """Wait for 16a's processes; both cells must be ``ok``."""
+    out = {}
+    try:
+        for k, p in procs.items():
+            stdout, stderr = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            out[k] = (p.returncode, stdout, stderr)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rc, stdout, stderr = out["tune"]
+    if rc:
+        raise AssertionError(f"16a tune exited {rc}:\n{stderr[-4000:]}")
+    tuned = json.loads(stdout.strip().splitlines()[-1])
+    for r in tuned["results"]:
+        rec = r["record"]
+        if not r["ok"]:
+            raise AssertionError(f"16a {DRYRUN_TUNE} {r['note']}: "
+                                 f"{rec.get('traceback', rec.get('error'))}")
+        log(f"  {DRYRUN_TUNE[0]} {DRYRUN_TUNE[1]} {rec['mesh']} "
+            f"({r['note']}, {rec['recipe']}): {dryrun_line(rec)}")
+        log(f"    tuner: mem_gib {r['mem_gib']!r} bound_s {r['bound_s']!r} "
+            f"(the modelled cluster's roofline, not the card's)")
+    log(f"  tuner's best: {tuned['best']}")
+    rc, stdout, stderr = out["cli"]
+    for ln in stdout.strip().splitlines():
+        log(f"    | {ln}")
+    path = (ROOT / "experiments" / "dryrun_torch" / "multipod_2x16x16"
+            / DRYRUN_CLI[0] / f"{DRYRUN_CLI[1]}.json")
+    rec = json.loads(path.read_text()) if path.exists() else {}
+    if rc or not rec.get("ok"):
+        raise AssertionError(f"16a {DRYRUN_CLI} exited {rc}: "
+                             f"{rec.get('traceback', stderr[-4000:])}")
+    log(f"  {DRYRUN_CLI[0]} {DRYRUN_CLI[1]} {rec['mesh']} ({rec['recipe']}): "
+        f"{dryrun_line(rec)}")
+
+
+def arguments_match(rec: dict, args) -> bool:
+    from repro_torch.launch import dryrun
+    return rec["memory"]["argument_size_in_bytes"] == dryrun.argument_bytes(args)
+
+
+def dryrun_real_step_check(dev) -> dict:
+    """16b-c: qwen2-1.5b's full config at phase 12's shape (TRAIN_B x
+    TRAIN_S, AdamW with fp32 master weights, its remat) on a (1, 1) mesh:
+    the dry run's record of the cell (fake tensors on the card's device
+    type) against one real step on the card. Arguments and ``OpCount``'s
+    operations exactly; the traced peak within DRYRUN_PEAK_TOL of
+    ``max_memory_allocated``; then the argument check on one more leaf,
+    which must fail. Returns the launch counts of the real steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.dist import use_mesh
+    from repro_torch.dist.sharding import build_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.op_count import OpCount
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(DRYRUN_TUNE[0])
+    shape = InputShape(f"train_{TRAIN_B}x{TRAIN_S}", TRAIN_S, TRAIN_B, "train")
+    mesh = make_local_mesh(1, 1, device=dev.type)
+    rules = build_rules(cfg, shape=shape)
+    rec = dryrun.trace_cell(cfg, shape, mesh, rules, device=dev.type)
+    log(f"  dry run of {cfg.name} at {TRAIN_B} x {TRAIN_S} on a (1, 1) mesh: "
+        f"{dryrun_line(rec)}")
+    free_card()
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    opt = make_optimizer(cfg, "adamw")
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    g = torch.Generator(device=dev).manual_seed(16)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S), device=dev,
+                           generator=g, dtype=torch.int32)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    args = (params, state, step, {"tokens": tokens})
+    real_args = dryrun.argument_bytes(args)
+    ops.reset_launch_counts()
+    with use_mesh(mesh, rules), OpCount() as count:
+        params, state, step, m = step_fn(*args)
+    torch.cuda.synchronize()
+    del m
+    free_card()         # the counted step's garbage, before the peak's step
+    args = (params, state, step, {"tokens": tokens})
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with use_mesh(mesh, rules):
+        params, state, step, m = step_fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = ops.launch_counts()
+    traced = rec["memory"]["total_per_device"]
+    gap = (traced - peak) / peak
+    same_args = arguments_match(rec, args)
+    log(f"  real step on the card: arguments {real_args!r} B (record "
+        f"{rec['memory']['argument_size_in_bytes']!r}: equal={same_args}); "
+        f"OpCount flops {count.flops!r} (record {rec['cost']['flops']!r}), "
+        f"products {count.products!r} (record {rec['cost']['dot_flops']!r}), "
+        f"bytes {count.bytes!r} (record {rec['cost']['bytes accessed']!r})")
+    log(f"    peak: max_memory_allocated {peak!r} B ({peak / 2 ** 30!r} GiB), "
+        f"traced {traced!r} B ({traced / 2 ** 30!r} GiB), gap {gap!r} "
+        f"(tol {DRYRUN_PEAK_TOL}); step {ms!r} ms, loss {float(m['loss'])!r}; "
+        f"launches {counts}")
+    log(f"    {nvidia_smi_line()}")
+    if not same_args or real_args != dryrun.argument_bytes(args):
+        raise AssertionError("16b: the record's argument bytes are not the "
+                             "real step's")
+    if count.flops != rec["cost"]["flops"] or \
+            count.products != rec["cost"]["dot_flops"]:
+        raise AssertionError("16b: the traced operations are not the real "
+                             "step's")
+    if abs(gap) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"16b: traced peak {traced} against the card's "
+                             f"{peak}: gap {gap}")
+    if any(counts.values()):
+        raise AssertionError(f"16b: a hand kernel launched: {counts}")
+    extra = (params, state, step, {"tokens": tokens,
+                                   "labels": tokens.clone()})
+    caught = not arguments_match(rec, extra)
+    log(f"  16c: one more leaf ({TRAIN_B} x {TRAIN_S} int32 labels): the "
+        f"argument check fails: {caught}")
+    if not caught:
+        raise AssertionError("16c: the argument check passed one more leaf")
+    del params, state, args, extra, m, step_fn
+    free_card()
+    return counts
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 16. Returns the launch counts of its real steps (none: the
+    dry run traces fake tensors, and training launches no hand kernel)."""
+    arch, shape = DRYRUN_TUNE
+    log(f"phase 16a: the dry run at full width: {arch} {shape} on pod_16x16 "
+        f"through selftune.tune (baseline, microbatches={DRYRUN_TUNE_MB}) "
+        f"and {DRYRUN_CLI[0]} {DRYRUN_CLI[1]} on multipod_2x16x16 through "
+        f"the CLI, each a process of its own")
+    procs = dryrun_processes(dev.type)
+    try:
+        log(f"phase 16b: the dry run's analysis against a real step "
+            f"({arch}, {TRAIN_B} x {TRAIN_S}, AdamW)")
+        counts = dryrun_real_step_check(dev)
+    except BaseException:
+        for p in procs.values():
+            p.kill()
+            p.wait()
+        raise
+    dryrun_results(procs)
+    return counts
+
+
 def free_card() -> None:
     """Collect garbage, then return the cache's free blocks to the card.
     A reference cycle can hold a model's tensors until the collector
@@ -4470,6 +4696,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     since(t_all)
     path_counts.update(launchers_phase(dev))
+
+    # -- phase 16: the dry run and its analysis against a real step -----------
+    free_card()
+    since(t_all)
+    path_counts["dryrun"] = dryrun_phase(dev)
     since(t_all)
 
     counts = {k: sum(c[k] for c in path_counts.values())

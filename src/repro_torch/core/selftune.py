@@ -4,15 +4,16 @@ Applications"), the port of the JAX package's ``core/selftune.py``.
 :func:`measure_operator_costs` closes the placement loop: the pipeline's
 ops are priced by what a counted run of them does
 (``launch/op_count.py``), not by their hand-written guesses. The
-execution-config tuner's candidates and verdicts (:class:`Candidate`,
-:class:`TuneResult`, :func:`default_candidates`) are here too; scoring a
-candidate needs the dry run (``launch/dryrun.py``), which is not ported
-yet, so :func:`evaluate_candidate` and :func:`tune` raise (ROADMAP.md,
-queue 1, item 9).
+execution-config tuner (:class:`Candidate`, :class:`TuneResult`,
+:func:`default_candidates`, :func:`evaluate_candidate`, :func:`tune`)
+scores each candidate by the dry run's traced step
+(``launch/dryrun.py``) against the modelled cluster's roofline.
 """
 
 from __future__ import annotations
 
+import json
+import pathlib
 from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -161,24 +162,63 @@ def default_candidates(cfg) -> List[Candidate]:
     return cands
 
 
-def _needs_dryrun(what: str):
-    return NotImplementedError(
-        f"selftune.{what} scores candidates with the dry run "
-        "(launch/dryrun.py::run_cell), which is not ported yet: see "
-        "ROADMAP.md, queue 1, item 9")
-
-
 def evaluate_candidate(arch: str, shape_name: str, cand: Candidate, *,
                        multi_pod: bool = False, tag: str = "tune",
-                       save: bool = False) -> TuneResult:
-    """Dry-run one candidate and extract the roofline verdict (needs the
-    dry run: raises until it is ported)."""
-    raise _needs_dryrun("evaluate_candidate")
+                       save: bool = False, device="cuda") -> TuneResult:
+    """Dry-run one candidate and extract the roofline verdict.
+
+    Runs in a process with no process group, or with the dry run's fake
+    world already up (``launch/mesh.py::fake_world``)."""
+    from repro_torch.launch.dryrun import run_cell
+    rec = run_cell(arch, shape_name, multi_pod, recipe=cand.recipe,
+                   overrides=cand.overrides or None, tag=tag, save=save,
+                   force=True, device=device)
+    if not rec.get("ok"):
+        return TuneResult(cand, False, error=rec.get("error", "?"),
+                          record=rec)
+    rf = rec["roofline"]
+    return TuneResult(
+        cand, True,
+        mem_gib=rec["memory"]["total_per_device"] / 2**30,
+        bound_s=max(rf["t_compute_s"], rf["t_memory_s"], rf["t_collective_s"]),
+        dominant=rf["dominant"],
+        roofline_fraction=rf["roofline_fraction"],
+        useful_ratio=rf["useful_flops_ratio"],
+        record=rec,
+    )
 
 
 def tune(arch: str, shape_name: str, candidates: List[Candidate], *,
          mem_cap_gib: float = 16.0, log_path: Optional[str] = None,
-         stop_after_no_improve: int = 3):
-    """Greedy sweep over ``candidates`` (needs the dry run: raises until
-    it is ported)."""
-    raise _needs_dryrun("tune")
+         stop_after_no_improve: int = 3, device="cuda"
+         ) -> Tuple[TuneResult, List[TuneResult]]:
+    """Greedy sweep with early stop (3 consecutive <5% improvements).
+    ``mem_cap_gib`` is the modelled chip's cap, as in the JAX package."""
+    results: List[TuneResult] = []
+    best: Optional[TuneResult] = None
+    stale = 0
+    for cand in candidates:
+        r = evaluate_candidate(arch, shape_name, cand, device=device)
+        results.append(r)
+        if best is None or r.better_than(best, mem_cap_gib):
+            improved = best is None or (
+                best.bound_s - r.bound_s) > 0.05 * best.bound_s or (
+                best.mem_gib > mem_cap_gib >= r.mem_gib)
+            best = r
+            stale = 0 if improved else stale + 1
+        else:
+            stale += 1
+        if log_path:
+            p = pathlib.Path(log_path)
+            p.parent.mkdir(parents=True, exist_ok=True)
+            with p.open("a") as f:
+                f.write(json.dumps({
+                    "arch": arch, "shape": shape_name, "note": cand.note,
+                    "ok": r.ok, "mem_gib": round(r.mem_gib, 2),
+                    "bound_s": r.bound_s, "dominant": r.dominant,
+                    "roofline_fraction": r.roofline_fraction,
+                    "error": r.error[:200],
+                }) + "\n")
+        if stale >= stop_after_no_improve:
+            break
+    return best, results

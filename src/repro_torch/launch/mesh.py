@@ -6,11 +6,51 @@ a rank); a process with no group is a world of one
 (:func:`repro_torch.dist.world_ranks`). ``make_production_mesh`` carves
 the single-pod (16,16)=256-device mesh or the multi-pod (2,16,16)=512 one
 out of a world that large, as the JAX package's does out of its devices.
+The dry run (and only the dry run) makes that world a fake one in one
+process (:func:`fake_world`), as the JAX package forces 512 host
+devices; a real world of processes stays the launchers' route.
 """
 
 from __future__ import annotations
 
+import atexit
 import math
+
+
+def fake_world(n: int) -> int:
+    """Start a fake process group of ``n`` ranks in this process (this
+    process is rank 0; a collective on it moves nothing), unless a fake
+    world of at least ``n`` ranks is up already. Returns the world's size.
+
+    A fake world and a real one never mix: with a real group up (a
+    launcher's ranks, or the world of one that ``dist.world_ranks``
+    makes) this raises ``RuntimeError``, as it does for a fake world
+    smaller than ``n``."""
+    import torch.distributed as tdist
+
+    if tdist.is_initialized():
+        if tdist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a real process group ({tdist.get_backend()}, "
+                f"{tdist.get_world_size()} ranks) is up: a fake world of "
+                f"{n} ranks cannot share its process")
+        have = tdist.get_world_size()
+        if have < n:
+            raise RuntimeError(f"a fake world of {have} ranks is up; "
+                               f"{n} are needed")
+        return have
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "this torch has no fake process group "
+            "(torch.testing._internal.distributed.fake_pg.FakeStore), "
+            "which the dry run's fake world needs") from e
+    tdist.init_process_group("fake", store=FakeStore(), rank=0,
+                             world_size=n)
+    from repro_torch.dist import _close_world
+    atexit.register(_close_world)
+    return n
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
@@ -24,8 +64,8 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
     if len(ranks) < n:
         raise RuntimeError(
             f"need {n} devices for mesh {shape}, have {len(ranks)} — "
-            "start one process per device (the 256/512-device dry run "
-            "is not part of the port yet)")
+            "start a fake world first (fake_world(512); launch/dryrun.py "
+            "does this) or one process per device")
     return device_mesh(resolve_device(device).type, ranks[:n], shape, axes)
 
 

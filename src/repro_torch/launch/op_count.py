@@ -9,7 +9,12 @@ step runs, on any device, and counts
   (2 per multiply-add), which the registry leaves out;
 * one operation per output element for a pointwise op and one per input
   element for a reduction, as XLA's HLO cost analysis counts them;
-* bytes as each op's tensor inputs plus its outputs; a view moves none.
+* bytes as each op's tensor inputs plus its outputs; a view moves none,
+  nor does a metadata query (``prim.device``, which a fake tensor
+  dispatches).
+
+The matrix products' share is kept apart as well (``products``): the
+JAX package's HLO analysis counts those alone.
 
 Each aten op is counted on its own, as if nothing were fused, so the
 bytes are an upper bound next to XLA's ``bytes accessed`` of a fused
@@ -41,9 +46,16 @@ _ACTIVE: list = []      # the counts in force, innermost last
 _aten = torch.ops.aten
 
 
+_VIEWS: dict = {}        # op -> whether it returns a view (its schema's)
+
+
 def _is_view(func) -> bool:
-    return any(r.alias_info is not None and not r.alias_info.is_write
-               for r in func._schema.returns)
+    v = _VIEWS.get(func)
+    if v is None:
+        v = _VIEWS[func] = any(
+            r.alias_info is not None and not r.alias_info.is_write
+            for r in func._schema.returns)
+    return v
 
 
 def _tensors(tree):
@@ -74,6 +86,7 @@ class OpCount(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.flops = 0.0
+        self.products = 0.0     # the matrix products' share of flops
         self.bytes = 0.0
 
     def __enter__(self):
@@ -87,11 +100,13 @@ class OpCount(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if _is_view(func):
-            return out
+        if func.namespace == "prim" or _is_view(func):
+            return out      # a fake tensor's metadata query, or a view
         outs = _tensors(out)
         ops = _product_ops(func, args, kwargs, out)
-        if ops is None:
+        if ops is not None:
+            self.products += ops
+        else:
             ops = 0.0
             if torch.Tag.pointwise in func.tags:
                 ops = float(sum(t.numel() for t in outs))

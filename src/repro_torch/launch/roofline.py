@@ -1,22 +1,127 @@
-"""Chip constants of the analytic cost model, the roofline flops rules
-that declare a DL op's cost, and the per-event costs a counted op step
-measures (:func:`op_event_costs`).
+"""Chip constants of the analytic cost model, the dry run's roofline
+terms (:class:`Roofline`, :func:`from_trace`, :func:`collective_bytes`),
+the roofline flops rules that declare a DL op's cost, and the per-event
+costs a counted op step measures (:func:`op_event_costs`).
 
-These are the modelled-cluster numbers the placement cost model prices
-plans with (``core/costmodel.py``'s ``Resource`` defaults and the
-``CLOUD_POD`` preset). They are kept numerically identical to the JAX
-package's so that both packages choose the same plans on the same
+The constants are the modelled-cluster numbers the placement cost model
+prices plans with (``core/costmodel.py``'s ``Resource`` defaults and the
+``CLOUD_POD`` preset) and the dry run's roofline divides by. They are
+kept numerically identical to the JAX package's so that both packages
+choose the same plans and the tuner the same candidates on the same
 inputs. They describe the modelled cloud accelerator of the cost model,
-not a measurement of the card the port runs on.
+not a measurement of the card the port runs on: a roofline time here is
+a modelled time, never the card's.
+
+    compute term    = product flops (per rank) / PEAK_FLOPS
+    memory term     = bytes (per rank)         / HBM_BW
+    collective term = link bytes (per rank)    / LINK_BW
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 PEAK_FLOPS = 197e12        # modelled flop/s per chip
 HBM_BW = 819e9             # modelled memory bytes/s per chip
 LINK_BW = 50e9             # modelled link bytes/s per link
+
+# link bytes per byte of a collective's result (ring algorithms), the JAX
+# package's factors
+_COLLECTIVE_FACTORS = {
+    "all-reduce": 2.0,
+    "all-gather": 1.0,
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
+    "collective-permute": 1.0,
+    "collective-broadcast": 1.0,
+}
+
+
+def collective_bytes(record: dict) -> Dict[str, float]:
+    """Per-rank link bytes by collective kind, factors applied, and their
+    ``"total"``, from a traced record's ``collective_out_bytes`` (each
+    kind's result bytes, as :func:`repro_torch.launch.hlo_analysis.
+    analyze` counts them)."""
+    out = {k: v * _COLLECTIVE_FACTORS[k]
+           for k, v in record.get("collective_out_bytes", {}).items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+@dataclass
+class Roofline:
+    flops_per_dev: float
+    hbm_bytes_per_dev: float
+    link_bytes_per_dev: float
+    chips: int
+    model_flops_global: float = 0.0
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops_per_dev / PEAK_FLOPS
+
+    @property
+    def t_memory(self) -> float:
+        return self.hbm_bytes_per_dev / HBM_BW
+
+    @property
+    def t_collective(self) -> float:
+        return self.link_bytes_per_dev / LINK_BW
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_time(self) -> float:
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        traced_global = self.flops_per_dev * self.chips
+        return self.model_flops_global / traced_global if traced_global \
+            else 0.0
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Fraction of peak the step achieves if it runs at the bound:
+        useful MODEL_FLOPS / (chips * peak * bound_time)."""
+        denom = self.chips * PEAK_FLOPS * self.bound_time
+        return self.model_flops_global / denom if denom else 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "flops_per_dev": self.flops_per_dev,
+            "hbm_bytes_per_dev": self.hbm_bytes_per_dev,
+            "link_bytes_per_dev": self.link_bytes_per_dev,
+            "chips": self.chips,
+            "model_flops_global": self.model_flops_global,
+            "t_compute_s": self.t_compute,
+            "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective,
+            "dominant": self.dominant,
+            "useful_flops_ratio": self.useful_flops_ratio,
+            "roofline_fraction": self.roofline_fraction,
+        }
+
+
+def from_trace(record: dict, cfg, shape, chips: int) -> Roofline:
+    """Roofline terms of one rank's traced step (the record of
+    :func:`repro_torch.launch.hlo_analysis.analyze`): its matrix products'
+    flops (the JAX package's HLO flops count products alone), its
+    unfused bytes (an upper bound next to XLA's fused traffic) and its
+    link bytes. Eager PyTorch unrolls every loop, so nothing is scaled
+    by trip counts."""
+    return Roofline(
+        flops_per_dev=record["dot_flops"],
+        hbm_bytes_per_dev=record["hbm_bytes"],
+        link_bytes_per_dev=record["collective_bytes_total"],
+        chips=chips,
+        model_flops_global=model_flops(cfg, shape),
+    )
 
 
 def op_event_costs(count, n_events: int) -> Tuple[float, float]:

@@ -190,9 +190,11 @@ def constrain_caches(caches):
     """Apply logical-axis sharding constraints to a cache tree (no-op
     without an active mesh)."""
     from repro_torch.dist import mesh_active, shard
+    from repro_torch.dist.api import is_axes
     if not mesh_active():
         return caches
-    return tree_map(lambda x, ax: shard(x, *ax), caches, cache_axes(caches))
+    return tree_map(lambda x, ax: shard(x, *ax), caches, cache_axes(caches),
+                    is_leaf=is_axes)
 
 
 def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,

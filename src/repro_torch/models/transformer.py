@@ -320,6 +320,13 @@ def _constrain_layer_params(lp, axes):
         and x.dim() + 1 == len(ax) else x, lp, axes, is_leaf=is_axes)
 
 
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` is ``b``'s elements: the same storage, offset and dtype (not
+    compared by data pointer, which a fake tensor of the dry run lacks)."""
+    return (a.dtype == b.dtype and a.storage_offset() == b.storage_offset()
+            and a.untyped_storage()._cdata == b.untyped_storage()._cdata)
+
+
 def _write_back(stacked, per_layer):
     """The stacked cache tree after the loop. A leaf the stacked tree
     already holds is updated IN PLACE, layer by layer (a layer's KV
@@ -336,7 +343,7 @@ def _write_back(stacked, per_layer):
         if isinstance(buf, torch.Tensor) and buf.shape[1:] == news[0].shape:
             for i, t in enumerate(news):
                 dst = buf[i]
-                if t.data_ptr() != dst.data_ptr() or t.dtype != dst.dtype:
+                if not _same_memory(t, dst):
                     dst.copy_(t)
             leaves.append(buf)
         else:

@@ -71,8 +71,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
 
     Under a mesh of more than one device (:func:`repro_torch.dist.
     use_mesh`) the step is data-parallel over the global batch: each rank
-    gathers the params and optimizer state (DTensors or replicated plain
-    tensors), takes its slice of every (micro)batch along the mesh axes
+    gathers the params, optimizer state and batch (DTensors or replicated
+    plain tensors), takes its slice of every (micro)batch along the mesh axes
     that ``batch`` maps onto, computes its gradients under a view of the
     mesh with those axes at size 1 (so MoE token groups are its own),
     averages gradients, loss and metrics over them, applies the update
@@ -165,7 +165,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
             return update(params, opt_state, step, loss, metrics, grads,
                           treedef)
         rules = dist.current_rules()
-        params, opt_state = dist.gather_tree((params, opt_state))
+        params, opt_state, batch = dist.gather_tree((params, opt_state,
+                                                     batch))
         dev = tree_flatten(params)[0][0].device
         batch = _batch_on(batch, dev)
         axes = _batch_axes(batch, rules, mesh)

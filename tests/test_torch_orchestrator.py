@@ -309,8 +309,11 @@ def test_unported_options_raise():
     """A live topology (``membership=``) excludes a static ``cluster=``,
     as in the JAX package. ``measured_costs`` and ``fuse="xla"`` are
     ported (``tests/test_torch_selftune.py``,
-    ``tests/test_torch_fuse_segments.py``); what stays unported is the
-    execution-config tuner's scoring, which needs the dry run."""
+    ``tests/test_torch_fuse_segments.py``), and so is the
+    execution-config tuner's scoring: ``evaluate_candidate`` and
+    ``tune`` run the dry run (``tests/test_torch_dryrun.py``). Here a
+    candidate with an unknown recipe fails in the cell's rules, before
+    any process group is touched, and comes back as a failed verdict."""
     from repro_torch.core import selftune
     from repro_torch.core.costmodel import ClusterSpec
     from repro_torch.core.membership import MembershipDirectory
@@ -318,8 +321,11 @@ def test_unported_options_raise():
         torch_orch.Orchestrator(torch_orch.StreamJob(
             "m", device="cpu", cluster=ClusterSpec.edge_cloud(),
             membership=MembershipDirectory(ClusterSpec.edge_cloud())))
-    for call in (lambda: selftune.tune("qwen2-1.5b", "train_4k", []),
-                 lambda: selftune.evaluate_candidate(
-                     "qwen2-1.5b", "train_4k", selftune.Candidate({}))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    bad = selftune.Candidate({}, recipe="bogus", note="bogus")
+    r = selftune.evaluate_candidate("qwen2-1.5b", "train_4k", bad,
+                                    device="cpu")
+    assert not r.ok and r.error.startswith("ValueError: unknown recipe")
+    assert r.record["recipe"] == "bogus" and not r.record["ok"]
+    best, results = selftune.tune("qwen2-1.5b", "train_4k", [bad, bad],
+                                  device="cpu")
+    assert [x.ok for x in results] == [False, False] and best is results[0]
