@@ -203,12 +203,31 @@ path on the card, and checks what comes out. Phases:
     operations exactly, the traced peak within 10% of
     ``max_memory_allocated``, the step's ms; (c) one more leaf in the
     real arguments must fail the argument check. No hand kernel
-    launches. Each phase logs the seconds since the start.
+    launches;
+17. the step on shards (``dist/fsdp.py``: a rank holds its shards of the
+    params and optimizer state, gathers a layer's weights where it runs
+    them, reduce-scatters their gradients), two ranks of a (2, 1) mesh
+    on the one card, each a process of its own joined through a
+    ``file://`` store with gloo (NCCL refuses two ranks on one device),
+    held to the one-rank run on the same card: (a) qwen2-1.5b's full
+    config (``fsdp``, remat "full"), seed-0 weights, one AdamW step at
+    phase 12's shape (TRAIN_B x TRAIN_S) from TRAIN_LR: loss and grad norm
+    within rtol 1e-3, every updated param within 2 x lr plus one bf16 ulp,
+    each rank's arguments its shards' exact bytes (reckoned from the
+    rules, and the dry run's), its ``max_memory_allocated`` less them
+    below the whole params' and state's bytes, and the dry run of the
+    (2, 1) cell over a fake world of two (a process of its own) within
+    10% of that peak; (b) seamless-m4t-medium (``tp_fsdp``): prefill of
+    SERVE_BATCH prompts and 8 greedy decode steps with
+    ``impl="kernel"``, each rank its half of the prompts, the tokens
+    equal to the one rank's on the same rows, the flash kernel launched
+    in the ranks (their launches are the path's). Each phase logs the
+    seconds since the start.
 
 The launch counts are set to 0 just before each main path (phases 3-5
 as one, each model of phases 6 and 14, phases 7, 8, 9, 10, 11, 12, 13
-and 16, and each launcher of phase 15) and read
-just after it; every kernel must have launched on a main path. A line
+and 16, each launcher of phase 15, and 17b in each rank's process) and
+read just after it; every kernel must have launched on a main path. A line
 ``{"kernels": [...]}`` reports each kernel, the line before the last
 gives the card's name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -4397,6 +4416,432 @@ def dryrun_phase(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the step on shards, two ranks on the one card (dist/fsdp.py)
+# ---------------------------------------------------------------------------
+
+SHARD_MESH = (2, 1)                          # (data, model): two ranks
+SHARD_TRAIN_ARCH = "qwen2-1.5b"              # fsdp, remat "full"
+SHARD_SERVE_ARCH = "seamless-m4t-medium"     # tp_fsdp
+SHARD_DECODES = 8                            # greedy decode steps
+SHARD_RTOL = 1e-3        # loss and grad norm against the one-rank step
+SHARD_TIMEOUT_S = 600
+SHARD_DRY_SCRIPT = """
+import json
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.dist.sharding import build_rules
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_world, make_local_mesh
+fake_world({ranks})
+cfg = get_config({arch!r})
+shape = InputShape("train_{b}x{s}", {s}, {b}, "train")
+rec = dryrun.trace_cell(cfg, shape, make_local_mesh({data}, {model},
+                        device={device!r}), build_rules(cfg, shape=shape),
+                        device={device!r})
+print(json.dumps(rec))
+"""
+
+
+def shard_optimizer(cfg):
+    """17a's AdamW (the config's state dtype and fp32 master weights) at
+    TRAIN_LR from the first step: a step at the cosine schedule's warm-up
+    start moves nothing."""
+    from repro_torch.train.optim import make_optimizer
+    return make_optimizer(cfg, "adamw", lr=TRAIN_LR, total_steps=1,
+                          warmup=0)
+
+
+def shard_state_shapes(cfg, opt):
+    """The optimizer state of ``cfg``'s whole params as ``meta`` tensors."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    with torch.device("meta"):
+        return opt.init(zoo.param_shapes(cfg))
+
+
+def shard_bytes(cfg, opt, rules) -> int:
+    """A rank's exact argument bytes in 17a, reckoned from the rules on a
+    stand-in of the (2, 1) mesh: its shards of the params and the AdamW
+    state, the step, its rows of the batch."""
+    from repro_torch._tree import tree_flatten
+    from repro_torch.dist.api import is_axes, logical_to_spec
+    from repro_torch.models import model_zoo as zoo
+
+    class StandIn:
+        shape = dict(zip(("data", "model"), SHARD_MESH))
+
+    def local(t, ax, table):
+        spec = logical_to_spec(ax, table, StandIn, t.shape)
+        split = math.prod(StandIn.shape[a] for part in spec if part
+                          for a in ((part,) if isinstance(part, str)
+                                    else part))
+        return t.numel() // split * t.element_size()
+
+    axes = zoo.param_axes(cfg)
+    total = 4                                            # the int32 step
+    for tree, ax_tree in ((zoo.param_shapes(cfg), axes),
+                          (shard_state_shapes(cfg, opt),
+                           opt.state_axes(axes))):
+        total += sum(local(t, ax, rules["param"]) for t, ax in zip(
+            tree_flatten(tree)[0], tree_flatten(ax_tree, is_leaf=is_axes)[0]))
+    import torch
+    tokens = torch.empty((TRAIN_B, TRAIN_S), dtype=torch.int32,
+                         device="meta")
+    return total + local(tokens, ("batch", None), rules["act"])
+
+
+def serve_prompts(cfg):
+    """Phase 6's first SERVE_BATCH prompts."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, size=PROMPT).astype(np.int32)
+            for _ in range(SERVE_BATCH)]
+
+
+def greedy_tokens(params, cfg, batch):
+    """``zoo.prefill``, then SHARD_DECODES greedy ``zoo.decode_step``s,
+    all with ``impl="kernel"``: (B, 1 + SHARD_DECODES) tokens on the
+    host."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    logits, caches = zoo.prefill(params, cfg, batch, MAX_LEN, impl="kernel")
+    out = []
+    for i in range(SHARD_DECODES + 1):
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+        out.append(tok)
+        if i < SHARD_DECODES:
+            logits, caches = zoo.decode_step(params, cfg, caches, tok,
+                                             impl="kernel")
+    return torch.cat(out, dim=1).cpu()
+
+
+def shard_train_reference(dev, work: pathlib.Path) -> dict:
+    """17a's one-rank step: qwen2-1.5b's seed-0 weights at full width, one
+    AdamW step of TRAIN_B x TRAIN_S tokens on the card with no mesh. The
+    tokens and the updated params go to ``work`` for the ranks (on the
+    host: the card is freed for them)."""
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(SHARD_TRAIN_ARCH)
+    opt = shard_optimizer(cfg)
+    g = torch.Generator(device=dev).manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S), device=dev,
+                           generator=g, dtype=torch.int32)
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    state = opt.init(params)
+    t0 = time.perf_counter()
+    params, state, _, m = make_train_step(cfg, opt)(
+        params, state, 0, {"tokens": tokens})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "ms": ms}
+    torch.save(tokens.cpu(), work / "tokens.pt")
+    torch.save(tree_map(lambda t: t.cpu(), params), work / "ref_params.pt")
+    log(f"  17a one rank: loss {out['loss']!r} grad_norm "
+        f"{out['grad_norm']!r}, step {ms!r} ms (first step on the card)")
+    del params, state, m
+    free_card()
+    return out
+
+
+def shard_serve_reference(dev):
+    """17b's one-rank serving: seamless-m4t-medium's seed-0 weights, each
+    rank's rows of the prompts as a call of their own (the shapes a rank
+    runs), greedy tokens on the host."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve.engine import wave_inputs
+
+    cfg = get_config(SHARD_SERVE_ARCH)
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    prompts = serve_prompts(cfg)
+    n = SERVE_BATCH // SHARD_MESH[0]
+    with torch.no_grad():
+        tokens = torch.cat([greedy_tokens(params, cfg, wave_inputs(
+            cfg, prompts[lo:lo + n], dev)) for lo in range(0, SERVE_BATCH, n)])
+    del params
+    free_card()
+    return tokens
+
+
+def shard_train_rank(dev, work: pathlib.Path) -> dict:
+    """17a on one rank: the seed-0 weights drawn whole, then only this
+    rank's shards kept (DTensors of them), the AdamW state made from the
+    shards, the rank's rows of the batch; one step on the shards. Its
+    arguments, peak, loss, grad norm, and each updated param against the
+    one-rank step's (2 x lr plus one bf16 ulp of it)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch import dist
+    from repro_torch._tree import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.dist import fsdp
+    from repro_torch.dist.api import logical_to_spec, spec_to_placements
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(SHARD_TRAIN_ARCH)
+    opt = shard_optimizer(cfg)
+    axes = zoo.param_axes(cfg)
+    with mesh_context(cfg, *SHARD_MESH, device=dev.type) as mesh:
+        rules = dist.current_rules()
+        full = zoo.init_params(cfg, seed=0, device=dev)
+        p_lay = fsdp.Layout(full, axes, rules, mesh)
+        local = p_lay.local(full)
+        del full
+        free_card()
+        s_lay = fsdp.Layout(shard_state_shapes(cfg, opt),
+                            opt.state_axes(axes), rules, mesh)
+        params, state = p_lay.placed(local), s_lay.placed(opt.init(local))
+        del local
+        tokens = torch.load(work / "tokens.pt").to(dev)
+        spec = logical_to_spec(("batch", None), rules["act"], mesh,
+                               tokens.shape)
+        batch = {"tokens": distribute_tensor(
+            tokens, mesh, spec_to_placements(spec, mesh), src_data_rank=None)}
+        step = torch.zeros((), dtype=torch.int32, device=dev)
+        args = (params, state, step, batch)
+        arg_bytes = dryrun.argument_bytes(args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params, state, _, m = make_train_step(cfg, opt)(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        del args, state, batch
+        ref = p_lay.local(torch.load(work / "ref_params.pt", mmap=True))
+        excess, over, checked = -math.inf, 0, 0
+        for got, want in zip(tree_flatten(params)[0], tree_flatten(ref)[0]):
+            a = got.to_local().float()
+            b = want.to(dev).float()
+            ulp = torch.ldexp(torch.ones_like(b), torch.frexp(b)[1] - 8)
+            gap = (a - b).abs() - (2 * TRAIN_LR + torch.where(b == 0, 0.0,
+                                                              ulp))
+            excess = max(excess, float(gap.max()))
+            over += int((gap > 0).sum())
+            checked += b.numel()
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "arg_bytes": arg_bytes, "peak": peak, "ms": ms,
+            "excess": excess, "over": over, "checked": checked}
+
+
+def shard_serve_rank(dev) -> dict:
+    """17b on one rank: seamless-m4t-medium's seed-0 weights drawn whole,
+    then only this rank's shards kept; prefill of its rows of the prompts
+    and SHARD_DECODES greedy decode steps on the shards, each layer
+    gathered as it runs, the flash kernel in its cross-attention. The
+    launch counts are from 0 just before."""
+    import torch
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import fsdp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve.engine import wave_inputs
+
+    cfg = get_config(SHARD_SERVE_ARCH)
+    with mesh_context(cfg, *SHARD_MESH, device=dev.type) as mesh:
+        rules = dist.current_rules()
+        full = zoo.init_params(cfg, seed=0, device=dev)
+        params = fsdp.Layout(full, zoo.param_axes(cfg), rules,
+                             mesh).local(full)
+        del full
+        free_card()
+        n = SERVE_BATCH // SHARD_MESH[0]
+        lo = mesh.get_local_rank("data") * n
+        batch = wave_inputs(cfg, serve_prompts(cfg)[lo:lo + n], dev)
+        arg_bytes = dryrun.argument_bytes(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad(), fsdp.sharded(mesh, rules, ("data",)):
+            tokens = greedy_tokens(params, cfg, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    return {"rows": (lo, lo + n), "tokens": tokens, "launches": counts,
+            "s": secs, "arg_bytes": arg_bytes,
+            "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def sharded_rank(rank: int, store: str, work: str, device: str) -> None:
+    """One of phase 17's two ranks: a process of its own on the one card,
+    joined with the other through a ``file://`` store with gloo (NCCL
+    refuses two ranks on one device). 17a, then 17b; what it holds goes
+    to ``work/rank<rank>.pt``."""
+    import datetime
+    import torch
+    import torch.distributed as tdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tdist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank,
+        world_size=math.prod(SHARD_MESH),
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        dev = torch.device(device)
+        work = pathlib.Path(work)
+        out = {"train": shard_train_rank(dev, work)}
+        free_card()
+        out["serve"] = shard_serve_rank(dev)
+        torch.save(out, work / f"rank{rank}.pt")
+    finally:
+        tdist.destroy_process_group()
+
+
+def shard_processes(work: pathlib.Path, device: str) -> dict:
+    """The two ranks and the dry run of 17a's (2, 1) cell over a fake
+    world of two (a process of its own: a fake world cannot share a
+    process with a real group), each writing its output to ``work``."""
+    import os
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(SRC), str(ROOT)]))
+    script = SHARD_DRY_SCRIPT.format(
+        ranks=math.prod(SHARD_MESH), arch=SHARD_TRAIN_ARCH, b=TRAIN_B,
+        s=TRAIN_S, data=SHARD_MESH[0], model=SHARD_MESH[1], device=device)
+    cmds = {"dry": [sys.executable, "-c", script]}
+    for r in range(math.prod(SHARD_MESH)):
+        cmds[r] = [sys.executable, "-c",
+                   f"import chip_smoke; chip_smoke.sharded_rank({r}, "
+                   f"{str(work / 'store')!r}, {str(work)!r}, {device!r})"]
+    procs = {}
+    for k, c in cmds.items():
+        with open(work / f"{k}.out", "w") as out, \
+                open(work / f"{k}.err", "w") as err:
+            procs[k] = subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                        stdout=out, stderr=err)
+    return procs
+
+
+def shard_wait(procs: dict, work: pathlib.Path) -> dict:
+    """Wait for phase 17's processes; each must exit 0."""
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    for k, p in procs.items():
+        rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        if rc:
+            raise AssertionError(f"17: process {k} exited {rc}:\n"
+                                 f"{(work / f'{k}.err').read_text()[-4000:]}")
+    return {k: (work / f"{k}.out").read_text() for k in procs}
+
+
+def sharded_phase(dev) -> dict:
+    """Phase 17: the step on shards (``dist/fsdp.py``) on two ranks of the
+    one card, held to the one-rank step: 17a qwen2-1.5b's AdamW step at
+    full width (``fsdp``, remat "full") and its dry run on a (2, 1) fake
+    world, 17b seamless-m4t-medium's greedy serving (``tp_fsdp``) with the
+    flash kernel. Returns the launch counts of the ranks' paths."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.dist.sharding import build_rules
+    from repro_torch.models import model_zoo as zoo
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_phase17_"))
+    procs = {}
+    try:
+        log(f"phase 17a: {SHARD_TRAIN_ARCH} at full width, one AdamW step of "
+            f"{TRAIN_B} x {TRAIN_S} tokens: one rank, then two ranks of a "
+            f"{SHARD_MESH} mesh on the card (gloo), each on its shards")
+        ref = shard_train_reference(dev, work)
+        log(f"phase 17b: {SHARD_SERVE_ARCH}, prefill of {SERVE_BATCH} x "
+            f"{PROMPT} tokens and {SHARD_DECODES} greedy decode steps "
+            f"(impl='kernel'): one rank, then the two ranks on their shards")
+        ref_tokens = shard_serve_reference(dev)
+        t0 = time.perf_counter()
+        procs = shard_processes(work, dev.type)
+        outs = shard_wait(procs, work)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                 for r in range(math.prod(SHARD_MESH))]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  the ranks and the dry run: {wall!r} s of wall time")
+
+    cfg = get_config(SHARD_TRAIN_ARCH)
+    opt = shard_optimizer(cfg)
+    shape = InputShape(f"train_{TRAIN_B}x{TRAIN_S}", TRAIN_S, TRAIN_B, "train")
+    rules = build_rules(cfg, shape=shape)
+    want_args = shard_bytes(cfg, opt, rules)
+    whole = sum(t.numel() * t.element_size() for t in tree_leaves(
+        (zoo.param_shapes(cfg), shard_state_shapes(cfg, opt))))
+    rec = json.loads(outs["dry"].strip().splitlines()[-1])
+    if not rec.get("ok", True) or rec.get("step_layout") != "sharded":
+        raise AssertionError(f"17a: the dry run's record: {rec}")
+    log(f"  dry run of the (2, 1) cell: {dryrun_line(rec)}")
+    traced = rec["memory"]["total_per_device"]
+    for r, out in enumerate(ranks):
+        t = out["train"]
+        gap = (traced - t["peak"]) / t["peak"]
+        log(f"  rank {r} 17a: loss {t['loss']!r} grad_norm {t['grad_norm']!r}"
+            f" (one rank {ref['loss']!r}, {ref['grad_norm']!r}); step "
+            f"{t['ms']!r} ms; arguments {t['arg_bytes']!r} B (the rules' "
+            f"{want_args!r}, the dry run's "
+            f"{rec['memory']['argument_size_in_bytes']!r}); "
+            f"max_memory_allocated {t['peak']!r} B, less the arguments "
+            f"{t['peak'] - t['arg_bytes']!r} B (whole params and state "
+            f"{whole!r} B); traced peak {traced!r} B, gap {gap!r} (tol "
+            f"{DRYRUN_PEAK_TOL}); params over 2 x lr + 1 bf16 ulp: "
+            f"{t['over']} of {t['checked']} (largest excess {t['excess']!r})")
+        for k in ("loss", "grad_norm"):
+            if abs(t[k] - ref[k]) > SHARD_RTOL * abs(ref[k]):
+                raise AssertionError(f"17a rank {r}: {k} {t[k]} against the "
+                                     f"one-rank {ref[k]}")
+        if t["over"]:
+            raise AssertionError(f"17a rank {r}: {t['over']} params moved "
+                                 "past the one-rank step's by more than "
+                                 "2 x lr + 1 bf16 ulp")
+        if not t["arg_bytes"] == want_args == \
+                rec["memory"]["argument_size_in_bytes"]:
+            raise AssertionError(f"17a rank {r}: arguments are not the "
+                                 "rank's shards")
+        if not t["peak"] - t["arg_bytes"] < whole:
+            raise AssertionError(f"17a rank {r}: the step held the whole "
+                                 "params and state")
+        if abs(gap) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"17a rank {r}: traced peak {traced} "
+                                 f"against the card's {t['peak']}")
+    counts = {}
+    for r, out in enumerate(ranks):
+        sv = out["serve"]
+        lo, hi = sv["rows"]
+        same = torch.equal(sv["tokens"], ref_tokens[lo:hi])
+        launched = {k: v for k, v in sv["launches"].items() if v}
+        log(f"  rank {r} 17b: rows {lo}:{hi}, tokens equal the one rank's: "
+            f"{same}; {sv['s']!r} s; arguments {sv['arg_bytes']!r} B, "
+            f"max_memory_allocated {sv['peak']!r} B; launches {launched}")
+        if not same:
+            raise AssertionError(f"17b rank {r}: tokens {sv['tokens']} "
+                                 f"against {ref_tokens[lo:hi]}")
+        if not sv["launches"].get("flash_attention"):
+            raise AssertionError(f"17b rank {r}: no flash launch")
+        for k, v in sv["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    log(f"  phase 17 launches: {counts}")
+    log(f"    {nvidia_smi_line()}")
+    return counts
+
+
 def free_card() -> None:
     """Collect garbage, then return the cache's free blocks to the card.
     A reference cycle can hold a model's tensors until the collector
@@ -4701,6 +5146,11 @@ def main(argv=None) -> int:
     free_card()
     since(t_all)
     path_counts["dryrun"] = dryrun_phase(dev)
+
+    # -- phase 17: the step on shards, two ranks on the one card --------------
+    free_card()
+    since(t_all)
+    path_counts["sharded"] = sharded_phase(dev)
     since(t_all)
 
     counts = {k: sum(c[k] for c in path_counts.values())

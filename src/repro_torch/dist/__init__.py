@@ -13,9 +13,10 @@ reached through a handful of names:
     *logical* axis names: a DTensor is redistributed to the placements
     its spec gives; strict no-ops outside a mesh, on a rank mismatch,
     with empty rules or a replicated spec, and on a plain tensor (under a
-    mesh, a plain tensor is the rank's own values: the train step
-    computes on gathered parameters and its rank's slice of the batch,
-    between explicit collectives).
+    mesh, a plain tensor is the rank's own values: the train and serve
+    steps compute on the rank's shards of the params, gathered where
+    they are used, and its slice of the batch, between explicit
+    collectives: :mod:`fsdp`).
   * :func:`pin_params`   — tree-level :func:`shard_param`.
   * :func:`axis_size`    — resolved size of a logical axis (1 when
     unmapped / no mesh); drives KV-head TP duplication and MoE token
@@ -24,7 +25,8 @@ reached through a handful of names:
     :mod:`sharding` (recipe->rules), :mod:`checkpoint` (step-dir
     save/restore + async), :mod:`compression` (int8 edge-uplink gradient
     compression), :mod:`elastic` (mesh rebuild, resharding, worker
-    add/remove decisions).
+    add/remove decisions), :mod:`fsdp` (the step on shards: layouts,
+    the gather at use and its reduce-scatter).
 
 A mesh's devices are the ranks of the default process group, one device
 each. A process with no group gets a world of one, made from a
@@ -257,7 +259,8 @@ def axis_size(name: str) -> int:
 
 def gather_tree(tree):
     """Every DTensor leaf as its full value (a collective over its mesh);
-    other leaves as they are."""
+    other leaves as they are. For what runs outside a step (a checkpoint
+    save, a rescale): a step gathers a leaf only where it uses it."""
     return tree_map(lambda x: x.full_tensor() if _is_dtensor(x) else x, tree)
 
 

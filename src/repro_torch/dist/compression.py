@@ -32,11 +32,17 @@ from repro_torch.kernels import ops as kops
 _QMAX = 127.0
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, amax=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int8: returns (q int8, scale fp32) with
-    ``x ~= q * scale`` and elementwise error <= scale/2."""
+    ``x ~= q * scale`` and elementwise error <= scale/2. ``amax`` (a
+    0-dim tensor) is the whole tensor's largest magnitude where ``x`` is
+    one rank's shard of it (the max over the shards' own): one scale for
+    the whole tensor, as the unsharded wire format has; by default
+    ``x``'s own."""
     xf = x.float()
-    amax = torch.max(torch.abs(xf))
+    if amax is None:
+        amax = torch.max(torch.abs(xf))
     scale = torch.clamp(amax, min=1e-30) / _QMAX
     q = torch.clamp(torch.round(xf / scale), -_QMAX, _QMAX).to(torch.int8)
     return q, scale
@@ -46,9 +52,10 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def int8_roundtrip(x: torch.Tensor) -> torch.Tensor:
-    """Quantize-dequantize in one step (what the wire does to a tensor)."""
-    return dequantize_int8(*quantize_int8(x)).to(x.dtype)
+def int8_roundtrip(x: torch.Tensor, amax=None) -> torch.Tensor:
+    """Quantize-dequantize in one step (what the wire does to a tensor;
+    ``amax`` as in :func:`quantize_int8`)."""
+    return dequantize_int8(*quantize_int8(x, amax)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -14,15 +14,20 @@ unsupported op fails the cell. Records are written to
 package's go to ``experiments/dryrun/``), so reruns skip green cells.
 
 What the port's steps do on a mesh of several ranks, and the record
-says (``step_layout``):
+says (``step_layout``: ``"sharded"``; ``"one device"`` on a mesh of one):
 
   * a train cell runs ``make_train_step(cfg, make_optimizer(cfg,
-    "adamw"))``, which gathers every parameter, optimizer moment and the
-    batch, computes its rank's slice of the batch and reshards
-    (ROADMAP.md fault 17): ``"gathered"``;
-  * a prefill or decode cell gathers the params too (the port has no
-    sharded serving route) and runs its rank's slice of the batch and of
-    the caches.
+    "adamw"))``: a rank holds its shards of the params and of the AdamW
+    state and its slice of the batch across the step; the model gathers
+    a layer's weights where the layer runs (again in the backward's
+    recompute under remat) and the leaves outside the stacks once, and
+    the gradients are reduce-scattered layer by layer in the backward
+    (``dist/fsdp.py``). Its peak holds the shards, one layer's gathered
+    weights and the entry leaves, shard-sized fp32 gradients, and the
+    activations of its slice of the batch;
+  * a prefill or decode cell holds the params' shards, gathers each
+    layer's weights as it runs and frees them after, and runs its rank's
+    slice of the batch and of the caches.
 
 The memory record keeps the JAX package's keys where their meaning
 holds: ``argument_size_in_bytes`` is the exact bytes of the rank's
@@ -59,7 +64,7 @@ from repro_torch import resolve_device
 from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.configs import (ARCH_IDS, SHAPES_BY_NAME, get_config,
                                  shapes_for, skipped_shapes_for)
-from repro_torch.dist import gather_tree, spans_devices, use_mesh
+from repro_torch.dist import fsdp, spans_devices, use_mesh
 from repro_torch.dist.api import (is_axes, logical_to_spec, mesh_sizes,
                                   spec_to_placements)
 from repro_torch.dist.sharding import build_rules, param_sharding_tree
@@ -68,7 +73,7 @@ from repro_torch.launch import roofline as rf
 from repro_torch.launch.mesh import fake_world, make_production_mesh
 from repro_torch.models import model_zoo as zoo
 from repro_torch.train.optim import make_optimizer
-from repro_torch.train.train_step import _MeshView, make_train_step
+from repro_torch.train.train_step import make_train_step
 
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 OUT = ROOT / "experiments" / "dryrun_torch"
@@ -153,9 +158,9 @@ def _rank_slice(tree, axes, mesh):
 
 
 def _serve_fn(cfg, shape, mesh, rules, impl):
-    """The prefill or decode step as one rank runs it: the params
-    gathered, the rank's slice of the batch and the caches, under a view
-    of the mesh with the batch's axes at 1."""
+    """The prefill or decode step as one rank runs it: on the params'
+    shards (each layer gathered where it runs), the rank's slice of the
+    batch and the caches (``dist.fsdp.sharded``)."""
     from torch.distributed.tensor import DTensor
 
     def axes_of(tokens):
@@ -165,25 +170,25 @@ def _serve_fn(cfg, shape, mesh, rules, impl):
                      for i, p in enumerate(tokens.placements)
                      if p.is_shard(0))
 
-    def view(axes):
-        return _MeshView({n: (1 if n in axes else s)
-                          for n, s in mesh_sizes(mesh).items()})
+    def shards(params):
+        return fsdp.Layout(params, zoo.param_axes(cfg), rules,
+                           mesh).local(params)
 
     if shape.kind == "prefill":
         def prefill_step(params, batch):
             axes = axes_of(batch["tokens"])
-            params = gather_tree(params)
+            params = shards(params)
             batch = _rank_slice(batch, axes, mesh)
-            with use_mesh(view(axes), rules):
+            with fsdp.sharded(mesh, rules, axes):
                 return zoo.prefill(params, cfg, batch, max_len=shape.seq_len,
                                    impl=impl)
         return prefill_step
 
     def serve_step(params, caches, tokens):
         axes = axes_of(tokens)
-        params = gather_tree(params)
+        params = shards(params)
         caches, tokens = _rank_slice((caches, tokens), axes, mesh)
-        with use_mesh(view(axes), rules):
+        with fsdp.sharded(mesh, rules, axes):
             return zoo.decode_step(params, cfg, caches, tokens, impl=impl)
     return serve_step
 
@@ -245,19 +250,21 @@ def trace_cell(cfg, shape, mesh, rules, impl="chunked", device="cuda"
         "collective_ops": t["collective_ops"],
         "roofline": rf.from_trace(
             t, cfg, shape, math.prod(mesh_sizes(mesh).values())).to_dict(),
-        "step_layout": "gathered" if spans_devices(mesh) else "one device",
+        "step_layout": "sharded" if spans_devices(mesh) else "one device",
         "params_total": counts["total"],
         "params_active": counts["active"],
     }
 
 
 _NOTES = {
-    "train": "params, optimizer state and batch gathered on every rank "
-             "(fault 17); each rank computes its slice of the batch",
-    "prefill": "params gathered on every rank (no sharded serving route); "
-               "each rank runs its slice of the batch",
-    "decode": "params gathered on every rank (no sharded serving route); "
-              "each rank runs its slice of the batch and the caches",
+    "train": "a rank holds its shards of the params and AdamW state and its "
+             "slice of the batch; each layer's weights gathered where used "
+             "(and in the recompute), its gradients reduce-scattered",
+    "prefill": "a rank holds its shards of the params, gathers each layer's "
+               "weights as it runs, and runs its slice of the batch",
+    "decode": "a rank holds its shards of the params, gathers each layer's "
+              "weights as it runs, and runs its slice of the batch and the "
+              "caches",
 }
 
 

@@ -31,7 +31,6 @@ from repro_torch.models.transformer import (
     Slot, forward_lm, layer_plan, lm_loss, model_specs,
     run_prefix, run_stack,
 )
-from repro_torch.models.transformer import encode as _encode
 
 __all__ = [
     "model_specs", "init_params", "param_axes", "param_shapes",
@@ -148,13 +147,25 @@ def forward_cached(params, cfg: ArchConfig, tokens, caches, *, offset,
                    memory=None, impl: str = "chunked"):
     """tokens: (B,S) starting at absolute position `offset` (an int or a
     0-dim tensor). Updates ``caches`` in place; returns (last-token
-    logits, caches)."""
+    logits, caches). Inside a step on shards (``dist.fsdp.sharded``)
+    ``params`` are the rank's shards, each layer's gathered where it runs
+    and freed after it."""
+    specs = tfm.param_specs(cfg)
+    return _forward_cached(tfm.gather_entry(params, specs), cfg, tokens,
+                           caches, offset=offset, memory=memory, impl=impl,
+                           specs=specs)
+
+
+def _forward_cached(params, cfg, tokens, caches, *, offset, memory, impl,
+                    specs):
+    """:func:`forward_cached` on params whose entry leaves are gathered."""
     B, S = tokens.shape
     x = embed_tokens(params["embed"], cfg, tokens)
     off = int(offset)
     if cfg.pos_embed == "sincos":
         x = x + _sincos_at(cfg, S, off, x.device).to(x.dtype)[None]
     positions = tfm._positions(B, S, off, device=x.device)
+    which = "dec/" if cfg.family == "encdec" else ""
     if cfg.family == "encdec":
         pre, rep, pat = layer_plan(cfg, cfg.dec_layers, decoder=True)
         prefix_params, stack_params = params["dec"]["prefix"], params["dec"]["stack"]
@@ -163,13 +174,14 @@ def forward_cached(params, cfg: ArchConfig, tokens, caches, *, offset,
         prefix_params, stack_params = params["prefix"], params["stack"]
     new = dict(caches)
     x, pc, _ = run_prefix(prefix_params, cfg, pre, x, positions=positions,
-                          memory=memory, caches=caches["prefix"], impl=impl)
+                          memory=memory, caches=caches["prefix"], impl=impl,
+                          specs=tfm._sub(specs, which + "prefix"))
     new["prefix"] = pc
     if rep:
-        which = "dec/stack" if cfg.family == "encdec" else "stack"
         x, sc, _ = run_stack(stack_params, cfg, pat, x, positions=positions,
                              memory=memory, caches=caches["stack"] or None,
-                             impl=impl, stack_axes=tfm._stack_axes(cfg, which))
+                             impl=impl,
+                             stack_specs=tfm._sub(specs, which + "stack"))
         new["stack"] = sc
     x = apply_norm(params["final_norm"], cfg, x)
     return lm_logits(params["embed"], cfg, x[:, -1:, :]), new
@@ -205,10 +217,12 @@ def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
     dev = params_device(params)
+    specs = tfm.param_specs(cfg)
+    params = tfm.gather_entry(params, specs)
     memory = None
     src_len = 0
     if cfg.family == "encdec":
-        memory = _encode(params, cfg, batch, impl)
+        memory = tfm.encode_gathered(params, cfg, batch, impl, specs)
         src_len = memory.shape[1]
     elif cfg.family == "vlm":
         memory = tfm.frontend_memory(params, cfg, batch)
@@ -217,8 +231,8 @@ def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
                                           device=dev))
     # cross caches start empty -> computed from memory on first pass
     caches = _clear_cross(caches)
-    logits, caches = forward_cached(params, cfg, tokens, caches, offset=0,
-                                    memory=memory, impl=impl)
+    logits, caches = _forward_cached(params, cfg, tokens, caches, offset=0,
+                                     memory=memory, impl=impl, specs=specs)
     if memory is not None:
         caches["memory"] = memory
     return logits, caches

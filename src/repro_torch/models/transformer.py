@@ -10,6 +10,10 @@ rematerialisation (``cfg.remat``, :func:`_remat_wrap`) when it runs
 under autograd. The reference's gather barrier (``_diff_barrier``) has
 no counterpart: it is an XLA scheduling barrier (it keeps the partitioner
 from hoisting FSDP all-gathers out of the scan) with no numeric effect.
+Inside a step on shards (:func:`repro_torch.dist.fsdp.sharded`) the
+params are the rank's shards, gathered where the reference pins them: a
+layer's inside its body, a prefix slot's before the slot, and the leaves
+outside the stacks once at each entry point (:func:`gather_entry`).
 Slot mixers: attn | mla | cross | attn_cross | mamba | rwkv; slot MLPs:
 dense | moe | rwkv_cm | none.
 
@@ -32,8 +36,7 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch._tree import (tree_flatten, tree_flatten_with_path,
                                tree_map, tree_unflatten)
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist import mesh_active, shard, shard_param
-from repro_torch.dist.api import is_axes
+from repro_torch.dist import fsdp, shard
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -294,7 +297,9 @@ def _remat_wrap(fn, cfg: ArchConfig):
     products' outputs and recomputes the rest, and anything else
     (``"full"``) saves only the layer's input and recomputes its body in
     the backward. The model draws no random numbers, so the RNG state is
-    not carried into the recompute."""
+    not carried into the recompute. The recompute re-enters the mesh and
+    sharded contexts the forward ran under (``dist.fsdp.contexts``): on
+    the card it runs on the autograd engine's thread, which has none."""
     if cfg.remat == "none":
         return fn
     kw = {}
@@ -304,20 +309,32 @@ def _remat_wrap(fn, cfg: ArchConfig):
             _dots_policy)
 
     def wrapped(x, lp):
+        ctx = fsdp.contexts()
+
+        def body(x, lp):
+            with fsdp.entered(ctx):
+                return fn(x, lp)
         return torch_checkpoint.checkpoint(
-            fn, x, lp, use_reentrant=False, preserve_rng_state=False, **kw)
+            body, x, lp, use_reentrant=False, preserve_rng_state=False, **kw)
     return wrapped
 
 
-def _constrain_layer_params(lp, axes):
-    """Pin each sliced per-layer param to its sharded layout (the
-    reference's pin inside its scan body): ``axes`` is the stack's axes
-    tree, whose leading ``layers`` entry the slice has dropped."""
-    if axes is None:
-        return lp
-    return tree_map(
-        lambda x, ax: shard_param(x, ax[1:]) if isinstance(x, torch.Tensor)
-        and x.dim() + 1 == len(ax) else x, lp, axes, is_leaf=is_axes)
+def _constrain_layer_params(lp, specs):
+    """A layer's params as the layer uses them: the reference pins each
+    sliced per-layer param to its sharded layout inside its scan body;
+    here, inside a step on shards, each is gathered to its full value
+    (:func:`repro_torch.dist.fsdp.gather`; ``specs``: the layer's specs,
+    :func:`_layer_specs`). The identity where ``specs`` is None."""
+    return fsdp.gather(lp, specs)
+
+
+def _layer_specs(stack_specs):
+    """The stack's specs without their leading ``layers`` entry (never
+    sharded): one layer's; None stays None."""
+    if stack_specs is None:
+        return None
+    return tree_map(lambda s: type(s)(*s[1:]), stack_specs,
+                    is_leaf=fsdp.is_spec)
 
 
 def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -352,18 +369,25 @@ def _write_back(stacked, per_layer):
 
 
 def run_stack(params, cfg: ArchConfig, pattern, x, *, positions, memory,
-              caches, impl, stack_axes=None):
+              caches, impl, stack_specs=None):
     """params: stacked slot-param list; caches: stacked cache trees or
     None (updated in place where given). Without caches and under
-    autograd each layer runs under ``cfg.remat``. ``stack_axes`` (the
-    stack's logical axes, :func:`stack_axes_for`) pins each layer's
-    params. Returns (x, caches, aux), aux summed over the layers."""
+    autograd each layer runs under ``cfg.remat``. ``stack_specs`` (the
+    stack's specs inside a step on shards, :func:`param_specs`; else
+    None) gathers each layer's params where the layer runs: inside the
+    body ``cfg.remat`` checkpoints, so under ``"full"`` and ``"dots"``
+    the gathered weights are freed after their layer and the backward
+    gathers them again, while under ``"none"`` autograd keeps every
+    layer's gathered weights until the backward; with caches (serving),
+    under ``no_grad``, freed after the layer. Returns (x, caches, aux),
+    aux summed over the layers."""
     n = len(tree_flatten_with_path(params)[0][0][1])
-    layers = [_constrain_layer_params(lp, stack_axes)
-              for lp in _layers(params, n)]
+    layers = _layers(params, n)
+    specs = _layer_specs(stack_specs)
     aux = 0.0
     if caches is None:
         def body(x, lp):
+            lp = _constrain_layer_params(lp, specs)
             a_layer = 0.0
             for i, slot in enumerate(pattern):
                 x, _, a = apply_slot(lp[i], cfg, slot, x, positions=positions,
@@ -378,6 +402,8 @@ def run_stack(params, cfg: ArchConfig, pattern, x, *, positions, memory,
         return x, None, aux
     per_layer = []
     for l, lp in enumerate(layers):
+        with torch.no_grad():
+            lp = _constrain_layer_params(lp, specs)
         lc = _layer(caches, l)
         new_caches = []
         a_layer = 0.0
@@ -392,12 +418,16 @@ def run_stack(params, cfg: ArchConfig, pattern, x, *, positions, memory,
 
 
 def run_prefix(params, cfg: ArchConfig, slots, x, *, positions, memory,
-               caches, impl):
+               caches, impl, specs=None):
+    """The layers before the stack, one slot at a time; ``specs`` (the
+    prefix's, inside a step on shards) gathers each slot's params before
+    it runs."""
     aux = 0.0
     new_caches = []
     for i, slot in enumerate(slots):
         c = caches[i] if caches is not None else None
-        x, nc, a = apply_slot(params[i], cfg, slot, x, positions=positions,
+        p = fsdp.gather(params[i], None if specs is None else specs[i])
+        x, nc, a = apply_slot(p, cfg, slot, x, positions=positions,
                               memory=memory, cache=c, impl=impl)
         new_caches.append(nc)
         aux = aux + a
@@ -405,23 +435,70 @@ def run_prefix(params, cfg: ArchConfig, slots, x, *, positions, memory,
 
 
 # ---------------------------------------------------------------------------
-# Frontend stubs
+# The params' specs inside a step on shards
 # ---------------------------------------------------------------------------
 
-def stack_axes_for(cfg: ArchConfig, which: str = "stack"):
-    """Logical-axes tree for the stacked layer params (sharding pins)."""
-    from repro_torch.models import params as pmod
-    node = model_specs(cfg)
-    for k in which.split("/"):
-        node = node[k]
-    return pmod.axes_of(node)
+@functools.lru_cache(maxsize=64)
+def _param_specs(cfg: ArchConfig, sizes: tuple, table: tuple):
+    """The spec tree from the model's ``Spec`` leaves (their shapes and
+    axes: no tensor is made, so a traced step counts no op for it)."""
+    mesh, table = fsdp.MeshShape(dict(sizes)), dict(table)
+    return tree_map(lambda sp: fsdp.leaf_spec(sp.axes, sp.shape, table, mesh),
+                    model_specs(cfg))
 
 
-def _stack_axes(cfg: ArchConfig, which: str = "stack"):
-    """:func:`stack_axes_for` under an active mesh, else None (nothing to
-    pin: the specs are not rebuilt on every forward of one device)."""
-    return stack_axes_for(cfg, which) if mesh_active() else None
+def param_specs(cfg: ArchConfig):
+    """The spec of every parameter of ``cfg`` (a tree like its params)
+    inside a step on shards (:func:`repro_torch.dist.fsdp.sharded`), by
+    that step's mesh and param rules; None outside one. Computed once a
+    (config, mesh shape, rules)."""
+    from repro_torch.dist.api import mesh_sizes
+    ctx = fsdp.current()
+    if ctx is None:
+        return None
+    table = tuple(sorted((k, v if isinstance(v, str) else tuple(v))
+                         for k, v in ctx.rules.get("param", {}).items()))
+    return _param_specs(cfg, tuple(mesh_sizes(ctx.mesh).items()), table)
 
+
+def _sub(specs, path: str):
+    """``specs`` at ``path`` ("stack", "enc/prefix", ...); None stays
+    None."""
+    if specs is None:
+        return None
+    for k in path.split("/"):
+        specs = specs[k]
+    return specs
+
+
+_LAYER_KEYS = ("prefix", "stack")
+
+
+def gather_entry(params, specs):
+    """``params`` with every leaf outside the layer stacks and prefixes
+    (``embed``, the final norms, ``frontend_proj``) gathered once to its
+    full value, by ``specs`` (:func:`param_specs`); the prefixes and
+    stacks stay shards, gathered where their layers run. ``params`` as
+    it is where ``specs`` is None. A tied embedding is gathered once for
+    both its uses, so both gradients reach its one shard."""
+    if specs is None:
+        return params
+    out = {}
+    for k, v in params.items():
+        if k in _LAYER_KEYS:
+            out[k] = v
+        elif k in ("enc", "dec"):
+            out[k] = {kk: (vv if kk in _LAYER_KEYS
+                           else fsdp.gather(vv, specs[k][kk]))
+                      for kk, vv in v.items()}
+        else:
+            out[k] = fsdp.gather(v, specs[k])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Frontend stubs
+# ---------------------------------------------------------------------------
 
 def frontend_memory(params, cfg: ArchConfig, batch: dict):
     """Project stubbed modality embeddings into d_model memory tokens."""
@@ -449,9 +526,12 @@ def _positions(B, S, offset=0, device="cpu"):
 
 
 def forward_lm(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
-    """Eval forward. Returns (logits fp32, aux_loss fp32 scalar)."""
+    """Eval forward. Returns (logits fp32, aux_loss fp32 scalar). Inside
+    a step on shards ``params`` are the rank's shards (gathered at use)."""
+    specs = param_specs(cfg)
+    params = gather_entry(params, specs)
     if cfg.family == "encdec":
-        return _forward_encdec(params, cfg, batch, impl=impl)
+        return _forward_encdec(params, cfg, batch, impl=impl, specs=specs)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(params["embed"], cfg, tokens)
@@ -462,13 +542,13 @@ def forward_lm(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
     positions = _positions(B, S, device=x.device)
     x, _, aux1 = run_prefix(params["prefix"], cfg, pre, x,
                             positions=positions, memory=memory, caches=None,
-                            impl=impl)
+                            impl=impl, specs=_sub(specs, "prefix"))
     aux2 = 0.0
     if rep:
         x, _, aux2 = run_stack(params["stack"], cfg, pat, x,
                                positions=positions, memory=memory,
                                caches=None, impl=impl,
-                               stack_axes=_stack_axes(cfg))
+                               stack_specs=_sub(specs, "stack"))
     x = apply_norm(params["final_norm"], cfg, x)
     return lm_logits(params["embed"], cfg, x), aux_tensor(aux1 + aux2,
                                                           x.device)
@@ -486,6 +566,14 @@ def aux_tensor(aux, device) -> torch.Tensor:
 def encode(params, cfg: ArchConfig, batch: dict, impl: str):
     """The encoder of an enc-dec model: frontend memory + sincos, the
     bidirectional stack, the final norm."""
+    specs = param_specs(cfg)
+    return encode_gathered(gather_entry(params, specs), cfg, batch, impl,
+                           specs)
+
+
+def encode_gathered(params, cfg: ArchConfig, batch: dict, impl: str, specs):
+    """:func:`encode` on params whose entry leaves are gathered
+    (:func:`gather_entry`; ``specs``: :func:`param_specs`)."""
     mem_in = frontend_memory(params, cfg, batch)        # (B,Se,D)
     Se = mem_in.shape[1]
     x = mem_in + sincos_pos_embed(Se, cfg.d_model, device=mem_in.device
@@ -493,16 +581,18 @@ def encode(params, cfg: ArchConfig, batch: dict, impl: str):
     pre, rep, pat = layer_plan(cfg, cfg.enc_layers, decoder=False)
     pos = _positions(x.shape[0], Se, device=x.device)
     x, _, _ = run_prefix(params["enc"]["prefix"], cfg, pre, x, positions=pos,
-                         memory=None, caches=None, impl=impl)
+                         memory=None, caches=None, impl=impl,
+                         specs=_sub(specs, "enc/prefix"))
     if rep:
         x, _, _ = run_stack(params["enc"]["stack"], cfg, pat, x,
                             positions=pos, memory=None, caches=None,
-                            impl=impl, stack_axes=_stack_axes(cfg, "enc/stack"))
+                            impl=impl, stack_specs=_sub(specs, "enc/stack"))
     return apply_norm(params["enc"]["final_norm"], cfg, x)
 
 
-def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked"):
-    memory = encode(params, cfg, batch, impl)
+def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked",
+                    specs=None):
+    memory = encode_gathered(params, cfg, batch, impl, specs)
     tgt = batch["tokens"]
     B, Sd = tgt.shape
     x = embed_tokens(params["embed"], cfg, tgt)
@@ -512,13 +602,13 @@ def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked"):
     pos_d = _positions(B, Sd, device=x.device)
     x, _, aux1 = run_prefix(params["dec"]["prefix"], cfg, pre, x,
                             positions=pos_d, memory=memory, caches=None,
-                            impl=impl)
+                            impl=impl, specs=_sub(specs, "dec/prefix"))
     aux2 = 0.0
     if rep:
         x, _, aux2 = run_stack(params["dec"]["stack"], cfg, pat, x,
                                positions=pos_d, memory=memory, caches=None,
                                impl=impl,
-                               stack_axes=_stack_axes(cfg, "dec/stack"))
+                               stack_specs=_sub(specs, "dec/stack"))
     x = apply_norm(params["final_norm"], cfg, x)
     return lm_logits(params["embed"], cfg, x), aux_tensor(aux1 + aux2,
                                                           x.device)

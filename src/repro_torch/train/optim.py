@@ -2,8 +2,11 @@
 
 The JAX package's ``train/optim.py`` in PyTorch. Each optimizer is a pair
 of plain functions over the port's parameter trees plus a *state-axes*
-reflector (what a sharded launcher would shard the state by; the port has
-no mesh, so nothing reads it yet). States respect ``cfg.opt_state_dtype``
+reflector (what a step on a mesh lays the state out by: each rank holds
+and updates its shards). AdamW, Lion and SGD are elementwise, so a shard
+updates as the whole leaf would; Adafactor's means over a sharded dim
+and its update's RMS are a local sum and an all-reduce over the mesh
+axes that shard the dim (``dist/fsdp.py``). States respect ``cfg.opt_state_dtype``
 and optionally carry fp32 master weights (``cfg.fp32_master``) when
 params live in bf16. The schedules and the bias corrections are fp32
 tensors on the step's device, as the reference computes them, and every
@@ -208,24 +211,42 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
 
     @torch.no_grad()
     def update(grads, state, params, step):
+        from repro_torch.dist import fsdp
         step = _step(step, _device(params))
         stepf = step.to(torch.float32) + 1.0
         rho = torch.clamp(1.0 / torch.pow(stepf, decay), max=1e-2)
         beta = 1.0 - rho
         lr_t = lr(step)
         gs = tree_flatten(grads)[0]
+        # inside a step on shards: the params' layout, whose sharded dims
+        # each mean below reduces over
+        ctx = fsdp.current()
+        lay = ctx.layout if ctx is not None else None
         # each parameter's {"vr", "vc"} or {"v"}, found by its path
         vs = dict(tree_flatten_with_path(state["v"])[0])
-        for g, (path, p) in zip(gs, tree_flatten_with_path(params)[0]):
+        for i, (g, (path, p)) in enumerate(zip(
+                gs, tree_flatten_with_path(params)[0])):
+            def mean(x, pdims, dim=None, keepdim=False):
+                """The whole leaf's mean of ``x`` over ``dim`` (all dims
+                when None), which are the param's dims ``pdims``."""
+                axes = () if lay is None else lay.axes(i, pdims)
+                if not axes:
+                    return (torch.mean(x) if dim is None else
+                            torch.mean(x, dim=dim, keepdim=keepdim))
+                s = (torch.sum(x) if dim is None else
+                     torch.sum(x, dim=dim, keepdim=keepdim))
+                n = math.prod(lay.shapes[i][d] for d in pdims)
+                return fsdp.all_reduce(s, axes, lay.mesh, "sum") / n
+
+            nd = p.dim()
             v = {k: vs[f"{path}[{k!r}]"] for k in (
                 ("vr", "vc") if _factored(p.shape) else ("v",))}
             g = g.to(torch.float32)
             g2 = torch.square(g) + eps
             if _factored(p.shape):
-                vr = beta * v["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * v["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                rfac = torch.rsqrt(vr / torch.mean(vr, dim=-1, keepdim=True)
-                                   + eps)
+                vr = beta * v["vr"] + (1 - beta) * mean(g2, (nd - 1,), -1)
+                vc = beta * v["vc"] + (1 - beta) * mean(g2, (nd - 2,), -2)
+                rfac = torch.rsqrt(vr / mean(vr, (nd - 2,), -1, True) + eps)
                 cfac = torch.rsqrt(vc + eps)
                 u = g * rfac[..., None] * cfac[..., None, :]
                 v["vr"].copy_(vr)
@@ -235,7 +256,8 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
                 u = g * torch.rsqrt(v2 + eps)
                 v["v"].copy_(v2)
             # update clipping
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            rms = torch.sqrt(mean(torch.square(u), tuple(range(nd)))
+                             + 1e-12)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             p32 = p.to(torch.float32)
             p.copy_(p32 - lr_t * (u + weight_decay * p32))

@@ -10,9 +10,11 @@ one after another and their gradients are summed in fp32 as
 params and optimizer state IN PLACE (see :mod:`repro_torch.train.optim`)
 and returns them.
 
-The params, gradients and accumulators are pinned to their layout
-(``pin_params``) where the reference pins them; on the local tensors of
-a rank's computation, and on one device, a pin is the identity.
+Where the reference pins params, gradients and accumulators to their
+sharded layout, the port's step on a mesh of several ranks holds them as
+the rank's shards (``dist/fsdp.py``): the model gathers each layer's
+weights where it uses them and the gather's backward reduce-scatters its
+gradient.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ import torch
 from repro_torch import dist
 from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist import pin_params
-from repro_torch.dist.api import logical_to_spec, mesh_sizes, spec_to_placements
-from repro_torch.dist.elastic import replicated_axes, reshard_tree
+from repro_torch.dist import fsdp
+from repro_torch.dist.api import logical_to_spec, spec_to_placements
+from repro_torch.dist.elastic import replicated_axes
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.transformer import lm_loss
 from repro_torch.train.optim import Optimizer
@@ -70,39 +72,36 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
     moved to the params' device.
 
     Under a mesh of more than one device (:func:`repro_torch.dist.
-    use_mesh`) the step is data-parallel over the global batch: each rank
-    gathers the params, optimizer state and batch (DTensors or replicated
-    plain tensors), takes its slice of every (micro)batch along the mesh axes
-    that ``batch`` maps onto, computes its gradients under a view of the
-    mesh with those axes at size 1 (so MoE token groups are its own),
-    averages gradients, loss and metrics over them, applies the update
-    to the full values, and returns params and state as DTensors laid
-    out by the param rules (each rank holding its shards), not the given
-    objects.
+    use_mesh`) the step computes on the rank's shards, as the reference's
+    pinned step does (``dist/fsdp.py``). Params and optimizer state
+    (DTensors, or full values every rank holds) are laid out by the param
+    rules (:class:`~repro_torch.dist.fsdp.Layout`) and the rank keeps its
+    shards; the batch is its slice along the mesh axes ``batch`` maps
+    onto, split into microbatches locally. The rank computes under a view
+    of the mesh with those axes at size 1 (so MoE token groups are its
+    own); the model gathers each layer's weights where the layer runs
+    and the gathers' backward reduce-scatters the gradients, which arrive
+    shard-shaped and accumulate in fp32. Once, after accumulation, the
+    gradients of leaves not sharded over a batch axis, the loss and the
+    metrics are averaged over it; the global norm and the int8 wire
+    format's scale are the whole leaves' (all-reduces over each leaf's
+    sharded axes); the optimizer updates the shards in place. It returns
+    params and state as DTensors of those shards (no communication), not
+    the given objects.
 
     ``grad_compression="int8"`` passes the accumulated gradients through
     the edge-uplink int8 wire format (dist/compression) before clipping:
     what an edge worker's sync sees on a constrained uplink."""
     if grad_compression not in (None, "int8"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
-    # the model's logical axes pin its params; a custom loss has its own
-    # params, which they do not describe
+    # the model's logical axes lay out its params; a custom loss has its
+    # own params, which they do not describe (replicated on a mesh)
     _axes = zoo.param_axes(cfg) if loss_fn is None else None
     loss_fn = loss_fn or (lambda p, b: lm_loss(p, cfg, b, impl=impl))
     M = microbatches if microbatches is not None else cfg.microbatches
 
-    def pin(leaves, treedef):
-        """``pin_params`` over a flat list of param-shaped leaves: the
-        reference pins params, gradients and accumulators to the param
-        layout (the identity on a rank's plain tensors)."""
-        if _axes is None or not dist.mesh_active():
-            return leaves
-        return tree_flatten(pin_params(tree_unflatten(treedef, leaves),
-                                       _axes))[0]
-
     def grads_of(params, batch):
         leaves, treedef = tree_flatten(params)
-        leaves = pin(leaves, treedef)
         xs = [t.detach().requires_grad_(t.is_floating_point())
               for t in leaves]
         with torch.enable_grad():
@@ -114,37 +113,44 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
             g = next(got) if x.requires_grad else None
             grads.append(torch.zeros_like(x) if g is None else g)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                pin(grads, treedef), treedef)
+                grads, treedef)
 
-    def accumulate(params, batch, local):
-        """``(loss, metrics, fp32 grads, treedef)`` of ``batch``, each
-        (micro)batch first cut to ``local``'s slice of it."""
+    def accumulate(params, batch):
+        """``(loss, metrics, fp32 grads, treedef)`` of ``batch``."""
         if M <= 1:
-            loss, metrics, grads, treedef = grads_of(params, local(batch))
+            loss, metrics, grads, treedef = grads_of(params, batch)
             return loss, metrics, [g.to(torch.float32) for g in grads], \
                 treedef
         mb = _split_microbatches(batch, M)
         grads, losses = None, []
         for i in range(M):
-            l, _, g, treedef = grads_of(
-                params, local({k: v[i] for k, v in mb.items()}))
+            l, _, g, treedef = grads_of(params,
+                                        {k: v[i] for k, v in mb.items()})
             if grads is None:
-                grads = pin([torch.zeros(x.shape, dtype=torch.float32,
-                                         device=x.device) for x in g],
-                            treedef)
+                grads = [torch.zeros(x.shape, dtype=torch.float32,
+                                     device=x.device) for x in g]
             for a, gg in zip(grads, g):
                 a.add_(gg.to(torch.float32) / M)
             del g
             losses.append(l)
         return torch.mean(torch.stack(losses)), {}, grads, treedef
 
-    def update(params, opt_state, step, loss, metrics, grads, treedef):
+    def update(params, opt_state, step, loss, metrics, grads, treedef,
+               layout=None):
         if grad_compression == "int8":
             from repro_torch.dist.compression import int8_roundtrip
-            grads = [int8_roundtrip(g) for g in grads]
+            amax = [torch.max(torch.abs(g.float())) for g in grads]
+            if layout is not None:
+                amax = layout.reduce(amax, "max")
+            grads = [int8_roundtrip(g, a) for g, a in zip(grads, amax)]
         # clip_by_global_norm's arithmetic, in place: the fp32 gradients
         # are this step's own, and a copy would be 4 bytes a parameter
-        gnorm = global_norm(grads)
+        if layout is None:
+            gnorm = global_norm(grads)
+        else:
+            gnorm = torch.sqrt(sum(layout.reduce(
+                [torch.sum(torch.square(g.to(torch.float32))) for g in grads],
+                "sum")))
         scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
         for g in grads:
             g.mul_(scale)
@@ -161,28 +167,26 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
         if not dist.spans_devices(mesh):
             dev = tree_flatten(params)[0][0].device
             loss, metrics, grads, treedef = accumulate(
-                params, _batch_on(batch, dev), lambda b: b)
+                params, _batch_on(batch, dev))
             return update(params, opt_state, step, loss, metrics, grads,
                           treedef)
         rules = dist.current_rules()
-        params, opt_state, batch = dist.gather_tree((params, opt_state,
-                                                     batch))
-        dev = tree_flatten(params)[0][0].device
-        batch = _batch_on(batch, dev)
-        axes = _batch_axes(batch, rules, mesh)
-        sizes = {n: (1 if n in axes else s)
-                 for n, s in mesh_sizes(mesh).items()}
-        with dist.use_mesh(_MeshView(sizes), rules):
-            loss, metrics, grads, treedef = accumulate(
-                params, batch, lambda b: _local_batch(b, rules, mesh))
-        loss, metrics, grads = _mean_over(mesh, axes, loss, metrics, grads)
-        params, opt_state, step, metrics = update(
-            params, opt_state, step, loss, metrics, grads, treedef)
         p_axes = _axes if _axes is not None else replicated_axes(params)
-        return (reshard_tree(params, p_axes, rules, mesh),
-                reshard_tree(opt_state, optimizer.state_axes(p_axes), rules,
-                             mesh),
-                step, metrics)
+        p_lay = fsdp.Layout(params, p_axes, rules, mesh)
+        s_lay = fsdp.Layout(opt_state, optimizer.state_axes(p_axes), rules,
+                            mesh)
+        params, opt_state = p_lay.local(params), s_lay.local(opt_state)
+        dev = tree_flatten(params)[0][0].device
+        axes = _batch_axes(batch, rules, mesh)
+        batch = _local_batch(_batch_on(batch, dev), rules, mesh)
+        with fsdp.sharded(mesh, rules, axes, p_lay):
+            loss, metrics, grads, treedef = accumulate(params, batch)
+            loss, metrics, grads = _mean_over(mesh, axes, p_lay, loss,
+                                              metrics, grads)
+            params, opt_state, step, metrics = update(
+                params, opt_state, step, loss, metrics, grads, treedef,
+                p_lay)
+        return p_lay.placed(params), s_lay.placed(opt_state), step, metrics
 
     return train_step
 
@@ -190,18 +194,6 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
 # ---------------------------------------------------------------------------
 # Data parallelism over a mesh
 # ---------------------------------------------------------------------------
-
-class _MeshView:
-    """A mesh stand-in (``.shape`` name -> size): what :func:`axis_size`
-    reads while a rank computes on its slice of the batch."""
-
-    def __init__(self, sizes: dict):
-        self.shape = dict(sizes)
-
-    @property
-    def axis_names(self):
-        return tuple(self.shape)
-
 
 def _batch_spec(x: torch.Tensor, rules: dict, mesh):
     axes = ("batch",) + (None,) * (x.dim() - 1)
@@ -217,40 +209,47 @@ def _batch_axes(batch: dict, rules: dict, mesh) -> tuple:
 
 def _local_batch(batch: dict, rules: dict, mesh) -> dict:
     """This rank's slice of every batch tensor along the mesh axes that
-    ``batch`` maps onto (its DTensor shard, with no communication)."""
-    from torch.distributed.tensor import distribute_tensor
+    ``batch`` maps onto (a placed DTensor's local tensor, a full value's
+    slice; no communication where the DTensor is placed so)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     def one(x):
         if not isinstance(x, torch.Tensor) or x.dim() == 0:
             return x
-        spec = _batch_spec(x, rules, mesh)
-        return distribute_tensor(x, mesh, spec_to_placements(spec, mesh),
-                                 src_data_rank=None).to_local()
+        pl = spec_to_placements(_batch_spec(x, rules, mesh), mesh)
+        if isinstance(x, DTensor):
+            if list(x.placements) != pl:
+                x = x.redistribute(mesh, pl)
+            return x.to_local()
+        return distribute_tensor(x, mesh, pl, src_data_rank=None).to_local()
     return {k: one(v) for k, v in batch.items()}
 
 
-def _mean_over(mesh, axes, loss, metrics, grads):
-    """Loss, metrics and gradients averaged over the mesh ``axes`` (one
-    all-reduce of one flat fp32 buffer each)."""
-    import torch.distributed as tdist
-
+def _mean_over(mesh, axes, layout, loss, metrics, grads):
+    """Loss and metrics averaged over the batch's mesh ``axes``, and each
+    gradient over those of them its leaf is not sharded on (the gather's
+    backward averaged it over the others): one all-reduce of one flat
+    fp32 buffer an axis."""
     if not axes:
         return loss, metrics, grads
     keys = sorted(metrics)
-    parts = [g.reshape(-1) for g in grads] + [
-        loss.to(torch.float32).reshape(1)] + [
+    scalars = [loss.to(torch.float32).reshape(1)] + [
         metrics[k].to(torch.float32).reshape(1) for k in keys]
-    flat = torch.cat(parts)
+    grads = list(grads)
     for name in axes:
-        tdist.all_reduce(flat, op=tdist.ReduceOp.AVG,
-                         group=mesh.get_group(name))
-    out, at = [], 0
-    for g in grads:
-        out.append(flat[at:at + g.numel()].view_as(g))
-        at += g.numel()
-    loss = flat[at]
-    metrics = {k: flat[at + 1 + i] for i, k in enumerate(keys)}
-    return loss, metrics, out
+        idx = [i for i in range(len(grads)) if name not in layout.axes(i)]
+        flat = fsdp.all_reduce(torch.cat(
+            [grads[i].reshape(-1) for i in idx] + scalars), (name,), mesh,
+            "mean")
+        at = 0
+        for i in idx:
+            n = grads[i].numel()
+            grads[i] = flat[at:at + n].view_as(grads[i])
+            at += n
+        scalars = list(flat[at:].split(1))
+    loss = scalars[0][0]
+    metrics = {k: scalars[1 + i][0] for i, k in enumerate(keys)}
+    return loss, metrics, grads
 
 
 __all__ = ["global_norm", "clip_by_global_norm", "make_train_step"]

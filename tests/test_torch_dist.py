@@ -12,14 +12,18 @@ file (``torch_dist_ranks.py``): ``reshard_tree``'s shards against
 ``NamedSharding.devices_indices_map`` on the reference's (2, 2) mesh,
 ``rebuild_mesh`` after failures against the reference's shapes and
 devices, ``compressed_allreduce_mean``'s group route against its host
-route (1e-6) and the mean (the reference's ``atol`` 2e-2), and one
-``tp_fsdp`` SGD step of qwen2-1.5b's smoke config on a (2, 2) mesh
-against the single-process step and the reference's unsharded step
-(``rtol`` 2e-3, ``atol`` 2e-4: the reference's bounds for its sharded
-step), each rank's local shapes as the rules say; the same for
-granite-moe-1b-a400m's smoke config under ``ep_fsdp``, against the
-single-process step with two token groups (the reference's grouping on
-that mesh).
+route (1e-6) and the mean (the reference's ``atol`` 2e-2), and the steps on the rank's shards
+(``dist/fsdp.py``, ``remat="full"``) on a (2, 2) mesh: one step of
+qwen2-1.5b's smoke config under ``tp_fsdp`` (SGD; SGD with the int8 wire
+format and 2 microbatches) and ``fsdp`` (AdamW, Adafactor) against the
+single-process step and, for ``tp_fsdp`` SGD and ``fsdp`` AdamW, the
+reference's unsharded step (``rtol`` 2e-3, ``atol`` 2e-4: the reference's
+bounds for its sharded step), each rank's local shapes, its optimizer
+moments' too, as the rules say; the same for granite-moe-1b-a400m's smoke
+config under ``ep_fsdp``, against the single-process step with two token
+groups (the reference's grouping on that mesh); seamless-m4t-medium's
+prefill and 4 greedy decode steps under ``tp_fsdp``, the tokens the single
+process's.
 """
 
 import dataclasses
@@ -315,6 +319,35 @@ def test_use_mesh_none_leaves_a_train_step_bitwise():
         assert torch.equal(a, b)
 
 
+def test_remat_recompute_sees_the_contexts_of_its_forward():
+    """A checkpointed layer's recompute runs where the backward runs: on
+    the card, the autograd engine's own thread, which has no mesh and no
+    step on shards active. It re-enters the contexts its forward ran
+    under: a backward on another thread sees the same ``axis_size`` and
+    sharded step as the forward."""
+    import threading
+    from repro_torch.dist import fsdp
+    from repro_torch.models.transformer import _remat_wrap
+
+    cfg = tget("qwen2-1.5b", smoke=True).with_overrides(remat="full")
+    seen = []
+
+    def layer(x, lp):
+        seen.append((dist.axis_size("model"), fsdp.current() is not None))
+        return x * lp["w"], 0.0
+
+    w = torch.ones(3, requires_grad=True)
+    with fsdp.sharded(_FakeMesh({"data": 2, "model": 2}), {"act": {}}, ("data",)):
+        y, _ = _remat_wrap(layer, cfg)(torch.arange(3.0), {"w": w})
+    grads = []
+    t = threading.Thread(target=lambda: grads.append(
+        torch.autograd.grad(y.sum(), [w])[0]))
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and torch.equal(grads[0], torch.arange(3.0))
+    assert seen == [(2, True), (2, True)]
+
+
 # ---------------------------------------------------------------------------
 # kv_repeat_factor and the MoE grouping
 # ---------------------------------------------------------------------------
@@ -467,17 +500,31 @@ def test_factor_and_plans_match_the_reference():
 # a 4-rank gloo world: one spawn for the file
 # ---------------------------------------------------------------------------
 
-def _train_case(arch, recipe, jc_over=None):
-    jc = jget(arch, smoke=True).with_overrides(recipe=recipe)
-    tc = tget(arch, smoke=True).with_overrides(recipe=recipe)
+def _train_case(name):
+    arch, recipe, opt, mb, compression = ranks.TRAIN_CASES[name]
+    jc = jget(arch, smoke=True).with_overrides(recipe=recipe, remat="full")
+    tc = tget(arch, smoke=True).with_overrides(recipe=recipe, remat="full")
     jp = jzoo.init_params(jc, 0)
     tokens = np.random.default_rng(0).integers(0, jc.vocab_size, (8, 32)
                                                ).astype(np.int32)
     tp = convert.params_from_numpy(tc, jax.tree.map(np.asarray, jp),
                                    device="cpu")
     return jc, tc, jp, tokens, {"arch": arch, "recipe": recipe, "lr": 1e-2,
-                                "params": tp,
+                                "opt": opt, "microbatches": mb,
+                                "compression": compression, "params": tp,
                                 "tokens": torch.from_numpy(tokens)}
+
+
+def _serve_case():
+    tc = tget(ranks.SERVE_ARCH, smoke=True)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, tc.vocab_size, (4, 12)).astype(np.int32)),
+        "frames": torch.from_numpy(rng.normal(
+            size=(4, 12, tc.frontend_dim)).astype(np.float32))}
+    return {"arch": ranks.SERVE_ARCH, "recipe": ranks.SERVE_RECIPE,
+            "params": tzoo.init_params(tc, 0, "cpu"), "batch": batch,
+            "max_len": 12 + ranks.SERVE_TOKENS}
 
 
 @pytest.fixture(scope="module")
@@ -486,10 +533,9 @@ def world(tmp_path_factory):
     import torch.multiprocessing as mp
 
     d = tmp_path_factory.mktemp("ranks")
-    cases = {"dense": _train_case("qwen2-1.5b", "tp_fsdp"),
-             "moe": _train_case("granite-moe-1b-a400m", "ep_fsdp")}
+    cases = {name: _train_case(name) for name in ranks.TRAIN_CASES}
     wx = np.random.default_rng(1).normal(size=(4, 64)).astype(np.float32)
-    payload = {"workers_x": torch.from_numpy(wx),
+    payload = {"workers_x": torch.from_numpy(wx), "serve": _serve_case(),
                **{k: c[-1] for k, c in cases.items()}}
     torch.save(payload, d / "payload.pt")
     ctx = mp.start_processes(
@@ -506,14 +552,16 @@ def world(tmp_path_factory):
                 p.kill()
     res = [torch.load(d / f"rank{r}.pt", weights_only=False)
            for r in range(4)]
-    return {"res": res, "cases": cases, "workers_x": wx}
+    return {"res": res, "cases": cases, "workers_x": wx,
+            "serve": payload["serve"]}
 
 
 def test_reshard_tree_shards_as_the_reference_places_them(world):
     """Each rank's local shard is the slice JAX's ``devices_indices_map``
     gives the same device of the reference's (2, 2) mesh (rank r, device
     r, row-major), ``("data", "model")`` on one dim included; every leaf
-    round-trips bitwise."""
+    round-trips bitwise. ``fsdp.Layout``'s shards of the full values (the
+    step's) are the same slices, and its DTensors hold the full values."""
     jm = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
     tree = ranks.reshard_tree_input()
     for r, res in enumerate(world["res"]):
@@ -525,8 +573,10 @@ def test_reshard_tree_shards_as_the_reference_places_them(world):
                                         tuple(full.shape))
             idx = NamedSharding(jm, spec).devices_indices_map(
                 tuple(full.shape))[jax.devices()[r]]
-            want = np.asarray(full.numpy()[idx])
-            assert torch.equal(res["local"][k], torch.from_numpy(want)), k
+            want = torch.from_numpy(np.asarray(full.numpy()[idx]))
+            assert torch.equal(res["local"][k], want), k
+            assert torch.equal(res["layout_local"][k], want), k
+        assert all(res["layout_roundtrip"].values())
     assert world["res"][0]["placements"] == {"w": [0, 1], "b": [None, None],
                                              "v": [0, 0], "s": [None, None]}
 
@@ -555,12 +605,12 @@ def test_compressed_allreduce_group_route_matches_host_route(world):
                                        atol=MEAN_ATOL)
 
 
-def _expected_local(tc, rules, shape_tree):
+def _expected_local(axes_tree, shape_tree, rules):
+    """Each leaf's local shape on the (2, 2) mesh by the param rules."""
     fake = _FakeMesh({"data": 2, "model": 2})
     out = {}
     for (path, ax), t in zip(
-            tree_flatten_with_path(tzoo.param_axes(tc),
-                                   is_leaf=api.is_axes)[0],
+            tree_flatten_with_path(axes_tree, is_leaf=api.is_axes)[0],
             tree_flatten(shape_tree)[0]):
         spec = api.logical_to_spec(ax, rules["param"], fake, t.shape)
         shp = list(t.shape)
@@ -571,31 +621,40 @@ def _expected_local(tc, rules, shape_tree):
     return out
 
 
-@pytest.mark.parametrize("case", ["dense", "moe"])
+@pytest.mark.parametrize("case", list(ranks.TRAIN_CASES))
 def test_sharded_train_step_matches_single_process(world, case):
-    """One SGD step on a (2, 2) mesh: params within ``rtol`` 2e-3,
-    ``atol`` 2e-4 of the single-process step (the MoE under two token
-    groups, the reference's grouping on that mesh) and, for the dense
-    model, of the reference's unsharded step on the same converted
-    inputs; each rank holds the shapes the param rules give, its SGD
-    momentum too; the loss is the single-process loss."""
+    """One step on a (2, 2) mesh on the rank's shards (``remat="full"``):
+    ``tp_fsdp`` and ``fsdp`` dense (SGD, AdamW, Adafactor; ``tp_fsdp``
+    also with the int8 wire format and 2 microbatches, split from the
+    rank's slice) and ``ep_fsdp`` MoE. The loss within 1e-5 and the
+    params within ``rtol`` 2e-3, ``atol`` 2e-4 of the single-process step
+    (the MoE under two token groups, the reference's grouping on that
+    mesh) and, for the dense ``tp_fsdp`` and ``fsdp`` AdamW cases, of
+    the reference's unsharded jitted step on the same converted inputs;
+    each rank holds the shapes the param rules give, its optimizer
+    moments too."""
     jc, tc, jp, tokens, payload = world["cases"][case]
     rules = sharding.build_rules(tc)
-    opt = sgd(constant_schedule(payload["lr"]))
+    opt = ranks.make_opt(tc, payload)
     p = tree_map(torch.clone, payload["params"])
-    step = make_train_step(tc, opt, microbatches=1)
+    step = make_train_step(tc, opt, microbatches=payload["microbatches"],
+                           grad_compression=payload["compression"])
     groups = _FakeMesh({"data": 2, "model": 1})
+    state = opt.init(p)
     with dist.use_mesh(groups, rules if case == "moe" else {}):
-        single, _, _, m = step(p, opt.init(p), 0,
-                               {"tokens": torch.from_numpy(tokens)})
-    want_local = _expected_local(tc, rules, single)
+        single, single_state, _, m = step(
+            p, state, 0, {"tokens": torch.from_numpy(tokens)})
+    axes = tzoo.param_axes(tc)
+    want_local = _expected_local(axes, single, rules)
+    want_state = _expected_local(opt.state_axes(axes), single_state, rules)
     moved = False
     for res in world["res"]:
         got = res[case]
         assert got["loss"] == pytest.approx(float(m["loss"]), rel=1e-5)
+        assert got["grad_norm"] == pytest.approx(float(m["grad_norm"]),
+                                                 rel=1e-5)
         assert got["local_shapes"] == want_local
-        assert got["state_local"] == {"['m']" + k: v
-                                      for k, v in want_local.items()}
+        assert got["state_local"] == want_state
         for a, b, c in zip(tree_flatten(got["params"])[0],
                            tree_flatten(single)[0],
                            tree_flatten(payload["params"])[0]):
@@ -604,14 +663,79 @@ def test_sharded_train_step_matches_single_process(world, case):
     assert moved
     full = {k: tuple(v.shape) for k, v in tree_flatten_with_path(single)[0]}
     assert any(want_local[k] != full[k] for k in full)     # shards held
-    if case == "dense":
-        jopt = joptim.make_optimizer(jc, "sgd", lr=lambda s: payload["lr"])
+    if case in ("dense", "fsdp_adamw"):
+        jopt = joptim.make_optimizer(jc, payload["opt"],
+                                     lr=lambda s: payload["lr"])
         jstep = jax.jit(jmake_train_step(jc, jopt, microbatches=1))
         pj, *_ = jstep(jp, jopt.init(jp), jnp.asarray(0),
                        {"tokens": jnp.asarray(tokens)})
         for a, b in zip(tree_flatten(world["res"][0][case]["params"])[0],
                         jax.tree.leaves(pj)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **STEP_TOL)
+
+
+def test_sharded_serving_matches_single_process(world):
+    """seamless-m4t-medium's smoke config under ``tp_fsdp`` on the (2, 2)
+    mesh: prefill and 4 greedy decode steps on each rank's shards of the
+    params (each layer gathered where it runs) and its slice of the 4
+    prompts; the tokens equal the single process's on the same rows, and
+    each rank holds the shapes the param rules give."""
+    case = world["serve"]
+    tc = tget(case["arch"], smoke=True).with_overrides(
+        recipe=case["recipe"], remat="full")
+    rules = sharding.build_rules(tc)
+    want_local = _expected_local(tzoo.param_axes(tc), case["params"], rules)
+    for res in world["res"]:
+        got = res["serve"]
+        lo, hi = got["rows"]
+        with torch.no_grad():
+            want = ranks.greedy(case["params"], tc,
+                                {k: v[lo:hi] for k, v in case["batch"].items()},
+                                case["max_len"], ranks.SERVE_TOKENS)
+        assert torch.equal(got["tokens"], want)
+        assert got["local_shapes"] == want_local
+    assert {r["serve"]["rows"] for r in world["res"]} == {(0, 2), (2, 4)}
+
+
+def test_chip_smoke_phase_17_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py`` phase 17 end to end on the CPU at smoke size
+    (``torch_dist_ranks.phase17_stubs`` in this process and in each one
+    the phase starts): the one-rank references, the two gloo ranks on
+    their shards and the (2, 1) dry run pass their checks (loss, grad
+    norm, params, arguments against the rules and the dry run, tokens),
+    and the ranks' flash launches are the path's."""
+    import pathlib
+    import subprocess
+
+    here = pathlib.Path(__file__).resolve().parent
+    monkeypatch.syspath_prepend(str(here.parent))
+    import chip_smoke as cs
+
+    ranks.phase17_stubs(monkeypatch.setattr)
+    monkeypatch.setattr(cs, "log", lambda *a: None)
+    prelude = (f"import sys; sys.path.insert(0, {str(here)!r}); "
+               "import torch_dist_ranks; torch_dist_ranks.phase17_stubs()\n")
+    popen = subprocess.Popen
+
+    def with_stubs(cmd, *a, **k):
+        if cmd[1] == "-c":
+            cmd = [cmd[0], "-c", prelude + cmd[2]]
+        return popen(cmd, *a, **k)
+    monkeypatch.setattr(subprocess, "Popen", with_stubs)
+    counts = cs.sharded_phase(torch.device("cpu"))
+    assert counts["flash_attention"] > 0
+    assert not any(v for k, v in counts.items() if k != "flash_attention")
+
+
+def test_the_steps_on_a_mesh_gather_no_whole_tree():
+    """The train step's and the dry run's step code gathers no whole
+    tree: neither calls ``gather_tree`` nor ``full_tensor``."""
+    import inspect
+    from repro_torch.launch import dryrun
+    from repro_torch.train import train_step
+    for mod in (train_step, dryrun):
+        src = inspect.getsource(mod)
+        assert "gather_tree" not in src and "full_tensor" not in src, mod
 
 
 def test_mesh_context_on_four_ranks_sizes_the_axes(world):

@@ -52,7 +52,7 @@ from repro.train.optim import make_optimizer as jmake_optimizer
 from repro.train.train_step import make_train_step as jmake_train_step
 
 import torch_dryrun_world as worker
-from repro_torch._tree import tree_flatten, tree_map
+from repro_torch._tree import tree_flatten, tree_flatten_with_path, tree_map
 from repro_torch.configs import ARCH_IDS, SHAPES_BY_NAME, get_config, shapes_for
 from repro_torch.configs.base import InputShape
 from repro_torch.core import selftune as tst
@@ -288,52 +288,90 @@ def test_every_family_traces_prefill_and_decode(arch):
 # ---------------------------------------------------------------------------
 
 def test_collectives_exact_on_a_2x4_world(world):
-    """granite's smoke config under ``ep_fsdp`` on (data 2, model 4),
-    8 x 32 tokens: fault 17's all-gathers of every sharded leaf of the
-    params and the AdamW state (DTensor gathers the last mesh dim first,
-    so a leaf split over both dims gathers to half its size, then
-    whole), the batch's gather, and one all-reduce of the flat fp32
-    buffer (gradients, loss, the loss's metrics) over ``data``, 2x."""
+    """granite's smoke config under ``ep_fsdp`` with ``remat="full"`` on
+    (data 2, model 4), 8 x 32 tokens, AdamW: the step on shards. Each
+    sharded param leaf is all-gathered where it is used, over the last
+    mesh dim first (a leaf split over both dims gathers to half its
+    size, then whole): a stacked leaf layer by layer, in the forward and
+    again in the backward's recompute, the leaves outside the stack once.
+    The backward reduce-scatters each layer's fp32 gradient over
+    ``data`` where the leaf is sharded over it (over ``model``, which the
+    batch is not split over, the rank takes its slice with no
+    collective). One all-reduce over ``data`` averages the gradients of
+    the leaves not sharded over it, the loss and the loss's metrics (2x),
+    and the global norm sums each leaf's squares over its sharded axes:
+    one all-reduce a distinct set of axes and axis. No optimizer moment
+    and no batch is gathered."""
     cfg = get_config("granite-moe-1b-a400m", smoke=True).with_overrides(
-        recipe="ep_fsdp")
+        **worker.COLLECTIVES_CUT)
     rules = build_rules(cfg, shape=InputShape("tiny_train", 32, 8, "train"))
     mesh = _StandIn({"data": 2, "model": 4})
-    opt = make_optimizer(cfg, "adamw")
     shapes, axes = tzoo.param_shapes(cfg), tzoo.param_axes(cfg)
-    with torch.device("meta"):
-        state = opt.init(shapes)
-    leaves = tree_flatten(shapes)[0] + tree_flatten(state)[0]
-    ax_leaves = (tree_flatten(axes, is_leaf=is_axes)[0]
-                 + tree_flatten(opt.state_axes(axes), is_leaf=is_axes)[0])
-    gathered, gathers = float(SMOKE_B * SMOKE_S * 4), 1     # the tokens
-    for x, ax in zip(leaves, ax_leaves):
+    gathered = scattered = 0.0
+    gathers = scatters = 0
+    flat = 0                                  # elements of the data mean
+    norm_groups = {}                          # sharded axes -> leaves
+    for (path, x), ax in zip(tree_flatten_with_path(shapes)[0],
+                             tree_flatten(axes, is_leaf=is_axes)[0]):
         spec = logical_to_spec(ax, rules["param"], mesh, x.shape)
         used = sorted((a for p in spec if p
-                       for a in ((p,) if isinstance(p, str) else p)),
+                       for a in ((p,) if isinstance(p, str) else p)
+                       if mesh.shape[a] > 1),
                       key=mesh.mesh_dim_names.index)
+        norm_groups[tuple(used)] = norm_groups.get(tuple(used), 0) + 1
+        if "data" not in used:
+            flat += x.numel()
+        stacked = "['stack']" in path
+        layers = x.shape[0] if stacked else 1
+        passes = 2 if stacked else 1          # the forward and the recompute
         size = x.numel() * x.element_size() / math.prod(
             mesh.shape[a] for a in used)
         for a in reversed(used):
             size *= mesh.shape[a]
-            gathered += size
-            gathers += 1
+            gathered += passes * size
+            gathers += passes * layers
+        if "data" in used:
+            scattered += x.numel() * 4 / mesh.shape["data"]
+            scatters += layers
     mode = ha.fake_tensor_mode()
     with mode:
         p = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), shapes)
         _, metrics = tzoo.lm_loss(
             p, cfg, {"tokens": torch.empty((SMOKE_B, SMOKE_S),
                                            dtype=torch.int32)})
-    flat = 4 * (sum(x.numel() for x in tree_flatten(shapes)[0]) + 1
-                + len(metrics))
+    reduced = 4.0 * (flat + 1 + len(metrics))
+    norm_ops = 0
+    for used, n in norm_groups.items():
+        reduced += 4.0 * n * len(used)
+        norm_ops += len(used)
     got = world["collectives"]
-    assert got["collectives"] == {"all-gather": gathered,
-                                  "all-reduce": 2.0 * flat,
-                                  "total": gathered + 2.0 * flat}
+    assert got["collectives"] == {
+        "all-gather": gathered, "reduce-scatter": scattered,
+        "all-reduce": 2.0 * reduced,
+        "total": gathered + scattered + 2.0 * reduced}
     assert got["collective_ops"] == {
-        "_c10d_functional.all_gather_into_tensor": gathers,
-        "c10d.allreduce_": 1}
-    assert got["step_layout"] == "gathered"
-    assert got["roofline"]["link_bytes_per_dev"] == gathered + 2.0 * flat
+        "c10d._allgather_base_": gathers,
+        "c10d._reduce_scatter_base_": scatters,
+        "c10d.allreduce_": 1 + norm_ops}
+    assert got["step_layout"] == "sharded"
+    assert got["roofline"]["link_bytes_per_dev"] == got["collectives"]["total"]
+
+
+def test_a_rank_on_shards_holds_less_than_the_whole_model(world):
+    """qwen2-1.5b's full width cut to 2 layers (``remat="full"``), 4 x 64
+    tokens on (data 2, model 4) under ``fsdp``: the traced temp bytes (the
+    peak less the rank's arguments) are below the bytes of the full
+    params and AdamW state (fp32 moments and master), which a gathered
+    layout would hold on top of its arguments."""
+    cfg = get_config("qwen2-1.5b").with_overrides(**worker.MEMORY_CUT)
+    shapes = tzoo.param_shapes(cfg)
+    with torch.device("meta"):
+        state = make_optimizer(cfg, "adamw").init(shapes)
+    full = sum(t.numel() * t.element_size()
+               for t in tree_flatten((shapes, state))[0])
+    mem = world["memory"]["memory"]
+    assert world["memory"]["step_layout"] == "sharded"
+    assert 0 < mem["temp_size_in_bytes"] < full
 
 
 # ---------------------------------------------------------------------------
@@ -362,13 +400,15 @@ def test_run_cell_records(world):
             cut, JInputShape(s.name, s.seq_len, s.global_batch, s.kind))
         assert rec["roofline"]["flops_per_dev"] == rec["cost"]["dot_flops"]
         assert rec["roofline"]["chips"] == 256
-        assert rec["step_layout"] == "gathered"
+        assert rec["step_layout"] == "sharded"
         assert rec["params_total"] == cut.param_counts()["total"]
-        # the params' gathers, on every cell (fault 17 and the serving
-        # route alike)
+        # each layer's weights gathered where it runs, on every cell
         assert rec["collectives"]["all-gather"] > 0
-    assert "all-reduce" in world["cells"]["train_4k"]["collectives"]
-    assert "all-reduce" not in world["cells"]["prefill_32k"]["collectives"]
+    train = world["cells"]["train_4k"]["collectives"]
+    assert train["all-reduce"] > 0 and train["reduce-scatter"] > 0
+    for shape in worker.SERVE_CELLS:
+        assert set(world["cells"][shape]["collectives"]) == {"all-gather",
+                                                              "total"}
 
 
 def test_run_cell_rereads_a_green_cell(world):

@@ -2,8 +2,9 @@
 
 One process per rank of a 4-rank gloo world on the CPU (spawned by the
 test, joined through a ``file://`` store): each rank runs the port's
-distributed pieces on a (2, 2) mesh and saves what it holds with
-``torch.save`` for the test to hold against the JAX package. Imports
+distributed pieces on a (2, 2) mesh (the train and serve steps on the
+rank's shards) and saves what it holds with ``torch.save`` for the test
+to hold against the single process and the JAX package. Imports
 torch and the port only, so a spawned rank does not load JAX.
 """
 
@@ -22,6 +23,17 @@ RESHARD_RULES = {"param": {"embed": ("data",), "ff": ("model",),
                            "flat": ("data", "model")}, "act": {}}
 RESHARD_AXES = {"w": ("embed", "ff"), "b": ("embed",), "v": ("flat",),
                 "s": ()}
+# the step on shards: case -> (arch, recipe, optimizer, microbatches,
+# gradient compression), each at remat "full"
+TRAIN_CASES = {
+    "dense": ("qwen2-1.5b", "tp_fsdp", "sgd", 1, None),
+    "moe": ("granite-moe-1b-a400m", "ep_fsdp", "sgd", 1, None),
+    "fsdp_adamw": ("qwen2-1.5b", "fsdp", "adamw", 1, None),
+    "fsdp_adafactor": ("qwen2-1.5b", "fsdp", "adafactor", 1, None),
+    "tp_int8": ("qwen2-1.5b", "tp_fsdp", "sgd", 2, "int8"),
+}
+SERVE_ARCH, SERVE_RECIPE = "seamless-m4t-medium", "tp_fsdp"
+SERVE_TOKENS = 5                 # the prefill's token and 4 decode steps
 # (failed ranks, prefer_model) for rebuild_mesh over the 4 ranks
 REBUILD_CASES = (((), 2), ((1,), 2), ((3,), 1), ((0, 2), 1), ((1, 2, 3), 4))
 
@@ -36,28 +48,116 @@ def _flat(tree):
     return dict(tree_flatten_with_path(tree)[0])
 
 
-def train_case(case: dict, mesh_shape):
-    """One step of ``case`` (a config, SGD at a constant rate, params and
-    tokens) under a mesh of ``mesh_shape`` over the first ranks: the
-    gathered params, each leaf's local shape and the loss."""
-    from repro_torch import dist
+def make_opt(cfg, case: dict):
+    """``case``'s optimizer at its constant rate."""
+    from repro_torch.train.optim import constant_schedule, make_optimizer
+    return make_optimizer(cfg, case["opt"],
+                          lr=constant_schedule(case["lr"]))
+
+
+def case_config(case: dict):
     from repro_torch.configs import get_config
+    return get_config(case["arch"], smoke=True).with_overrides(
+        recipe=case["recipe"], remat="full")
+
+
+def train_case(case: dict, mesh_shape):
+    """One step of ``case`` (a config, its optimizer at a constant rate,
+    params, tokens, microbatches and gradient compression) under a mesh
+    of ``mesh_shape`` over the first ranks: the gathered params, each
+    leaf's local shape (the optimizer state's too), the loss and the
+    gradient norm."""
+    from repro_torch import dist
     from repro_torch.launch.mesh import mesh_context
-    from repro_torch.train.optim import constant_schedule, sgd
     from repro_torch.train.train_step import make_train_step
 
-    cfg = get_config(case["arch"], smoke=True).with_overrides(
-        recipe=case["recipe"])
-    opt = sgd(constant_schedule(case["lr"]))
+    cfg = case_config(case)
+    opt = make_opt(cfg, case)
     params = case["params"]
-    step_fn = make_train_step(cfg, opt, microbatches=1)
+    step_fn = make_train_step(cfg, opt, microbatches=case["microbatches"],
+                              grad_compression=case["compression"])
     with mesh_context(cfg, *mesh_shape, device="cpu"):
         p, s, _, m = step_fn(params, opt.init(params), 0,
                              {"tokens": case["tokens"]})
     local = {k: tuple(v.to_local().shape) for k, v in _flat(p).items()}
     return {"params": dist.gather_tree(p), "local_shapes": local,
-            "loss": float(m["loss"]), "state_local": {
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "state_local": {
                 k: tuple(v.to_local().shape) for k, v in _flat(s).items()}}
+
+
+def serve_case(case: dict, mesh_shape, new_tokens: int):
+    """Prefill and ``new_tokens - 1`` greedy decode steps of ``case`` on
+    the params' shards (each layer gathered where it runs), the rank's
+    slice of the prompts along ``data``: its rows and greedy tokens."""
+    from repro_torch import dist
+    from repro_torch.dist import fsdp
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import model_zoo as zoo
+
+    cfg = case_config(case)
+    with mesh_context(cfg, *mesh_shape, device="cpu") as mesh:
+        rules = dist.current_rules()
+        params = fsdp.Layout(case["params"], zoo.param_axes(cfg), rules,
+                             mesh).local(case["params"])
+        n = case["batch"]["tokens"].shape[0] // mesh.size(0)
+        lo = mesh.get_local_rank("data") * n
+        batch = {k: v[lo:lo + n] for k, v in case["batch"].items()}
+        with torch.no_grad(), fsdp.sharded(mesh, rules, ("data",)):
+            tokens = greedy(params, cfg, batch, case["max_len"], new_tokens)
+    return {"rows": (lo, lo + n), "tokens": tokens,
+            "local_shapes": {k: tuple(v.shape)
+                             for k, v in _flat(params).items()}}
+
+
+def greedy(params, cfg, batch, max_len: int, new_tokens: int):
+    """``zoo.prefill``, then greedy ``zoo.decode_step``s: (B, new_tokens)
+    int32 tokens."""
+    from repro_torch.models import model_zoo as zoo
+
+    logits, caches = zoo.prefill(params, cfg, batch, max_len)
+    out = []
+    for i in range(new_tokens):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out.append(tok)
+        if i + 1 < new_tokens:
+            logits, caches = zoo.decode_step(params, cfg, caches, tok)
+    return torch.cat(out, dim=1)
+
+
+# chip_smoke.py phase 17 at smoke size on the CPU
+PHASE17_SIZES = {"TRAIN_B": 4, "TRAIN_S": 16, "PROMPT": 8, "MAX_LEN": 32,
+                 "SHARD_DECODES": 2, "SERVE_BATCH": 4,
+                 "DRYRUN_PEAK_TOL": float("inf")}
+
+
+def phase17_stubs(set_attr=setattr) -> None:
+    """``chip_smoke.py`` phase 17 on the CPU, in the test's process and
+    in each process the phase starts: smoke configs with the full
+    configs' recipes and remat "full", the card's calls stubbed (the
+    peak read as 1 B, so its checks pass vacuously), flash's plain
+    version counted as a launch, PHASE17_SIZES."""
+    import chip_smoke as cs
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    real = configs.get_config
+    set_attr(configs, "get_config", lambda arch, smoke=False: real(
+        arch, smoke=True).with_overrides(recipe=real(arch).recipe,
+                                         remat="full"))
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        set_attr(torch.cuda, name, lambda *a, **k: None)
+    set_attr(torch.cuda, "max_memory_allocated", lambda *a, **k: 1)
+    set_attr(cs, "nvidia_smi_line", lambda: "no card")
+    for k, v in PHASE17_SIZES.items():
+        set_attr(cs, k, v)
+    flash = ops.flash_attention
+
+    def counted(*a, **k):
+        fa.LAUNCHES["flash_attention"] += 1
+        return flash(*a, **k)
+    set_attr(ops, "flash_attention", counted)
 
 
 def run(rank: int, world: int, store: str, out: str, payload: str):
@@ -73,6 +173,7 @@ def run(rank: int, world: int, store: str, out: str, payload: str):
 
 def _checks(rank: int, case: dict) -> dict:
     from repro_torch import dist
+    from repro_torch.dist import fsdp
     from repro_torch.dist.compression import compressed_allreduce_mean
     from repro_torch.dist.elastic import rebuild_mesh, reshard_tree
     from repro_torch.launch.mesh import make_local_mesh
@@ -88,6 +189,11 @@ def _checks(rank: int, case: dict) -> dict:
                          for k, v in placed.items()}
     res["roundtrip"] = {k: bool(torch.equal(v.full_tensor(), tree[k]))
                         for k, v in placed.items()}
+    lay = fsdp.Layout(tree, RESHARD_AXES, RESHARD_RULES, mesh)
+    res["layout_local"] = lay.local(tree)
+    res["layout_roundtrip"] = {
+        k: bool(torch.equal(v.full_tensor(), tree[k]))
+        for k, v in lay.placed(res["layout_local"]).items()}
 
     res["rebuild"] = []
     for failed, prefer in REBUILD_CASES:
@@ -107,6 +213,7 @@ def _checks(rank: int, case: dict) -> dict:
     with mesh_context(cfg, 2, 2, device="cpu"):
         res["axis_heads"] = dist.axis_size("heads")
 
-    res["dense"] = train_case(case["dense"], (2, 2))
-    res["moe"] = train_case(case["moe"], (2, 2))
+    for name in TRAIN_CASES:
+        res[name] = train_case(case[name], (2, 2))
+    res["serve"] = serve_case(case["serve"], (2, 2), SERVE_TOKENS)
     return res

@@ -6,7 +6,7 @@ files share their pytest workers.
 with what the test holds against the JAX package: the meshes over fake
 worlds of 256 and 512 ranks and the refusals, the arguments a rank of
 three full-width cells, the collectives of a granite smoke step on a
-(2, 4) mesh, ``run_cell``'s records (cut configs, written under
+(2, 4) mesh, the memory of a wide narrow-batch train cell on shards, ``run_cell``'s records (cut configs, written under
 ``OUT_DIR``), ``main``'s exit code for a failing cell, and one real
 ``selftune.evaluate_candidate``. Imports torch and the port only.
 """
@@ -20,6 +20,9 @@ import sys
 import torch.distributed as tdist
 
 CUT = {"n_layers": 2}           # the cut configs of the record checks
+COLLECTIVES_CUT = {"recipe": "ep_fsdp", "remat": "full"}
+MEMORY_CUT = {"n_layers": 2, "remat": "full"}   # the wide cell's cut
+MEMORY_B, MEMORY_S = 4, 64
 SERVE_CELLS = ("prefill_32k", "decode_32k")
 ARG_CELLS = (("qwen2-1.5b", "fsdp"), ("qwen2-1.5b", "tp_fsdp"),
              ("granite-moe-1b-a400m", "ep_fsdp"))
@@ -88,11 +91,26 @@ def collectives_cell() -> dict:
     from repro_torch.launch.mesh import make_local_mesh
 
     cfg = get_config("granite-moe-1b-a400m", smoke=True).with_overrides(
-        recipe="ep_fsdp")
+        **COLLECTIVES_CUT)
     shape = InputShape("tiny_train", 32, 8, "train")
     mesh = make_local_mesh(2, 4, device="cpu")
     return dryrun.trace_cell(cfg, shape, mesh, build_rules(cfg, shape=shape),
                              device="cpu")
+
+
+def memory_cell() -> dict:
+    """A wide, narrow-batch train cell on shards: qwen2-1.5b's full width
+    at ``MEMORY_CUT`` on a (2, 4) mesh, ``MEMORY_B`` x ``MEMORY_S``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.dist.sharding import build_rules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg = get_config("qwen2-1.5b").with_overrides(**MEMORY_CUT)
+    shape = InputShape("narrow_train", MEMORY_S, MEMORY_B, "train")
+    return dryrun.trace_cell(cfg, shape, make_local_mesh(2, 4, device="cpu"),
+                             build_rules(cfg, shape=shape), device="cpu")
 
 
 def records(out_dir: pathlib.Path) -> dict:
@@ -130,6 +148,7 @@ def main(out_dir: pathlib.Path) -> None:
     out = worlds()
     out["arguments"] = argument_cells()
     out["collectives"] = collectives_cell()
+    out["memory"] = memory_cell()
     out.update(records(out_dir))
     (out_dir / "world.json").write_text(json.dumps(out))
 
