@@ -221,12 +221,29 @@ path on the card, and checks what comes out. Phases:
     SERVE_BATCH prompts and 8 greedy decode steps with
     ``impl="kernel"``, each rank its half of the prompts, the tokens
     equal to the one rank's on the same rows, the flash kernel launched
-    in the ranks (their launches are the path's). Each phase logs the
-    seconds since the start.
+    in the ranks (their launches are the path's);
+18. tensor- and expert-parallel compute (``dist/tp.py``: a ``model``
+    rank computes its slice of heads, ``ff``, vocab and experts, the
+    layers' all-reduces over ``model``), two gloo ranks of a (1, 2) mesh
+    on the one card, held to one rank: first flash at
+    seamless-m4t-medium's cross-attention on 8 of its 16 heads and WKV
+    at rwkv6-1.6b's prefill and decode on 16 of its 32 heads against
+    their plain versions (rows of their own, logged); then (a)
+    seamless-m4t-medium and (b) rwkv6-1.6b under ``tp_fsdp``, prefill of
+    SERVE_BATCH prompts and 8 greedy decode steps with ``impl="kernel"``
+    on every prompt: tokens equal to the one rank's (a row may part from
+    them only where the one rank's logits tie within a bf16 ulp, and is
+    not held after it: ``tie_divergences``), flash (WKV) launched
+    at 8 (16) heads a call, the caches' K, V and WKV state half the one
+    rank's bytes; (c) granite-moe-1b-a400m under ``ep_fsdp`` (16 of its
+    32 experts a rank), one AdamW step with 17a's checks against the one
+    rank's and the (1, 2) dry run's (``"sharded_tp"``). Each phase logs
+    the seconds since the start.
 
 The launch counts are set to 0 just before each main path (phases 3-5
 as one, each model of phases 6 and 14, phases 7, 8, 9, 10, 11, 12, 13
-and 16, each launcher of phase 15, and 17b in each rank's process) and
+and 16, each launcher of phase 15, 17b and 18a-b in each rank's
+process) and
 read just after it; every kernel must have launched on a main path. A line
 ``{"kernels": [...]}`` reports each kernel, the line before the last
 gives the card's name and power limit, and the last line is
@@ -1380,15 +1397,16 @@ def pad_route_checks(dev, g, record, which):
 
 
 def wkv_inputs(g, dev, B, S, hs, dtype, *, h0=True, strong=False,
-               strided=False):
+               strided=False, H=None):
     """WKV's inputs in the model layout, as ``models/rwkv.py`` makes them:
     r, k, v (B, S, H, hs) reshaped from a projection (contiguous), or with
     ``strided`` slices of one (B, S, 3, H, hs) buffer; lw fp32, a step's
     log decay -exp(-2 + 0.5 N(0, 1)), or with ``strong`` down to -20 a
     step; u (H, hs) in dtype, the parameter's; h0 (B, H, hs, hs) fp32,
-    random, or zeros as a prefill from scratch has it."""
+    random, or zeros as a prefill from scratch has it. ``H`` defaults to
+    rwkv6-1.6b's WKV_H."""
     import torch
-    H = WKV_H
+    H = H or WKV_H
     if strided:
         buf = torch.randn((B, S, 3, H, hs), generator=g, device=dev
                           ).to(dtype)
@@ -1407,7 +1425,7 @@ def wkv_inputs(g, dev, B, S, hs, dtype, *, h0=True, strong=False,
     return r, k, v, lw, u, h
 
 
-def wkv_work(B, S, hs, chunk, es):
+def wkv_work(B, S, hs, chunk, es, H=None):
     """(bytes, fp32 ops, tensor-core ops) of one WKV call: each input
     read and each output written once; the operations of the design that
     runs it (``csrc/rwkv6_wkv.cu``): the decode kernel at S = 1; else per
@@ -1415,8 +1433,8 @@ def wkv_work(B, S, hs, chunk, es):
     passes (r~ @ h and the off-diagonal scores 3, scores @ v and the
     update 2) and its fp32 work (exp(lw), the running products, the
     diagonal blocks' pairs, the hi/lo splits); fp32 takes every product on the
-    CUDA cores."""
-    H = WKV_H
+    CUDA cores. ``H`` defaults to WKV_H."""
+    H = H or WKV_H
     n = B * S * H * hs
     nbytes = n * (3 * es + 4 + es) + H * hs * es + 2 * B * H * hs * hs * 4
     if S == 1:
@@ -4460,16 +4478,16 @@ def shard_state_shapes(cfg, opt):
         return opt.init(zoo.param_shapes(cfg))
 
 
-def shard_bytes(cfg, opt, rules) -> int:
-    """A rank's exact argument bytes in 17a, reckoned from the rules on a
-    stand-in of the (2, 1) mesh: its shards of the params and the AdamW
-    state, the step, its rows of the batch."""
+def shard_bytes(cfg, opt, rules, mesh_shape=SHARD_MESH) -> int:
+    """A rank's exact argument bytes in 17a (18c), reckoned from the rules
+    on a stand-in of the (2, 1) ((1, 2)) mesh: its shards of the params
+    and the AdamW state, the step, its rows of the batch."""
     from repro_torch._tree import tree_flatten
     from repro_torch.dist.api import is_axes, logical_to_spec
     from repro_torch.models import model_zoo as zoo
 
     class StandIn:
-        shape = dict(zip(("data", "model"), SHARD_MESH))
+        shape = dict(zip(("data", "model"), mesh_shape))
 
     def local(t, ax, table):
         spec = logical_to_spec(ax, table, StandIn, t.shape)
@@ -4502,32 +4520,41 @@ def serve_prompts(cfg):
 def greedy_tokens(params, cfg, batch):
     """``zoo.prefill``, then SHARD_DECODES greedy ``zoo.decode_step``s,
     all with ``impl="kernel"``: (B, 1 + SHARD_DECODES) tokens on the
-    host."""
+    host, the bytes of the caches' leaves that a model rank splits by
+    heads (``TP_SPLIT_CACHE``: self- and cross-attention K and V, the
+    RWKV state), and each step's logits on the host (B, steps, V)."""
     import torch
+    from repro_torch._tree import tree_flatten_with_path
     from repro_torch.models import model_zoo as zoo
     logits, caches = zoo.prefill(params, cfg, batch, MAX_LEN, impl="kernel")
-    out = []
+    out, steps = [], []
     for i in range(SHARD_DECODES + 1):
-        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+        last = logits[:, -1, :cfg.vocab_size]
+        steps.append(last.float().cpu())
+        tok = torch.argmax(last, -1)[:, None]
         out.append(tok)
         if i < SHARD_DECODES:
             logits, caches = zoo.decode_step(params, cfg, caches, tok,
                                              impl="kernel")
-    return torch.cat(out, dim=1).cpu()
+    nbytes = sum(t.numel() * t.element_size() for path, t in
+                 tree_flatten_with_path(caches)[0]
+                 if path.endswith(TP_SPLIT_CACHE))
+    return torch.cat(out, dim=1).cpu(), nbytes, torch.stack(steps, dim=1)
 
 
-def shard_train_reference(dev, work: pathlib.Path) -> dict:
-    """17a's one-rank step: qwen2-1.5b's seed-0 weights at full width, one
-    AdamW step of TRAIN_B x TRAIN_S tokens on the card with no mesh. The
-    tokens and the updated params go to ``work`` for the ranks (on the
-    host: the card is freed for them)."""
+def shard_train_reference(dev, work: pathlib.Path, arch=SHARD_TRAIN_ARCH,
+                          tag="17a") -> dict:
+    """17a's (18c's) one-rank step: ``arch``'s seed-0 weights at full
+    width, one AdamW step of TRAIN_B x TRAIN_S tokens on the card with no
+    mesh. The tokens and the updated params go to ``work`` for the ranks
+    (on the host: the card is freed for them)."""
     import torch
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_config
     from repro_torch.models import model_zoo as zoo
     from repro_torch.train.train_step import make_train_step
 
-    cfg = get_config(SHARD_TRAIN_ARCH)
+    cfg = get_config(arch)
     opt = shard_optimizer(cfg)
     g = torch.Generator(device=dev).manual_seed(17)
     tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S), device=dev,
@@ -4541,9 +4568,10 @@ def shard_train_reference(dev, work: pathlib.Path) -> dict:
     ms = (time.perf_counter() - t0) * 1e3
     out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
            "ms": ms}
-    torch.save(tokens.cpu(), work / "tokens.pt")
-    torch.save(tree_map(lambda t: t.cpu(), params), work / "ref_params.pt")
-    log(f"  17a one rank: loss {out['loss']!r} grad_norm "
+    torch.save(tokens.cpu(), work / f"{tag}_tokens.pt")
+    torch.save(tree_map(lambda t: t.cpu(), params),
+               work / f"{tag}_ref_params.pt")
+    log(f"  {tag} one rank: loss {out['loss']!r} grad_norm "
         f"{out['grad_norm']!r}, step {ms!r} ms (first step on the card)")
     del params, state, m
     free_card()
@@ -4565,16 +4593,18 @@ def shard_serve_reference(dev):
     n = SERVE_BATCH // SHARD_MESH[0]
     with torch.no_grad():
         tokens = torch.cat([greedy_tokens(params, cfg, wave_inputs(
-            cfg, prompts[lo:lo + n], dev)) for lo in range(0, SERVE_BATCH, n)])
+            cfg, prompts[lo:lo + n], dev))[0]
+            for lo in range(0, SERVE_BATCH, n)])
     del params
     free_card()
     return tokens
 
 
-def shard_train_rank(dev, work: pathlib.Path) -> dict:
-    """17a on one rank: the seed-0 weights drawn whole, then only this
-    rank's shards kept (DTensors of them), the AdamW state made from the
-    shards, the rank's rows of the batch; one step on the shards. Its
+def shard_train_rank(dev, work: pathlib.Path, arch=SHARD_TRAIN_ARCH,
+                     mesh_shape=SHARD_MESH, tag="17a") -> dict:
+    """17a (18c) on one rank: the seed-0 weights drawn whole, then only
+    this rank's shards kept (DTensors of them), the AdamW state made from
+    the shards, the rank's rows of the batch; one step on the shards. Its
     arguments, peak, loss, grad norm, and each updated param against the
     one-rank step's (2 x lr plus one bf16 ulp of it)."""
     import torch
@@ -4589,10 +4619,10 @@ def shard_train_rank(dev, work: pathlib.Path) -> dict:
     from repro_torch.models import model_zoo as zoo
     from repro_torch.train.train_step import make_train_step
 
-    cfg = get_config(SHARD_TRAIN_ARCH)
+    cfg = get_config(arch)
     opt = shard_optimizer(cfg)
     axes = zoo.param_axes(cfg)
-    with mesh_context(cfg, *SHARD_MESH, device=dev.type) as mesh:
+    with mesh_context(cfg, *mesh_shape, device=dev.type) as mesh:
         rules = dist.current_rules()
         full = zoo.init_params(cfg, seed=0, device=dev)
         p_lay = fsdp.Layout(full, axes, rules, mesh)
@@ -4603,7 +4633,7 @@ def shard_train_rank(dev, work: pathlib.Path) -> dict:
                             opt.state_axes(axes), rules, mesh)
         params, state = p_lay.placed(local), s_lay.placed(opt.init(local))
         del local
-        tokens = torch.load(work / "tokens.pt").to(dev)
+        tokens = torch.load(work / f"{tag}_tokens.pt").to(dev)
         spec = logical_to_spec(("batch", None), rules["act"], mesh,
                                tokens.shape)
         batch = {"tokens": distribute_tensor(
@@ -4619,7 +4649,8 @@ def shard_train_rank(dev, work: pathlib.Path) -> dict:
         ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated(dev)
         del args, state, batch
-        ref = p_lay.local(torch.load(work / "ref_params.pt", mmap=True))
+        ref = p_lay.local(torch.load(work / f"{tag}_ref_params.pt",
+                                     mmap=True))
         excess, over, checked = -math.inf, 0, 0
         for got, want in zip(tree_flatten(params)[0], tree_flatten(ref)[0]):
             a = got.to_local().float()
@@ -4668,7 +4699,7 @@ def shard_serve_rank(dev) -> dict:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         with torch.no_grad(), fsdp.sharded(mesh, rules, ("data",)):
-            tokens = greedy_tokens(params, cfg, batch)
+            tokens = greedy_tokens(params, cfg, batch)[0]
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = ops.launch_counts()
@@ -4703,20 +4734,22 @@ def sharded_rank(rank: int, store: str, work: str, device: str) -> None:
         tdist.destroy_process_group()
 
 
-def shard_processes(work: pathlib.Path, device: str) -> dict:
-    """The two ranks and the dry run of 17a's (2, 1) cell over a fake
-    world of two (a process of its own: a fake world cannot share a
-    process with a real group), each writing its output to ``work``."""
+def shard_processes(work: pathlib.Path, device: str, arch=SHARD_TRAIN_ARCH,
+                    mesh_shape=SHARD_MESH, rank_fn="sharded_rank") -> dict:
+    """The two ranks (``rank_fn`` of this module) and the dry run of 17a's
+    (2, 1) cell (18c's (1, 2) one) over a fake world of two (a process of
+    its own: a fake world cannot share a process with a real group), each
+    writing its output to ``work``."""
     import os
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join([str(SRC), str(ROOT)]))
     script = SHARD_DRY_SCRIPT.format(
-        ranks=math.prod(SHARD_MESH), arch=SHARD_TRAIN_ARCH, b=TRAIN_B,
-        s=TRAIN_S, data=SHARD_MESH[0], model=SHARD_MESH[1], device=device)
+        ranks=math.prod(mesh_shape), arch=arch, b=TRAIN_B,
+        s=TRAIN_S, data=mesh_shape[0], model=mesh_shape[1], device=device)
     cmds = {"dry": [sys.executable, "-c", script]}
-    for r in range(math.prod(SHARD_MESH)):
+    for r in range(math.prod(mesh_shape)):
         cmds[r] = [sys.executable, "-c",
-                   f"import chip_smoke; chip_smoke.sharded_rank({r}, "
+                   f"import chip_smoke; chip_smoke.{rank_fn}({r}, "
                    f"{str(work / 'store')!r}, {str(work)!r}, {device!r})"]
     procs = {}
     for k, c in cmds.items():
@@ -4727,13 +4760,13 @@ def shard_processes(work: pathlib.Path, device: str) -> dict:
     return procs
 
 
-def shard_wait(procs: dict, work: pathlib.Path) -> dict:
-    """Wait for phase 17's processes; each must exit 0."""
+def shard_wait(procs: dict, work: pathlib.Path, phase="17") -> dict:
+    """Wait for phase 17's (18's) processes; each must exit 0."""
     deadline = time.monotonic() + SHARD_TIMEOUT_S
     for k, p in procs.items():
         rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
         if rc:
-            raise AssertionError(f"17: process {k} exited {rc}:\n"
+            raise AssertionError(f"{phase}: process {k} exited {rc}:\n"
                                  f"{(work / f'{k}.err').read_text()[-4000:]}")
     return {k: (work / f"{k}.out").read_text() for k in procs}
 
@@ -4785,42 +4818,8 @@ def sharded_phase(dev) -> dict:
     want_args = shard_bytes(cfg, opt, rules)
     whole = sum(t.numel() * t.element_size() for t in tree_leaves(
         (zoo.param_shapes(cfg), shard_state_shapes(cfg, opt))))
-    rec = json.loads(outs["dry"].strip().splitlines()[-1])
-    if not rec.get("ok", True) or rec.get("step_layout") != "sharded":
-        raise AssertionError(f"17a: the dry run's record: {rec}")
-    log(f"  dry run of the (2, 1) cell: {dryrun_line(rec)}")
-    traced = rec["memory"]["total_per_device"]
-    for r, out in enumerate(ranks):
-        t = out["train"]
-        gap = (traced - t["peak"]) / t["peak"]
-        log(f"  rank {r} 17a: loss {t['loss']!r} grad_norm {t['grad_norm']!r}"
-            f" (one rank {ref['loss']!r}, {ref['grad_norm']!r}); step "
-            f"{t['ms']!r} ms; arguments {t['arg_bytes']!r} B (the rules' "
-            f"{want_args!r}, the dry run's "
-            f"{rec['memory']['argument_size_in_bytes']!r}); "
-            f"max_memory_allocated {t['peak']!r} B, less the arguments "
-            f"{t['peak'] - t['arg_bytes']!r} B (whole params and state "
-            f"{whole!r} B); traced peak {traced!r} B, gap {gap!r} (tol "
-            f"{DRYRUN_PEAK_TOL}); params over 2 x lr + 1 bf16 ulp: "
-            f"{t['over']} of {t['checked']} (largest excess {t['excess']!r})")
-        for k in ("loss", "grad_norm"):
-            if abs(t[k] - ref[k]) > SHARD_RTOL * abs(ref[k]):
-                raise AssertionError(f"17a rank {r}: {k} {t[k]} against the "
-                                     f"one-rank {ref[k]}")
-        if t["over"]:
-            raise AssertionError(f"17a rank {r}: {t['over']} params moved "
-                                 "past the one-rank step's by more than "
-                                 "2 x lr + 1 bf16 ulp")
-        if not t["arg_bytes"] == want_args == \
-                rec["memory"]["argument_size_in_bytes"]:
-            raise AssertionError(f"17a rank {r}: arguments are not the "
-                                 "rank's shards")
-        if not t["peak"] - t["arg_bytes"] < whole:
-            raise AssertionError(f"17a rank {r}: the step held the whole "
-                                 "params and state")
-        if abs(gap) > DRYRUN_PEAK_TOL:
-            raise AssertionError(f"17a rank {r}: traced peak {traced} "
-                                 f"against the card's {t['peak']}")
+    train_rank_checks("17a", [out["train"] for out in ranks], ref,
+                      outs["dry"], want_args, whole, "sharded", SHARD_MESH)
     counts = {}
     for r, out in enumerate(ranks):
         sv = out["serve"]
@@ -4840,6 +4839,385 @@ def sharded_phase(dev) -> dict:
     log(f"  phase 17 launches: {counts}")
     log(f"    {nvidia_smi_line()}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 18: tensor- and expert-parallel compute, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_MESH = (1, 2)                             # (data, model): two ranks
+TP_SERVE_ARCHS = ("seamless-m4t-medium",     # tp_fsdp: flash on 8 heads
+                  "rwkv6-1.6b")              # tp_fsdp: WKV on 16 heads
+TP_TRAIN_ARCH = "granite-moe-1b-a400m"       # ep_fsdp: 16 of 32 experts
+TP_KERNELS = {"seamless-m4t-medium": "flash_attention",
+              "rwkv6-1.6b": "rwkv6_wkv"}
+TP_SPLIT_CACHE = (".k", ".v", ".wkv")        # cache leaves split by heads
+
+
+class HeadLog:
+    """The head counts the path's flash and WKV calls ran at: while
+    entered, ``kernels.ops``' two dispatchers note their first argument's
+    heads (q, r: (B, S, H, D)) and call through (the launch counts stay
+    the wrappers')."""
+
+    NAMES = ("flash_attention", "rwkv6_wkv")
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.heads = {k: set() for k in self.NAMES}
+        self._real = {k: getattr(ops, k) for k in self.NAMES}
+        for k, fn in self._real.items():
+            setattr(ops, k, self._logged(k, fn))
+        return self
+
+    def _logged(self, name, fn):
+        def call(*a, **k):
+            self.heads[name].add(int(a[0].shape[2]))
+            return fn(*a, **k)
+        return call
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for k, fn in self._real.items():
+            setattr(ops, k, fn)
+
+
+def tie_divergences(got, want, logits, what: str) -> list:
+    """Each row of ``got`` (B, n tokens) held to ``want``, the one rank's,
+    whose logits a step are ``logits`` (B, n, V): equal up to the row's
+    first difference, where the rank's token's logit in the one rank's
+    step must be within one bf16 ulp of that step's largest (a tie at
+    the logits' resolution: the head's product is bf16, so rwkv6's and
+    seamless's logits tie exactly or within an ulp at some steps, and an
+    ulp of another summation order flips the argmax there). After it the
+    row decodes another history and is not held. Returns ``(row, step,
+    gap)`` for each row that diverged at a tie; raises for any other
+    difference."""
+    out = []
+    for b in range(got.shape[0]):
+        diff = (got[b] != want[b]).nonzero()
+        if not len(diff):
+            continue
+        i = int(diff[0])
+        step = logits[b, i]
+        top = float(step.max())
+        ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 0.0
+        gap = top - float(step[int(got[b, i])])
+        if not gap <= ulp:
+            raise AssertionError(
+                f"{what}: row {b} step {i}: token {int(got[b, i])} against "
+                f"{int(want[b, i])}, {gap!r} under the one rank's largest "
+                f"logit {top!r} (one bf16 ulp: {ulp!r}): not a tie")
+        out.append((b, i, gap))
+    return out
+
+
+def tp_serve_reference(dev, arch: str) -> dict:
+    """18a's (18b's) one-rank serving: ``arch``'s seed-0 weights, prefill
+    of the SERVE_BATCH prompts and SHARD_DECODES greedy steps: tokens on
+    the host, the split cache leaves' bytes, the seconds."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve.engine import wave_inputs
+
+    cfg = get_config(arch)
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    batch = wave_inputs(cfg, serve_prompts(cfg), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tokens, nbytes, logits = greedy_tokens(params, cfg, batch)
+    secs = time.perf_counter() - t0
+    del params, batch
+    free_card()
+    return {"tokens": tokens, "cache_bytes": nbytes, "logits": logits,
+            "s": secs}
+
+
+def tp_serve_rank(dev, arch: str) -> dict:
+    """18a (18b) on one rank: ``arch``'s seed-0 weights drawn whole, then
+    only this rank's shards kept (its heads, ``ff`` and vocab under
+    ``tp_fsdp``); prefill and SHARD_DECODES greedy steps on every prompt
+    (the data axis is 1), the layers computing on the rank's slice with
+    their all-reduces over ``model``. The launch counts are from 0 just
+    before; the heads each kernel ran at."""
+    import torch
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import fsdp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve.engine import wave_inputs
+
+    cfg = get_config(arch)
+    with mesh_context(cfg, *TP_MESH, device=dev.type) as mesh:
+        rules = dist.current_rules()
+        full = zoo.init_params(cfg, seed=0, device=dev)
+        params = fsdp.Layout(full, zoo.param_axes(cfg), rules,
+                             mesh).local(full)
+        del full
+        free_card()
+        batch = wave_inputs(cfg, serve_prompts(cfg), dev)
+        arg_bytes = dryrun.argument_bytes(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad(), fsdp.sharded(mesh, rules, ("data",)), \
+                HeadLog() as heads:
+            tokens, nbytes, _ = greedy_tokens(params, cfg, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    return {"tokens": tokens, "cache_bytes": nbytes, "launches": counts,
+            "heads": {k: sorted(v) for k, v in heads.heads.items()},
+            "s": secs, "arg_bytes": arg_bytes,
+            "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def tp_rank(rank: int, store: str, work: str, device: str) -> None:
+    """One of phase 18's two ranks: a process of its own on the one card,
+    joined with the other through a ``file://`` store with gloo. 18a,
+    18b, then 18c; what it holds goes to ``work/rank<rank>.pt``."""
+    import datetime
+    import torch
+    import torch.distributed as tdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tdist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank,
+        world_size=math.prod(TP_MESH),
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        dev = torch.device(device)
+        work = pathlib.Path(work)
+        out = {}
+        for arch in TP_SERVE_ARCHS:
+            out[arch] = tp_serve_rank(dev, arch)
+            free_card()
+        out["train"] = shard_train_rank(dev, work, TP_TRAIN_ARCH, TP_MESH,
+                                        "18c")
+        torch.save(out, work / f"rank{rank}.pt")
+    finally:
+        tdist.destroy_process_group()
+
+
+def tp_kernel_checks(dev, g, record) -> None:
+    """Phase 18's kernels at a model rank's shapes against their plain
+    versions, graph-timed (rows of their own, logged): flash at
+    seamless-m4t-medium's cross-attention on 8 of its 16 heads (B
+    SERVE_BATCH, T PROMPT; S PROMPT and 1), WKV at rwkv6-1.6b's prefill
+    and decode on 16 of its 32 heads (bf16, model layout)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_wkv as wkv
+
+    bf16_eps = float(torch.finfo(torch.bfloat16).eps)
+    m = TP_MESH[1]
+    B, D, H = SERVE_BATCH, 64, 16 // m
+    for tag, S in (("", PROMPT), ("_decode", 1)):
+        row = f"flash_attention/tp{H}{tag}"
+        q, k, v = flash_inputs(g, dev, torch.bfloat16, B, S, PROMPT, H, H, D)
+        got = fa.flash_attention(q, k, v, causal=False)
+        want = fa.flash_attention_plain(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{row}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        tol = bf16_eps * float(want.float().abs().max())
+        sets = [(q, k, v)] + [
+            flash_inputs(g, dev, torch.bfloat16, B, S, PROMPT, H, H, D)
+            for _ in range(n_sets((q, k, v)) - 1)]
+        reps = 50 if S == 1 else 20
+        (lib_ms, backend), notes = sdpa_library_ms(sets, False, reps, want)
+        log(f"  {row}: B={B} S={S} T={PROMPT} H={H} D={D}; library: "
+            f"{' | '.join(notes)}")
+        pairs = attended_pairs(S, PROMPT, False)
+        mm = 4 * B * H * pairs * D
+        record("flash_attention",
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:77", err, tol,
+               graph_ms(cycling(lambda *t: fa.flash_attention(
+                   *t, causal=False), sets), reps),
+               median_ms(lambda: fa.flash_attention_plain(
+                   q, k, v, causal=False), 5),
+               2 * (2 * B * S * H * D + 2 * B * PROMPT * H * D),
+               5 * B * H * pairs, tensor_ops=mm, library_ms=lib_ms,
+               library=backend, row=row)
+        del q, k, v, got, want, sets
+    H = WKV_H // m
+    for tag, S in (("", PROMPT), ("_decode", 1)):
+        row = f"rwkv6_wkv/tp{H}{tag}"
+        args = wkv_inputs(g, dev, B, S, WKV_HS, torch.bfloat16, H=H)
+        o, h = ops.rwkv6_wkv(*args, chunk=WKV_CHUNK)
+        po, ph = wkv.rwkv6_wkv_plain(*args, chunk=WKV_CHUNK)
+        if o.shape != po.shape or not (torch.isfinite(o.float()).all()
+                                       and torch.isfinite(h).all()):
+            raise AssertionError(f"{row}: misshapen or non-finite")
+        htol = 1e-4 * float(ph.abs().max())
+        herr = float((h - ph).abs().max())
+        log(f"  {row}: B={B} S={S} H={H} hs={WKV_HS}; h_last max_abs_err="
+            f"{herr!r} tol={htol!r}")
+        if not herr <= htol:
+            raise AssertionError(f"{row}: h_last disagrees")
+        err = float((o.float() - po.float()).abs().max())
+        tol = bf16_eps * float(po.float().abs().max()) + htol
+        nbytes, fops, tops = wkv_work(B, S, WKV_HS, WKV_CHUNK, 2, H=H)
+        record("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+               "src/repro/kernels/rwkv6_wkv.py:71", err, tol,
+               graph_ms(lambda: ops.rwkv6_wkv(*args, chunk=WKV_CHUNK),
+                        50 if S == 1 else 20),
+               median_ms(lambda: wkv.rwkv6_wkv_plain(*args, chunk=WKV_CHUNK),
+                         1),
+               nbytes, fops, tensor_ops=tops, row=row)
+        del args, o, h, po, ph
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def tp_phase(dev) -> dict:
+    """Phase 18: tensor- and expert-parallel compute (``dist/tp.py``) on
+    two ranks of a (1, 2) mesh on the one card, held to one rank: 18a
+    seamless-m4t-medium and 18b rwkv6-1.6b served under ``tp_fsdp``
+    (flash on 8 heads, WKV on 16 a rank; tokens, split cache bytes half),
+    18c granite-moe-1b-a400m's AdamW step under ``ep_fsdp`` (16 of 32
+    experts a rank) and its dry run on a (1, 2) fake world. Returns the
+    launch counts of the ranks' serving paths."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.dist.sharding import build_rules
+    from repro_torch.models import model_zoo as zoo
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_phase18_"))
+    procs = {}
+    try:
+        refs = {}
+        for tag, arch in zip(("18a", "18b"), TP_SERVE_ARCHS):
+            log(f"phase {tag}: {arch} (tp_fsdp), prefill of {SERVE_BATCH} x "
+                f"{PROMPT} tokens and {SHARD_DECODES} greedy decode steps "
+                f"(impl='kernel'): one rank, then two ranks of a {TP_MESH} "
+                "mesh on the card (gloo), each on its heads")
+            refs[arch] = tp_serve_reference(dev, arch)
+            log(f"  {tag} one rank: {refs[arch]['s']!r} s; split cache "
+                f"leaves {refs[arch]['cache_bytes']!r} B")
+        log(f"phase 18c: {TP_TRAIN_ARCH} (ep_fsdp) at full width, one AdamW "
+            f"step of {TRAIN_B} x {TRAIN_S} tokens: one rank, then the two "
+            "ranks, each on its experts")
+        ref = shard_train_reference(dev, work, TP_TRAIN_ARCH, "18c")
+        t0 = time.perf_counter()
+        procs = shard_processes(work, dev.type, TP_TRAIN_ARCH, TP_MESH,
+                                "tp_rank")
+        outs = shard_wait(procs, work, "18")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                 for r in range(math.prod(TP_MESH))]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  the ranks and the dry run: {wall!r} s of wall time")
+
+    counts = {}
+    m = TP_MESH[1]
+    for tag, arch in zip(("18a", "18b"), TP_SERVE_ARCHS):
+        cfg = get_config(arch)
+        kernel = TP_KERNELS[arch]
+        want_heads = [cfg.n_heads // m]
+        for r, out in enumerate(ranks):
+            sv, rf = out[arch], refs[arch]
+            same = torch.equal(sv["tokens"], rf["tokens"])
+            ties = tie_divergences(sv["tokens"], rf["tokens"], rf["logits"],
+                                   f"{tag} rank {r}")
+            launched = {k: v for k, v in sv["launches"].items() if v}
+            log(f"  rank {r} {tag}: tokens equal the one rank's: {same}; "
+                f"rows diverging at a bf16 tie of the one rank's logits "
+                f"(row, step, gap): {ties}; "
+                f"{sv['s']!r} s (one rank {rf['s']!r} s); split cache "
+                f"leaves {sv['cache_bytes']!r} B (one rank "
+                f"{rf['cache_bytes']!r} B); heads a call {sv['heads']}; "
+                f"arguments {sv['arg_bytes']!r} B, max_memory_allocated "
+                f"{sv['peak']!r} B; launches {launched}")
+            if not sv["launches"].get(kernel):
+                raise AssertionError(f"{tag} rank {r}: no {kernel} launch")
+            if sv["heads"][kernel] != want_heads:
+                raise AssertionError(f"{tag} rank {r}: {kernel} ran at "
+                                     f"{sv['heads'][kernel]} heads, not "
+                                     f"{want_heads}")
+            if m * sv["cache_bytes"] != rf["cache_bytes"]:
+                raise AssertionError(f"{tag} rank {r}: split cache leaves "
+                                     f"{sv['cache_bytes']} B, not 1/{m} of "
+                                     f"{rf['cache_bytes']}")
+            for k, v in sv["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+
+    cfg = get_config(TP_TRAIN_ARCH)
+    opt = shard_optimizer(cfg)
+    shape = InputShape(f"train_{TRAIN_B}x{TRAIN_S}", TRAIN_S, TRAIN_B, "train")
+    rules = build_rules(cfg, shape=shape)
+    whole = sum(t.numel() * t.element_size() for t in tree_leaves(
+        (zoo.param_shapes(cfg), shard_state_shapes(cfg, opt))))
+    train_rank_checks("18c", [out["train"] for out in ranks], ref,
+                      outs["dry"], shard_bytes(cfg, opt, rules, TP_MESH),
+                      whole, "sharded_tp", TP_MESH)
+    log(f"  phase 18 launches: {counts}")
+    log(f"    {nvidia_smi_line()}")
+    return counts
+
+
+def train_rank_checks(tag, trains, ref, dry_out, want_args, whole,
+                      layout, mesh_shape) -> None:
+    """17a's and 18c's checks of each rank's step against the one-rank
+    step (``ref``) and the dry run's record of the cell (the last line of
+    ``dry_out``): loss and grad norm within SHARD_RTOL, no param past 2 x
+    lr + 1 bf16 ulp, the arguments the rules' and the record's, less than
+    the whole params and state held besides, the traced peak within
+    DRYRUN_PEAK_TOL of ``max_memory_allocated``."""
+    rec = json.loads(dry_out.strip().splitlines()[-1])
+    if not rec.get("ok", True) or rec.get("step_layout") != layout:
+        raise AssertionError(f"{tag}: the dry run's record: {rec}")
+    log(f"  dry run of the {mesh_shape} cell: {dryrun_line(rec)}")
+    traced = rec["memory"]["total_per_device"]
+    for r, t in enumerate(trains):
+        gap = (traced - t["peak"]) / t["peak"]
+        log(f"  rank {r} {tag}: loss {t['loss']!r} grad_norm "
+            f"{t['grad_norm']!r} (one rank {ref['loss']!r}, "
+            f"{ref['grad_norm']!r}); step {t['ms']!r} ms; arguments "
+            f"{t['arg_bytes']!r} B (the rules' {want_args!r}, the dry run's "
+            f"{rec['memory']['argument_size_in_bytes']!r}); "
+            f"max_memory_allocated {t['peak']!r} B, less the arguments "
+            f"{t['peak'] - t['arg_bytes']!r} B (whole params and state "
+            f"{whole!r} B); traced peak {traced!r} B, gap {gap!r} (tol "
+            f"{DRYRUN_PEAK_TOL}); params over 2 x lr + 1 bf16 ulp: "
+            f"{t['over']} of {t['checked']} (largest excess {t['excess']!r})")
+        for k in ("loss", "grad_norm"):
+            if abs(t[k] - ref[k]) > SHARD_RTOL * abs(ref[k]):
+                raise AssertionError(f"{tag} rank {r}: {k} {t[k]} against "
+                                     f"the one-rank {ref[k]}")
+        if t["over"]:
+            raise AssertionError(f"{tag} rank {r}: {t['over']} params moved "
+                                 "past the one-rank step's by more than "
+                                 "2 x lr + 1 bf16 ulp")
+        if not t["arg_bytes"] == want_args == \
+                rec["memory"]["argument_size_in_bytes"]:
+            raise AssertionError(f"{tag} rank {r}: arguments are not the "
+                                 "rank's shards")
+        if not t["peak"] - t["arg_bytes"] < whole:
+            raise AssertionError(f"{tag} rank {r}: the step held the whole "
+                                 "params and state")
+        if abs(gap) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"{tag} rank {r}: traced peak {traced} "
+                                 f"against the card's {t['peak']}")
 
 
 def free_card() -> None:
@@ -5151,6 +5529,13 @@ def main(argv=None) -> int:
     free_card()
     since(t_all)
     path_counts["sharded"] = sharded_phase(dev)
+
+    # -- phase 18: tensor- and expert-parallel compute, two ranks --------------
+    free_card()
+    since(t_all)
+    log(f"phase 18: the kernels at a model rank's shapes ({TP_MESH} mesh)")
+    tp_kernel_checks(dev, kg, record)
+    path_counts["tp"] = tp_phase(dev)
     since(t_all)
 
     counts = {k: sum(c[k] for c in path_counts.values())

@@ -24,15 +24,22 @@ gradient. Eager PyTorch has no partitioner, so the port says where:
     the backward returns the shard's gradient, in fp32 until autograd
     gives it the shard's dtype. Over a sharded axis the batch is split
     over, that is the mean over the ranks along it (a reduce-scatter);
-    over a sharded axis the batch is not split over (``model`` under
-    ``tp_fsdp``: every rank along it computed the same gradient), the
-    rank's slice, with no communication. The mean over batch axes a leaf
-    is not sharded on is the caller's, once, after accumulation.
+    over a sharded axis the batch is not split over (``model`` where the
+    act rules do not keep the dim on it, as experts under ``tp_fsdp``:
+    every rank along it computed the same gradient), the rank's slice,
+    with no communication. A dim kept on ``model`` (:func:`use_spec`) is
+    not gathered over it at all. The mean over batch axes a leaf is not
+    sharded on is the caller's, once, after accumulation.
 
 The models gather a layer's params inside the layer's body (so remat
 frees them after the layer and the backward gathers them again), the
 prefix slot by slot, and the leaves outside the stacks once at each
-entry point (``models/transformer.py``).
+entry point (``models/transformer.py``), each by its *use spec*
+(:func:`use_spec`): a dim that the act rules map to ``model`` as well
+(heads, ``ff``, ``vocab``, ``dinner``; experts under the ``ep``
+recipes) is not gathered over ``model``. It stays the rank's slice and
+the layer computes on it (:mod:`repro_torch.dist.tp`); its gradient is
+the rank's own, so the backward narrows nothing there.
 
 Every collective goes to the group's own backend. Gloo carries each one
 used here (all-gather, reduce-scatter and all-reduce with SUM, MAX and
@@ -56,7 +63,7 @@ from repro_torch.dist.api import (PartitionSpec, _as_tuple, is_axes,
                                   spec_to_placements)
 
 __all__ = ["Layout", "MeshShape", "sharded", "current", "gather", "leaf_spec",
-           "is_spec", "all_reduce", "contexts", "entered"]
+           "use_spec", "is_spec", "all_reduce", "contexts", "entered"]
 
 
 def is_spec(x) -> bool:
@@ -69,6 +76,24 @@ def leaf_spec(axes, shape, rules, mesh) -> PartitionSpec:
     if axes is None or len(axes) != len(shape):
         return PartitionSpec(*(None,) * len(shape))
     return logical_to_spec(axes, rules, mesh, shape)
+
+
+def use_spec(axes, spec, act: dict) -> PartitionSpec:
+    """``spec`` (a leaf's, by the param rules) less ``model`` on each dim
+    whose logical axis the act rules ``act`` map to ``model`` too: what
+    :func:`gather` gathers of a leaf inside a step on shards. Such a dim
+    stays the rank's slice and its layer computes on it (tensor and
+    expert parallelism, :mod:`repro_torch.dist.tp`)."""
+    if axes is None or len(axes) != len(spec):
+        return spec
+    out = []
+    for ax, part in zip(axes, spec):
+        if ax is not None and "model" in _as_tuple(act.get(ax)):
+            kept = tuple(a for a in _as_tuple(part) if a != "model")
+            part = None if not kept else (kept[0] if len(kept) == 1
+                                          else kept)
+        out.append(part)
+    return PartitionSpec(*out)
 
 
 def _steps(spec, mesh) -> list:

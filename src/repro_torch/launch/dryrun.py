@@ -14,7 +14,11 @@ unsupported op fails the cell. Records are written to
 package's go to ``experiments/dryrun/``), so reruns skip green cells.
 
 What the port's steps do on a mesh of several ranks, and the record
-says (``step_layout``: ``"sharded"``; ``"one device"`` on a mesh of one):
+says (``step_layout``: ``"sharded"``, or ``"sharded_tp"`` where the
+``model`` axis splits heads, ``ff``, ``vocab``, ``dinner`` or experts
+and the layers compute on the rank's slice, their activations reduced
+over ``model`` where the one-rank layer would have summed them
+(``dist/tp.py``); ``"one device"`` on a mesh of one):
 
   * a train cell runs ``make_train_step(cfg, make_optimizer(cfg,
     "adamw"))``: a rank holds its shards of the params and of the AdamW
@@ -27,7 +31,12 @@ says (``step_layout``: ``"sharded"``; ``"one device"`` on a mesh of one):
     activations of its slice of the batch;
   * a prefill or decode cell holds the params' shards, gathers each
     layer's weights as it runs and frees them after, and runs its rank's
-    slice of the batch and of the caches.
+    slice of the batch and of the caches (under ``"sharded_tp"`` its
+    caches hold only its KV heads, ``dinner`` channels or RWKV heads).
+
+Under ``"sharded_tp"`` a traced rank counts its own slice of the split
+products, and its links show the activation all-reduces over ``model``
+(fp32) in place of the all-gathers of those weights over ``model``.
 
 The memory record keeps the JAX package's keys where their meaning
 holds: ``argument_size_in_bytes`` is the exact bytes of the rank's
@@ -187,7 +196,10 @@ def _serve_fn(cfg, shape, mesh, rules, impl):
     def serve_step(params, caches, tokens):
         axes = axes_of(tokens)
         params = shards(params)
-        caches, tokens = _rank_slice((caches, tokens), axes, mesh)
+        # a cache's heads or channels stay split over ``model``, where
+        # the layers run the rank's share of them
+        caches = _rank_slice(caches, axes + ("model",), mesh)
+        tokens = _rank_slice(tokens, axes, mesh)
         with fsdp.sharded(mesh, rules, axes):
             return zoo.decode_step(params, cfg, caches, tokens, impl=impl)
     return serve_step
@@ -227,6 +239,24 @@ def argument_bytes(args) -> int:
     return sum(t.numel() * t.element_size() for t in ha.local_tensors(args))
 
 
+def step_layout(sizes: dict, rules) -> str:
+    """What a rank of a cell's step on a mesh of ``sizes`` (axis ->
+    ranks) holds and computes: ``"one device"``; ``"sharded"`` (its
+    shards, each layer gathered where it runs); or ``"sharded_tp"``,
+    where a ``model`` axis of more than one rank splits dims the param
+    and act rules both map to it, and the layers compute on the rank's
+    slice (``dist/tp.py``)."""
+    from repro_torch.dist.api import _as_tuple
+    if math.prod(sizes.values()) <= 1:
+        return "one device"
+    act = rules.get("act", {})
+    if sizes.get("model", 1) > 1 and any(
+            "model" in _as_tuple(v) and "model" in _as_tuple(act.get(k))
+            for k, v in rules.get("param", {}).items()):
+        return "sharded_tp"
+    return "sharded"
+
+
 def trace_cell(cfg, shape, mesh, rules, impl="chunked", device="cuda"
                ) -> dict:
     """Build one cell and trace its step under ``use_mesh(mesh, rules)``:
@@ -250,7 +280,7 @@ def trace_cell(cfg, shape, mesh, rules, impl="chunked", device="cuda"
         "collective_ops": t["collective_ops"],
         "roofline": rf.from_trace(
             t, cfg, shape, math.prod(mesh_sizes(mesh).values())).to_dict(),
-        "step_layout": "sharded" if spans_devices(mesh) else "one device",
+        "step_layout": step_layout(mesh_sizes(mesh), rules),
         "params_total": counts["total"],
         "params_active": counts["active"],
     }
@@ -274,15 +304,24 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
     mesh_name = "multipod_2x16x16" if multi_pod else "pod_16x16"
     out_dir = OUT / (mesh_name + (f"_{tag}" if tag else ""))
     out_path = out_dir / arch / f"{shape_name}.json"
-    if out_path.exists() and not force:
-        return json.loads(out_path.read_text())
-
     cfg = get_config(arch)
     if overrides:
         cfg = cfg.with_overrides(**overrides)
     if recipe:
         cfg = cfg.with_overrides(recipe=recipe)
     shape = SHAPES_BY_NAME[shape_name]
+    if out_path.exists() and not force:
+        # a green record of the layout the cell runs now; an older
+        # layout's (gathered over ``model``) is traced again
+        rec = json.loads(out_path.read_text())
+        sizes = dict(zip(("pod", "data", "model")[-3 if multi_pod else -2:],
+                         (2, 16, 16) if multi_pod else (16, 16)))
+        try:
+            want = step_layout(sizes, build_rules(cfg, shape=shape))
+        except ValueError:
+            want = None
+        if not rec.get("ok") or rec.get("step_layout") == want:
+            return rec
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
            "recipe": cfg.recipe, "impl": impl, "tag": tag,
            "overrides": overrides or {}, "device": str(device),

@@ -32,6 +32,10 @@ runs once; every aten op it dispatches is seen, on one rank:
                      the arguments included (summed over the rank's
                      device and the host's few scalars).
 
+Under tensor and expert parallelism (``dist/tp.py``) a rank's products
+are its own slice's, and its links the activations' all-reduces and
+all-gathers over ``model`` the layers make.
+
 Eager PyTorch runs every layer and microbatch loop unrolled, each op
 dispatched as often as it runs, so there is nothing to scale by trip
 counts. The analysis launches no CUDA kernel: the port's kernels are

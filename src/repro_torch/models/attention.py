@@ -22,6 +22,16 @@ standard Megatron-GQA duplication) so both q and kv shard evenly over
 values are those of plain GQA grouping. The cache keeps the model's
 ``n_kv_heads``: the repeat is taken after it. Without a mesh the factor
 is 1 and every ``shard`` is the identity.
+
+Inside a step on shards whose ``model`` axis splits the heads
+(:mod:`repro_torch.dist.tp`), each rank computes its own query heads:
+q (and k, v where ``kv_heads`` divides too) are column-parallel, ``wo``
+row-parallel with its partial sums reduced over ``model``, and the KV
+cache holds the rank's KV heads. Where ``kv_heads`` does not divide, k
+and v are computed whole from the replicated weights, repeated as
+:func:`_expand_kv` repeats them, and the rank takes the KV heads its
+query heads read (:func:`_rank_kv`). MLA splits its per-head up-
+projections and keeps the latent cache replicated, as the reference.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist import axis_size, shard
+from repro_torch.dist import axis_size, shard, tp
 from repro_torch.models.layers import apply_rope, cast_like_xla
 from repro_torch.models.params import Spec
 
@@ -97,6 +107,34 @@ def _expand_kv(k: torch.Tensor, rep: int) -> torch.Tensor:
     if rep == 1:
         return k
     return torch.repeat_interleave(k, rep, dim=2)
+
+
+def _head_split(p, cfg: ArchConfig) -> int:
+    """How many ``model`` ranks split this attention's query heads (1
+    outside tensor parallelism)."""
+    return tp.parts(p["wo"].shape[0], cfg.n_heads)
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor, split: bool) -> torch.Tensor:
+    """The heads' output projection, (B, S, H, E) x (H, E, D); over the
+    rank's heads, row-parallel (:func:`repro_torch.dist.tp.row_product`)."""
+    if not split:
+        return torch.einsum("bshe,hed->bsd", o, wo)
+    B, S, H, E = o.shape
+    return tp.row_product(o.reshape(B, S, H * E), wo.reshape(H * E, -1))
+
+
+def _rank_kv(k: torch.Tensor, n_heads: int, split: int) -> torch.Tensor:
+    """The rank's KV heads from whole (repeated) ``k`` (B, T, KV, D): those
+    its ``n_heads / split`` query heads read, with each query head on its
+    own KV head as in plain grouping; one KV head a query head where the
+    rank's query heads do not cover whole groups."""
+    KV = k.shape[2]
+    group = n_heads // KV
+    local = n_heads // split
+    if local % group:
+        k = torch.repeat_interleave(k, group, dim=2)
+    return tp.take(k, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -261,9 +299,12 @@ def self_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
                    impl: str = "chunked"):
     """x: (B,S,D). Returns (out, new_cache); a given cache is updated in
     place."""
-    q = _project(p, cfg, x, "q")
-    k = _project(p, cfg, x, "k")
-    v = _project(p, cfg, x, "v")
+    split = _head_split(p, cfg)
+    xm = tp.copy_in(x) if split > 1 else x
+    kv_whole = p["wk"].shape[1] == cfg.n_kv_heads
+    q = _project(p, cfg, xm, "q")
+    k = _project(p, cfg, x if kv_whole else xm, "k")
+    v = _project(p, cfg, x if kv_whole else xm, "v")
     if cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -285,19 +326,23 @@ def self_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
         q_offset = cache.length
     rep = kv_repeat_factor(cfg)
     kvh = "heads" if rep > 1 else "kv_heads"
-    k = shard(_expand_kv(k, rep), "batch", "kv_seq", kvh, None)
-    v = shard(_expand_kv(v, rep), "batch", "kv_seq", kvh, None)
+    k, v = _expand_kv(k, rep), _expand_kv(v, rep)
+    if split > 1 and kv_whole:
+        k, v = (_rank_kv(t, cfg.n_heads, split) for t in (k, v))
+    k = shard(k, "batch", "kv_seq", kvh, None)
+    v = shard(v, "batch", "kv_seq", kvh, None)
 
     o = attention(q, k, v, causal=causal, impl=impl, chunk=cfg.attn_chunk,
                   q_offset=q_offset, kv_len=kv_len)
     o = shard(o, "batch", None, "heads", None)
-    out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
-    return out, new_cache
+    return _out_proj(o, p["wo"].to(x.dtype), split > 1), new_cache
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                   device="cpu") -> KVCache:
-    KV, Dh = cfg.n_kv_heads, cfg.d_head
+    """A zeroed cache; inside a step on shards that splits ``kv_heads``
+    over ``model``, of the rank's KV heads."""
+    KV, Dh = tp.local_size(cfg.n_kv_heads, "kv_heads"), cfg.d_head
     return KVCache(
         k=torch.zeros((batch, max_len, KV, Dh), dtype=dtype, device=device),
         v=torch.zeros((batch, max_len, KV, Dh), dtype=dtype, device=device),
@@ -322,16 +367,19 @@ def mla_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
     gate refuses the pair, so every impl runs the chunked/dense path."""
     m = cfg.mla
     B, S, d = x.shape
-    H = cfg.n_heads
+    H = p["wo"].shape[0]                 # the rank's heads under TP
+    split = tp.parts(H, cfg.n_heads) > 1
     dn, dr = m.nope_head_dim, m.rope_head_dim
 
     if m.q_lora_rank:
         cq = x @ p["w_dq"]
         cq = cq * torch.rsqrt(torch.square(cq.float()).mean(-1, keepdim=True)
                               + cfg.norm_eps).to(x.dtype)
-        q = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"].to(x.dtype))
+        q = torch.einsum("bsr,rhe->bshe", tp.copy_in(cq) if split else cq,
+                         p["w_uq"].to(x.dtype))
     else:
-        q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
+        q = torch.einsum("bsd,dhe->bshe", tp.copy_in(x) if split else x,
+                         p["wq"].to(x.dtype))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -355,7 +403,10 @@ def mla_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
         q_offset = cache.length
 
     # expand latent -> per-head keys/values (the reference's naive path;
-    # the absorbed variant is a speed change)
+    # the absorbed variant is a speed change); the replicated latent
+    # enters the rank's heads
+    if split:
+        c, kr = tp.copy_in(c), tp.copy_in(kr)
     k_nope = torch.einsum("btr,rhe->bthe", c, p["w_uk"].to(x.dtype))
     vv = torch.einsum("btr,rhe->bthe", c, p["w_uv"].to(x.dtype))
     T = k_nope.shape[1]
@@ -367,8 +418,7 @@ def mla_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
 
     o = attention(qq, k, vv, causal=True, impl=impl, chunk=cfg.attn_chunk,
                   q_offset=q_offset, kv_len=kv_len)
-    out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
-    return out, new_cache
+    return _out_proj(o, p["wo"].to(x.dtype), split), new_cache
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -397,22 +447,28 @@ def cross_attention(p, cfg: ArchConfig, x: torch.Tensor,
                     cache: Optional[CrossCache] = None,
                     impl: str = "chunked"):
     """K/V from `memory` (encoder output / image embeds) or from
-    `cache`."""
-    q = _project(p, cfg, x, "q")
+    `cache`. Under tensor parallelism the rank's heads, as
+    :func:`self_attention`'s (the flash kernel runs on them)."""
+    split = _head_split(p, cfg)
+    kv_whole = p["wk"].shape[1] == cfg.n_kv_heads
+    q = _project(p, cfg, tp.copy_in(x) if split > 1 else x, "q")
     q = shard(q, "batch", None, "heads", None)
     if cache is None:
         if memory is None:
             raise ValueError("cross_attention needs memory or a cache")
-        k = _project(p, cfg, memory, "k")
-        v = _project(p, cfg, memory, "v")
+        mem = memory if kv_whole else tp.copy_in(memory)
+        k = _project(p, cfg, mem, "k")
+        v = _project(p, cfg, mem, "v")
         new_cache = CrossCache(k, v)
     else:
         k, v = cache.k.to(x.dtype), cache.v.to(x.dtype)
         new_cache = cache
     rep = kv_repeat_factor(cfg)
     kvh = "heads" if rep > 1 else "kv_heads"
-    k = shard(_expand_kv(k, rep), "batch", None, kvh, None)
-    v = shard(_expand_kv(v, rep), "batch", None, kvh, None)
+    k, v = _expand_kv(k, rep), _expand_kv(v, rep)
+    if split > 1 and kv_whole:
+        k, v = (_rank_kv(t, cfg.n_heads, split) for t in (k, v))
+    k = shard(k, "batch", None, kvh, None)
+    v = shard(v, "batch", None, kvh, None)
     o = attention(q, k, v, causal=False, impl=impl, chunk=cfg.attn_chunk)
-    out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
-    return out, new_cache
+    return _out_proj(o, p["wo"].to(x.dtype), split > 1), new_cache

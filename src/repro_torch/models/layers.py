@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist import shard
+from repro_torch.dist import shard, tp
 from repro_torch.models.params import Spec
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -184,14 +184,22 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
+    """x: (B, S, D) -> (B, S, D). Where ``ff`` is the rank's slice
+    (:mod:`repro_torch.dist.tp`), ``w_up``/``w_gate`` are column-parallel
+    and ``w_down`` row-parallel (:func:`repro_torch.dist.tp.
+    row_product`)."""
+    split = tp.parts(p["w_up"].shape[-1], cfg.d_ff) > 1
+    if split:
+        x = tp.copy_in(x)
     if cfg.mlp_act.endswith("_glu"):
         h = _act(cfg.mlp_act, x @ p["w_gate"]) * (x @ p["w_up"])
-        h = shard(h, "batch", None, "ff")
-        return h @ p["w_down"]
-    h = _act(cfg.mlp_act, x @ p["w_up"] + p["b_up"].to(x.dtype))
+    else:
+        h = _act(cfg.mlp_act, x @ p["w_up"] + p["b_up"].to(x.dtype))
     h = shard(h, "batch", None, "ff")
-    return h @ p["w_down"] + p["b_down"].to(x.dtype)
+    out = tp.row_product(h, p["w_down"]) if split else h @ p["w_down"]
+    if "b_down" in p:
+        out = out + p["b_down"].to(x.dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -207,28 +215,45 @@ def embed_specs(cfg: ArchConfig):
 
 
 def embed_tokens(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings. Where ``vocab`` is the rank's slice
+    (:mod:`repro_torch.dist.tp`) the lookup is vocab-parallel: ids
+    outside the rank's rows give zeros, and the ranks' rows are summed
+    over ``model``."""
     tok = p["tok"]
-    x = tok.to(dtype_of(cfg.compute_dtype))[tokens.to(tok.device).long()]
-    return shard(x, "batch", None, "embed")
+    ids = tokens.to(tok.device).long()
+    table = tok.to(dtype_of(cfg.compute_dtype))
+    if tp.parts(tok.shape[0], cfg.padded_vocab) == 1:
+        return shard(table[ids], "batch", None, "embed")
+    local = ids - tp.group().rank * tok.shape[0]
+    mine = (local >= 0) & (local < tok.shape[0])
+    x = table[torch.where(mine, local, torch.zeros_like(local))]
+    x = torch.where(mine[..., None], x, torch.zeros_like(x))
+    return shard(tp.reduce_out(x), "batch", None, "embed")
 
 
 def lm_logits(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Final-norm'ed hidden -> (B, S, padded_vocab) fp32 logits (pads
-    masked)."""
+    masked). Where ``vocab`` is the rank's slice (:mod:`repro_torch.dist.
+    tp`) the logits are too: the product is column-parallel, and the pad
+    mask falls on the rank that holds the pads."""
+    w = p["tok"] if cfg.tie_embeddings else p["head"]
+    v = w.shape[0] if cfg.tie_embeddings else w.shape[1]
+    if tp.parts(v, cfg.padded_vocab) > 1:
+        x = tp.copy_in(x)
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, p["tok"].to(x.dtype))
+        logits = torch.einsum("bsd,vd->bsv", x, w.to(x.dtype))
     else:
-        logits = x @ p["head"]
+        logits = x @ w
     logits = logits.float()
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits / c)
     if cfg.padded_vocab != cfg.vocab_size:
-        pad = cfg.padded_vocab - cfg.vocab_size
-        mask = torch.cat([
-            torch.zeros((cfg.vocab_size,), dtype=torch.float32,
-                        device=logits.device),
-            torch.full((pad,), -1e30, dtype=torch.float32,
-                       device=logits.device)])
+        lo = 0 if v == cfg.padded_vocab else tp.group().rank * v
+        ids = lo + torch.arange(v, device=logits.device)
+        mask = torch.where(
+            ids < cfg.vocab_size,
+            torch.zeros((), dtype=torch.float32, device=logits.device),
+            torch.full((), -1e30, dtype=torch.float32, device=logits.device))
         logits = logits + mask
     return shard(logits, "batch", None, "vocab")

@@ -21,6 +21,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch._tree import tree_flatten_with_path, tree_map, tree_unflatten
 from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.dist import tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import params as pmod
 from repro_torch.models import rwkv as rwkv_mod
@@ -68,7 +69,8 @@ def params_device(params) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def _cross(cfg, batch, src_len, dtype, device):
-    shape = (batch, src_len, cfg.n_kv_heads, cfg.d_head)
+    shape = (batch, src_len, tp.local_size(cfg.n_kv_heads, "kv_heads"),
+             cfg.d_head)
     return attn_mod.CrossCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device))
@@ -106,7 +108,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 src_len: int = 0, dtype=None, device="cuda"):
     """A zeroed cache tree on ``device`` (the card unless asked
     otherwise); ``device="meta"`` gives shapes only. Lengths stay on the
-    CPU."""
+    CPU. Inside a step on shards whose ``model`` axis splits the heads
+    or ``dinner``, each leaf holds the rank's share of them."""
     device = resolve_device(device)
     dtype = dtype or dtype_of(cfg.kv_cache_dtype)
     if cfg.family == "encdec":
@@ -184,7 +187,11 @@ def _forward_cached(params, cfg, tokens, caches, *, offset, memory, impl,
                              stack_specs=tfm._sub(specs, which + "stack"))
         new["stack"] = sc
     x = apply_norm(params["final_norm"], cfg, x)
-    return lm_logits(params["embed"], cfg, x[:, -1:, :]), new
+    logits = lm_logits(params["embed"], cfg, x[:, -1:, :])
+    # the last position's logits whole on every rank (B x V, small)
+    if logits.shape[-1] != cfg.padded_vocab:
+        logits = tp.gather_out(logits, -1)
+    return logits, new
 
 
 def _clear_cross(tree):
@@ -200,7 +207,10 @@ def _clear_cross(tree):
 
 def constrain_caches(caches):
     """Apply logical-axis sharding constraints to a cache tree (no-op
-    without an active mesh)."""
+    without an active mesh). Inside a step on shards the caches are plain
+    tensors made at the rank's size (its KV heads, ``dinner`` channels or
+    RWKV heads under tensor parallelism: :func:`init_caches`), which
+    this leaves as they are."""
     from repro_torch.dist import mesh_active, shard
     from repro_torch.dist.api import is_axes
     if not mesh_active():

@@ -11,6 +11,15 @@ the size of the ``expert_groups`` axis under the active mesh (1 without
 one), falling back to 1 where it does not divide the tokens, as in the
 reference. Shared experts run densely.
 
+Expert parallelism (inside a step on shards whose ``model`` axis splits
+``experts``, :mod:`repro_torch.dist.tp`): the router's columns are the
+rank's experts too, so each rank computes its experts' logits and they
+are all-gathered; the softmax and top-k then run on every rank on the
+same logits, so every rank routes alike. Each rank gathers the tokens of
+its E/m experts' slots only, runs its experts' products and combines
+their contributions, which are summed over ``model``. Shared experts
+whose ``ff`` is split (``ep_tp_fsdp``) are column- then row-parallel.
+
 Nothing here reads a value back to the host: per-expert counts come
 from ``scatter_add_`` into a length-E tensor (``torch.bincount``'s
 output length depends on the data, which syncs the card every layer),
@@ -26,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist import axis_size, shard
+from repro_torch.dist import axis_size, shard, tp
 from repro_torch.models.layers import _act
 from repro_torch.models.params import Spec
 
@@ -67,9 +76,12 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _dispatch_group(cfg: ArchConfig, C: int, xf, expert_ids):
-    """Per-group dispatch. xf: (t,D); expert_ids: (t,K).
-    Returns (buf (E,C,D), dest (t*K,), order (t*K,), keep (t*K,))."""
+def _dispatch_group(cfg: ArchConfig, C: int, xf, expert_ids,
+                    experts: Optional[Tuple[int, int]] = None):
+    """Per-group dispatch. xf: (t,D); expert_ids: (t,K); ``experts``
+    ``(first, count)``: the experts whose slots the buffer holds (all of
+    them when None). Returns (buf (count,C,D), dest (t*K,), order
+    (t*K,), keep (t*K,)); ``dest`` indexes every expert's slots."""
     e = cfg.moe
     t, D = xf.shape
     E, K = e.num_experts, e.top_k
@@ -95,20 +107,36 @@ def _dispatch_group(cfg: ArchConfig, C: int, xf, expert_ids):
     slot_tok = torch.where(filled < t * K,
                            tok_of[torch.clamp(filled, max=t * K - 1)],
                            sentinel)
+    first, count = experts if experts is not None else (0, E)
+    if count != E:
+        slot_tok = slot_tok[first * C:(first + count) * C]
     xf_pad = torch.cat([xf, xf.new_zeros((1, D))])
-    buf = xf_pad[slot_tok]                                         # (E*C, D)
-    return buf.reshape(E, C, D), dest, order, keep
+    buf = xf_pad[slot_tok]                                     # (count*C, D)
+    return buf.reshape(count, C, D), dest, order, keep
 
 
-def _combine_group(out_buf, dest, order, keep, gate_flat, t, K, D):
-    """out_buf: (E,C,D) -> y (t,D) weighted by gates (all gathers)."""
+def _combine_group(out_buf, dest, order, keep, gate_flat, t, K, D,
+                   first_slot: Optional[int] = None):
+    """out_buf: (E,C,D) -> y (t,D) weighted by gates (all gathers). With
+    ``first_slot`` ``out_buf`` holds only the slots from there on (a
+    rank's experts): assignments to other slots contribute nothing, and
+    the rank's partial sum stays in fp32 for its sum over ``model``."""
     flat_out = torch.cat([out_buf.reshape(-1, D), out_buf.new_zeros((1, D))])
+    if first_slot is not None:
+        n = flat_out.shape[0] - 1
+        rel = dest - first_slot
+        dest = torch.where((rel >= 0) & (rel < n), rel,
+                           torch.full((), n, dtype=rel.dtype,
+                                      device=rel.device))
     y_sorted = flat_out[dest] * gate_flat[order][:, None]          # (t*K,D)
     # the inverse permutation (the reference's argsort of ``order``)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
-    y_assign = y_sorted[inv]
-    return y_assign.reshape(t, K, D).sum(dim=1)
+    y_assign = y_sorted[inv].reshape(t, K, D)
+    if first_slot is not None:
+        # a rank's partial sum, kept in fp32 for the sum over ``model``
+        return y_assign.sum(dim=1, dtype=torch.float32)
+    return y_assign.sum(dim=1)
 
 
 def apply_moe(p, cfg: ArchConfig, x: torch.Tensor,
@@ -127,7 +155,17 @@ def apply_moe(p, cfg: ArchConfig, x: torch.Tensor,
     tg = t // G
     xg = shard(x.reshape(G, tg, D), "expert_groups", None, None)
 
-    logits = (xg @ p["router"].to(xg.dtype)).float()
+    # expert parallelism: the router's columns and the experts are this
+    # rank's; the tokens' gradient from both is summed over ``model``
+    n_local = p["w_up"].shape[0]
+    ep = tp.parts(n_local, E) > 1
+    xd = tp.copy_in(xg) if ep else xg
+    router = p["router"].to(xg.dtype)
+    if tp.parts(router.shape[1], E) > 1:
+        # the rank's experts' logits, gathered
+        logits = tp.gather_out(xd @ router, -1).float()
+    else:
+        logits = (xg @ router).float()
     if e.router_jitter and gen is not None:
         logits = logits + e.router_jitter * torch.randn(
             logits.shape, generator=gen, device=logits.device)
@@ -143,9 +181,13 @@ def apply_moe(p, cfg: ArchConfig, x: torch.Tensor,
     aux = e.aux_loss_coef * E * torch.mean(torch.sum(fe * me, dim=-1))
 
     C = _capacity(cfg, tg)
-    groups = [_dispatch_group(cfg, C, xg[g], expert_ids[g])
+    # this rank's experts' slots only; the gates' gradient summed over
+    # ``model`` (every rank routes alike)
+    first = tp.group().rank * n_local if ep else 0
+    mine = ((first, n_local),) if ep else ()
+    groups = [_dispatch_group(cfg, C, xd[g], expert_ids[g], *mine)
               for g in range(G)]
-    buf = torch.stack([gr[0] for gr in groups])                    # (G,E,C,D)
+    buf = torch.stack([gr[0] for gr in groups])                 # (G,El,C,D)
     buf = shard(buf, "expert_groups", "experts", None, None)
 
     if "w_gate" in p:
@@ -159,22 +201,32 @@ def apply_moe(p, cfg: ArchConfig, x: torch.Tensor,
     out_buf = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(buf.dtype))
     out_buf = shard(out_buf, "expert_groups", "experts", None, None)
 
-    gate_flat = gate_vals.reshape(G, tg * K)
+    gate_flat = (tp.copy_in(gate_vals) if ep else gate_vals).reshape(
+        G, tg * K)
     y = torch.stack([
-        _combine_group(out_buf[g], dest, order, keep, gate_flat[g], tg, K, D)
+        _combine_group(out_buf[g], dest, order, keep, gate_flat[g], tg, K, D,
+                       first * C if ep else None)
         for g, (_, dest, order, keep) in enumerate(groups)])
     y = shard(y, "expert_groups", None, None)
     y = y.reshape(B, S, D)
+    if ep:
+        y = tp.reduce_out(y).to(x.dtype)
 
     if e.num_shared:
         sp = p["shared"]
+        split = tp.parts(sp["w_up"].shape[-1],
+                         e.d_ff_shared or e.num_shared * e.d_ff_expert) > 1
         xf = x.reshape(t, D)
+        if split:
+            xf = tp.copy_in(xf)
         if "w_gate" in sp:
             hs = _act(cfg.mlp_act, xf @ sp["w_gate"].to(xf.dtype)) * (
                 xf @ sp["w_up"].to(xf.dtype))
         else:
             hs = _act(cfg.mlp_act, xf @ sp["w_up"].to(xf.dtype))
-        y = y + (hs @ sp["w_down"].to(xf.dtype)).reshape(B, S, D)
+        w = sp["w_down"].to(xf.dtype)
+        ys = tp.row_product(hs, w) if split else hs @ w
+        y = y + ys.reshape(B, S, D)
 
     return y, aux
 

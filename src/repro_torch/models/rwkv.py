@@ -9,6 +9,14 @@ pairwise form; inter-chunk contributions flow through the per-head state
 reference's ``impl="pallas"``; any other impl runs :func:`wkv_chunked`.
 
 Decode state per layer: (tm_shift (B,D), cm_shift (B,D), wkv (B,H,hk,hv)).
+
+Under tensor parallelism (:mod:`repro_torch.dist.tp`, ``dinner``,
+``heads`` and ``ff`` split over ``model``) the time mix runs the rank's
+H/m heads: r, k, v, g column-parallel, the decay and the group norm's
+scale taken at the rank's channels, the WKV kernel on its heads, the
+output row-parallel; its ``wkv`` state holds the rank's heads. The
+channel mix is column/row-parallel over ``ff``; its receptance (over
+``dinner``) is all-gathered.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist import shard
+from repro_torch.dist import shard, tp
 from repro_torch.models.layers import groupnorm_heads
 from repro_torch.models.params import Spec
 
@@ -131,7 +139,12 @@ def rwkv_time_mix(p, cfg: ArchConfig, x: torch.Tensor,
     """Returns (out, new_tm_shift, new_wkv_state)."""
     c = cfg.rwkv
     B, S, D = x.shape
-    H, hs = cfg.n_heads, c.head_size
+    hs = c.head_size
+    split = tp.parts(p["wr"].shape[1], D)
+    if split > 1 and cfg.n_heads % split:
+        raise ValueError(f"{cfg.n_heads} heads do not split over "
+                         f"{split} model ranks as dinner does")
+    H = cfg.n_heads // split           # the rank's heads
     dt = x.dtype
 
     xx = _token_shift(x, state.tm_shift if state else None)
@@ -143,6 +156,9 @@ def rwkv_time_mix(p, cfg: ArchConfig, x: torch.Tensor,
     mixed = {name: x + dx * (p["mu"][i].to(dt) + deltas[:, :, i])
              for i, name in enumerate(_MIX_NAMES)}
 
+    if split > 1:
+        mixed = {n: (t if n == "w" else tp.copy_in(t))
+                 for n, t in mixed.items()}
     r = (mixed["r"] @ p["wr"].to(dt)).reshape(B, S, H, hs)
     k = (mixed["k"] @ p["wk"].to(dt)).reshape(B, S, H, hs)
     v = (mixed["v"] @ p["wv"].to(dt)).reshape(B, S, H, hs)
@@ -153,6 +169,8 @@ def rwkv_time_mix(p, cfg: ArchConfig, x: torch.Tensor,
 
     dec = torch.tanh(mixed["w"] @ p["dec_w1"].to(dt)) @ p["dec_w2"].to(dt)
     lw = -torch.exp(p["w0"].float() + dec.float())
+    if split > 1:
+        lw = tp.take(lw, -1)
     lw = lw.reshape(B, S, H, hs)                       # log decay, < 0
 
     h0 = state.wkv if state is not None else torch.zeros(
@@ -163,10 +181,14 @@ def rwkv_time_mix(p, cfg: ArchConfig, x: torch.Tensor,
     else:
         o, h_last = wkv_chunked(r, k, v, lw, p["u"], h0, c.chunk)
 
-    o = groupnorm_heads(p["lnx_scale"], p["lnx_bias"], o.reshape(B, S, D),
-                        H, cfg.norm_eps)
+    scale, bias = p["lnx_scale"], p["lnx_bias"]
+    if split > 1:
+        scale, bias = tp.take(scale, 0), tp.take(bias, 0)
+    o = groupnorm_heads(scale, bias, o.reshape(B, S, H * hs), H,
+                        cfg.norm_eps)
     o = o * g
-    out = o @ p["wo"].to(dt)
+    out = tp.row_product(o, p["wo"].to(dt)) if split > 1 else \
+        o @ p["wo"].to(dt)
     return out, x[:, -1, :], h_last
 
 
@@ -178,15 +200,24 @@ def rwkv_channel_mix(p, cfg: ArchConfig, x: torch.Tensor,
     dx = xx - x
     xk = x + dx * p["mu_k"].to(dt)
     xr = x + dx * p["mu_r"].to(dt)
+    split = tp.parts(p["wk"].shape[1], cfg.d_ff) > 1
+    if split:
+        xk = tp.copy_in(xk)
     kk = torch.square(F.relu(xk @ p["wk"].to(dt)))
     kk = shard(kk, "batch", None, "ff")
-    vv = kk @ p["wv"].to(dt)
-    out = torch.sigmoid(xr @ p["wr"].to(dt)) * vv
+    vv = tp.row_product(kk, p["wv"].to(dt)) if split else kk @ p["wv"].to(dt)
+    if tp.parts(p["wr"].shape[1], x.shape[-1]) > 1:
+        r = tp.gather_out(tp.copy_in(xr) @ p["wr"].to(dt), -1)
+    else:
+        r = xr @ p["wr"].to(dt)
+    out = torch.sigmoid(r) * vv
     return out, x[:, -1, :]
 
 
 def init_rwkv_state(cfg: ArchConfig, batch: int, device="cpu") -> RWKVState:
-    H, hs = cfg.n_heads, cfg.rwkv.head_size
+    """A zeroed state; inside a step on shards that splits ``heads`` over
+    ``model``, its ``wkv`` of the rank's heads."""
+    H, hs = tp.local_size(cfg.n_heads, "heads"), cfg.rwkv.head_size
     return RWKVState(
         tm_shift=torch.zeros((batch, cfg.d_model), dtype=torch.float32,
                              device=device),

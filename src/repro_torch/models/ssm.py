@@ -15,6 +15,15 @@ ops dispatcher.
 
 State for decoding: (conv_state (B, d_conv-1, dI), h (B, dI, N)), both
 fp32. A given state is updated IN PLACE (the reference donates it).
+
+Under tensor parallelism (:mod:`repro_torch.dist.tp`, ``dinner`` split
+over ``model``) the mixer runs the rank's dI/m channels: ``in_proj`` is
+column-parallel (its shard holds a contiguous block of the x and z
+halves together, so its output is all-gathered and the rank takes its
+channels of each half), the conv and the scan run on the rank's
+channels, ``x_proj`` contracts over them (its partial sums reduced over
+``model``), ``dt_proj`` is column-parallel and ``out_proj``
+row-parallel; the state holds the rank's channels.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist import shard
+from repro_torch.dist import shard, tp
 from repro_torch.models.params import Spec
 
 
@@ -49,6 +58,35 @@ def mamba_specs(cfg: ArchConfig):
         "D": Spec((dI,), ("dinner",), "ones"),
         "out_proj": Spec((dI, d), ("dinner", "embed")),
     }
+
+
+def _split(p, cfg: ArchConfig) -> bool:
+    """Whether ``dinner`` is the rank's slice (tensor parallelism)."""
+    return tp.parts(p["conv_w"].shape[1], cfg.d_inner_mamba) > 1
+
+
+def _in_proj(p, x: torch.Tensor, split: bool):
+    """``(x_in, z)``: the input projection's two halves, each the rank's
+    channels under tensor parallelism."""
+    if not split:
+        return torch.chunk(x @ p["in_proj"].to(x.dtype), 2, dim=-1)
+    xz = tp.gather_out(tp.copy_in(x) @ p["in_proj"].to(x.dtype), -1)
+    return tuple(tp.take(h, -1) for h in torch.chunk(xz, 2, dim=-1))
+
+
+def _x_proj(p, x_conv: torch.Tensor, split: bool) -> torch.Tensor:
+    """``x_proj``'s (dt_rank + 2N) outputs, whole on every rank: under
+    tensor parallelism the rank's channels' partial sums, reduced over
+    ``model``, then used on the rank's channels."""
+    w = p["w_xdbc"].to(x_conv.dtype)
+    return tp.copy_in(tp.row_product(x_conv, w)) if split else x_conv @ w
+
+
+def _out_proj(p, y: torch.Tensor, split: bool) -> torch.Tensor:
+    """``out_proj``, row-parallel over the rank's channels under tensor
+    parallelism."""
+    w = p["out_proj"].to(y.dtype)
+    return tp.row_product(y, w) if split else y @ w
 
 
 def _causal_conv(p, x: torch.Tensor, prev: Optional[torch.Tensor]):
@@ -103,16 +141,16 @@ def mamba_mixer(p, cfg: ArchConfig, x: torch.Tensor,
     place and returned."""
     m = cfg.mamba
     B, S, D = x.shape
-    dI, N, R = cfg.d_inner_mamba, m.d_state, cfg.dt_rank
+    split = _split(p, cfg)
+    dI, N, R = p["conv_w"].shape[1], m.d_state, cfg.dt_rank
 
-    xz = x @ p["in_proj"].to(x.dtype)
-    x_in, z = torch.chunk(xz, 2, dim=-1)
+    x_in, z = _in_proj(p, x, split)
     x_in = shard(x_in, "batch", None, "dinner")
     x_conv, conv_state = _causal_conv(p, x_in,
                                       state.conv if state else None)
     x_conv = F.silu(x_conv)
 
-    xdbc = x_conv @ p["w_xdbc"].to(x.dtype)
+    xdbc = _x_proj(p, x_conv, split)
     dt_in, Bm, Cm = torch.split(xdbc, [R, N, N], dim=-1)
     dt = F.softplus(dt_in @ p["dt_proj"].to(x.dtype)
                     + p["dt_bias"].to(x.dtype))               # (B,S,dI)
@@ -144,7 +182,7 @@ def mamba_mixer(p, cfg: ArchConfig, x: torch.Tensor,
     y = (y + xf * p["D"].float()).to(x.dtype)
     y = y * F.silu(z)
     y = shard(y, "batch", None, "dinner")
-    out = y @ p["out_proj"].to(x.dtype)
+    out = _out_proj(p, y, split)
     if state is not None:
         return out, _write_state(state, conv_state, h)
     return out, MambaState(conv_state, h)
@@ -156,11 +194,11 @@ def mamba_decode_step(p, cfg: ArchConfig, x: torch.Tensor,
     """Single-token step. x: (B,1,D); ``state`` is updated in place."""
     m = cfg.mamba
     R, N = cfg.dt_rank, m.d_state
-    xz = x @ p["in_proj"].to(x.dtype)
-    x_in, z = torch.chunk(xz, 2, dim=-1)
+    split = _split(p, cfg)
+    x_in, z = _in_proj(p, x, split)
     x_conv, conv_state = _causal_conv(p, x_in, state.conv)
     x_conv = F.silu(x_conv)
-    xdbc = x_conv @ p["w_xdbc"].to(x.dtype)
+    xdbc = _x_proj(p, x_conv, split)
     dt_in, Bm, Cm = torch.split(xdbc, [R, N, N], dim=-1)
     dt = F.softplus(dt_in @ p["dt_proj"].to(x.dtype)
                     + p["dt_bias"].to(x.dtype)).float()
@@ -172,13 +210,15 @@ def mamba_decode_step(p, cfg: ArchConfig, x: torch.Tensor,
     y = torch.einsum("bin,bn->bi", h, Cm.float()[:, 0])[:, None, :]
     y = (y + x_conv.float() * p["D"].float()).to(x.dtype)
     y = y * F.silu(z)
-    return y @ p["out_proj"].to(x.dtype), _write_state(state, conv_state, h)
+    return _out_proj(p, y, split), _write_state(state, conv_state, h)
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int,
                      device="cpu") -> MambaState:
+    """A zeroed state; inside a step on shards that splits ``dinner``
+    over ``model``, of the rank's channels."""
     m = cfg.mamba
-    dI = cfg.d_inner_mamba
+    dI = tp.local_size(cfg.d_inner_mamba, "dinner")
     return MambaState(
         conv=torch.zeros((batch, m.d_conv - 1, dI), dtype=torch.float32,
                          device=device),

@@ -13,7 +13,10 @@ from hoisting FSDP all-gathers out of the scan) with no numeric effect.
 Inside a step on shards (:func:`repro_torch.dist.fsdp.sharded`) the
 params are the rank's shards, gathered where the reference pins them: a
 layer's inside its body, a prefix slot's before the slot, and the leaves
-outside the stacks once at each entry point (:func:`gather_entry`).
+outside the stacks once at each entry point (:func:`gather_entry`). A
+dim the recipe keeps on ``model`` (heads, ``ff``, ``vocab``, ``dinner``,
+experts) is not gathered over it: the layers compute on the rank's slice
+(:mod:`repro_torch.dist.tp`).
 Slot mixers: attn | mla | cross | attn_cross | mamba | rwkv; slot MLPs:
 dense | moe | rwkv_cm | none.
 
@@ -36,7 +39,7 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch._tree import (tree_flatten, tree_flatten_with_path,
                                tree_map, tree_unflatten)
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist import fsdp, shard
+from repro_torch.dist import fsdp, shard, tp
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -439,26 +442,36 @@ def run_prefix(params, cfg: ArchConfig, slots, x, *, positions, memory,
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=64)
-def _param_specs(cfg: ArchConfig, sizes: tuple, table: tuple):
-    """The spec tree from the model's ``Spec`` leaves (their shapes and
-    axes: no tensor is made, so a traced step counts no op for it)."""
-    mesh, table = fsdp.MeshShape(dict(sizes)), dict(table)
-    return tree_map(lambda sp: fsdp.leaf_spec(sp.axes, sp.shape, table, mesh),
-                    model_specs(cfg))
+def _param_specs(cfg: ArchConfig, sizes: tuple, table: tuple, act: tuple):
+    """The use-spec tree from the model's ``Spec`` leaves (their shapes
+    and axes: no tensor is made, so a traced step counts no op for
+    it)."""
+    mesh, table, act = fsdp.MeshShape(dict(sizes)), dict(table), dict(act)
+    return tree_map(lambda sp: fsdp.use_spec(
+        sp.axes, fsdp.leaf_spec(sp.axes, sp.shape, table, mesh), act),
+        model_specs(cfg))
+
+
+def _frozen(table: dict) -> tuple:
+    return tuple(sorted((k, v if isinstance(v, str) else tuple(v))
+                        for k, v in table.items()))
 
 
 def param_specs(cfg: ArchConfig):
-    """The spec of every parameter of ``cfg`` (a tree like its params)
-    inside a step on shards (:func:`repro_torch.dist.fsdp.sharded`), by
-    that step's mesh and param rules; None outside one. Computed once a
-    (config, mesh shape, rules)."""
+    """What :func:`repro_torch.dist.fsdp.gather` gathers of every
+    parameter of ``cfg`` (a tree like its params) inside a step on shards
+    (:func:`repro_torch.dist.fsdp.sharded`): its spec by that step's mesh
+    and param rules, less ``model`` where the act rules keep the dim on
+    ``model`` (:func:`repro_torch.dist.fsdp.use_spec`: the layer computes
+    on the rank's slice); None outside one. Computed once a (config,
+    mesh shape, rules)."""
     from repro_torch.dist.api import mesh_sizes
     ctx = fsdp.current()
     if ctx is None:
         return None
-    table = tuple(sorted((k, v if isinstance(v, str) else tuple(v))
-                         for k, v in ctx.rules.get("param", {}).items()))
-    return _param_specs(cfg, tuple(mesh_sizes(ctx.mesh).items()), table)
+    return _param_specs(cfg, tuple(mesh_sizes(ctx.mesh).items()),
+                        _frozen(ctx.rules.get("param", {})),
+                        _frozen(ctx.rules.get("act", {})))
 
 
 def _sub(specs, path: str):
@@ -616,12 +629,15 @@ def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked",
 
 def lm_loss(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
     """Next-token cross-entropy (+ aux), differentiable by torch autograd
-    (the train step's loss). Returns (loss, metrics)."""
+    (the train step's loss). Returns (loss, metrics). Under tensor
+    parallelism the logits are the rank's vocab slice and the
+    cross-entropy is vocab-parallel (:func:`repro_torch.dist.tp.
+    vocab_cross_entropy`)."""
     logits, aux = forward_lm(params, cfg, batch, impl=impl)
     tokens = batch["tokens"].to(logits.device)
     labels = tokens[:, 1:].long()
-    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
+    # fp32; over the rank's vocab slice where the logits are one
+    nll = tp.vocab_cross_entropy(logits[:, :-1], labels, cfg.padded_vocab)
     mask = batch.get("loss_mask")
     mask = (mask[:, 1:].to(device=nll.device, dtype=torch.float32)
             if mask is not None else torch.ones_like(nll))

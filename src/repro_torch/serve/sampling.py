@@ -1,7 +1,12 @@
 """Token sampling: greedy / temperature / top-k / top-p (nucleus), as the
 JAX package's ``serve/sampling.py``.
 
-The top-k and top-p masks are the reference's. The categorical draw
+The top-k and top-p masks are the reference's. Under tensor
+parallelism the model's logits are split over ``vocab``; ``zoo.prefill``
+and ``zoo.decode_step`` all-gather the last position's (B x V, small)
+over ``model``, so :func:`sample` sees the whole vocabulary on every
+rank and greedy takes the lowest index of a tie, as one rank's
+``argmax``. The categorical draw
 takes an explicit ``torch.Generator`` on the logits' device; it cannot
 give ``jax.random``'s draws, so sampled tokens agree with the reference
 in distribution only (greedy decoding agrees token for token).

@@ -201,10 +201,15 @@ def _batch_spec(x: torch.Tensor, rules: dict, mesh):
 
 
 def _batch_axes(batch: dict, rules: dict, mesh) -> tuple:
-    """The mesh axes the batch dim is split over (those of ``tokens``)."""
+    """The mesh axes of more than one rank the batch dim is split over
+    (those of ``tokens``): a mean over an axis of one rank is the
+    identity, and no collective runs for it."""
+    from repro_torch.dist.api import mesh_sizes
     part = _batch_spec(batch["tokens"], rules, mesh)[0]
-    return () if part is None else ((part,) if isinstance(part, str)
+    axes = () if part is None else ((part,) if isinstance(part, str)
                                     else tuple(part))
+    sizes = mesh_sizes(mesh)
+    return tuple(a for a in axes if sizes[a] > 1)
 
 
 def _local_batch(batch: dict, rules: dict, mesh) -> dict:

@@ -26,6 +26,7 @@ prefill and 4 greedy decode steps under ``tp_fsdp``, the tokens the single
 process's.
 """
 
+import contextlib
 import dataclasses
 import time
 
@@ -500,31 +501,66 @@ def test_factor_and_plans_match_the_reference():
 # a 4-rank gloo world: one spawn for the file
 # ---------------------------------------------------------------------------
 
+GATES = {"gate_attn": 0.7, "gate_mlp": -0.45}
+
+
+def _open_gates(tree):
+    """The vision gates opened (each layer's its own value): at their
+    initial 0 the cross layer adds nothing and no check could see it."""
+    if isinstance(tree, dict):
+        return {k: (np.full_like(v, GATES[k]) + 0.1 * np.arange(
+            v.size, dtype=v.dtype).reshape(v.shape)
+                    if k in GATES else _open_gates(v))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_open_gates(v) for v in tree]
+    return tree
+
+
+def _params(jc, tc):
+    """Both packages' seed-0 parameters of ``jc``/``tc`` (the vision
+    gates opened)."""
+    np_tree = _open_gates(jax.tree.map(np.asarray, jzoo.init_params(jc, 0)))
+    return (jax.tree.map(jnp.asarray, np_tree),
+            convert.params_from_numpy(tc, np_tree, device="cpu"))
+
+
+def _inputs(cfg, rng, B, S) -> dict:
+    """Tokens and the frontend's stub input of ``cfg``, as numpy."""
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["patches"] = rng.normal(size=(B, cfg.frontend_len,
+                                          cfg.frontend_dim)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(size=(B, S, cfg.frontend_dim)
+                                   ).astype(np.float32)
+    return out
+
+
 def _train_case(name):
     arch, recipe, opt, mb, compression = ranks.TRAIN_CASES[name]
     jc = jget(arch, smoke=True).with_overrides(recipe=recipe, remat="full")
     tc = tget(arch, smoke=True).with_overrides(recipe=recipe, remat="full")
-    jp = jzoo.init_params(jc, 0)
-    tokens = np.random.default_rng(0).integers(0, jc.vocab_size, (8, 32)
-                                               ).astype(np.int32)
-    tp = convert.params_from_numpy(tc, jax.tree.map(np.asarray, jp),
-                                   device="cpu")
+    jp, tp = _params(jc, tc)
+    inputs = _inputs(jc, np.random.default_rng(0), 8, 32)
+    tokens = inputs.pop("tokens")
     return jc, tc, jp, tokens, {"arch": arch, "recipe": recipe, "lr": 1e-2,
                                 "opt": opt, "microbatches": mb,
                                 "compression": compression, "params": tp,
-                                "tokens": torch.from_numpy(tokens)}
+                                "tokens": torch.from_numpy(tokens),
+                                "extra": {k: torch.from_numpy(v)
+                                          for k, v in inputs.items()}}
 
 
-def _serve_case():
-    tc = tget(ranks.SERVE_ARCH, smoke=True)
-    rng = np.random.default_rng(4)
-    batch = {"tokens": torch.from_numpy(rng.integers(
-        0, tc.vocab_size, (4, 12)).astype(np.int32)),
-        "frames": torch.from_numpy(rng.normal(
-            size=(4, 12, tc.frontend_dim)).astype(np.float32))}
-    return {"arch": ranks.SERVE_ARCH, "recipe": ranks.SERVE_RECIPE,
-            "params": tzoo.init_params(tc, 0, "cpu"), "batch": batch,
-            "max_len": 12 + ranks.SERVE_TOKENS}
+def _serve_case(name):
+    arch, recipe = ranks.SERVE_CASES[name]
+    jc, tc = jget(arch, smoke=True), tget(arch, smoke=True)
+    jp, tp = _params(jc, tc)
+    batch = _inputs(tc, np.random.default_rng(4), 4, 12)
+    return jc, jp, {"arch": arch, "recipe": recipe, "params": tp,
+                    "batch": {k: torch.from_numpy(v)
+                              for k, v in batch.items()},
+                    "max_len": 12 + ranks.SERVE_TOKENS}
 
 
 @pytest.fixture(scope="module")
@@ -534,9 +570,11 @@ def world(tmp_path_factory):
 
     d = tmp_path_factory.mktemp("ranks")
     cases = {name: _train_case(name) for name in ranks.TRAIN_CASES}
+    serve = {name: _serve_case(name) for name in ranks.SERVE_CASES}
     wx = np.random.default_rng(1).normal(size=(4, 64)).astype(np.float32)
-    payload = {"workers_x": torch.from_numpy(wx), "serve": _serve_case(),
-               **{k: c[-1] for k, c in cases.items()}}
+    payload = {"workers_x": torch.from_numpy(wx),
+               **{k: c[-1] for k, c in cases.items()},
+               **{"serve/" + k: c[-1] for k, c in serve.items()}}
     torch.save(payload, d / "payload.pt")
     ctx = mp.start_processes(
         ranks.run, args=(4, str(d / "store"), str(d), str(d / "payload.pt")),
@@ -552,8 +590,7 @@ def world(tmp_path_factory):
                 p.kill()
     res = [torch.load(d / f"rank{r}.pt", weights_only=False)
            for r in range(4)]
-    return {"res": res, "cases": cases, "workers_x": wx,
-            "serve": payload["serve"]}
+    return {"res": res, "cases": cases, "workers_x": wx, "serve": serve}
 
 
 def test_reshard_tree_shards_as_the_reference_places_them(world):
@@ -621,32 +658,77 @@ def _expected_local(axes_tree, shape_tree, rules):
     return out
 
 
+MOE = ("moe", "hybrid", "mla_moe", "mla_tp")
+GRAD_TOL = 1e-4      # a gradient leaf's error, of its largest element
+
+
+@contextlib.contextmanager
+def _token_groups(enabled: bool, rules):
+    """Both packages under a stand-in (data 2, model 1) mesh: MoE token
+    groups of the (2, 2) mesh's rank (two), and no other split; the
+    reference's layout constraints (which need real devices) are the
+    identity. Nothing where ``enabled`` is false."""
+    if not enabled:
+        yield
+        return
+    groups = _FakeMesh({"data": 2, "model": 1})
+    real = jdist._constrain
+    jdist._constrain = lambda x, axes, key: x
+    try:
+        with dist.use_mesh(groups, rules), jdist.use_mesh(groups, rules):
+            yield
+    finally:
+        jdist._constrain = real
+
+
+def _grad_gap(got, want, tol):
+    """Each leaf's largest error against ``want``'s, over ``tol`` of its
+    largest element: the worst leaf's ratio (at most 1 passes)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = max(np.abs(b).max(), 1e-30)
+        worst = max(worst, np.abs(a - b).max() / (tol * scale))
+    return worst
+
+
 @pytest.mark.parametrize("case", list(ranks.TRAIN_CASES))
 def test_sharded_train_step_matches_single_process(world, case):
     """One step on a (2, 2) mesh on the rank's shards (``remat="full"``):
     ``tp_fsdp`` and ``fsdp`` dense (SGD, AdamW, Adafactor; ``tp_fsdp``
-    also with the int8 wire format and 2 microbatches, split from the
-    rank's slice) and ``ep_fsdp`` MoE. The loss within 1e-5 and the
-    params within ``rtol`` 2e-3, ``atol`` 2e-4 of the single-process step
-    (the MoE under two token groups, the reference's grouping on that
-    mesh) and, for the dense ``tp_fsdp`` and ``fsdp`` AdamW cases, of
-    the reference's unsharded jitted step on the same converted inputs;
+    also with Adafactor, whose factored means reduce over the ``model``
+    slices, and with the int8 wire format and 2 microbatches, split from
+    the rank's slice), ``ep_fsdp`` MoE (granite; deepseek's MLA with its
+    shared experts), ``tp_fsdp`` rwkv6 and vision (cross-attention, its
+    gates opened), ``ep_tp_fsdp`` jamba (Mamba, attention and MoE) and
+    deepseek (MLA's heads and the shared experts' ``ff`` split too). On
+    the ``model`` axis of 2 the tp/ep recipes compute on the rank's slice
+    of heads, ``ff``, ``vocab``, ``dinner`` and experts
+    (``dist/tp.py``). The loss and the gradient norm within 1e-5, the
+    params within ``rtol`` 2e-3, ``atol`` 2e-4 and the clipped gradients
+    within 1e-4 of each leaf's largest (the int8 wire format: one
+    quantization step, 1/127 of it) of the single-process step (MoE under
+    two token groups, the reference's grouping on that mesh) and, for
+    every case but the int8 one, of the reference's unsharded jitted step
+    and its ``jax.grad`` on the same converted inputs (the params within
+    the same bounds, the gradients within 1e-3 of each leaf's largest);
     each rank holds the shapes the param rules give, its optimizer
     moments too."""
     jc, tc, jp, tokens, payload = world["cases"][case]
     rules = sharding.build_rules(tc)
-    opt = ranks.make_opt(tc, payload)
+    grads = []
+    opt = ranks.recording(ranks.make_opt(tc, payload), grads)
     p = tree_map(torch.clone, payload["params"])
     step = make_train_step(tc, opt, microbatches=payload["microbatches"],
                            grad_compression=payload["compression"])
-    groups = _FakeMesh({"data": 2, "model": 1})
     state = opt.init(p)
-    with dist.use_mesh(groups, rules if case == "moe" else {}):
-        single, single_state, _, m = step(
-            p, state, 0, {"tokens": torch.from_numpy(tokens)})
+    batch = {"tokens": torch.from_numpy(tokens), **payload["extra"]}
+    with _token_groups(case in MOE, rules):
+        single, single_state, _, m = step(p, state, 0, batch)
     axes = tzoo.param_axes(tc)
     want_local = _expected_local(axes, single, rules)
     want_state = _expected_local(opt.state_axes(axes), single_state, rules)
+    grad_tol = 1 / 127 if payload["compression"] else GRAD_TOL
     moved = False
     for res in world["res"]:
         got = res[case]
@@ -660,41 +742,136 @@ def test_sharded_train_step_matches_single_process(world, case):
                            tree_flatten(payload["params"])[0]):
             np.testing.assert_allclose(a.numpy(), b.numpy(), **STEP_TOL)
             moved |= not torch.equal(b, c)
+        assert _grad_gap(tree_flatten(got["grads"])[0],
+                         tree_flatten(grads[0])[0], grad_tol) <= 1.0
     assert moved
     full = {k: tuple(v.shape) for k, v in tree_flatten_with_path(single)[0]}
     assert any(want_local[k] != full[k] for k in full)     # shards held
-    if case in ("dense", "fsdp_adamw"):
-        jopt = joptim.make_optimizer(jc, payload["opt"],
-                                     lr=lambda s: payload["lr"])
+    if payload["compression"]:
+        return
+    jopt = joptim.make_optimizer(jc, payload["opt"],
+                                 lr=lambda s: payload["lr"])
+    jb = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    with _token_groups(case in MOE, rules):
         jstep = jax.jit(jmake_train_step(jc, jopt, microbatches=1))
-        pj, *_ = jstep(jp, jopt.init(jp), jnp.asarray(0),
-                       {"tokens": jnp.asarray(tokens)})
-        for a, b in zip(tree_flatten(world["res"][0][case]["params"])[0],
-                        jax.tree.leaves(pj)):
-            np.testing.assert_allclose(a.numpy(), np.asarray(b), **STEP_TOL)
+        pj, *_ = jstep(jp, jopt.init(jp), jnp.asarray(0), jb)
+        jl, jg = jax.jit(jax.value_and_grad(
+            lambda q: jzoo.lm_loss(q, jc, jb)[0]))(jp)
+    assert world["res"][0][case]["loss"] == pytest.approx(float(jl),
+                                                          rel=1e-5)
+    for a, b in zip(tree_flatten(world["res"][0][case]["params"])[0],
+                    jax.tree.leaves(pj)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **STEP_TOL)
+    # the reference's gradients, clipped by their global norm as the step
+    # clips them
+    jg = jax.tree.leaves(jg)
+    norm = float(np.sqrt(sum(np.sum(np.square(np.asarray(g, np.float64)))
+                             for g in jg)))
+    clip = min(1.0, 1.0 / norm)
+    assert _grad_gap(tree_flatten(world["res"][0][case]["grads"])[0],
+                     [np.asarray(g) * clip for g in jg], 1e-3) <= 1.0
 
 
-def test_sharded_serving_matches_single_process(world):
-    """seamless-m4t-medium's smoke config under ``tp_fsdp`` on the (2, 2)
-    mesh: prefill and 4 greedy decode steps on each rank's shards of the
-    params (each layer gathered where it runs) and its slice of the 4
-    prompts; the tokens equal the single process's on the same rows, and
-    each rank holds the shapes the param rules give."""
-    case = world["serve"]
-    tc = tget(case["arch"], smoke=True).with_overrides(
-        recipe=case["recipe"], remat="full")
+_jprefill = jax.jit(jzoo.prefill, static_argnums=(1, 3),
+                    static_argnames=("impl",))
+_jdecode = jax.jit(jzoo.decode_step, static_argnums=(1,),
+                   static_argnames=("impl",))
+
+
+def _reference_greedy(jc, jp, batch, max_len, new_tokens):
+    """The reference's prefill and greedy decode steps (chunked paths)."""
+    logits, caches = _jprefill(jp, jc, batch, max_len, impl="chunked")
+    out = []
+    for i in range(new_tokens):
+        tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+        out.append(np.asarray(tok))
+        if i + 1 < new_tokens:
+            logits, caches = _jdecode(jp, jc, caches, tok, impl="chunked")
+    return np.concatenate(out, axis=1)
+
+
+@pytest.mark.parametrize("case", list(ranks.SERVE_CASES))
+def test_sharded_serving_matches_single_process(world, case):
+    """The smoke configs served on the (2, 2) mesh: seamless-m4t-medium
+    (enc-dec, ``tp_fsdp``), rwkv6 and vision (``tp_fsdp``), jamba
+    (``ep_tp_fsdp``), deepseek (``ep_fsdp``, and ``ep_tp_fsdp`` for MLA's
+    split heads): prefill and 4 greedy decode steps on each rank's shards
+    of the params (each layer gathered over ``data`` where it runs, the
+    ``model`` splits computed on) and its slice of the 4 prompts; the
+    tokens equal the single process's and the reference's on the same
+    rows, every MoE layer's expert ids are the single process's bit for
+    bit (the router's logits gathered, so every rank routes alike), each
+    rank holds the shapes the param rules give, and its caches hold its
+    share of the KV heads, ``dinner`` channels or RWKV heads (the act
+    rules' split of each cache leaf)."""
+    jc, jp, payload = world["serve"][case]
+    tc = tget(payload["arch"], smoke=True).with_overrides(
+        recipe=payload["recipe"], remat="full")
     rules = sharding.build_rules(tc)
-    want_local = _expected_local(tzoo.param_axes(tc), case["params"], rules)
+    want_local = _expected_local(tzoo.param_axes(tc), payload["params"],
+                                 rules)
     for res in world["res"]:
-        got = res["serve"]
+        got = res["serve/" + case]
         lo, hi = got["rows"]
-        with torch.no_grad():
-            want = ranks.greedy(case["params"], tc,
-                                {k: v[lo:hi] for k, v in case["batch"].items()},
-                                case["max_len"], ranks.SERVE_TOKENS)
+        rows = {k: v[lo:hi] for k, v in payload["batch"].items()}
+        with torch.no_grad(), ranks.RoutingLog() as routing:
+            want, caches = ranks.greedy(payload["params"], tc, rows,
+                                        payload["max_len"],
+                                        ranks.SERVE_TOKENS, with_caches=True)
         assert torch.equal(got["tokens"], want)
+        # every MoE layer's expert ids, bitwise (each rank routes alike)
+        assert len(got["routing"]) == len(routing.ids)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got["routing"], routing.ids))
+        assert bool(routing.ids) == (tc.moe is not None
+                                     and tc.moe.num_experts > 0)
+        ref = _reference_greedy(jc, jp, {k: jnp.asarray(v.numpy())
+                                         for k, v in rows.items()},
+                                payload["max_len"], ranks.SERVE_TOKENS)
+        np.testing.assert_array_equal(got["tokens"].numpy(), ref)
         assert got["local_shapes"] == want_local
-    assert {r["serve"]["rows"] for r in world["res"]} == {(0, 2), (2, 4)}
+        cache_axes = tzoo.cache_axes(caches)
+        whole = {k: tuple(v.shape) for k, v in
+                 tree_flatten_with_path(caches)[0]}
+        # the rank's rows are the single process's: split the rest
+        act = {k: v for k, v in rules["act"].items() if k != "batch"}
+        split = _expected_local(cache_axes, caches, {"param": act})
+        assert got["cache_shapes"] == split
+        if payload["recipe"] != "ep_fsdp" and tc.mla is None:
+            assert split != whole                  # a cache leaf is split
+    assert {r["serve/" + case]["rows"] for r in world["res"]} == {(0, 2),
+                                                                (2, 4)}
+
+
+@pytest.mark.parametrize("kind", ["train", "serve"])
+def test_no_model_split_param_is_gathered_over_model(world, kind):
+    """Every all-gather of every rank's train and serving steps, by the
+    mesh axis of its group and what made it: under ``tp_fsdp``,
+    ``ep_fsdp`` and ``ep_tp_fsdp`` no parameter is all-gathered over
+    ``model`` (``fsdp._Gather`` gathers over ``data`` only: the dims the
+    param rules map to ``model`` stay the rank's slice), while the
+    activations the layers gather over ``model`` (``tp.gather_out``: the
+    router's logits, the channel mix's receptance, Mamba's input
+    projection, the last position's logits) are; under ``fsdp`` nothing
+    is gathered over ``model``."""
+    names = (ranks.TRAIN_CASES if kind == "train" else
+             {k: (a, r, None, None, None)
+              for k, (a, r) in ranks.SERVE_CASES.items()})
+    seen = set()
+    for name, (arch, recipe, *_) in names.items():
+        key = name if kind == "train" else "serve/" + name
+        for res in world["res"]:
+            g = res[key]["gathers"]
+            assert g.get(("model", "_Gather"), 0) == 0, (name, g)
+            assert g.get(("model", "other"), 0) == 0, (name, g)
+            assert g.get(("data", "_Gather"), 0) > 0, (name, g)
+            if recipe == "fsdp":
+                assert not any(a == "model" for a, _ in g), (name, g)
+            seen.add(recipe)
+            if g.get(("model", "_GatherOut"), 0):
+                seen.add("activations over model")
+    assert {"tp_fsdp", "ep_fsdp", "ep_tp_fsdp",
+            "activations over model"} <= seen
 
 
 def test_chip_smoke_phase_17_rehearses_on_the_cpu(monkeypatch):
@@ -725,6 +902,74 @@ def test_chip_smoke_phase_17_rehearses_on_the_cpu(monkeypatch):
     counts = cs.sharded_phase(torch.device("cpu"))
     assert counts["flash_attention"] > 0
     assert not any(v for k, v in counts.items() if k != "flash_attention")
+
+
+def test_chip_smoke_phase_18_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py`` phase 18 end to end on the CPU at smoke size
+    (the same stubs as phase 17's, in this process and in each one the
+    phase starts): the one-rank references, the two gloo ranks of the
+    (1, 2) mesh computing on their heads and experts and the (1, 2) dry
+    run pass their checks (tokens, the kernels' heads, the split caches'
+    bytes, loss, grad norm, params, arguments against the rules and the
+    dry run's ``"sharded_tp"`` record), and the ranks' flash and WKV
+    launches are the path's."""
+    import pathlib
+    import subprocess
+
+    here = pathlib.Path(__file__).resolve().parent
+    monkeypatch.syspath_prepend(str(here.parent))
+    import chip_smoke as cs
+
+    ranks.phase17_stubs(monkeypatch.setattr)
+    lines = []
+    monkeypatch.setattr(cs, "log", lambda *a: lines.append(" ".join(
+        str(x) for x in a)))
+    prelude = (f"import sys; sys.path.insert(0, {str(here)!r}); "
+               "import torch_dist_ranks; torch_dist_ranks.phase17_stubs()\n")
+    popen = subprocess.Popen
+
+    def with_stubs(cmd, *a, **k):
+        if cmd[1] == "-c":
+            cmd = [cmd[0], "-c", prelude + cmd[2]]
+        return popen(cmd, *a, **k)
+    monkeypatch.setattr(subprocess, "Popen", with_stubs)
+    counts = cs.tp_phase(torch.device("cpu"))
+    assert counts["flash_attention"] > 0 and counts["rwkv6_wkv"] > 0
+    assert not any(v for k, v in counts.items()
+                   if k not in ("flash_attention", "rwkv6_wkv"))
+    text = "\n".join(lines)
+    for r in range(2):
+        for tag in ("18a", "18b"):
+            assert f"rank {r} {tag}: tokens equal the one rank's: True" in text
+        assert f"rank {r} 18c: loss" in text
+
+
+def test_row_parallel_partials_are_fp32_products_of_bf16_operands():
+    """``tp._MatmulF32`` (a row-parallel product's partial sums): bf16
+    operands, an fp32 result equal to the fp32 product of the same
+    operands within fp32 rounding (no bf16 rounding of the result); its
+    backward's products in bf16, within a bf16 ulp of the fp32 ones."""
+    from repro_torch.dist import tp
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn((6, 40), generator=g).to(torch.bfloat16)
+    b = torch.randn((40, 5), generator=g).to(torch.bfloat16)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    out = tp._MatmulF32.apply(a, b)
+    want = a.detach().double() @ b.detach().double()
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().double().numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-5)
+    assert not torch.equal(out.detach(), out.detach().to(torch.bfloat16)
+                           .float())
+    gy = torch.randn((6, 5), generator=g)
+    ga, gb = torch.autograd.grad(out, (a, b), gy)
+    assert ga.dtype == gb.dtype == torch.bfloat16
+    eps = float(torch.finfo(torch.bfloat16).eps)
+    for got, w in ((ga, gy.double() @ b.detach().double().t()),
+                   (gb, a.detach().double().t() @ gy.double())):
+        err = (got.double() - w).abs().max().item()
+        assert err <= 2 * eps * w.abs().max().item()
 
 
 def test_the_steps_on_a_mesh_gather_no_whole_tree():

@@ -289,19 +289,28 @@ def test_every_family_traces_prefill_and_decode(arch):
 
 def test_collectives_exact_on_a_2x4_world(world):
     """granite's smoke config under ``ep_fsdp`` with ``remat="full"`` on
-    (data 2, model 4), 8 x 32 tokens, AdamW: the step on shards. Each
-    sharded param leaf is all-gathered where it is used, over the last
-    mesh dim first (a leaf split over both dims gathers to half its
-    size, then whole): a stacked leaf layer by layer, in the forward and
-    again in the backward's recompute, the leaves outside the stack once.
-    The backward reduce-scatters each layer's fp32 gradient over
-    ``data`` where the leaf is sharded over it (over ``model``, which the
-    batch is not split over, the rank takes its slice with no
-    collective). One all-reduce over ``data`` averages the gradients of
-    the leaves not sharded over it, the loss and the loss's metrics (2x),
-    and the global norm sums each leaf's squares over its sharded axes:
-    one all-reduce a distinct set of axes and axis. No optimizer moment
-    and no batch is gathered."""
+    (data 2, model 4), 8 x 32 tokens, AdamW: the step on shards, its
+    experts computed where they are stored. Each sharded param leaf is
+    all-gathered where it is used over the mesh dims its use spec keeps
+    (``fsdp.use_spec``: ``experts``, which the act rules map to ``model``
+    too, stays the rank's slice), the last mesh dim first: a stacked leaf
+    layer by layer, in the forward and again in the backward's
+    recompute, the leaves outside the stack once. The backward
+    reduce-scatters each layer's fp32 gradient over ``data`` where the
+    leaf is sharded over it (the rank's slice of the experts only). One
+    all-reduce over ``data`` averages the gradients of the leaves not
+    sharded over it, the loss and the loss's metrics (2x), and the global
+    norm sums each leaf's squares over its sharded axes: one all-reduce a
+    distinct set of axes and axis. Each MoE layer adds its expert
+    parallelism's collectives over ``model`` (``dist/tp.py``): the
+    router's logits of the rank's experts all-gathered (fp32, t x E) in
+    the forward and the recompute, the experts' partial sums all-reduced
+    (fp32, t x D) in the forward only (the recompute stops once it holds
+    what the backward needs, torch's early stop, before the layer's
+    end), and in the backward the tokens' gradient (t x D) and the
+    gates' (t x K) all-reduced. No optimizer moment and no batch is
+    gathered."""
+    from repro_torch.dist import fsdp
     cfg = get_config("granite-moe-1b-a400m", smoke=True).with_overrides(
         **worker.COLLECTIVES_CUT)
     rules = build_rules(cfg, shape=InputShape("tiny_train", 32, 8, "train"))
@@ -311,13 +320,16 @@ def test_collectives_exact_on_a_2x4_world(world):
     gathers = scatters = 0
     flat = 0                                  # elements of the data mean
     norm_groups = {}                          # sharded axes -> leaves
+
+    def axes_of(spec):
+        return sorted((a for p in spec if p
+                       for a in ((p,) if isinstance(p, str) else p)
+                       if mesh.shape[a] > 1), key=mesh.mesh_dim_names.index)
     for (path, x), ax in zip(tree_flatten_with_path(shapes)[0],
                              tree_flatten(axes, is_leaf=is_axes)[0]):
         spec = logical_to_spec(ax, rules["param"], mesh, x.shape)
-        used = sorted((a for p in spec if p
-                       for a in ((p,) if isinstance(p, str) else p)
-                       if mesh.shape[a] > 1),
-                      key=mesh.mesh_dim_names.index)
+        used = axes_of(spec)
+        kept = axes_of(fsdp.use_spec(ax, spec, rules["act"]))
         norm_groups[tuple(used)] = norm_groups.get(tuple(used), 0) + 1
         if "data" not in used:
             flat += x.numel()
@@ -326,12 +338,13 @@ def test_collectives_exact_on_a_2x4_world(world):
         passes = 2 if stacked else 1          # the forward and the recompute
         size = x.numel() * x.element_size() / math.prod(
             mesh.shape[a] for a in used)
-        for a in reversed(used):
+        for a in reversed(kept):
             size *= mesh.shape[a]
             gathered += passes * size
             gathers += passes * layers
         if "data" in used:
-            scattered += x.numel() * 4 / mesh.shape["data"]
+            scattered += x.numel() * 4 / math.prod(mesh.shape[a]
+                                                    for a in used)
             scatters += layers
     mode = ha.fake_tensor_mode()
     with mode:
@@ -344,6 +357,14 @@ def test_collectives_exact_on_a_2x4_world(world):
     for used, n in norm_groups.items():
         reduced += 4.0 * n * len(used)
         norm_ops += len(used)
+    # expert parallelism, a MoE layer: t tokens of the rank's batch rows
+    moe_layers = cfg.n_layers
+    t = SMOKE_B // mesh.shape["data"] * SMOKE_S
+    E, K, D = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
+    gathered += moe_layers * 2 * 4.0 * t * E
+    gathers += moe_layers * 2
+    reduced += moe_layers * (4.0 * t * D + 4.0 * t * D + 4.0 * t * K)
+    tp_reduces = moe_layers * 3
     got = world["collectives"]
     assert got["collectives"] == {
         "all-gather": gathered, "reduce-scatter": scattered,
@@ -352,9 +373,37 @@ def test_collectives_exact_on_a_2x4_world(world):
     assert got["collective_ops"] == {
         "c10d._allgather_base_": gathers,
         "c10d._reduce_scatter_base_": scatters,
-        "c10d.allreduce_": 1 + norm_ops}
-    assert got["step_layout"] == "sharded"
+        "c10d.allreduce_": 1 + norm_ops + tp_reduces}
+    assert got["step_layout"] == "sharded_tp"
     assert got["roofline"]["link_bytes_per_dev"] == got["collectives"]["total"]
+
+
+def test_a_model_rank_computes_half_the_layers_and_holds_half_the_cache(
+        world):
+    """seamless-m4t-medium's smoke config under ``tp_fsdp`` traced on a
+    fake world's (1, 1) and (1, 2) meshes at 2 and 4 layers each side: on
+    the ``model`` axis of 2 the layers' matrix-product operations a rank
+    (a train step's, the difference between the two depths) are half the
+    one-rank step's, the whole step's about half (the frontend's stub
+    projection is replicated), its KV cache bytes (self- and
+    cross-attention K and V of a decode cell) half; the (1, 2) record's
+    layout is ``"sharded_tp"``, its links the activations' all-reduces
+    over ``model`` and no all-gather (the data axis of 1 gathers nothing,
+    and no weight split over ``model`` is gathered over it)."""
+    tp = world["tp"]
+    lo, hi = worker.TP_DEPTHS
+    one = tp[f"1/{hi}"]["dot_flops"] - tp[f"1/{lo}"]["dot_flops"]
+    two = tp[f"2/{hi}"]["dot_flops"] - tp[f"2/{lo}"]["dot_flops"]
+    assert two / one == pytest.approx(0.5, rel=1e-6)
+    for depth in worker.TP_DEPTHS:
+        a, b = tp[f"1/{depth}"], tp[f"2/{depth}"]
+        assert 0.5 <= b["dot_flops"] / a["dot_flops"] < 0.55
+        assert 2 * b["kv_bytes"] == a["kv_bytes"] > 0
+        assert a["step_layout"] == "one device"
+        assert b["step_layout"] == "sharded_tp"
+        assert a["collectives"] == {"total": 0.0}
+        assert b["collectives"]["all-reduce"] > 0
+        assert set(b["collectives"]) == {"all-reduce", "total"}
 
 
 def test_a_rank_on_shards_holds_less_than_the_whole_model(world):

@@ -18,21 +18,38 @@ import torch.distributed as tdist
 
 # a rank waits this long for the others before failing
 RANK_TIMEOUT_S = 120
+RANK_THREADS = 2
 
 RESHARD_RULES = {"param": {"embed": ("data",), "ff": ("model",),
                            "flat": ("data", "model")}, "act": {}}
 RESHARD_AXES = {"w": ("embed", "ff"), "b": ("embed",), "v": ("flat",),
                 "s": ()}
 # the step on shards: case -> (arch, recipe, optimizer, microbatches,
-# gradient compression), each at remat "full"
+# gradient compression), each at remat "full". On the (2, 2) mesh the
+# tp/ep recipes compute on the rank's slice of heads, ff, vocab,
+# dinner or experts (dist/tp.py)
 TRAIN_CASES = {
     "dense": ("qwen2-1.5b", "tp_fsdp", "sgd", 1, None),
     "moe": ("granite-moe-1b-a400m", "ep_fsdp", "sgd", 1, None),
     "fsdp_adamw": ("qwen2-1.5b", "fsdp", "adamw", 1, None),
     "fsdp_adafactor": ("qwen2-1.5b", "fsdp", "adafactor", 1, None),
     "tp_int8": ("qwen2-1.5b", "tp_fsdp", "sgd", 2, "int8"),
+    "tp_adafactor": ("qwen2-1.5b", "tp_fsdp", "adafactor", 1, None),
+    "rwkv": ("rwkv6-1.6b", "tp_fsdp", "sgd", 1, None),
+    "hybrid": ("jamba-1.5-large-398b", "ep_tp_fsdp", "sgd", 1, None),
+    "mla_moe": ("deepseek-v2-lite-16b", "ep_fsdp", "sgd", 1, None),
+    "mla_tp": ("deepseek-v2-lite-16b", "ep_tp_fsdp", "sgd", 1, None),
+    "vlm": ("llama-3.2-vision-90b", "tp_fsdp", "sgd", 1, None),
 }
-SERVE_ARCH, SERVE_RECIPE = "seamless-m4t-medium", "tp_fsdp"
+# serving on shards: case -> (arch, recipe)
+SERVE_CASES = {
+    "encdec": ("seamless-m4t-medium", "tp_fsdp"),
+    "rwkv": ("rwkv6-1.6b", "tp_fsdp"),
+    "hybrid": ("jamba-1.5-large-398b", "ep_tp_fsdp"),
+    "mla_moe": ("deepseek-v2-lite-16b", "ep_fsdp"),
+    "mla_tp": ("deepseek-v2-lite-16b", "ep_tp_fsdp"),
+    "vlm": ("llama-3.2-vision-90b", "tp_fsdp"),
+}
 SERVE_TOKENS = 5                 # the prefill's token and 4 decode steps
 # (failed ranks, prefer_model) for rebuild_mesh over the 4 ranks
 REBUILD_CASES = (((), 2), ((1,), 2), ((3,), 1), ((0, 2), 1), ((1, 2, 3), 4))
@@ -61,29 +78,112 @@ def case_config(case: dict):
         recipe=case["recipe"], remat="full")
 
 
+def recording(opt, into: list):
+    """``opt`` with each update's gradients (the step's clipped fp32
+    gradients, a rank's shards on a mesh) appended to ``into``."""
+    from repro_torch.train.optim import Optimizer
+
+    def update(grads, state, params, step):
+        into.append(grads)
+        return opt.update(grads, state, params, step)
+    return Optimizer(opt.init, update, opt.state_axes)
+
+
+class GatherLog:
+    """Every ``all_gather_into_tensor`` while entered: the ranks of its
+    group, and whether a parameter's gather (``fsdp._Gather``) or an
+    activation's (``tp.gather_out``) made it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import sys
+        self._real = real = tdist.all_gather_into_tensor
+
+        def logged(out, src, group=None, *a, **k):
+            f, who = sys._getframe(1), "other"
+            while f is not None:
+                name = f.f_code.co_qualname
+                if name in ("_Gather.forward", "_GatherOut.forward"):
+                    who = name.split(".")[0]
+                    break
+                f = f.f_back
+            self.calls.append((tuple(tdist.get_process_group_ranks(group)),
+                               who))
+            return real(out, src, group, *a, **k)
+        tdist.all_gather_into_tensor = logged
+        return self
+
+    def __exit__(self, *exc):
+        tdist.all_gather_into_tensor = self._real
+
+    def by_axis(self, mesh) -> dict:
+        """``{(axis, who): calls}`` over the mesh's axis groups."""
+        groups = {tuple(tdist.get_process_group_ranks(mesh.get_group(a))): a
+                  for a in mesh.mesh_dim_names}
+        out = {}
+        for ranks, who in self.calls:
+            key = (groups.get(ranks, "other"), who)
+            out[key] = out.get(key, 0) + 1
+        return out
+
+
+class RoutingLog:
+    """The expert ids of every MoE layer run while entered (``moe.top_k``
+    wrapped: its indices, each call's in order)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.ids, self._real = [], moe.top_k
+
+        def top_k(probs, k):
+            vals, idx = self._real(probs, k)
+            self.ids.append(idx.clone())
+            return vals, idx
+        moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.top_k = self._real
+
+
 def train_case(case: dict, mesh_shape):
     """One step of ``case`` (a config, its optimizer at a constant rate,
     params, tokens, microbatches and gradient compression) under a mesh
-    of ``mesh_shape`` over the first ranks: the gathered params, each
-    leaf's local shape (the optimizer state's too), the loss and the
-    gradient norm."""
+    of ``mesh_shape`` over the first ranks: the gathered params, the
+    gathered clipped gradients, each leaf's local shape (the optimizer
+    state's too), the loss, the gradient norm and the all-gathers by
+    mesh axis and maker."""
     from repro_torch import dist
+    from repro_torch.dist import fsdp
+    from repro_torch.dist.sharding import build_rules
     from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import model_zoo as zoo
     from repro_torch.train.train_step import make_train_step
 
     cfg = case_config(case)
-    opt = make_opt(cfg, case)
+    grads = []
+    opt = recording(make_opt(cfg, case), grads)
     params = case["params"]
     step_fn = make_train_step(cfg, opt, microbatches=case["microbatches"],
                               grad_compression=case["compression"])
-    with mesh_context(cfg, *mesh_shape, device="cpu"):
+    with mesh_context(cfg, *mesh_shape, device="cpu") as mesh, \
+            GatherLog() as log:
         p, s, _, m = step_fn(params, opt.init(params), 0,
-                             {"tokens": case["tokens"]})
+                             {"tokens": case["tokens"],
+                              **case.get("extra", {})})
+    gathers = log.by_axis(mesh)
+    lay = fsdp.Layout(params, zoo.param_axes(cfg), build_rules(cfg), mesh)
     local = {k: tuple(v.to_local().shape) for k, v in _flat(p).items()}
     return {"params": dist.gather_tree(p), "local_shapes": local,
+            "grads": dist.gather_tree(lay.placed(grads[0])),
             "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "gathers": gathers,
             "state_local": {
                 k: tuple(v.to_local().shape) for k, v in _flat(s).items()}}
+
 
 
 def serve_case(case: dict, mesh_shape, new_tokens: int):
@@ -103,16 +203,23 @@ def serve_case(case: dict, mesh_shape, new_tokens: int):
         n = case["batch"]["tokens"].shape[0] // mesh.size(0)
         lo = mesh.get_local_rank("data") * n
         batch = {k: v[lo:lo + n] for k, v in case["batch"].items()}
-        with torch.no_grad(), fsdp.sharded(mesh, rules, ("data",)):
-            tokens = greedy(params, cfg, batch, case["max_len"], new_tokens)
-    return {"rows": (lo, lo + n), "tokens": tokens,
+        with torch.no_grad(), fsdp.sharded(mesh, rules, ("data",)), \
+                GatherLog() as log, RoutingLog() as routing:
+            tokens, caches = greedy(params, cfg, batch, case["max_len"],
+                                    new_tokens, with_caches=True)
+        gathers = log.by_axis(mesh)
+    return {"rows": (lo, lo + n), "tokens": tokens, "gathers": gathers,
+            "routing": routing.ids,
+            "cache_shapes": {k: tuple(v.shape)
+                             for k, v in _flat(caches).items()},
             "local_shapes": {k: tuple(v.shape)
                              for k, v in _flat(params).items()}}
 
 
-def greedy(params, cfg, batch, max_len: int, new_tokens: int):
+def greedy(params, cfg, batch, max_len: int, new_tokens: int,
+           with_caches: bool = False):
     """``zoo.prefill``, then greedy ``zoo.decode_step``s: (B, new_tokens)
-    int32 tokens."""
+    int32 tokens (and the caches after them)."""
     from repro_torch.models import model_zoo as zoo
 
     logits, caches = zoo.prefill(params, cfg, batch, max_len)
@@ -122,7 +229,8 @@ def greedy(params, cfg, batch, max_len: int, new_tokens: int):
         out.append(tok)
         if i + 1 < new_tokens:
             logits, caches = zoo.decode_step(params, cfg, caches, tok)
-    return torch.cat(out, dim=1)
+    tokens = torch.cat(out, dim=1)
+    return (tokens, caches) if with_caches else tokens
 
 
 # chip_smoke.py phase 17 at smoke size on the CPU
@@ -132,15 +240,16 @@ PHASE17_SIZES = {"TRAIN_B": 4, "TRAIN_S": 16, "PROMPT": 8, "MAX_LEN": 32,
 
 
 def phase17_stubs(set_attr=setattr) -> None:
-    """``chip_smoke.py`` phase 17 on the CPU, in the test's process and
-    in each process the phase starts: smoke configs with the full
-    configs' recipes and remat "full", the card's calls stubbed (the
-    peak read as 1 B, so its checks pass vacuously), flash's plain
-    version counted as a launch, PHASE17_SIZES."""
+    """``chip_smoke.py`` phases 17 and 18 on the CPU, in the test's
+    process and in each process the phase starts: smoke configs with the
+    full configs' recipes and remat "full", the card's calls stubbed (the
+    peak read as 1 B, so its checks pass vacuously), flash's and WKV's
+    plain versions counted as launches, PHASE17_SIZES."""
     import chip_smoke as cs
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_wkv as wkv
 
     real = configs.get_config
     set_attr(configs, "get_config", lambda arch, smoke=False: real(
@@ -152,15 +261,21 @@ def phase17_stubs(set_attr=setattr) -> None:
     set_attr(cs, "nvidia_smi_line", lambda: "no card")
     for k, v in PHASE17_SIZES.items():
         set_attr(cs, k, v)
-    flash = ops.flash_attention
+    for mod, name in ((fa, "flash_attention"), (wkv, "rwkv6_wkv")):
+        set_attr(ops, name, _counted(mod.LAUNCHES, name, getattr(ops, name)))
 
-    def counted(*a, **k):
-        fa.LAUNCHES["flash_attention"] += 1
-        return flash(*a, **k)
-    set_attr(ops, "flash_attention", counted)
+
+def _counted(launches: dict, name: str, fn):
+    def call(*a, **k):
+        launches[name] += 1
+        return fn(*a, **k)
+    return call
 
 
 def run(rank: int, world: int, store: str, out: str, payload: str):
+    # four ranks share the test's cores: one thread pool each, not four
+    # pools the machine's width
+    torch.set_num_threads(RANK_THREADS)
     tdist.init_process_group(
         "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
@@ -215,5 +330,7 @@ def _checks(rank: int, case: dict) -> dict:
 
     for name in TRAIN_CASES:
         res[name] = train_case(case[name], (2, 2))
-    res["serve"] = serve_case(case["serve"], (2, 2), SERVE_TOKENS)
+    for name in SERVE_CASES:
+        res["serve/" + name] = serve_case(case["serve/" + name], (2, 2),
+                                          SERVE_TOKENS)
     return res

@@ -6,7 +6,7 @@ files share their pytest workers.
 with what the test holds against the JAX package: the meshes over fake
 worlds of 256 and 512 ranks and the refusals, the arguments a rank of
 three full-width cells, the collectives of a granite smoke step on a
-(2, 4) mesh, the memory of a wide narrow-batch train cell on shards, ``run_cell``'s records (cut configs, written under
+(2, 4) mesh, a tensor-parallel cell on (1, 1) and (1, 2) meshes, the memory of a wide narrow-batch train cell on shards, ``run_cell``'s records (cut configs, written under
 ``OUT_DIR``), ``main``'s exit code for a failing cell, and one real
 ``selftune.evaluate_candidate``. Imports torch and the port only.
 """
@@ -24,6 +24,12 @@ COLLECTIVES_CUT = {"recipe": "ep_fsdp", "remat": "full"}
 MEMORY_CUT = {"n_layers": 2, "remat": "full"}   # the wide cell's cut
 MEMORY_B, MEMORY_S = 4, 64
 SERVE_CELLS = ("prefill_32k", "decode_32k")
+# a tp_fsdp cell traced on (1, 1) and (1, 2) meshes at two depths (the
+# encoder's and the decoder's layers each), B x S
+TP_ARCH, TP_CUT = "seamless-m4t-medium", {"recipe": "tp_fsdp",
+                                          "remat": "full"}
+TP_DEPTHS = (2, 4)
+TP_B, TP_S = 2, 16
 ARG_CELLS = (("qwen2-1.5b", "fsdp"), ("qwen2-1.5b", "tp_fsdp"),
              ("granite-moe-1b-a400m", "ep_fsdp"))
 
@@ -113,6 +119,50 @@ def memory_cell() -> dict:
                              build_rules(cfg, shape=shape), device="cpu")
 
 
+def tp_cells() -> dict:
+    """``TP_ARCH``'s smoke config under ``tp_fsdp`` (``TP_CUT``) at each
+    of ``TP_DEPTHS`` on (data 1, model 1) and (data 1, model 2) meshes:
+    a train cell's record (a rank's matrix-product operations, its
+    layout and links) and a decode cell's KV cache bytes a rank (its
+    self- and cross-attention K and V, as the decode step receives
+    them)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.dist import use_mesh
+    from repro_torch.dist.sharding import build_rules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+
+    base = get_config(TP_ARCH, smoke=True).with_overrides(**TP_CUT)
+    train = InputShape("tp_train", TP_S, TP_B, "train")
+    decode = InputShape("tp_decode", TP_S, TP_B, "decode")
+    out = {}
+    for model in (1, 2):
+        mesh = make_local_mesh(1, model, device="cpu")
+        for depth in TP_DEPTHS:
+            cfg = base.with_overrides(enc_layers=depth, dec_layers=depth,
+                                      n_layers=2 * depth)
+            rec = dryrun.trace_cell(cfg, train, mesh,
+                                    build_rules(cfg, shape=train),
+                                    device="cpu")
+            rules = build_rules(cfg, shape=decode)
+            with use_mesh(mesh, rules):
+                _, args = dryrun.build_cell(cfg, decode, mesh, rules,
+                                            device="cpu")
+            kv = 0
+            for path, t in tree_flatten_with_path(args[1])[0]:
+                if path.endswith((".k", ".v")):
+                    t = t.to_local() if isinstance(t, DTensor) else t
+                    kv += t.numel() * t.element_size()
+            out[f"{model}/{depth}"] = {
+                "dot_flops": rec["cost"]["dot_flops"],
+                "step_layout": rec["step_layout"],
+                "collectives": rec["collectives"], "kv_bytes": kv}
+    return out
+
+
 def records(out_dir: pathlib.Path) -> dict:
     from repro_torch.core import selftune
     from repro_torch.launch import dryrun
@@ -149,6 +199,7 @@ def main(out_dir: pathlib.Path) -> None:
     out["arguments"] = argument_cells()
     out["collectives"] = collectives_cell()
     out["memory"] = memory_cell()
+    out["tp"] = tp_cells()
     out.update(records(out_dir))
     (out_dir / "world.json").write_text(json.dumps(out))
 
