@@ -37,6 +37,10 @@ path on the card, and checks what comes out. Phases:
    and on the errors after the ``int8_ef`` codec, its chain's divide
    against IEEE ``/`` over random pairs, and EDDM and Page-Hinkley
    against their plain loops; chain lengths and ns a chained event;
+   ADWIN's one-warp kernel bitwise its plain loop on the card on a
+   2,048-event many-drift prefix and its serial witness on the whole
+   planted-drift and many-drift batches, graph-timed with ns an event
+   (``detector_scan/adwin``, a row of its own in the ``kernels`` line);
 3. the orchestrator on a dense 256-wide drifting stream, 12 batches of
    65,536 events, once with the ``int8_ef`` uplink codec and once with
    ``topk_int8_ef``, plus a small run compared with the same job on the
@@ -45,8 +49,10 @@ path on the card, and checks what comes out. Phases:
 5. edge preprocessing (``preprocess_batch``) over the dense batches with
    NaNs injected;
 6. the serving path's two kernels vs their plain versions, as in
-   phase 2: flash attention in bf16 and fp32 at head dims 64, 16 and 128
-   (prefill S = T = 512, a decode step, causal; B 8, 16 heads) and at
+   phase 2: flash attention in bf16 and fp32 at head dims 64, 16, 128
+   and 256 (prefill S = T = 512, a decode step, causal; B 8, 16 heads;
+   D 256, the largest built, has rows of its own in the ``kernels``
+   line) and at
    llama-3.2-vision-90b's cross-attention (64 heads on 8 KV heads, 1,600
    image tokens, batch 1, 2 and 8, prefill and decode; batch 8, the
    vision model's serving batch, has rows of its own in the ``kernels``
@@ -60,8 +66,10 @@ path on the card, and checks what comes out. Phases:
    prefill (B 8, S 512, 32 heads of 64, chunk 32) and decode step in
    bf16, a ragged S, decays down to -20 a step, strided r, k, v, every
    built (head size, chunk), ``RWKVConfig``'s default chunk 64 (run at
-   the built chunk 32; a row of its own in the ``kernels`` line) and
-   the smoke configuration's in fp32, each one CUDA kernel a call,
+   the built chunk 32; a row of its own in the ``kernels`` line), head
+   size 128 (the CUDA-core kernel; prefill and decode, bf16 and fp32;
+   rows of their own) and the smoke configuration's in fp32, each one
+   CUDA kernel a call,
    timed from CUDA-graph replays; the tensor-core kernel against the
    CUDA-core witness; the C entry's refusals of other sizes; then model serving (``ServeEngine``, ``impl="kernel"``) at full width,
    bf16, random weights from a seed: seamless-m4t-medium (flash
@@ -97,8 +105,10 @@ path on the card, and checks what comes out. Phases:
    against its plain version and its thread-a-channel witness at a
    prefill shape (B 2, S 4,096), a ragged one (S 4,000) and a decode
    step (S 1), graph-timed with the inputs cycled past the L2, and at
-   N = 4 and d_inner 16,380 and 1,001; one call one kernel; then
-   through ``kernels.ops.mamba_scan`` as that path;
+   N = 4 and d_inner 16,380 and 1,001; at N 32 and 64 (S 512 and a
+   decode step, against the plain version and the witness, graph-timed;
+   rows of their own); one call one kernel; then through
+   ``kernels.ops.mamba_scan`` as that path;
 10. dynamic topology (``examples/dynamic_topology.py`` in the port): a
     ``MembershipDirectory`` on the example's edge and cloud, the job
     (the example's fan-out graph of the standard operators,
@@ -126,7 +136,7 @@ path on the card, and checks what comes out. Phases:
     full) on a drifting ``TokenStream`` of 8 x 512 tokens a step, 2
     untimed and 8 timed steps, Page-Hinkley on the loss on the card,
     the loss falling; rwkv6-1.6b's full config with its 4 microbatches,
-    4 steps; each with ms a step, tok/s, peak memory, MFU and a
+    3 steps; each with ms a step, tok/s, peak memory, MFU and a
     profiled step's idle share. Then ``dl_train_op`` at qwen2's width
     (2 layers) placed by ``place_frontier`` on the edge serving
     cluster, its losses and state bitwise the standalone step's on the
@@ -134,8 +144,9 @@ path on the card, and checks what comes out. Phases:
     with the next step updating in place, resumed bitwise; 3 steps on
     the card against the CPU within 1e-4. It launches no hand kernel
     (no kernel has a backward). The kernels' pad routes (flash attention
-    at head dims 32 and 96, WKV at head size 32, Mamba at 8 states, each
-    zero-padded to the next built size) are held to their plain versions
+    at head dims 32, 96 and 192, WKV at head sizes 32 and 96, Mamba at 8
+    and 24 states, each zero-padded to the next built size) are held to
+    their plain versions
     at the original size after phase 6's and phase 9's checks, flash's
     beside the fastest fused SDPA backend at the original size;
 13. the orchestrator's other modes on phase 3's dense job (12 x 65,536 x
@@ -237,13 +248,25 @@ path on the card, and checks what comes out. Phases:
     at 8 (16) heads a call, the caches' K, V and WKV state half the one
     rank's bytes; (c) granite-moe-1b-a400m under ``ep_fsdp`` (16 of its
     32 experts a rank), one AdamW step with 17a's checks against the one
-    rank's and the (1, 2) dry run's (``"sharded_tp"``). Each phase logs
-    the seconds since the start.
+    rank's and the (1, 2) dry run's (``"sharded_tp"``); (d)
+    seamless-m4t-medium as (a) with ``seq_shard=True``: the prefill's
+    residual stream the rank's slice of the sequence (its layers'
+    output products reduce-scattered, the norms' outputs all-gathered),
+    tokens equal to the one rank's, the bytes each rank sends into each
+    collective logged beside (a)'s;
+19. phase 3's dense job (12 x 65,536 x 256, ``int8_ef``) with
+    ``drift_detector="adwin"``: one ADWIN kernel launch a batch, the
+    planted drift's alarm, the learner recovering; the same script's
+    small job (10 x 512 x 16) on the card and the CPU with events, cuts,
+    codecs and alarms equal and the prequential metrics within 1e-3;
+    ``fuse="xla"`` against ``fuse="op"`` as phase 13a holds them, the
+    drift segment's graph holding ADWIN's kernel as one node. Each phase
+    logs the seconds since the start.
 
 The launch counts are set to 0 just before each main path (phases 3-5
-as one, each model of phases 6 and 14, phases 7, 8, 9, 10, 11, 12, 13
-and 16, each launcher of phase 15, 17b and 18a-b in each rank's
-process) and
+as one, each model of phases 6 and 14, phases 7, 8, 9, 10, 11, 12, 13,
+16 and 19, each launcher of phase 15, 17b and 18a-b and 18d in each
+rank's process) and
 read just after it; every kernel must have launched on a main path. A line
 ``{"kernels": [...]}`` reports each kernel, the line before the last
 gives the card's name and power limit, and the last line is
@@ -313,6 +336,9 @@ HASH_DIM = 1024        # hashed width
 N_BATCHES = 12
 DENSE_CODECS = (("int8_ef", 0.1), ("topk_int8_ef", 11.0))   # codec, budget
 DETECTOR_PLAIN_N = 16_384   # events the EDDM and PH plain loops check
+ADWIN_PLAIN_N = 2048        # events ADWIN's plain loop runs on the card
+ADWIN_ROW = "detector_scan/adwin"   # ADWIN's row of the kernels line
+ADWIN_SMALL = (10, 512, 16)  # phase 19b's batches, events a batch, dim
 DIVIDE_PAIRS = 1 << 24      # pairs per draw for the DDM chain's divide check
 
 SERVE_MODELS = ("seamless-m4t-medium", "rwkv6-1.6b", "qwen2-1.5b")
@@ -323,7 +349,7 @@ SERVE_BATCH = 8        # requests per wave
 MAX_LEN = 1024
 # phase 6's flash checks: the head dims the kernels are built for, and
 # llama-3.2-vision-90b's cross-attention (1,600 image tokens) at two batches
-FLASH_HEAD_DIMS = (64, 16, 128)
+FLASH_HEAD_DIMS = (64, 16, 128, 256)
 WKV_H, WKV_HS, WKV_CHUNK = 32, 64, 32      # rwkv6-1.6b's heads, head size, chunk
 WKV_STRONG = 20.0      # the strong-decay check's largest -lw a step
 WKV_CHUNK64_ROW = "rwkv6_wkv/chunk64"   # RWKVConfig's default chunk
@@ -662,6 +688,71 @@ def kernel_checks(dev, g, record) -> None:
         if not same:
             raise AssertionError(f"detector scan ({det}) differs from its "
                                  "plain loop")
+    adwin_kernel_checks(dev, record, err, many)
+
+
+def adwin_kernel_checks(dev, record, err, many) -> None:
+    """ADWIN's one-warp kernel bitwise its plain loop on the card on a
+    prefix of the many-drift stream (the loop launches some 300 kernels
+    an event), and bitwise its serial witness on the whole planted-drift
+    and many-drift batches (0/1 errors: whole-number bucket sums);
+    graph-timed with ns an event; the bound is the bytes (each error read
+    once, the state read and written once)."""
+    import torch
+    from repro_torch.kernels import detector_scan as ds
+    from repro_torch.kernels import ops
+    from repro_torch.streams import drift
+
+    def same(a, b):
+        (sa, fa), (sb, fb) = a, b
+        return bool(fa) == bool(fb) and all(
+            torch.equal(x.cpu(), y.cpu()) for x, y in zip(sa, sb))
+
+    init = drift.adwin_init(dev)
+    part = many[:ADWIN_PLAIN_N]
+    got = ds.detector_scan_cuda("adwin", init, part)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = ds.detector_scan_plain("adwin", init, part)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    part_ms = median_ms(lambda: ds.detector_scan_cuda("adwin", init, part), 5)
+    bitwise = same(got, plain)
+    # the row's error: the kernel against the plain loop on the prefix
+    err_plain = max([float(bool(got[1]) != bool(plain[1]))] + [
+        float((x.cpu().double() - y.cpu().double()).abs().max())
+        for x, y in zip(got[0], plain[0])])
+    log(f"  detector_scan (ADWIN) on {ADWIN_PLAIN_N} many-drift events: "
+        f"bitwise the plain loop on the card {bitwise} (drifted "
+        f"{bool(plain[1])}, n_buckets {plain[0].n_buckets.tolist()}); "
+        f"kernel {part_ms!r} ms, plain {plain_ms!r} ms (one run)")
+    if not bitwise:
+        raise AssertionError("detector scan (adwin) differs from its plain "
+                             "loop")
+    for what, e in (("planted drift", err), ("many drifts", many)):
+        got = ds.detector_scan_cuda("adwin", init, e)
+        wit = ds.detector_scan_serial_cuda("adwin", init, e)
+        ok = same(got, wit)
+        e_ms = graph_ms(lambda: ds.detector_scan_cuda("adwin", init, e), 3)
+        eager = median_ms(lambda: ds.detector_scan_cuda("adwin", init, e), 3)
+        w_ms = median_ms(lambda: ds.detector_scan_serial_cuda(
+            "adwin", init, e), 1, warmup=0, trials=1)     # ~1 s a call
+        log(f"  detector_scan (ADWIN) on {what} ({e.numel()} events): "
+            f"bitwise the serial witness {ok}; drifted {bool(got[1])}; graph "
+            f"ms {e_ms!r} [eager {eager!r}] ({e_ms * 1e6 / e.numel()!r} ns "
+            f"an event); the serial witness {w_ms!r} ms "
+            f"({w_ms * 1e6 / e.numel()!r} ns an event)")
+        if not ok:
+            raise AssertionError(f"detector scan (adwin) on {what} differs "
+                                 "from its serial witness")
+        if what == "planted drift":
+            nops, nbytes = ops._adwin_work(e)
+            record("detector_scan",
+                   "src/repro_torch/kernels/csrc/detector_scan.cu",
+                   "src/repro/core/pipeline.py:687", err_plain, 0.0,
+                   e_ms, plain_ms, nbytes, nops, row=ADWIN_ROW)
+            log(f"    {ADWIN_ROW}: ms on {e.numel()} events; max_abs_err and "
+                f"plain_ms on the {ADWIN_PLAIN_N}-event prefix")
 
 
 NORM_TOL = 1e-4     # rtol and atol: raw moments (kernel) against centred
@@ -1263,15 +1354,21 @@ def serving_kernel_checks(dev, g, record):
 
 
 # the sizes the kernels are not built for that their wrappers pad up
-PAD_FLASH_DIMS = (32, 96)        # -> 64, 128
-PAD_WKV_HS = 32                  # -> 64
-PAD_MAMBA_N = 8                  # -> 16
+PAD_FLASH_DIMS = (32, 96, 192)   # -> 64, 128, 256
+PAD_WKV_HS = (32, 96)            # -> 64, 128
+PAD_MAMBA_N = (8, 24)            # -> 16, 32
+# the kernels' largest sizes, above every shipped config's: rows of their
+# own in the kernels line, with 0 launches (no main path runs them)
+WIDE_ROWS = ("flash_attention/d256", "flash_attention/decode/d256",
+             "flash_attention/causal/d256", "flash_attention/d256/fp32",
+             "rwkv6_wkv/hs128", "rwkv6_wkv/hs128_decode",
+             "mamba_scan/N32", "mamba_scan/N64")
 
 
 def pad_route_checks(dev, g, record, which):
     """The dispatching wrappers' pad routes on the card: flash attention
-    at head dims 32 and 96, WKV at head size 32, Mamba at 8 states, each
-    zero-padded up to the next built size. Every call is one launch of
+    at head dims 32, 96 and 192, WKV at head sizes 32 and 96, Mamba at 8
+    and 24 states, each zero-padded up to the next built size. Every call is one launch of
     the kernel plus the pads' copies (its CUDA graph's node list), held
     to the plain version at the original size with the tolerance of the
     rows it extends; the row's bound is the original size's work."""
@@ -1331,10 +1428,12 @@ def pad_route_checks(dev, g, record, which):
                        library=backend, row=row)
                 del q, k, v, got, want
     if "wkv" in which:
-        B, hs, chunk = SERVE_BATCH, PAD_WKV_HS, WKV_CHUNK
-        for tag, S, dtype in (("", PROMPT, torch.bfloat16),
-                              ("/decode", 1, torch.bfloat16),
-                              ("/fp32", PROMPT, torch.float32)):
+        B, chunk = SERVE_BATCH, WKV_CHUNK
+        for hs, tag, S, dtype in ((hs, tag, S, dtype) for hs in PAD_WKV_HS
+                                  for tag, S, dtype in (
+                                      ("", PROMPT, torch.bfloat16),
+                                      ("/decode", 1, torch.bfloat16),
+                                      ("/fp32", PROMPT, torch.float32))):
             row = f"rwkv6_wkv/pad_hs{hs}{tag}"
             es = torch.finfo(dtype).bits // 8
             args = wkv_inputs(g, dev, B, S, hs, dtype)
@@ -1363,8 +1462,9 @@ def pad_route_checks(dev, g, record, which):
                    nbytes, fops, tensor_ops=tops, row=row)
             del args, o, h, po, ph
     if "mamba" in which:
-        B, N, dI = MAMBA_B, PAD_MAMBA_N, MAMBA_DI
-        for tag, S in (("", MAMBA_CHECK_S), ("/decode", 1)):
+        B, dI = MAMBA_B, MAMBA_DI
+        for N, tag, S in ((N, tag, S) for N in PAD_MAMBA_N
+                          for tag, S in (("", MAMBA_CHECK_S), ("/decode", 1))):
             row = f"mamba_scan/pad_N{N}{tag}"
             ins = mamba_inputs(g, dev, S, N)
             y, h = ops.mamba_scan(*ins, chunk=MAMBA_CHUNK)
@@ -1432,8 +1532,10 @@ def wkv_work(B, S, hs, chunk, es, H=None):
     chunk the tensor-core kernel's products with their operand-split
     passes (r~ @ h and the off-diagonal scores 3, scores @ v and the
     update 2) and its fp32 work (exp(lw), the running products, the
-    diagonal blocks' pairs, the hi/lo splits); fp32 takes every product on the
-    CUDA cores. ``H`` defaults to WKV_H."""
+    diagonal blocks' pairs, the hi/lo splits); fp32 takes every product
+    on the CUDA cores, bf16 on the tensor cores whichever kernel runs it
+    (head size 128's is a CUDA-core kernel: the bound is the function's,
+    not that design's). ``H`` defaults to WKV_H."""
     H = H or WKV_H
     n = B * S * H * hs
     nbytes = n * (3 * es + 4 + es) + H * hs * es + 2 * B * H * hs * hs * 4
@@ -1505,6 +1607,11 @@ def wkv_kernel_checks(dev, g, record):
         ("rwkv6_wkv/hs16_c16_decode", B, 1, 16, 16, torch.bfloat16, {}),
         ("rwkv6_wkv/fp32_hs16_c16", B, PROMPT, 16, 16, torch.float32, {}),
         ("rwkv6_wkv/fp32_hs16_c16_decode", B, 1, 16, 16, torch.float32, {}),
+        # the largest head size: the CUDA-core kernel for bf16 too
+        ("rwkv6_wkv/hs128", B, PROMPT, 128, 32, torch.bfloat16, {}),
+        ("rwkv6_wkv/hs128_decode", B, 1, 128, 32, torch.bfloat16, {}),
+        ("rwkv6_wkv/fp32_hs128", B, PROMPT, 128, 32, torch.float32, {}),
+        ("rwkv6_wkv/fp32_hs128_decode", B, 1, 128, 32, torch.float32, {}),
     ]
     for row, Bc, S, hsc, ch, dtype, opt in cases:
         es = torch.finfo(dtype).bits // 8
@@ -1589,7 +1696,7 @@ def wkv_kernel_checks(dev, g, record):
     h = torch.empty_like(args[5])
     lib = wkv._lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for bad_hs, bad_chunk in ((32, 32), (128, 32), (64, 64), (64, 8),
+    for bad_hs, bad_chunk in ((32, 32), (256, 32), (64, 64), (64, 8),
                               (48, 16), (16, 0)):
         rc = lib.rwkv6_wkv_fwd(
             *(t.data_ptr() for t in args), o.data_ptr(), h.data_ptr(),
@@ -1605,8 +1712,9 @@ def wkv_kernel_checks(dev, g, record):
             continue
         raise AssertionError(f"{fn.__name__} took chunk {bad}")
     torch.cuda.synchronize()
-    log("  the C entry and the kernel's wrapper refuse hs outside (16, 64) "
-        "and chunks outside (16, 32); the dispatch refuses chunks below 1")
+    log("  the C entry and the kernel's wrapper refuse hs outside (16, 64, "
+        "128) and chunks outside (16, 32); the dispatch refuses chunks below "
+        "1")
 
 
 def wkv_measure(dev) -> dict:
@@ -1766,9 +1874,9 @@ def dense_batches(n_batches: int, n: int, dim: int):
 
 def dense_job(dim: int, codec: str, budget: float, device: str,
               sample_rate: float = 0.5, fuse: str = "op",
-              measured: bool = False):
-    """Phase 3's job: the standard pipeline (DDM) built under ``fuse``,
-    the uplink codec pinned."""
+              measured: bool = False, detector: str = "ddm"):
+    """Phase 3's job: the standard pipeline (DDM, or ``detector``) built
+    under ``fuse``, the uplink codec pinned."""
     from repro_torch.core.orchestrator import Orchestrator, StreamJob
     from repro_torch.core.pipeline import standard_stream_pipeline
     from repro_torch.core.sla import SLA
@@ -1776,15 +1884,15 @@ def dense_job(dim: int, codec: str, budget: float, device: str,
         f"smoke-{codec}-{fuse}", dim=dim,
         sla=SLA(error_budget=budget, max_latency_s=1e3),
         pipeline=standard_stream_pipeline(
-            dim, sample_rate=sample_rate, drift_detector="ddm", fuse=fuse),
+            dim, sample_rate=sample_rate, drift_detector=detector, fuse=fuse),
         uplink_codecs=[codec], device=device, measured_costs=measured))
 
 
 def run_dense(batches, codec: str, budget: float, device: str,
-              sample_rate: float = 0.5):
+              sample_rate: float = 0.5, detector: str = "ddm"):
     import torch
     orch = dense_job(batches[0].data["x"].shape[1], codec, budget, device,
-                     sample_rate)
+                     sample_rate, detector=detector)
     t0 = time.perf_counter()
     m = orch.run(batches, rate_fn=lambda s: 1e4)
     if device == "cuda":
@@ -2685,6 +2793,44 @@ def mamba_phase(dev, g, record) -> dict:
                    "src/repro/kernels/mamba_scan.py:70", err, tol, t["graph"],
                    plain_ms, nbytes, B * S * dI * (7 * N + 1),
                    row=None if row == "mamba_scan" else row)
+    # the largest state sizes, above every config's: the lane kernel at
+    # N 32 and 64 against its plain version and its witness, graph-timed
+    for N in (32, 64):
+        for tag, S in (("", MAMBA_CHECK_S), ("/decode", 1)):
+            row = f"mamba_scan/N{N}{tag}"
+            ins = mamba_inputs(g, dev, S, N)
+            y, h = ms.mamba_scan_cuda(*ins, chunk=MAMBA_CHUNK)
+            wy, wh = ms.mamba_scan_witness_cuda(*ins, chunk=MAMBA_CHUNK)
+            t0 = time.perf_counter()
+            py, ph = ms.mamba_scan_ref(*ins)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            if not (torch.isfinite(y).all() and torch.isfinite(h).all()):
+                raise AssertionError(f"{row}: non-finite output")
+            excess = {"plain": max(mamba_excess(y, py), mamba_excess(h, ph)),
+                      "witness": max(mamba_excess(y, wy),
+                                     mamba_excess(h, wh))}
+            err = max(float((y - py).abs().max()),
+                      float((h - ph).abs().max()))
+            tol = MAMBA_TOL * (1 + float(torch.maximum(py.abs().max(),
+                                                       ph.abs().max())))
+            call = lambda: ms.mamba_scan_cuda(*ins, chunk=MAMBA_CHUNK)
+            ms_graph = graph_ms(call, 20 if S > 1 else 100)
+            wit = graph_ms(lambda: ms.mamba_scan_witness_cuda(
+                *ins, chunk=MAMBA_CHUNK), 5 if S > 1 else 100)
+            log(f"  {row} (B {B}, S {S}, dI {MAMBA_DI}, N {N}): elementwise "
+                f"excess over rtol=atol={MAMBA_TOL}: {excess}; graph ms "
+                f"{ms_graph!r}, the witness {wit!r}")
+            if max(excess.values()) > 0.0:
+                raise AssertionError(f"{row}: outside rtol=atol={MAMBA_TOL}")
+            record("mamba_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:70", err, tol, ms_graph,
+                   plain_ms,
+                   4 * (3 * B * S * MAMBA_DI + 2 * B * S * N + MAMBA_DI * N
+                        + 2 * B * MAMBA_DI * N),
+                   B * S * MAMBA_DI * (7 * N + 1), row=row)
+            del ins, y, h, wy, wh, py, ph
+            torch.cuda.empty_cache()
     pad_route_checks(dev, g, record, ("mamba",))
     ins = mamba_inputs(g, dev, MAMBA_SHAPES[0][1])
     nodes = kernels_in_graph(lambda: ops.mamba_scan(*ins, chunk=MAMBA_CHUNK))
@@ -3078,7 +3224,7 @@ def fleet_phase(dev) -> dict:
 TRAIN_B, TRAIN_S = 8, 512        # sequences x tokens a step
 TRAIN_LR = 3e-4
 TRAIN_WARM, TRAIN_TIMED = 2, 8   # qwen2-1.5b: untimed, then timed steps
-RWKV_WARM, RWKV_TIMED = 1, 3     # rwkv6-1.6b: 4 steps (microbatches 4)
+RWKV_WARM, RWKV_TIMED = 1, 2     # rwkv6-1.6b: 3 steps (microbatches 4)
 TRAIN_OP_LAYERS = 2              # dl_train_op at qwen2-1.5b's width
 TRAIN_OP_STEPS = 2
 TRAIN_PLACE_RATE = 1.0           # sequences/s offered to the placement DP
@@ -3387,7 +3533,8 @@ STRAT_CLASSES = 2
 STRAT_K = 256
 TRAIN_MODES_STEPS = 3            # 13e: one eager step, then two replays
 # kernels a captured segment holds, by the wrapper counter they count in
-GRAPH_KERNELS = {"ddm_tiled_kernel": "detector_scan"}
+GRAPH_KERNELS = {"ddm_tiled_kernel": "detector_scan",
+                 "adwin_warp_kernel": "detector_scan"}
 
 
 def hand_kernel_names() -> list:
@@ -3402,13 +3549,13 @@ def hand_kernel_names() -> list:
 
 
 def modes_run(batches, fuse: str, device: str, measured: bool = False,
-              record: bool = False):
-    """Phase 3's job with ``int8_ef`` (:func:`dense_job`) built under
-    ``fuse`` over ``batches`` at a pinned 1e4 events/s: ``(orch,
-    metrics, seconds, host ms of each batch)``."""
+              record: bool = False, detector: str = "ddm"):
+    """Phase 3's job with ``int8_ef`` (:func:`dense_job`, its drift op's
+    ``detector``) built under ``fuse`` over ``batches`` at a pinned 1e4
+    events/s: ``(orch, metrics, seconds, host ms of each batch)``."""
     import torch
     orch = dense_job(batches[0].data["x"].shape[1], "int8_ef", 0.1, device,
-                     fuse=fuse, measured=measured)
+                     fuse=fuse, measured=measured, detector=detector)
     batch_ms = []
     inner = orch.execute_batch
 
@@ -3953,6 +4100,103 @@ def modes_phase(dev, batches) -> dict:
             and replayed.get("detector_scan", 0) > 0):
         raise AssertionError(f"phase 13: the path's kernels: {counts}")
     torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 19: ADWIN on the dense job (the drift op's fourth detector)
+# ---------------------------------------------------------------------------
+
+def adwin_phase(dev, batches) -> dict:
+    """Phase 19: phase 3's dense job (12 x 65,536 x 256, ``int8_ef``) with
+    ``drift_detector="adwin"`` on the card: (a) one ``detector_scan``
+    launch a batch, the planted drift raising an alarm, the learner
+    recovering; (b) the same script's small job (10 x 512 x 16) on the
+    card and on the CPU: events, cuts, codecs and drift alarms equal,
+    the prequential metrics within 1e-3; (c) ``fuse="xla"`` against
+    ``fuse="op"`` as phase 13a holds them: JobMetrics equal, masks
+    bitwise, outputs and states within its tolerance, the drift
+    segment's graph holding ADWIN's kernel as one node. Returns the
+    launch counts of the phase (graph replays counted as launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    orch, m, secs = run_dense(batches, "int8_ef", 0.1, dev.type,
+                              detector="adwin")
+    counts = ops.launch_counts()
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"  19a: events={m.events} events_per_s={m.events / secs!r} "
+        f"ms_per_batch={secs * 1e3 / len(batches)!r} "
+        f"drift_alarms={m.drift_alarms} cuts={sorted(set(m.cuts))} "
+        f"codecs={sorted(set(m.codecs))} preq={m.preq} launches={launched}")
+    if m.events != len(batches) * N_EVENTS or set(m.codecs) != {"int8_ef"}:
+        raise AssertionError("adwin job: wrong events or codec trajectory")
+    if counts["detector_scan"] != len(batches):
+        raise AssertionError(f"adwin job: {counts['detector_scan']} detector "
+                             f"scans for {len(batches)} batches")
+    if m.drift_alarms < 1:
+        raise AssertionError("adwin job: the planted drift raised no alarm")
+    if not (0.6 < m.preq["ewma_accuracy"] <= 1.0):
+        raise AssertionError(f"adwin job: the learner did not recover: "
+                             f"{m.preq}")
+    check_no_nan(orch.states, "adwin")
+    del orch
+
+    small = dense_batches(*ADWIN_SMALL)
+    _, mg, _ = run_dense(small, "int8_ef", 0.1, dev.type, sample_rate=1.0,
+                         detector="adwin")
+    _, mc, _ = run_dense(small, "int8_ef", 0.1, "cpu", sample_rate=1.0,
+                         detector="adwin")
+    same = (mg.events == mc.events and mg.cuts == mc.cuts
+            and mg.codecs == mc.codecs and mg.drift_alarms == mc.drift_alarms)
+    gap = max(abs(mg.preq[k] - mc.preq[k]) for k in
+              ("accuracy", "logloss", "ewma_accuracy"))
+    log(f"  19b: small job, card vs CPU: events/cuts/codecs/drift_alarms "
+        f"equal={same} (drift_alarms {mg.drift_alarms}) max preq "
+        f"gap={gap!r} (tol 1e-3)")
+    if not same or gap > 1e-3:
+        raise AssertionError("adwin job: card and CPU runs disagree")
+    for k, v in ops.launch_counts().items():
+        counts[k] = v
+
+    runs = {fuse: modes_run(batches, fuse, dev.type, record=True,
+                            detector="adwin") for fuse in ("op", "xla")}
+    (oa, ma, sa, _), (ox, mx, sx, _) = runs["op"], runs["xla"]
+    same = all(getattr(ma, f) == getattr(mx, f) for f in (
+        "events", "cuts", "plan_identities", "codecs", "drift_alarms")) \
+        and control_lines(ma.decisions) == control_lines(mx.decisions)
+    masks = all(np.array_equal(a["mask"], b["mask"])
+                for a, b in zip(ma.outputs, mx.outputs))
+    outs_ok, outs_bit, outs_ex = trees_close(
+        [{k: torch.from_numpy(v) for k, v in o.items()} for o in mx.outputs],
+        [{k: torch.from_numpy(v) for k, v in o.items()} for o in ma.outputs])
+    st_ok, st_bit, st_ex = trees_close(ox.states, oa.states)
+    graphs = segment_graphs(ox.pipeline)
+    replayed = graph_launches(graphs)
+    log(f"  19c: fuse='xla' vs 'op': JobMetrics equal={same} masks "
+        f"bitwise={masks} outputs within={outs_ok} (bitwise {outs_bit}, "
+        f"excess {outs_ex!r}) states within={st_ok} (bitwise {st_bit}, "
+        f"excess {st_ex!r}); ms a batch {sa * 1e3 / len(batches)!r} (op), "
+        f"{sx * 1e3 / len(batches)!r} (xla)")
+    drift_nodes = []
+    for names, (replays, nodes) in graphs.items():
+        hand = [n for n in nodes if any(t in n for t in GRAPH_KERNELS)]
+        log(f"    graph of {list(names)}: {len(nodes)} nodes, replays "
+            f"{replays}; hand kernels {hand}")
+        if "drift" in names:
+            drift_nodes = [n for n in nodes if "adwin_warp_kernel" in n]
+    if not (same and masks and outs_ok and st_ok):
+        raise AssertionError("adwin job: fuse='xla' differs from fuse='op'")
+    if len(drift_nodes) != 1:
+        raise AssertionError(f"adwin job: the drift segment's graph holds "
+                             f"{len(drift_nodes)} ADWIN kernel nodes")
+    for k, v in ops.launch_counts().items():
+        counts[k] = v + replayed.get(k, 0)
+    del runs
+    torch.cuda.empty_cache()
+    log(f"  phase 19 launches: {counts}")
     return counts
 
 
@@ -4852,6 +5096,40 @@ TP_TRAIN_ARCH = "granite-moe-1b-a400m"       # ep_fsdp: 16 of 32 experts
 TP_KERNELS = {"seamless-m4t-medium": "flash_attention",
               "rwkv6-1.6b": "rwkv6_wkv"}
 TP_SPLIT_CACHE = (".k", ".v", ".wkv")        # cache leaves split by heads
+# 18d: seamless-m4t-medium with its config's seq_shard flipped: 18a runs
+# the full config's (True: the prefill's residual stream the rank's slice
+# of the sequence, reduce-scattered and all-gathered), 18d the other form
+TP_SEQ_ARCH = "seamless-m4t-medium"
+
+
+class LinkBytes:
+    """The bytes each rank sends into its collectives while entered, by
+    collective: an all-reduce's and a reduce-scatter's input, an
+    all-gather's input (the rank's part)."""
+
+    CALLS = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor")
+
+    def __enter__(self):
+        import torch.distributed as tdist
+        self.bytes = {k: 0 for k in self.CALLS}
+        self.calls = {k: 0 for k in self.CALLS}
+        self._real = {k: getattr(tdist, k) for k in self.CALLS}
+
+        def logged(name, fn, arg):
+            def call(*a, **k):
+                t = a[arg]
+                self.bytes[name] += t.numel() * t.element_size()
+                self.calls[name] += 1
+                return fn(*a, **k)
+            return call
+        for k, fn in self._real.items():
+            setattr(tdist, k, logged(k, fn, 0 if k == "all_reduce" else 1))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+        for k, fn in self._real.items():
+            setattr(tdist, k, fn)
 
 
 class HeadLog:
@@ -4935,13 +5213,17 @@ def tp_serve_reference(dev, arch: str) -> dict:
             "s": secs}
 
 
-def tp_serve_rank(dev, arch: str) -> dict:
+def tp_serve_rank(dev, arch: str, flip_seq_shard: bool = False) -> dict:
     """18a (18b) on one rank: ``arch``'s seed-0 weights drawn whole, then
     only this rank's shards kept (its heads, ``ff`` and vocab under
     ``tp_fsdp``); prefill and SHARD_DECODES greedy steps on every prompt
     (the data axis is 1), the layers computing on the rank's slice with
-    their all-reduces over ``model``. The launch counts are from 0 just
-    before; the heads each kernel ran at."""
+    their all-reduces over ``model`` (where the config sets
+    ``seq_shard``, the prefill's residual stream the rank's slice of the
+    sequence, its output products reduce-scattered); with
+    ``flip_seq_shard`` (18d) the config's ``seq_shard`` flipped. The
+    launch counts are from 0 just before; the heads each kernel ran at;
+    the bytes the rank sent into each collective."""
     import torch
     from repro_torch import dist
     from repro_torch.configs import get_config
@@ -4953,6 +5235,8 @@ def tp_serve_rank(dev, arch: str) -> dict:
     from repro_torch.serve.engine import wave_inputs
 
     cfg = get_config(arch)
+    if flip_seq_shard:
+        cfg = cfg.with_overrides(seq_shard=not cfg.seq_shard)
     with mesh_context(cfg, *TP_MESH, device=dev.type) as mesh:
         rules = dist.current_rules()
         full = zoo.init_params(cfg, seed=0, device=dev)
@@ -4967,7 +5251,7 @@ def tp_serve_rank(dev, arch: str) -> dict:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         with torch.no_grad(), fsdp.sharded(mesh, rules, ("data",)), \
-                HeadLog() as heads:
+                HeadLog() as heads, LinkBytes() as link:
             tokens, nbytes, _ = greedy_tokens(params, cfg, batch)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -4975,7 +5259,9 @@ def tp_serve_rank(dev, arch: str) -> dict:
     return {"tokens": tokens, "cache_bytes": nbytes, "launches": counts,
             "heads": {k: sorted(v) for k, v in heads.heads.items()},
             "s": secs, "arg_bytes": arg_bytes,
-            "peak": torch.cuda.max_memory_allocated(dev)}
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "link_bytes": link.bytes, "link_calls": link.calls,
+            "seq_shard": cfg.seq_shard}
 
 
 def tp_rank(rank: int, store: str, work: str, device: str) -> None:
@@ -4999,6 +5285,8 @@ def tp_rank(rank: int, store: str, work: str, device: str) -> None:
         for arch in TP_SERVE_ARCHS:
             out[arch] = tp_serve_rank(dev, arch)
             free_card()
+        out["seq"] = tp_serve_rank(dev, TP_SEQ_ARCH, flip_seq_shard=True)
+        free_card()
         out["train"] = shard_train_rank(dev, work, TP_TRAIN_ARCH, TP_MESH,
                                         "18c")
         torch.save(out, work / f"rank{rank}.pt")
@@ -5109,6 +5397,10 @@ def tp_phase(dev) -> dict:
             refs[arch] = tp_serve_reference(dev, arch)
             log(f"  {tag} one rank: {refs[arch]['s']!r} s; split cache "
                 f"leaves {refs[arch]['cache_bytes']!r} B")
+        log(f"phase 18d: {TP_SEQ_ARCH} (tp_fsdp) as 18a with its config's "
+            "seq_shard flipped (where set, the ranks' prefill keeps the "
+            "residual stream as its slice of the sequence: reduce-scatter, "
+            "all-gather); held to 18a's one rank")
         log(f"phase 18c: {TP_TRAIN_ARCH} (ep_fsdp) at full width, one AdamW "
             f"step of {TRAIN_B} x {TRAIN_S} tokens: one rank, then the two "
             "ranks, each on its experts")
@@ -5160,6 +5452,37 @@ def tp_phase(dev) -> dict:
                                      f"{rf['cache_bytes']}")
             for k, v in sv["launches"].items():
                 counts[k] = counts.get(k, 0) + v
+
+    # 18d: seamless with the other seq_shard form against the one rank
+    # (seq_shard changes no one-rank computation) and 18a's collectives:
+    # a run reduce-scatters over model exactly where its seq_shard is set
+    rf = refs[TP_SEQ_ARCH]
+    for r, out in enumerate(ranks):
+        sv, twin = out["seq"], out[TP_SEQ_ARCH]
+        same = torch.equal(sv["tokens"], rf["tokens"])
+        ties = tie_divergences(sv["tokens"], rf["tokens"], rf["logits"],
+                               f"18d rank {r}")
+        launched = {k: v for k, v in sv["launches"].items() if v}
+        log(f"  rank {r} 18d (seq_shard={sv['seq_shard']}; 18a "
+            f"seq_shard={twin['seq_shard']}): tokens equal the one rank's: "
+            f"{same}; rows diverging at a bf16 tie (row, step, gap): "
+            f"{ties}; {sv['s']!r} s (18a {twin['s']!r} s); link bytes by "
+            f"collective {sv['link_bytes']} in {sv['link_calls']} calls (18a "
+            f"{twin['link_bytes']} in {twin['link_calls']}); "
+            f"max_memory_allocated {sv['peak']!r} B (18a {twin['peak']!r} "
+            f"B); launches {launched}")
+        for tag, run in (("18a", twin), ("18d", sv)):
+            if bool(run["link_calls"]["reduce_scatter_tensor"]) != \
+                    run["seq_shard"]:
+                raise AssertionError(
+                    f"{tag} rank {r}: {run['link_calls']} collectives with "
+                    f"seq_shard={run['seq_shard']}")
+        if sv["seq_shard"] == twin["seq_shard"]:
+            raise AssertionError("18d did not flip 18a's seq_shard")
+        if not sv["launches"].get(TP_KERNELS[TP_SEQ_ARCH]):
+            raise AssertionError(f"18d rank {r}: no flash launch")
+        for k, v in sv["launches"].items():
+            counts[k] = counts.get(k, 0) + v
 
     cfg = get_config(TP_TRAIN_ARCH)
     opt = shard_optimizer(cfg)
@@ -5536,6 +5859,13 @@ def main(argv=None) -> int:
     log(f"phase 18: the kernels at a model rank's shapes ({TP_MESH} mesh)")
     tp_kernel_checks(dev, kg, record)
     path_counts["tp"] = tp_phase(dev)
+
+    # -- phase 19: ADWIN on the dense job ---------------------------------------
+    free_card()
+    since(t_all)
+    log(f"phase 19: orchestrator, dense job with drift_detector='adwin' "
+        f"({N_BATCHES} x {N_EVENTS} events, dim {DIM}, int8_ef)")
+    path_counts["adwin"] = adwin_phase(dev, batches)
     since(t_all)
 
     counts = {k: sum(c[k] for c in path_counts.values())
@@ -5568,14 +5898,19 @@ def main(argv=None) -> int:
                                if c.family == "vlm")
     vlm_rows = {f"flash_attention/vlm_b{SERVE_BATCH}{tag}": path_counts[
         vlm_path]["flash_attention"] for tag in ("", "_decode")}
+    # ADWIN's row: its launches on phase 19's path; the largest sizes'
+    # rows: none
+    path_rows = {**vlm_rows, **dict.fromkeys(WIDE_ROWS, 0),
+                 ADWIN_ROW: path_counts["adwin"]["detector_scan"]}
     kernels = []
     for k, row in rows.items():
-        if k != row["name"] and k != WKV_CHUNK64_ROW and k not in vlm_rows:
+        if k != row["name"] and k != WKV_CHUNK64_ROW and \
+                k not in path_rows:
             continue        # a further shape of a kernel: logged above
-        # the chunk-64 row is the WKV kernel (one counter for every chunk)
+        # the chunk-64 row is the kernel's (one counter for every chunk)
         kernels.append({"name": k, "route": row["route"],
                         "source": row["source"], "replaces": row["replaces"],
-                        "launches": vlm_rows.get(k, counts[row["name"]]),
+                        "launches": path_rows.get(k, counts[row["name"]]),
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

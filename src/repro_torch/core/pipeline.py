@@ -46,7 +46,7 @@ is the same composition as one callable. A capture that fails raises,
 naming the op; there is no fallback to per-op dispatch. Host ops
 (``Op.jit=False``) only compose under ``fuse="op"``.
 
-On the card, the drift op's DDM/EDDM/Page-Hinkley scan and the hash op
+On the card, the drift op's detector scan (every detector) and the hash op
 run the port's CUDA kernels (``kernels/ops.py``); the batch ``rng``
 channel is a per-step seed, a 0-dim int64 tensor on the batch's device,
 which the sample op mixes with each item's index
@@ -825,9 +825,9 @@ def logreg_train_op(dim: int, lr: float = 0.5,
 def drift_op(detector: str = "ddm") -> Op:
     """Concept-drift detection over the op-emitted error stream. Model
     management is a cloud concern, so this op is not edge-capable (it
-    also anchors at least one stage on the cloud pool). DDM, EDDM and
-    Page-Hinkley scan the batch with the ``detector_scan`` kernel on the
-    card; ADWIN runs its plain per-event loop on the device."""
+    also anchors at least one stage on the cloud pool). Every detector
+    (DDM, EDDM, Page-Hinkley, ADWIN) scans the batch with the
+    ``detector_scan`` kernel on the card, one launch a batch."""
     init_fn = {
         "ddm": drift_mod.ddm_init,
         "eddm": drift_mod.eddm_init,
@@ -836,13 +836,7 @@ def drift_op(detector: str = "ddm") -> Op:
     }[detector]
 
     def fn(state, batch):
-        if detector == "adwin":
-            state, levels = drift_mod.run_detector(
-                drift_mod.adwin_step, state, batch["err"])
-            drifted = torch.any(levels == drift_mod.DRIFT)
-        else:
-            state, drifted = kops.detector_scan(detector, state,
-                                                batch["err"])
+        state, drifted = kops.detector_scan(detector, state, batch["err"])
         return state, {**batch, "drifted": drifted}
     cost = OperatorCost("drift", flops_per_event=50, bytes_per_event=64,
                         out_bytes_per_event=8, edge_capable=False)

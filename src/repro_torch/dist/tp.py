@@ -23,6 +23,32 @@ inserted (Megatron's conjugate pair, and an activation all-gather):
     (:func:`copy_in`, then the slice): where a replicated value enters
     the rank's own compute.
 
+Where the active act rules map ``seq_sp`` to ``model`` (a config with
+``seq_shard=True`` under a ``tp`` recipe, not at decode) and the
+sequence divides by the ``model`` size (:func:`seq_parts`), the residual
+stream between the layers is the rank's slice of the sequence, as the
+reference's ``shard(x, "batch", "seq_sp", "embed")`` lays it out, and
+each layer's output product reduce-scatters in place of the
+all-reduce (in the forward, Megatron's sequence-parallel pair):
+
+  * :func:`reduce_scatter_out` — reduce-scatter of the fp32 partial sums
+    along the sequence, backward an all-gather: the layer's output
+    product where the caller passes ``scatter=True``
+    (``row_product(..., scatter=True)``, ``reduce_out(..., scatter=True)``;
+    ``models/transformer.py::apply_slot`` decides, and each mixer and MLP
+    hands the flag to its output product);
+  * :func:`gather_in`  — all-gather along the sequence before the next
+    column-parallel product (:func:`gather_out`): its backward is the
+    rank's slice of the gradient, which the layer's :func:`copy_in` has
+    already summed over ``model`` (a reduce-scatter there would sum it
+    twice);
+  * :func:`seq_slice`  — a whole, replicated tensor's slice of the
+    sequence (the embedding's output entering the stream, an output a
+    layer computed whole), backward an all-gather;
+  * :func:`on_slice`   — a replicated parameter used on the slice (a
+    norm's scale, a gate, an output bias): its gradient summed over
+    ``model``, each rank having seen only its positions.
+
 Sums run in fp32: a row-parallel product's partial sums are made in
 fp32 (:func:`row_product`: bf16 operands, an fp32 result, as the one-rank
 product accumulates before its one rounding), all-reduced in fp32 and
@@ -43,7 +69,9 @@ from typing import NamedTuple, Optional
 import torch
 
 __all__ = ["Model", "group", "parts", "copy_in", "reduce_out", "gather_out",
-           "take", "row_product", "local_size", "vocab_cross_entropy"]
+           "take", "row_product", "local_size", "vocab_cross_entropy",
+           "seq_parts", "reduce_scatter_out", "gather_in", "seq_slice",
+           "on_slice", "seq_out"]
 
 
 class Model(NamedTuple):
@@ -101,6 +129,23 @@ def local_size(full: int, name: str) -> int:
     return full // g.size
 
 
+def seq_parts(S: int) -> int:
+    """How many ``model`` ranks split a sequence of ``S`` positions in the
+    residual stream: the ``model`` size where the active act rules map
+    ``seq_sp`` to ``model`` and ``S`` divides by it, else 1 (the
+    reference's ``shard`` drops a constraint that does not divide)."""
+    from repro_torch.dist import fsdp
+    from repro_torch.dist.api import _as_tuple
+
+    g = group()
+    if g is None:
+        return 1
+    act = fsdp.current().rules.get("act", {})
+    if "model" not in _as_tuple(act.get("seq_sp")) or S % g.size:
+        return 1
+    return g.size
+
+
 def _all_reduce_f32(x: torch.Tensor, grp) -> torch.Tensor:
     """The ranks' sum of ``x``, summed in fp32, in ``x``'s dtype (a new
     tensor)."""
@@ -108,6 +153,18 @@ def _all_reduce_f32(x: torch.Tensor, grp) -> torch.Tensor:
     y = x.to(torch.float32, copy=True).contiguous()
     tdist.all_reduce(y, op=tdist.ReduceOp.SUM, group=grp)
     return y.to(x.dtype)
+
+
+def _reduce_scatter_f32(x: torch.Tensor, dim: int, grp) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the ranks' sum of ``x``, summed
+    in fp32, in ``x``'s dtype."""
+    import torch.distributed as tdist
+    n = tdist.get_world_size(grp)
+    src = x.to(torch.float32).movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=torch.float32, device=src.device)
+    tdist.reduce_scatter_tensor(out, src, op=tdist.ReduceOp.SUM, group=grp)
+    return out.movedim(0, dim).contiguous().to(x.dtype)
 
 
 class _CopyIn(torch.autograd.Function):
@@ -144,6 +201,68 @@ class _GatherOut(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.rank * n, n).contiguous(), None, None
 
 
+class _ReduceScatterOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.grp = dim, g.group
+        return _reduce_scatter_f32(x, dim, g.group)
+
+    @staticmethod
+    def backward(ctx, gr):
+        from repro_torch.dist.fsdp import _all_gather
+        return _all_gather(gr.contiguous(), ctx.dim, ctx.grp), None, None
+
+
+class _SeqSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.grp = dim, g.group
+        n = x.shape[dim] // g.size
+        return x.narrow(dim, g.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, gr):
+        from repro_torch.dist.fsdp import _all_gather
+        return _all_gather(gr.contiguous(), ctx.dim, ctx.grp), None, None
+
+
+def reduce_scatter_out(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' partial results summed over ``model`` (in fp32), this
+    rank's slice along ``dim`` kept; the backward all-gathers the
+    slices' gradients."""
+    g = group()
+    return x if g is None else _ReduceScatterOut.apply(x, dim % x.dim(), g)
+
+
+def gather_in(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """:func:`gather_out` of the residual stream's slices before a
+    column-parallel product: the backward keeps the rank's slice of a
+    gradient the layer's :func:`copy_in` has summed over ``model``."""
+    return gather_out(x, dim)
+
+
+def seq_slice(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of a whole, replicated ``x``; the
+    backward all-gathers, so the whole tensor gets its whole gradient."""
+    g = group()
+    return x if g is None else _SeqSlice.apply(x, dim % x.dim(), g)
+
+
+def on_slice(p):
+    """A replicated parameter (or a dict of them) used on the rank's slice
+    of the sequence: its gradient summed over ``model``."""
+    if isinstance(p, dict):
+        return {k: on_slice(v) for k, v in p.items()}
+    return copy_in(p) if isinstance(p, torch.Tensor) else p
+
+
+def seq_out(x: torch.Tensor, scatter: bool) -> torch.Tensor:
+    """A layer's output computed whole on every rank, as its caller holds
+    it: the rank's slice of the sequence (dim 1) with ``scatter``, else
+    ``x``."""
+    return seq_slice(x, 1) if scatter else x
+
+
 def copy_in(x: torch.Tensor) -> torch.Tensor:
     """Identity; the gradient is summed over ``model`` (the input of a
     column-parallel product)."""
@@ -151,11 +270,16 @@ def copy_in(x: torch.Tensor) -> torch.Tensor:
     return x if g is None else _CopyIn.apply(x, g.group)
 
 
-def reduce_out(x: torch.Tensor) -> torch.Tensor:
+def reduce_out(x: torch.Tensor, scatter: bool = False) -> torch.Tensor:
     """The ranks' partial results summed over ``model`` (the output of a
-    row-parallel product)."""
+    row-parallel product). With ``scatter``, reduce-scattered along the
+    sequence (dim 1) instead: the residual stream's slice."""
     g = group()
-    return x if g is None else _ReduceOut.apply(x, g.group)
+    if g is None:
+        return x
+    if scatter:
+        return reduce_scatter_out(x, 1)
+    return _ReduceOut.apply(x, g.group)
 
 
 def gather_out(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -196,11 +320,14 @@ class _MatmulF32(torch.autograd.Function):
         return g @ b.t(), a.t() @ g
 
 
-def row_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def row_product(h: torch.Tensor, w: torch.Tensor,
+                scatter: bool = False) -> torch.Tensor:
     """``h @ w`` for a row-parallel ``w`` (its rows the rank's slice of
     the contracted dim; ``h`` (..., k), ``w`` (k, n)), summed over
     ``model``, in ``h``'s dtype: the partial products in fp32, their sum
-    in fp32, one rounding. Outside tensor parallelism, ``h @ w``."""
+    in fp32, one rounding. With ``scatter`` the sum is reduce-scattered
+    along the sequence (dim 1): the rank's slice. Outside tensor
+    parallelism, ``h @ w``."""
     if group() is None:
         return h @ w
     lead = h.shape[:-1]
@@ -209,7 +336,8 @@ def row_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         part = h2 @ w
     else:
         part = _MatmulF32.apply(h2, w.to(h.dtype))
-    return reduce_out(part).to(h.dtype).reshape(*lead, w.shape[-1])
+    part = part.reshape(*lead, w.shape[-1])
+    return reduce_out(part, scatter).to(h.dtype)
 
 
 # ---------------------------------------------------------------------------

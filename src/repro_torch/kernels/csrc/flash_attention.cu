@@ -17,7 +17,7 @@
 // diagonal are skipped; masked scores are -1e30 and l is floored at 1e-30.
 // (The bf16 kernels mask with -inf and subtract 0 in a row with no key kept
 // yet; every row keeps key 0, so a masked key weighs exactly 0 either way.)
-// Head dims 16, 64 and 128, fp32 or bf16.
+// Head dims 16, 64, 128 and 256, fp32 or bf16.
 //
 // What bounds it. At the serving path's prefill shape (S = T = 512, D = 64,
 // bf16) one (b, h) does 4*S*T*D operations on 2*(S+T)*D*2 bytes, 256 per
@@ -27,7 +27,9 @@
 //
 // - flash_fwd_mma (bf16): FlashAttention-2's forward on the tensor cores.
 //   A block owns 64*MT query rows of one (b, h), four warps of 16*MT rows
-//   (MT = 2 at D >= 64: each K and V fragment feeds two m-tiles). K and
+//   (MT = 2 at D 64 and 128: each K and V fragment feeds two m-tiles; at
+//   D 256 one m-tile, its 128 accumulators a thread, with Q read from its
+//   tile at each k-step, fits the registers). K and
 //   V come in tiles of 64 keys, two stages deep, by cp.async (16 bytes a
 //   thread), so the next tile loads under this tile's products; shared
 //   memory is XOR-swizzled in 16-byte chunks so that ldmatrix reads eight
@@ -47,7 +49,9 @@
 //   times S rows, padded to one 16-row tile, so K and V are read once per
 //   group. Its four warps split each 64-key tile (16 keys a warp), three
 //   or four stages deep, and merge their (m, l, acc) in shared memory at
-//   the end. Where B*KV blocks cannot fill the card, T is split across
+//   the end (at D 256 Q is read from its tile at each k-step, and the
+//   stages are three: 200 KB). Where B*KV blocks cannot fill the card, T
+//   is split across
 //   kv_splits blocks; each writes its partial (m, l, acc) to scratch, and
 //   the last to finish (an atomic count, reset by that block) puts each
 //   split's weight in shared memory and sums the partials 16 bytes at a
@@ -357,15 +361,16 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[MT][D / 16][4],
 }
 
 // m-tiles a warp of the row kernel owns, and whether their Q fragments
-// stay in registers. At D >= 64 two m-tiles halve the K and V fragments
-// read from shared memory per product, which ran faster on the H100 at
-// the serving shapes, and Q is read from its tile at each k-step to leave
-// registers for the accumulators; at D = 16 one m-tile with Q in
-// registers ran faster.
+// stay in registers. At D 64 and 128 two m-tiles halve the K and V
+// fragments read from shared memory per product, which ran faster on the
+// H100 at the serving shapes, and Q is read from its tile at each k-step
+// to leave registers for the accumulators; at D = 16 one m-tile with Q in
+// registers ran faster; at D = 256 one m-tile's 128 accumulators a
+// thread leave no room for a second or for Q.
 template <int D>
 struct RowTiles {
-  static constexpr int MT = D >= 64 ? 2 : 1;
-  static constexpr bool QREG = MT == 1;
+  static constexpr int MT = (D >= 64 && D <= 128) ? 2 : 1;
+  static constexpr bool QREG = D < 64;
 };
 
 // grid (ceil(S / BQ), H, B); BQ = 64*MT query rows of one (b, h) a block,
@@ -464,6 +469,8 @@ template <int D, int STAGES>
 __global__ void __launch_bounds__(THREADS) flash_decode_mma(Args a) {
   constexpr uint32_t TILE = BK * D * 2;
   constexpr int R16 = DECODE_ROWS;
+  // Q's fragments in registers, but at D 256 (beside 128 accumulators)
+  constexpr bool QREG = D <= 128;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float red_m[4][R16], red_l[4][R16];
   __shared__ int is_last;
@@ -506,7 +513,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_mma(Args a) {
     cp_async_commit();
   }
 
-  uint32_t qf[1][D / 16][4];
+  uint32_t qf[1][QREG ? D / 16 : 1][4];
   float m[1][2] = {{-INFINITY, -INFINITY}}, l[1][2] = {{0.f, 0.f}};
   float acc[1][D / 8][4];
 #pragma unroll
@@ -528,10 +535,12 @@ __global__ void __launch_bounds__(THREADS) flash_decode_mma(Args a) {
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
     __syncthreads();
-    if (t == 0) load_q_frags<D, 1>(qf, qsm, 0, lane);
+    if constexpr (QREG) {
+      if (t == 0) load_q_frags<D, 1>(qf, qsm, 0, lane);
+    }
     const int k0 = (t0 + t) * BK;
     const int st = t % STAGES;
-    attend<D, 2, 1, true>(qf, qsm, 0, kvsm + 2 * st * TILE,
+    attend<D, 2, 1, QREG>(qf, qsm, 0, kvsm + 2 * st * TILE,
                           kvsm + (2 * st + 1) * TILE, 16 * warp, k0, a,
                           a.causal || k0 + BK > a.T, qpos, sl2, m, l, acc,
                           lane);
@@ -891,7 +900,7 @@ int launch_d(const Args& a, int dtype, cudaStream_t st) {
     return launch(flash_fwd_mma<D>, dim3((a.S + BQ - 1) / BQ, a.H, a.B),
                   2 * (BQ * D + 2 * 2 * BK * D), a, st);
   }
-  constexpr int ST = D == 128 ? 3 : 4;
+  constexpr int ST = D >= 128 ? 3 : 4;
   return launch(flash_decode_mma<D, ST>, dim3(a.B * a.KV, a.kv_splits),
                 2 * (DECODE_ROWS * D + ST * 2 * BK * D), a, st);
 }
@@ -900,7 +909,7 @@ int launch_d(const Args& a, int dtype, cudaStream_t st) {
 
 // q (B, S, H, D), k and v (B, T, KV, D), each with element strides
 // (batch, position, head); o (B, S, H, D) contiguous. dtype: 0 = float32,
-// 1 = bfloat16; D in {16, 64, 128}. kv_splits: 0 for the 64-row kernel; for
+// 1 = bfloat16; D in {16, 64, 128, 256}. kv_splits: 0 for the 64-row kernel; for
 // bf16 with (H / KV) * S <= 16, n >= 1 for the decode kernel with T split
 // over n blocks (n > 1 needs part, B*KV*n*16*(D+2) floats, and counters, B*KV
 // ints at zero). scale multiplies the scores: 1/sqrt(D) where it is 0, the
@@ -956,6 +965,8 @@ extern "C" int flash_attention_fwd(
       return launch_d<64>(a, dtype, st);
     case 128:
       return launch_d<128>(a, dtype, st);
+    case 256:
+      return launch_d<256>(a, dtype, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -173,8 +173,12 @@ __host__ __device__ constexpr size_t lanes_smem_bytes() {
 // batch row; a thread is one of kLanes lanes of two neighbouring channels;
 // tile steps (at most kMaxTile) staged at a time; vec: 16-byte copies and
 // state accesses (dI % 4 == 0, every pointer 16-byte aligned).
+// blocks an SM the registers are budgeted for: 4 at N <= 16 (at most 128
+// registers a thread); at N 32 and 64 a lane's 8 or 16 states a channel
+// (and their A, B and C) need more, so 2
 template <int N>
-__global__ void __launch_bounds__(kLanes * kMaxChannels / kPair, 4)
+__global__ void __launch_bounds__(kLanes * kMaxChannels / kPair,
+                                  N <= 16 ? 4 : 2)
 mamba_scan_lanes(const float* __restrict__ dt, const float* __restrict__ x,
                  const float* __restrict__ Bm, const float* __restrict__ Cm,
                  const float* __restrict__ A, const float* __restrict__ h0,
@@ -353,7 +357,8 @@ int launch_lanes(const float* dt, const float* x, const float* Bm,
 
 // dt, x: (B, S, dI); Bm, Cm: (B, S, N); A: (dI, N); h0: (B, dI, N); all
 // fp32 and contiguous. Writes y (B, S, dI) and h_last (B, dI, N). N is 4
-// or 16, the configs' d_state; other N are refused.
+// or 16, the configs' d_state, or 32 or 64, so that every N up to 64 runs
+// (zero-padded by the Python wrapper); other N are refused.
 
 // mamba_scan_lanes: tile steps staged at a time (1 to kMaxTile), chans
 // channels a block (a multiple of 16, 16 to kMaxChannels).
@@ -376,13 +381,21 @@ extern "C" int mamba_scan(const float* dt, const float* x, const float* Bm,
     case 16:
       return launch_lanes<16>(dt, x, Bm, Cm, A, h0, y, h_last, B, S, dI, tile,
                               chans, vec, s);
+    case 32:
+      return launch_lanes<32>(dt, x, Bm, Cm, A, h0, y, h_last, B, S, dI, tile,
+                              chans, vec, s);
+    case 64:
+      return launch_lanes<64>(dt, x, Bm, Cm, A, h0, y, h_last, B, S, dI, tile,
+                              chans, vec, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // The witness, mamba_scan_thread: bd threads a block (a multiple of 32, at
-// most 1,024); chunk steps of B and C staged at a time.
+// most 1,024; at N 64 a thread's 128 states and A need bd <= 256); chunk
+// steps of B and C staged at a time (2 * chunk * N floats of shared
+// memory, within the block's 227 KB).
 extern "C" int mamba_scan_witness(const float* dt, const float* x,
                                   const float* Bm, const float* Cm,
                                   const float* A, const float* h0, float* y,
@@ -397,7 +410,7 @@ extern "C" int mamba_scan_witness(const float* dt, const float* x,
     return launch_thread<n>(dt, x, Bm, Cm, A, h0, y, h_last, B, S, dI, chunk, \
                             bd, s);
   switch (N) {
-    MAMBA_CASE(4) MAMBA_CASE(16)
+    MAMBA_CASE(4) MAMBA_CASE(16) MAMBA_CASE(32) MAMBA_CASE(64)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -23,7 +23,7 @@
 // h0 and h_last are (B, H, hs, hs) fp32, contiguous; o is (B, S, H, hs),
 // contiguous, in r's type, so that the model's o.reshape(B, S, D) is a
 // view. The reference's (BH, S, hs) layout is B = 1 with BH heads. Head
-// sizes 16 and 64, chunks 16 and 32; anything else is refused here. The
+// sizes 16, 64 and 128, chunks 16 and 32; anything else is refused here. The
 // chunk only sets the schedule, so the Python wrapper runs any other
 // positive chunk at a built one (rwkv6_wkv.py, kernel_chunk).
 //
@@ -71,10 +71,15 @@
 //     32 blocks, so the card gets B * H blocks, two to an SM.
 // - wkv_decode (S = 1, either type): bound by the state's bytes (read and
 //   written once, 32 KB a (b, h) at hs 64). A block owns 16 value columns
-//   of one (b, h), a thread one row's 4 columns as a float4.
-// - wkv_witness (fp32 on the path; bf16 as the witness the mma kernel is
-//   held against on the card): the CUDA-core kernel, one block a (b, h),
-//   the chunk's tiles in shared memory, every product a scalar loop.
+//   of one (b, h), a thread one row's 4 columns as a float4 (hs * 4
+//   threads: 512 at hs 128).
+// - wkv_witness (fp32 on the path, and bf16 at hs 128; bf16 as the
+//   witness the mma kernel is held against on the card): the CUDA-core
+//   kernel, one block a (b, h), the chunk's tiles in shared memory, every
+//   product a scalar loop. At hs 128 the mma kernel's layout (a chain
+//   warp for every 16 value columns beside four prep warps) would take 12
+//   warps and ~200 KB a block, so that size runs here: a simple
+//   kernel, slower than the tensor cores would be.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -250,8 +255,8 @@ __device__ __forceinline__ void load4(const bf16* p, float (&x)[4]) {
 
 // grid (B*H, hs/16), hs*4 threads: thread (i, q) owns h[i][c0+4q .. +3]
 template <typename T>
-__global__ void __launch_bounds__(256) wkv_decode(Args a) {
-  __shared__ float red[8][16];
+__global__ void __launch_bounds__(512) wkv_decode(Args a) {
+  __shared__ float red[16][16];
   const int hs = a.hs;
   const int bh = blockIdx.x, b = bh / a.H, hh = bh - b * a.H;
   const int c0 = blockIdx.y * 16;
@@ -919,9 +924,9 @@ int launch_mma(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// the witness's shared memory at its largest (hs 64, chunk 32)
+// the witness's shared memory at its largest (hs 128, chunk 32)
 constexpr int WIT_MAX_SMEM =
-    sizeof(float) * (64 * 64 + 5 * 32 * 65 + 32 * 32 + 32 + 64);
+    sizeof(float) * (128 * 128 + 5 * 32 * 129 + 32 * 32 + 32 + 128);
 
 template <typename T>
 int launch_witness(const Args& a, cudaStream_t st) {
@@ -946,9 +951,10 @@ int launch_decode(const Args& a, cudaStream_t st) {
 // (B, S, H, hs) fp32, each with element strides (batch, position, head)
 // and a contiguous last axis; u (H, hs), bf16 if u_bf16 else fp32; h0 and
 // h_last (B, H, hs, hs) fp32 and o (B, S, H, hs) in dtype, contiguous.
-// hs in {16, 64}, chunk in {16, 32}. route 0 is the path's kernel (the
-// decode kernel at S = 1, else the tensor-core kernel for bf16 and the
-// CUDA-core one for fp32); route 1 the CUDA-core witness at any S.
+// hs in {16, 64, 128}, chunk in {16, 32}. route 0 is the path's kernel
+// (the decode kernel at S = 1, else the tensor-core kernel for bf16 at hs
+// 16 and 64 and the CUDA-core one for fp32 and at hs 128); route 1 the
+// CUDA-core witness at any S.
 // Returns BAD_ARGS (-1) for arguments outside these,
 // cudaErrorMisalignedAddress where a row does not start 16 bytes aligned,
 // else the launch's error.
@@ -959,7 +965,7 @@ extern "C" int rwkv6_wkv_fwd(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long w_sb, long long w_ss,
     long long w_sh, int dtype, int u_bf16, int route, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || (hs != 16 && hs != 64) ||
+  if (B <= 0 || S <= 0 || H <= 0 || (hs != 16 && hs != 64 && hs != 128) ||
       (chunk != 16 && chunk != 32) || (dtype != 0 && dtype != 1) ||
       (route != 0 && route != 1))
     return BAD_ARGS;
@@ -999,6 +1005,7 @@ extern "C" int rwkv6_wkv_fwd(
     return dtype == 0 ? launch_decode<float>(a, st)
                       : launch_decode<bf16>(a, st);
   if (dtype == 0) return launch_witness<float>(a, st);
+  if (hs == 128) return launch_witness<bf16>(a, st);
   if (hs == 64)
     return chunk == 32 ? launch_mma<64, 32>(a, st) : launch_mma<64, 16>(a, st);
   return chunk == 32 ? launch_mma<16, 32>(a, st) : launch_mma<16, 16>(a, st);

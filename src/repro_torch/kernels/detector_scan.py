@@ -2,22 +2,24 @@
 ``csrc/detector_scan.cu`` beside its plain version, a loop of the
 ``streams/drift.py`` step functions.
 
-The JAX package scans DDM, EDDM and Page-Hinkley over a batch's error
-stream with ``jax.lax.scan`` (``core/pipeline.py`` drift_op); it has no
-Pallas kernel for it. A loop of torch steps on the card would launch
-some 25 kernels per event, so the scan is one kernel launch a call. It
-is bound by the latency of its dependent chain, not by bytes or
-operations. For DDM the kernel keeps only ``p`` on the chain (one
-thread per tile, with ``n`` and half of each divide computed ahead for
-the tile), computes ``s``, the running ``(p_min, s_min)`` pair and the
-levels for the whole tile in parallel, and restarts the chain after the
-first event at DRIFT
-(``kernels/ref.py::ddm_scan_restart_ref`` spells it out); EDDM and
-Page-Hinkley walk one thread. The kernel and the plain loop agree
-bitwise, level for level: every step is repeated in fp32 without
-contracted multiply-adds. ``detector_scan_serial_cuda`` walks every kind
-on one thread, the DDM kernel's exact witness off every main path, not
-counted.
+The JAX package scans DDM, EDDM, Page-Hinkley and ADWIN over a batch's
+error stream with ``jax.lax.scan`` (``core/pipeline.py`` drift_op); it
+has no Pallas kernel for it. A loop of torch steps on the card would
+launch some 25 kernels per event (ADWIN's some 300), so the scan is one
+kernel launch a call. It is bound by the latency of its dependent chain,
+not by bytes or operations. For DDM the kernel keeps only ``p`` on the
+chain (one thread per tile, with ``n`` and half of each divide computed
+ahead for the tile), computes ``s``, the running ``(p_min, s_min)`` pair
+and the levels for the whole tile in parallel, and restarts the chain
+after the first event at DRIFT (``kernels/ref.py::ddm_scan_restart_ref``
+spells it out); EDDM and Page-Hinkley walk one thread; ADWIN runs on one
+warp (lane 0 inserts and cascades, the warp takes the 60 cut points by
+shuffles and a ballot). The kernel and the plain loop agree bitwise,
+level for level: every step is repeated in fp32 without contracted
+multiply-adds (ADWIN on 0/1 errors, whose bucket sums are whole
+numbers; on other errors its prefix adds in another order).
+``detector_scan_serial_cuda`` walks every kind on one thread, the DDM
+and ADWIN kernels' witness off every main path, not counted.
 
 :func:`detector_scan` launches the kernel for a CUDA tensor, runs the
 plain loop for a CPU tensor, and raises for any other device.
@@ -34,9 +36,9 @@ from repro_torch.streams import drift as drift_mod
 
 LAUNCHES = {"detector_scan": 0}
 
-KINDS = {"ddm": 0, "eddm": 1, "ph": 2}
+KINDS = {"ddm": 0, "eddm": 1, "ph": 2, "adwin": 3}
 STEPS = {"ddm": drift_mod.ddm_step, "eddm": drift_mod.eddm_step,
-         "ph": drift_mod.ph_step}
+         "ph": drift_mod.ph_step, "adwin": drift_mod.adwin_step}
 
 _P = ctypes.c_void_p
 _STATS = {}    # device -> int64 (2,): events the DDM chain walked, restarts
@@ -71,14 +73,38 @@ def detector_scan_plain(detector: str, state, err: torch.Tensor):
     return state, torch.any(levels == drift_mod.DRIFT)
 
 
-def _launch(detector: str, state, err: torch.Tensor, serial: bool):
-    kind = KINDS[detector]
-    dev = err.device
+def _pack(detector: str, state, dev):
+    """The kernel's state buffers: ``(floats, ints)``. DDM, EDDM and PH:
+    their fields in five floats (zero-padded) and the level; ADWIN: its
+    counts and sums (120 floats, row major) and its ``n_buckets`` and
+    level (13 ints)."""
+    if detector == "adwin":
+        st = torch.cat([state.counts.reshape(-1), state.sums.reshape(-1)])
+        ints = torch.cat([state.n_buckets.reshape(-1),
+                          state.level.reshape(1)])
+        return (st.to(device=dev, dtype=torch.float32),
+                ints.to(device=dev, dtype=torch.int32))
     floats = [t.to(device=dev, dtype=torch.float32).reshape(1)
               for t in state[:-1]]
     pad = [torch.zeros(1, device=dev)] * (5 - len(floats))
-    st = torch.cat(floats + pad)
     level = state.level.to(device=dev, dtype=torch.int32).reshape(1).clone()
+    return torch.cat(floats + pad), level
+
+
+def _unpack(detector: str, state, st: torch.Tensor, ints: torch.Tensor):
+    """The state after the scan from the kernel's buffers."""
+    if detector == "adwin":
+        shape = state.counts.shape
+        n = st.numel() // 2
+        return type(state)(st[:n].view(shape), st[n:].view(shape),
+                           ints[:-1], ints[-1])
+    return type(state)(*[st[i] for i in range(len(state) - 1)], ints[0])
+
+
+def _launch(detector: str, state, err: torch.Tensor, serial: bool):
+    kind = KINDS[detector]
+    dev = err.device
+    st, level = _pack(detector, state, dev)
     drifted = torch.empty(1, dtype=torch.int32, device=dev)
     e = err.float().contiguous()
     lib = _lib()
@@ -94,8 +120,7 @@ def _launch(detector: str, state, err: torch.Tensor, serial: bool):
                                    drifted.data_ptr(),
                                    chain_stats(dev).data_ptr(), stream)
     _build.check(rc, "detector_scan_serial" if serial else "detector_scan")
-    new = type(state)(*[st[i] for i in range(len(floats))], level[0])
-    return new, drifted[0] != 0
+    return _unpack(detector, state, st, level), drifted[0] != 0
 
 
 def detector_scan_cuda(detector: str, state, err: torch.Tensor):
@@ -130,8 +155,8 @@ def divide_check_cuda(a: torch.Tensor, b: torch.Tensor):
 
 
 def detector_scan(detector: str, state, err: torch.Tensor):
-    """Scan a DDM/EDDM/PH detector over ``err`` on its device: kernel on
-    CUDA, plain loop on the CPU."""
+    """Scan a DDM/EDDM/PH/ADWIN detector over ``err`` on its device:
+    kernel on CUDA, plain loop on the CPU."""
     if detector not in KINDS:
         raise KeyError(f"no detector scan for {detector!r}; "
                        f"known: {sorted(KINDS)}")

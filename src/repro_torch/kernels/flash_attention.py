@@ -45,8 +45,10 @@ from repro_torch.kernels.ref import attention_ref
 LAUNCHES = {"flash_attention": 0}
 
 # the head dims the kernels are built for: 64 (seamless-m4t-medium), 128
-# (llama-3.2-vision-90b) and 16 (both smoke configurations)
-HEAD_DIMS = (16, 64, 128)
+# (llama-3.2-vision-90b), 16 (both smoke configurations) and 256 (the
+# attention head of Gemma's published configurations); every dim up to
+# 256 reaches a kernel
+HEAD_DIMS = (16, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_K = 64           # keys per KV tile
 DECODE_ROWS = 16       # query rows (H / KV heads x S) of the decode kernel

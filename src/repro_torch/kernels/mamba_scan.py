@@ -43,10 +43,13 @@ from repro_torch.kernels.ref import mamba_scan_ref
 
 LAUNCHES = {"mamba_scan": 0}
 
-STATE_SIZES = (4, 16)   # the configs' d_state; the .cu builds these
+# the configs' d_state (4, 16), and 32 and 64 so that every state size
+# up to 64 reaches a kernel; the .cu builds these
+STATE_SIZES = (4, 16, 32, 64)
 MAX_TILE = 32           # steps the lane kernel stages at a time
 MAX_CHANNELS = 64       # channels a block of the lane kernel
 MAX_CHUNK = 1024
+WITNESS_SMEM = 200 * 1024   # the witness's staged B and C, at most
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -126,9 +129,10 @@ def mamba_scan_witness_cuda(dt, x, Bm, Cm, A, h0, *, chunk: int = 128,
                             bd: int = 256):
     """The first selective-scan kernel, the lane kernel's witness
     (uncounted)."""
-    S, dI = dt.shape[1], dt.shape[2]
-    steps = max(1, min(int(chunk), S, MAX_CHUNK))
-    threads = min(1024, 32 * -(-max(1, min(int(bd), dI)) // 32))
+    S, dI, N = dt.shape[1], dt.shape[2], Bm.shape[-1]
+    steps = max(1, min(int(chunk), S, MAX_CHUNK, WITNESS_SMEM // (8 * N)))
+    threads = min(1024 if N <= 16 else 256,
+                  32 * -(-max(1, min(int(bd), dI)) // 32))
     return _scan("mamba_scan_witness", dt, x, Bm, Cm, A, h0, steps, threads)
 
 

@@ -68,7 +68,22 @@ def _topk_work(residual, x, k):
     return 10 * x.numel(), 16 * x.numel() + 4
 
 
+# ADWIN's step over its 60-bucket state: some 25 operations a cut point
+# (the prefix's adds, both means, the harmonic size, the bound, the
+# test) and 15 for the insert and the bound's logarithms; the state's
+# 120 floats and 13 ints read and written once
+ADWIN_OPS_PER_EVENT = 25 * 60 + 15
+ADWIN_STATE_BYTES = 4 * (120 + 13)
+
+
+def _adwin_work(err):
+    return (ADWIN_OPS_PER_EVENT * err.numel(),
+            4 * err.numel() + 2 * ADWIN_STATE_BYTES)
+
+
 def _scan_work(detector, state, err):
+    if detector == "adwin":
+        return _adwin_work(err)
     return 20 * err.numel(), 4 * err.numel() + 48
 
 

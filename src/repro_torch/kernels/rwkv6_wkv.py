@@ -10,7 +10,8 @@ own strides (a contiguous last axis, 16-byte aligned rows; anything else
 is copied first), u (H, hs) in fp32 or bf16, h0 (B, H, hs, hs) fp32. It
 returns ``(o, h_last)``: o (B, S, H, hs) contiguous in r's dtype, h_last
 (B, H, hs, hs) fp32. One call is one launch: the decode kernel at S = 1,
-the tensor-core chunk kernel for bf16, the CUDA-core kernel for fp32.
+the tensor-core chunk kernel for bf16 (at head size 128 the CUDA-core
+kernel), the CUDA-core kernel for fp32.
 :func:`rwkv6_wkv_bh` is the reference's (BH, S, hs) API, a view of the
 same entry point with B = 1 and BH heads. The kernels take head sizes
 :data:`HEAD_SIZES` and chunks :data:`CHUNKS` (the sequence is padded to
@@ -52,8 +53,9 @@ from repro_torch.kernels.ref import rwkv6_wkv_ref
 LAUNCHES = {"rwkv6_wkv": 0}
 
 # every head size and chunk a configuration reaches: rwkv6-1.6b (64, 32)
-# and its smoke configuration (16, 16)
-HEAD_SIZES = (16, 64)
+# and its smoke configuration (16, 16); and head size 128, so that every
+# size up to 128 reaches a kernel
+HEAD_SIZES = (16, 64, 128)
 CHUNKS = (16, 32)
 BAD_ARGS = -1          # the C entry's answer to arguments it does not take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -18,7 +18,9 @@ says (``step_layout``: ``"sharded"``, or ``"sharded_tp"`` where the
 ``model`` axis splits heads, ``ff``, ``vocab``, ``dinner`` or experts
 and the layers compute on the rank's slice, their activations reduced
 over ``model`` where the one-rank layer would have summed them
-(``dist/tp.py``); ``"one device"`` on a mesh of one):
+(``dist/tp.py``), ``"sharded_tp_seq"`` where besides the act rules map
+``seq_sp`` to ``model`` and the residual stream between the layers is
+the rank's slice of the sequence; ``"one device"`` on a mesh of one):
 
   * a train cell runs ``make_train_step(cfg, make_optimizer(cfg,
     "adamw"))``: a rank holds its shards of the params and of the AdamW
@@ -36,7 +38,11 @@ over ``model`` where the one-rank layer would have summed them
 
 Under ``"sharded_tp"`` a traced rank counts its own slice of the split
 products, and its links show the activation all-reduces over ``model``
-(fp32) in place of the all-gathers of those weights over ``model``.
+(fp32) in place of the all-gathers of those weights over ``model``;
+under ``"sharded_tp_seq"`` the layers' output products are
+reduce-scattered and the norms' outputs all-gathered over ``model``
+instead. A saved record of another layout than the cell's is traced
+again.
 
 The memory record keeps the JAX package's keys where their meaning
 holds: ``argument_size_in_bytes`` is the exact bytes of the rank's
@@ -239,20 +245,26 @@ def argument_bytes(args) -> int:
     return sum(t.numel() * t.element_size() for t in ha.local_tensors(args))
 
 
-def step_layout(sizes: dict, rules) -> str:
+def step_layout(sizes: dict, rules, seq_len: int) -> str:
     """What a rank of a cell's step on a mesh of ``sizes`` (axis ->
     ranks) holds and computes: ``"one device"``; ``"sharded"`` (its
-    shards, each layer gathered where it runs); or ``"sharded_tp"``,
-    where a ``model`` axis of more than one rank splits dims the param
-    and act rules both map to it, and the layers compute on the rank's
-    slice (``dist/tp.py``)."""
+    shards, each layer gathered where it runs); ``"sharded_tp"``, where
+    a ``model`` axis of more than one rank splits dims the param and act
+    rules both map to it, and the layers compute on the rank's slice
+    (``dist/tp.py``); or ``"sharded_tp_seq"``, that and the residual
+    stream the rank's slice of the sequence (the act rules map
+    ``seq_sp`` to ``model`` and ``seq_len`` divides by it:
+    reduce-scatters and all-gathers in place of the all-reduces)."""
     from repro_torch.dist.api import _as_tuple
     if math.prod(sizes.values()) <= 1:
         return "one device"
     act = rules.get("act", {})
-    if sizes.get("model", 1) > 1 and any(
+    m = sizes.get("model", 1)
+    if m > 1 and any(
             "model" in _as_tuple(v) and "model" in _as_tuple(act.get(k))
             for k, v in rules.get("param", {}).items()):
+        if "model" in _as_tuple(act.get("seq_sp")) and seq_len % m == 0:
+            return "sharded_tp_seq"
         return "sharded_tp"
     return "sharded"
 
@@ -280,7 +292,7 @@ def trace_cell(cfg, shape, mesh, rules, impl="chunked", device="cuda"
         "collective_ops": t["collective_ops"],
         "roofline": rf.from_trace(
             t, cfg, shape, math.prod(mesh_sizes(mesh).values())).to_dict(),
-        "step_layout": step_layout(mesh_sizes(mesh), rules),
+        "step_layout": step_layout(mesh_sizes(mesh), rules, shape.seq_len),
         "params_total": counts["total"],
         "params_active": counts["active"],
     }
@@ -317,7 +329,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         sizes = dict(zip(("pod", "data", "model")[-3 if multi_pod else -2:],
                          (2, 16, 16) if multi_pod else (16, 16)))
         try:
-            want = step_layout(sizes, build_rules(cfg, shape=shape))
+            want = step_layout(sizes, build_rules(cfg, shape=shape),
+                               shape.seq_len)
         except ValueError:
             want = None
         if not rec.get("ok") or rec.get("step_layout") == want:

@@ -115,13 +115,17 @@ def _head_split(p, cfg: ArchConfig) -> int:
     return tp.parts(p["wo"].shape[0], cfg.n_heads)
 
 
-def _out_proj(o: torch.Tensor, wo: torch.Tensor, split: bool) -> torch.Tensor:
+def _out_proj(o: torch.Tensor, wo: torch.Tensor, split: bool,
+              scatter: bool) -> torch.Tensor:
     """The heads' output projection, (B, S, H, E) x (H, E, D); over the
-    rank's heads, row-parallel (:func:`repro_torch.dist.tp.row_product`)."""
+    rank's heads, row-parallel (:func:`repro_torch.dist.tp.row_product`).
+    With ``scatter``, the rank's slice of the sequence (reduce-scattered
+    where it is row-parallel)."""
     if not split:
-        return torch.einsum("bshe,hed->bsd", o, wo)
+        return tp.seq_out(torch.einsum("bshe,hed->bsd", o, wo), scatter)
     B, S, H, E = o.shape
-    return tp.row_product(o.reshape(B, S, H * E), wo.reshape(H * E, -1))
+    return tp.row_product(o.reshape(B, S, H * E), wo.reshape(H * E, -1),
+                          scatter)
 
 
 def _rank_kv(k: torch.Tensor, n_heads: int, split: int) -> torch.Tensor:
@@ -296,9 +300,10 @@ def _write_cache(buf: torch.Tensor, new: torch.Tensor, start: int):
 
 def self_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
                    cache: Optional[KVCache] = None, causal: bool = True,
-                   impl: str = "chunked"):
+                   impl: str = "chunked", scatter: bool = False):
     """x: (B,S,D). Returns (out, new_cache); a given cache is updated in
-    place."""
+    place. With ``scatter`` (``transformer.apply_slot``'s split residual
+    stream) ``out`` is the rank's slice of the sequence."""
     split = _head_split(p, cfg)
     xm = tp.copy_in(x) if split > 1 else x
     kv_whole = p["wk"].shape[1] == cfg.n_kv_heads
@@ -335,7 +340,7 @@ def self_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
     o = attention(q, k, v, causal=causal, impl=impl, chunk=cfg.attn_chunk,
                   q_offset=q_offset, kv_len=kv_len)
     o = shard(o, "batch", None, "heads", None)
-    return _out_proj(o, p["wo"].to(x.dtype), split > 1), new_cache
+    return _out_proj(o, p["wo"].to(x.dtype), split > 1, scatter), new_cache
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -361,9 +366,10 @@ class MLACache(NamedTuple):
 
 
 def mla_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
-                  cache: Optional[MLACache] = None, impl: str = "chunked"):
+                  cache: Optional[MLACache] = None, impl: str = "chunked",
+                  scatter: bool = False):
     """x: (B,S,D). Returns (out, new_cache); a given cache is updated in
-    place. Keys are nope + rope wide, values ``v_head_dim``: the flash
+    place; ``scatter`` as :func:`self_attention`'s. Keys are nope + rope wide, values ``v_head_dim``: the flash
     gate refuses the pair, so every impl runs the chunked/dense path."""
     m = cfg.mla
     B, S, d = x.shape
@@ -418,7 +424,7 @@ def mla_attention(p, cfg: ArchConfig, x: torch.Tensor, *, positions,
 
     o = attention(qq, k, vv, causal=True, impl=impl, chunk=cfg.attn_chunk,
                   q_offset=q_offset, kv_len=kv_len)
-    return _out_proj(o, p["wo"].to(x.dtype), split), new_cache
+    return _out_proj(o, p["wo"].to(x.dtype), split, scatter), new_cache
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -445,10 +451,11 @@ class CrossCache(NamedTuple):
 def cross_attention(p, cfg: ArchConfig, x: torch.Tensor,
                     memory: Optional[torch.Tensor] = None,
                     cache: Optional[CrossCache] = None,
-                    impl: str = "chunked"):
+                    impl: str = "chunked", scatter: bool = False):
     """K/V from `memory` (encoder output / image embeds) or from
     `cache`. Under tensor parallelism the rank's heads, as
-    :func:`self_attention`'s (the flash kernel runs on them)."""
+    :func:`self_attention`'s (the flash kernel runs on them); ``scatter``
+    as there."""
     split = _head_split(p, cfg)
     kv_whole = p["wk"].shape[1] == cfg.n_kv_heads
     q = _project(p, cfg, tp.copy_in(x) if split > 1 else x, "q")
@@ -471,4 +478,4 @@ def cross_attention(p, cfg: ArchConfig, x: torch.Tensor,
     k = shard(k, "batch", None, kvh, None)
     v = shard(v, "batch", None, kvh, None)
     o = attention(q, k, v, causal=False, impl=impl, chunk=cfg.attn_chunk)
-    return _out_proj(o, p["wo"].to(x.dtype), split > 1), new_cache
+    return _out_proj(o, p["wo"].to(x.dtype), split > 1, scatter), new_cache

@@ -183,11 +183,13 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(name)
 
 
-def apply_mlp(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p, cfg: ArchConfig, x: torch.Tensor,
+              scatter: bool = False) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D). Where ``ff`` is the rank's slice
     (:mod:`repro_torch.dist.tp`), ``w_up``/``w_gate`` are column-parallel
     and ``w_down`` row-parallel (:func:`repro_torch.dist.tp.
-    row_product`)."""
+    row_product`). With ``scatter`` (``transformer.apply_slot``'s split
+    residual stream) the output is the rank's slice of the sequence."""
     split = tp.parts(p["w_up"].shape[-1], cfg.d_ff) > 1
     if split:
         x = tp.copy_in(x)
@@ -196,9 +198,11 @@ def apply_mlp(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _act(cfg.mlp_act, x @ p["w_up"] + p["b_up"].to(x.dtype))
     h = shard(h, "batch", None, "ff")
-    out = tp.row_product(h, p["w_down"]) if split else h @ p["w_down"]
+    out = tp.row_product(h, p["w_down"], scatter) if split else \
+        tp.seq_out(h @ p["w_down"], scatter)
     if "b_down" in p:
-        out = out + p["b_down"].to(x.dtype)
+        b = tp.on_slice(p["b_down"]) if scatter else p["b_down"]
+        out = out + b.to(x.dtype)
     return out
 
 

@@ -176,6 +176,7 @@ def _forward_cached(params, cfg, tokens, caches, *, offset, memory, impl,
         pre, rep, pat = layer_plan(cfg, cfg.n_layers)
         prefix_params, stack_params = params["prefix"], params["stack"]
     new = dict(caches)
+    x = tfm.split_stream(x, positions)
     x, pc, _ = run_prefix(prefix_params, cfg, pre, x, positions=positions,
                           memory=memory, caches=caches["prefix"], impl=impl,
                           specs=tfm._sub(specs, which + "prefix"))
@@ -186,7 +187,7 @@ def _forward_cached(params, cfg, tokens, caches, *, offset, memory, impl,
                              impl=impl,
                              stack_specs=tfm._sub(specs, which + "stack"))
         new["stack"] = sc
-    x = apply_norm(params["final_norm"], cfg, x)
+    x = apply_norm(params["final_norm"], cfg, tfm.gather_stream(x, positions))
     logits = lm_logits(params["embed"], cfg, x[:, -1:, :])
     # the last position's logits whole on every rank (B x V, small)
     if logits.shape[-1] != cfg.padded_vocab:

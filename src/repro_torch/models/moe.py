@@ -140,11 +140,13 @@ def _combine_group(out_buf, dest, order, keep, gate_flat, t, K, D,
 
 
 def apply_moe(p, cfg: ArchConfig, x: torch.Tensor,
-              gen: Optional[torch.Generator] = None
+              gen: Optional[torch.Generator] = None, scatter: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,D) -> (out (B,S,D), aux_loss scalar fp32). ``gen`` draws the
     router jitter (``cfg.moe.router_jitter``), where the reference takes
-    a key; without one there is no jitter, as there."""
+    a key; without one there is no jitter, as there. With ``scatter``
+    (``transformer.apply_slot``'s split residual stream) ``out`` is the
+    rank's slice of the sequence."""
     e = cfg.moe
     B, S, D = x.shape
     t = B * S
@@ -209,8 +211,8 @@ def apply_moe(p, cfg: ArchConfig, x: torch.Tensor,
         for g, (_, dest, order, keep) in enumerate(groups)])
     y = shard(y, "expert_groups", None, None)
     y = y.reshape(B, S, D)
-    if ep:
-        y = tp.reduce_out(y).to(x.dtype)
+    y = tp.reduce_out(y, scatter).to(x.dtype) if ep else \
+        tp.seq_out(y, scatter)
 
     if e.num_shared:
         sp = p["shared"]
@@ -225,8 +227,11 @@ def apply_moe(p, cfg: ArchConfig, x: torch.Tensor,
         else:
             hs = _act(cfg.mlp_act, xf @ sp["w_up"].to(xf.dtype))
         w = sp["w_down"].to(xf.dtype)
-        ys = tp.row_product(hs, w) if split else hs @ w
-        y = y + ys.reshape(B, S, D)
+        if split:
+            ys = tp.row_product(hs.reshape(B, S, -1), w, scatter)
+        else:
+            ys = tp.seq_out((hs @ w).reshape(B, S, D), scatter)
+        y = y + ys
 
     return y, aux
 

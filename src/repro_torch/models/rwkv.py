@@ -134,9 +134,11 @@ def wkv_chunked(r, k, v, lw, u, h0, chunk: int):
 
 def rwkv_time_mix(p, cfg: ArchConfig, x: torch.Tensor,
                   state: Optional[RWKVState] = None,
-                  impl: str = "chunked"
+                  impl: str = "chunked", scatter: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (out, new_tm_shift, new_wkv_state)."""
+    """Returns (out, new_tm_shift, new_wkv_state); with ``scatter``
+    (``transformer.apply_slot``'s split residual stream) ``out`` is the
+    rank's slice of the sequence."""
     c = cfg.rwkv
     B, S, D = x.shape
     hs = c.head_size
@@ -187,14 +189,17 @@ def rwkv_time_mix(p, cfg: ArchConfig, x: torch.Tensor,
     o = groupnorm_heads(scale, bias, o.reshape(B, S, H * hs), H,
                         cfg.norm_eps)
     o = o * g
-    out = tp.row_product(o, p["wo"].to(dt)) if split > 1 else \
-        o @ p["wo"].to(dt)
+    out = tp.row_product(o, p["wo"].to(dt), scatter) if split > 1 else \
+        tp.seq_out(o @ p["wo"].to(dt), scatter)
     return out, x[:, -1, :], h_last
 
 
 def rwkv_channel_mix(p, cfg: ArchConfig, x: torch.Tensor,
-                     state: Optional[RWKVState] = None
+                     state: Optional[RWKVState] = None,
+                     scatter: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out, new_cm_shift); ``scatter`` as
+    :func:`rwkv_time_mix`'s."""
     dt = x.dtype
     xx = _token_shift(x, state.cm_shift if state else None)
     dx = xx - x
@@ -205,12 +210,13 @@ def rwkv_channel_mix(p, cfg: ArchConfig, x: torch.Tensor,
         xk = tp.copy_in(xk)
     kk = torch.square(F.relu(xk @ p["wk"].to(dt)))
     kk = shard(kk, "batch", None, "ff")
-    vv = tp.row_product(kk, p["wv"].to(dt)) if split else kk @ p["wv"].to(dt)
+    vv = tp.row_product(kk, p["wv"].to(dt), scatter) if split else \
+        tp.seq_out(kk @ p["wv"].to(dt), scatter)
     if tp.parts(p["wr"].shape[1], x.shape[-1]) > 1:
         r = tp.gather_out(tp.copy_in(xr) @ p["wr"].to(dt), -1)
     else:
         r = xr @ p["wr"].to(dt)
-    out = torch.sigmoid(r) * vv
+    out = torch.sigmoid(tp.seq_out(r, scatter)) * vv
     return out, x[:, -1, :]
 
 

@@ -82,11 +82,13 @@ def _x_proj(p, x_conv: torch.Tensor, split: bool) -> torch.Tensor:
     return tp.copy_in(tp.row_product(x_conv, w)) if split else x_conv @ w
 
 
-def _out_proj(p, y: torch.Tensor, split: bool) -> torch.Tensor:
+def _out_proj(p, y: torch.Tensor, split: bool,
+              scatter: bool = False) -> torch.Tensor:
     """``out_proj``, row-parallel over the rank's channels under tensor
-    parallelism."""
+    parallelism; with ``scatter``, the rank's slice of the sequence."""
     w = p["out_proj"].to(y.dtype)
-    return tp.row_product(y, w) if split else y @ w
+    return tp.row_product(y, w, scatter) if split else \
+        tp.seq_out(y @ w, scatter)
 
 
 def _causal_conv(p, x: torch.Tensor, prev: Optional[torch.Tensor]):
@@ -135,10 +137,11 @@ def _write_state(state: MambaState, conv: torch.Tensor,
 
 
 def mamba_mixer(p, cfg: ArchConfig, x: torch.Tensor,
-                state: Optional[MambaState] = None
+                state: Optional[MambaState] = None, scatter: bool = False
                 ) -> Tuple[torch.Tensor, MambaState]:
     """x: (B,S,D) -> (out (B,S,D), new_state); a given state is updated in
-    place and returned."""
+    place and returned. With ``scatter`` (``transformer.apply_slot``'s
+    split residual stream) ``out`` is the rank's slice of the sequence."""
     m = cfg.mamba
     B, S, D = x.shape
     split = _split(p, cfg)
@@ -182,7 +185,7 @@ def mamba_mixer(p, cfg: ArchConfig, x: torch.Tensor,
     y = (y + xf * p["D"].float()).to(x.dtype)
     y = y * F.silu(z)
     y = shard(y, "batch", None, "dinner")
-    out = _out_proj(p, y, split)
+    out = _out_proj(p, y, split, scatter)
     if state is not None:
         return out, _write_state(state, conv_state, h)
     return out, MambaState(conv_state, h)

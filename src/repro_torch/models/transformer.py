@@ -174,90 +174,129 @@ def model_specs(cfg: ArchConfig):
 # Slot application
 # ---------------------------------------------------------------------------
 
+def _seq_split(positions) -> bool:
+    """Whether the layers keep the residual stream as the rank's slice of
+    the sequence: the active act rules map ``seq_sp`` to ``model`` and
+    the sequence (``positions``' length) divides (:func:`repro_torch.dist.
+    tp.seq_parts`); never at a decode step of one position."""
+    return tp.seq_parts(positions.shape[-1]) > 1
+
+
+def split_stream(x, positions):
+    """The residual stream as the layers take it: the rank's slice of the
+    sequence where :func:`_seq_split` says so, else ``x``."""
+    return tp.seq_slice(x, 1) if _seq_split(positions) else x
+
+
+def gather_stream(x, positions):
+    """The residual stream whole after the last layer (the ranks' slices
+    all-gathered where :func:`split_stream` split it)."""
+    return tp.gather_in(x, 1) if _seq_split(positions) else x
+
+
+def _norm_in(p_norm, cfg: ArchConfig, x, split: bool):
+    """A pre-norm's output for the next mixer or MLP, whole: where the
+    stream is the rank's slice, normed there (the scale's gradient summed
+    over ``model``) and all-gathered along the sequence."""
+    if not split:
+        return shard(apply_norm(p_norm, cfg, x), "batch", None, "embed")
+    return tp.gather_in(apply_norm(tp.on_slice(p_norm), cfg, x), 1)
+
+
+def _gate(o, gate, split: bool):
+    """``o`` through a tanh gate (on the slice, its gradient summed)."""
+    g = tp.on_slice(gate) if split else gate
+    return o * torch.tanh(g.to(o.dtype))
+
+
 def apply_slot(p, cfg: ArchConfig, slot: Slot, x, *, positions, memory,
                cache, impl: str):
     """Returns (x, new_cache, aux). ``aux`` is the MoE MLP's auxiliary
     loss, a tensor, or the Python float 0.0 where the slot has none (a
-    zero tensor a layer would cost every model a launch a layer)."""
+    zero tensor a layer would cost every model a launch a layer). Where
+    the act rules map ``seq_sp`` to ``model`` (:func:`_seq_split`) ``x``
+    comes in (:func:`split_stream`) and goes out as the rank's slice of
+    the sequence: the norms run on the slice, their outputs are
+    all-gathered before the mixer and the MLP, and each mixer and MLP is
+    asked for its output as the slice (``scatter``: its output product
+    reduce-scatters, :func:`repro_torch.dist.tp.row_product`)."""
+    split = _seq_split(positions)
     aux = 0.0
-    h = apply_norm(p["norm1"], cfg, x)
-    h = shard(h, "batch", None, "embed")
+    h = _norm_in(p["norm1"], cfg, x, split)
     new_cache = cache
 
     if slot.mixer == "attn":
         o, kv = attn.self_attention(
             p["mixer"], cfg, h, positions=positions,
             cache=cache.get("kv") if cache else None,
-            causal=slot.causal, impl=impl)
+            causal=slot.causal, impl=impl, scatter=split)
         new_cache = {"kv": kv} if cache else None
     elif slot.mixer == "mla":
         o, kv = attn.mla_attention(
             p["mixer"], cfg, h, positions=positions,
-            cache=cache.get("kv") if cache else None, impl=impl)
+            cache=cache.get("kv") if cache else None, impl=impl,
+            scatter=split)
         new_cache = {"kv": kv} if cache else None
     elif slot.mixer == "cross":
         o, cc = attn.cross_attention(
             p["mixer"], cfg, h, memory=memory,
             cache=cache.get("cross") if cache and cache.get("cross") is not None else None,
-            impl=impl)
+            impl=impl, scatter=split)
         new_cache = {"cross": cc} if cache else None
     elif slot.mixer == "attn_cross":
         o, kv = attn.self_attention(
             p["mixer"]["self"], cfg, h, positions=positions,
             cache=cache.get("kv") if cache else None,
-            causal=slot.causal, impl=impl)
-        o = shard(o, "batch", "seq_sp", "embed")   # reduce-scatter form
-        x = x + o
-        h2 = apply_norm(p["norm_cross"], cfg, x)
-        h2 = shard(h2, "batch", None, "embed")
+            causal=slot.causal, impl=impl, scatter=split)
+        x = x + shard(o, "batch", "seq_sp", "embed")   # reduce-scatter form
+        h2 = _norm_in(p["norm_cross"], cfg, x, split)
         o, cc = attn.cross_attention(
             p["mixer"]["cross"], cfg, h2, memory=memory,
             cache=cache.get("cross") if cache and cache.get("cross") is not None else None,
-            impl=impl)
+            impl=impl, scatter=split)
         new_cache = {"kv": kv, "cross": cc} if cache else None
     elif slot.mixer == "mamba":
         st = cache.get("mamba") if cache else None
-        if st is not None and x.shape[1] == 1:
+        if st is not None and h.shape[1] == 1:
             o, st = ssm_mod.mamba_decode_step(p["mixer"], cfg, h, st)
         else:
-            o, st = ssm_mod.mamba_mixer(p["mixer"], cfg, h, st)
+            o, st = ssm_mod.mamba_mixer(p["mixer"], cfg, h, st,
+                                        scatter=split)
         new_cache = {"mamba": st} if cache else None
     elif slot.mixer == "rwkv":
         st = cache.get("rwkv") if cache else None
         o, tm_shift, wkv = rwkv_mod.rwkv_time_mix(p["mixer"], cfg, h, st,
-                                                  impl=impl)
+                                                  impl=impl, scatter=split)
         cm_prev = st.cm_shift if st is not None else None
     else:
         raise ValueError(slot.mixer)
 
+    o = shard(o, "batch", "seq_sp", "embed")       # reduce-scatter form
     if slot.gated:
-        o = o * torch.tanh(p["gate_attn"].to(o.dtype))
+        o = _gate(o, p["gate_attn"], split)
     if slot.mixer == "rwkv":
-        o = shard(o, "batch", "seq_sp", "embed")
         x = x + o
-        h = apply_norm(p["norm2"], cfg, x)
-        h = shard(h, "batch", None, "embed")
+        h = _norm_in(p["norm2"], cfg, x, split)
         o2, cm_shift = rwkv_mod.rwkv_channel_mix(
             p["mlp"], cfg, h,
-            rwkv_mod.RWKVState(tm_shift, cm_prev, wkv) if st is not None else None)
-        x = x + o2
+            rwkv_mod.RWKVState(tm_shift, cm_prev, wkv) if st is not None else None,
+            scatter=split)
+        x = x + shard(o2, "batch", "seq_sp", "embed")
         if cache:
             new_cache = {"rwkv": rwkv_mod.RWKVState(tm_shift, cm_shift, wkv)}
         return shard(cot_cast(x), "batch", "seq_sp", "embed"), new_cache, aux
 
-    o = shard(o, "batch", "seq_sp", "embed")       # reduce-scatter form
     x = x + o
     if slot.mlp != "none":
-        h = apply_norm(p["norm2"], cfg, x)
-        h = shard(h, "batch", None, "embed")
+        h = _norm_in(p["norm2"], cfg, x, split)
         if slot.mlp == "moe":
-            o2, a = moe_mod.apply_moe(p["mlp"], cfg, h)
+            o2, a = moe_mod.apply_moe(p["mlp"], cfg, h, scatter=split)
             aux = aux + a
         else:
-            o2 = apply_mlp(p["mlp"], cfg, h)
-        if slot.gated:
-            o2 = o2 * torch.tanh(p["gate_mlp"].to(o2.dtype))
+            o2 = apply_mlp(p["mlp"], cfg, h, scatter=split)
         o2 = shard(o2, "batch", "seq_sp", "embed")
+        if slot.gated:
+            o2 = _gate(o2, p["gate_mlp"], split)
         x = x + o2
     return shard(cot_cast(x), "batch", "seq_sp", "embed"), new_cache, aux
 
@@ -553,6 +592,7 @@ def forward_lm(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
     memory = frontend_memory(params, cfg, batch)
     pre, rep, pat = layer_plan(cfg, cfg.n_layers)
     positions = _positions(B, S, device=x.device)
+    x = split_stream(x, positions)
     x, _, aux1 = run_prefix(params["prefix"], cfg, pre, x,
                             positions=positions, memory=memory, caches=None,
                             impl=impl, specs=_sub(specs, "prefix"))
@@ -562,7 +602,7 @@ def forward_lm(params, cfg: ArchConfig, batch: dict, *, impl: str = "chunked"):
                                positions=positions, memory=memory,
                                caches=None, impl=impl,
                                stack_specs=_sub(specs, "stack"))
-    x = apply_norm(params["final_norm"], cfg, x)
+    x = apply_norm(params["final_norm"], cfg, gather_stream(x, positions))
     return lm_logits(params["embed"], cfg, x), aux_tensor(aux1 + aux2,
                                                           x.device)
 
@@ -593,6 +633,7 @@ def encode_gathered(params, cfg: ArchConfig, batch: dict, impl: str, specs):
                                   ).to(mem_in.dtype)[None]
     pre, rep, pat = layer_plan(cfg, cfg.enc_layers, decoder=False)
     pos = _positions(x.shape[0], Se, device=x.device)
+    x = split_stream(x, pos)
     x, _, _ = run_prefix(params["enc"]["prefix"], cfg, pre, x, positions=pos,
                          memory=None, caches=None, impl=impl,
                          specs=_sub(specs, "enc/prefix"))
@@ -600,7 +641,8 @@ def encode_gathered(params, cfg: ArchConfig, batch: dict, impl: str, specs):
         x, _, _ = run_stack(params["enc"]["stack"], cfg, pat, x,
                             positions=pos, memory=None, caches=None,
                             impl=impl, stack_specs=_sub(specs, "enc/stack"))
-    return apply_norm(params["enc"]["final_norm"], cfg, x)
+    return apply_norm(params["enc"]["final_norm"], cfg,
+                      gather_stream(x, pos))
 
 
 def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked",
@@ -613,6 +655,7 @@ def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked",
         x = x + sincos_pos_embed(Sd, cfg.d_model, device=x.device).to(x.dtype)[None]
     pre, rep, pat = layer_plan(cfg, cfg.dec_layers, decoder=True)
     pos_d = _positions(B, Sd, device=x.device)
+    x = split_stream(x, pos_d)
     x, _, aux1 = run_prefix(params["dec"]["prefix"], cfg, pre, x,
                             positions=pos_d, memory=memory, caches=None,
                             impl=impl, specs=_sub(specs, "dec/prefix"))
@@ -622,7 +665,7 @@ def _forward_encdec(params, cfg: ArchConfig, batch: dict, *, impl="chunked",
                                positions=pos_d, memory=memory, caches=None,
                                impl=impl,
                                stack_specs=_sub(specs, "dec/stack"))
-    x = apply_norm(params["final_norm"], cfg, x)
+    x = apply_norm(params["final_norm"], cfg, gather_stream(x, pos_d))
     return lm_logits(params["embed"], cfg, x), aux_tensor(aux1 + aux2,
                                                           x.device)
 

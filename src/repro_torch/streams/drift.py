@@ -3,10 +3,10 @@
 Each detector is ``(state, x) -> (state, level)`` with level 0=stable,
 1=warning, 2=drift, on 0-dim fp32 tensors of any device. These are the
 plain versions: a scan over a batch is a loop of steps
-(:func:`run_detector`). The pipeline's drift op runs DDM, EDDM and
-Page-Hinkley through the ``detector_scan`` kernel on the card
+(:func:`run_detector`). The pipeline's drift op runs every detector
+through the ``detector_scan`` kernel on the card
 (``kernels/detector_scan.py``), which repeats these steps operation by
-operation; ADWIN runs its plain loop on the device.
+operation.
 
 Implemented: DDM (Gama'04), EDDM (Baena-Garcia'06), Page-Hinkley, and a
 fixed-memory ADWIN variant (exponential bucket histogram with capped

@@ -537,10 +537,17 @@ def _inputs(cfg, rng, B, S) -> dict:
     return out
 
 
+def _seq(name) -> dict:
+    """``seq_shard=True`` for the cases of ``ranks.SEQ_SHARD``."""
+    return {"seq_shard": True} if name in ranks.SEQ_SHARD else {}
+
+
 def _train_case(name):
     arch, recipe, opt, mb, compression = ranks.TRAIN_CASES[name]
-    jc = jget(arch, smoke=True).with_overrides(recipe=recipe, remat="full")
-    tc = tget(arch, smoke=True).with_overrides(recipe=recipe, remat="full")
+    jc = jget(arch, smoke=True).with_overrides(recipe=recipe, remat="full",
+                                               **_seq(name))
+    tc = tget(arch, smoke=True).with_overrides(recipe=recipe, remat="full",
+                                               **_seq(name))
     jp, tp = _params(jc, tc)
     inputs = _inputs(jc, np.random.default_rng(0), 8, 32)
     tokens = inputs.pop("tokens")
@@ -549,18 +556,20 @@ def _train_case(name):
                                 "compression": compression, "params": tp,
                                 "tokens": torch.from_numpy(tokens),
                                 "extra": {k: torch.from_numpy(v)
-                                          for k, v in inputs.items()}}
+                                          for k, v in inputs.items()},
+                                **_seq(name)}
 
 
 def _serve_case(name):
     arch, recipe = ranks.SERVE_CASES[name]
     jc, tc = jget(arch, smoke=True), tget(arch, smoke=True)
     jp, tp = _params(jc, tc)
-    batch = _inputs(tc, np.random.default_rng(4), 4, 12)
+    S = ranks.SERVE_PROMPT.get(name, 12)
+    batch = _inputs(tc, np.random.default_rng(4), 4, S)
     return jc, jp, {"arch": arch, "recipe": recipe, "params": tp,
                     "batch": {k: torch.from_numpy(v)
                               for k, v in batch.items()},
-                    "max_len": 12 + ranks.SERVE_TOKENS}
+                    "max_len": S + ranks.SERVE_TOKENS, **_seq(name)}
 
 
 @pytest.fixture(scope="module")
@@ -692,6 +701,46 @@ def _grad_gap(got, want, tol):
     return worst
 
 
+# one process's results by case arguments: a ``seq_shard`` twin (the
+# same config, params and batch) shares them, the split being the
+# mesh's only
+_STEPS = {}
+
+
+def _single_step(case, tc, payload, batch, rules):
+    """The single-process step of ``case``: (params, state, metrics,
+    the recorded clipped gradients)."""
+    key = ("single",) + ranks.TRAIN_CASES[case]
+    if key not in _STEPS:
+        grads = []
+        opt = ranks.recording(ranks.make_opt(tc, payload), grads)
+        p = tree_map(torch.clone, payload["params"])
+        step = make_train_step(tc, opt,
+                               microbatches=payload["microbatches"],
+                               grad_compression=payload["compression"])
+        with _token_groups(case in MOE, rules):
+            single, single_state, _, m = step(p, opt.init(p), 0, batch)
+        _STEPS[key] = (single, single_state, m, grads)
+    return _STEPS[key]
+
+
+def _reference_step(case, jc, jp, payload, batch, rules):
+    """The reference's unsharded jitted step and ``jax.grad`` of
+    ``case``: (params, loss, gradients)."""
+    key = ("reference",) + ranks.TRAIN_CASES[case]
+    if key not in _STEPS:
+        jopt = joptim.make_optimizer(jc, payload["opt"],
+                                     lr=lambda s: payload["lr"])
+        jb = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+        with _token_groups(case in MOE, rules):
+            jstep = jax.jit(jmake_train_step(jc, jopt, microbatches=1))
+            pj, *_ = jstep(jp, jopt.init(jp), jnp.asarray(0), jb)
+            jl, jg = jax.jit(jax.value_and_grad(
+                lambda q: jzoo.lm_loss(q, jc, jb)[0]))(jp)
+        _STEPS[key] = (pj, jl, jg)
+    return _STEPS[key]
+
+
 @pytest.mark.parametrize("case", list(ranks.TRAIN_CASES))
 def test_sharded_train_step_matches_single_process(world, case):
     """One step on a (2, 2) mesh on the rank's shards (``remat="full"``):
@@ -716,18 +765,13 @@ def test_sharded_train_step_matches_single_process(world, case):
     moments too."""
     jc, tc, jp, tokens, payload = world["cases"][case]
     rules = sharding.build_rules(tc)
-    grads = []
-    opt = ranks.recording(ranks.make_opt(tc, payload), grads)
-    p = tree_map(torch.clone, payload["params"])
-    step = make_train_step(tc, opt, microbatches=payload["microbatches"],
-                           grad_compression=payload["compression"])
-    state = opt.init(p)
     batch = {"tokens": torch.from_numpy(tokens), **payload["extra"]}
-    with _token_groups(case in MOE, rules):
-        single, single_state, _, m = step(p, state, 0, batch)
+    single, single_state, m, grads = _single_step(case, tc, payload, batch,
+                                                  rules)
     axes = tzoo.param_axes(tc)
     want_local = _expected_local(axes, single, rules)
-    want_state = _expected_local(opt.state_axes(axes), single_state, rules)
+    want_state = _expected_local(
+        ranks.make_opt(tc, payload).state_axes(axes), single_state, rules)
     grad_tol = 1 / 127 if payload["compression"] else GRAD_TOL
     moved = False
     for res in world["res"]:
@@ -749,14 +793,7 @@ def test_sharded_train_step_matches_single_process(world, case):
     assert any(want_local[k] != full[k] for k in full)     # shards held
     if payload["compression"]:
         return
-    jopt = joptim.make_optimizer(jc, payload["opt"],
-                                 lr=lambda s: payload["lr"])
-    jb = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
-    with _token_groups(case in MOE, rules):
-        jstep = jax.jit(jmake_train_step(jc, jopt, microbatches=1))
-        pj, *_ = jstep(jp, jopt.init(jp), jnp.asarray(0), jb)
-        jl, jg = jax.jit(jax.value_and_grad(
-            lambda q: jzoo.lm_loss(q, jc, jb)[0]))(jp)
+    pj, jl, jg = _reference_step(case, jc, jp, payload, batch, rules)
     assert world["res"][0][case]["loss"] == pytest.approx(float(jl),
                                                           rel=1e-5)
     for a, b in zip(tree_flatten(world["res"][0][case]["params"])[0],
@@ -806,7 +843,7 @@ def test_sharded_serving_matches_single_process(world, case):
     rules' split of each cache leaf)."""
     jc, jp, payload = world["serve"][case]
     tc = tget(payload["arch"], smoke=True).with_overrides(
-        recipe=payload["recipe"], remat="full")
+        recipe=payload["recipe"], remat="full", **_seq(case))
     rules = sharding.build_rules(tc)
     want_local = _expected_local(tzoo.param_axes(tc), payload["params"],
                                  rules)
@@ -825,9 +862,12 @@ def test_sharded_serving_matches_single_process(world, case):
                    for a, b in zip(got["routing"], routing.ids))
         assert bool(routing.ids) == (tc.moe is not None
                                      and tc.moe.num_experts > 0)
-        ref = _reference_greedy(jc, jp, {k: jnp.asarray(v.numpy())
-                                         for k, v in rows.items()},
-                                payload["max_len"], ranks.SERVE_TOKENS)
+        key = ("greedy", payload["arch"], lo, hi, payload["max_len"])
+        if key not in _STEPS:
+            _STEPS[key] = _reference_greedy(
+                jc, jp, {k: jnp.asarray(v.numpy()) for k, v in rows.items()},
+                payload["max_len"], ranks.SERVE_TOKENS)
+        ref = _STEPS[key]
         np.testing.assert_array_equal(got["tokens"].numpy(), ref)
         assert got["local_shapes"] == want_local
         cache_axes = tzoo.cache_axes(caches)
@@ -874,6 +914,85 @@ def test_no_model_split_param_is_gathered_over_model(world, kind):
             "activations over model"} <= seen
 
 
+def _count(table: dict, axis: str, kind: str, who: str, phase=None) -> int:
+    return sum(v for (a, k, w, p), v in table.items()
+               if a == axis and k == kind and w == who
+               and (phase is None or p == phase))
+
+
+def _twin(name: str) -> str:
+    """The ``seq_shard=False`` case a ``_seq`` case is the twin of."""
+    return name[:-len("_seq")]
+
+
+def test_seq_shard_train_step_reduce_scatters_the_residual(world):
+    """With ``seq_shard=True`` under ``tp_fsdp`` and ``ep_tp_fsdp`` (each
+    ``_seq`` train case: its twin's config, params and batch; dense,
+    rwkv6's time and channel mix, jamba's Mamba, attention and experts,
+    the vision model's gated cross-attention) the residual stream is the
+    rank's slice of the 32-token sequence: each layer's output products
+    reduce-scatter over ``model`` (the backward all-gathers their
+    gradients) and the norms' outputs are all-gathered over ``model``
+    before the next column-parallel product (``tp.gather_in``), in place
+    of the ``seq_shard=False`` twin's all-reduces of those products: the
+    twin's extra all-reduces over ``model`` are exactly the
+    reduce-scatters. Nothing is reduce-scattered over ``model`` without
+    ``seq_shard``."""
+    names = [n for n in ranks.TRAIN_CASES if n in ranks.SEQ_SHARD]
+    assert len(names) == 4, names
+    for res, name in ((r, n) for r in world["res"] for n in names):
+        seq, twin = res[name], res[_twin(name)]
+        rs = _count(seq["reductions"], "model", "reduce_scatter",
+                    "_ReduceScatterOut.forward")
+        ar_seq = _count(seq["reductions"], "model", "all_reduce",
+                        "_ReduceOut.forward")
+        ar_twin = _count(twin["reductions"], "model", "all_reduce",
+                         "_ReduceOut.forward")
+        assert rs > 0 and ar_twin - ar_seq == rs, (name, rs, ar_seq,
+                                                   ar_twin)
+        g = seq["gathers"]
+        assert g.get(("model", "gather_in"), 0) > 0, (name, g)
+        assert g.get(("model", "_ReduceScatterOut.backward"), 0) > 0, g
+        assert _count(twin["reductions"], "model", "reduce_scatter",
+                      "_ReduceScatterOut.forward") == 0
+        assert not any(a == "model" and (w == "gather_in" or
+                                         w.startswith("_ReduceScatter"))
+                       for a, w in twin["gathers"])
+
+
+def test_seq_shard_serving_scatters_prefill_and_keeps_decode_whole(world):
+    """Serving with ``seq_shard=True``: seamless-m4t-medium's and
+    rwkv6's 12-token prefills (seamless's encoder and decoder) reduce-
+    scatter their layers' output products over ``model`` and all-gather
+    the norms' outputs; their decode steps (one position, which does not
+    divide) all-reduce as before and reduce-scatter nothing; an 11-token
+    prompt (and frames) does not divide either, so that prefill keeps the
+    all-reduce. The ``seq_shard`` off cases reduce-scatter nothing over
+    ``model``."""
+    for res, name in ((r, n) for r in world["res"]
+                      for n in ("encdec_seq", "rwkv_seq")):
+        enc = res["serve/" + name]["reductions"]
+        assert _count(enc, "model", "reduce_scatter",
+                      "_ReduceScatterOut.forward", "prefill") > 0, enc
+        assert _count(enc, "model", "reduce_scatter",
+                      "_ReduceScatterOut.forward", "decode") == 0, enc
+        assert _count(enc, "model", "all_reduce", "_ReduceOut.forward",
+                      "decode") > 0, enc
+        assert res["serve/" + name]["gathers"].get(
+            ("model", "gather_in"), 0) > 0
+    for res in world["res"]:
+        odd = res["serve/encdec_seq_odd"]["reductions"]
+        assert _count(odd, "model", "reduce_scatter",
+                      "_ReduceScatterOut.forward") == 0, odd
+        assert _count(odd, "model", "all_reduce", "_ReduceOut.forward",
+                      "prefill") > 0, odd
+        for name in ranks.SERVE_CASES:
+            if name not in ranks.SEQ_SHARD:
+                assert _count(res["serve/" + name]["reductions"], "model",
+                              "reduce_scatter",
+                              "_ReduceScatterOut.forward") == 0, name
+
+
 def test_chip_smoke_phase_17_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.py`` phase 17 end to end on the CPU at smoke size
     (``torch_dist_ranks.phase17_stubs`` in this process and in each one
@@ -908,11 +1027,13 @@ def test_chip_smoke_phase_18_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.py`` phase 18 end to end on the CPU at smoke size
     (the same stubs as phase 17's, in this process and in each one the
     phase starts): the one-rank references, the two gloo ranks of the
-    (1, 2) mesh computing on their heads and experts and the (1, 2) dry
-    run pass their checks (tokens, the kernels' heads, the split caches'
-    bytes, loss, grad norm, params, arguments against the rules and the
-    dry run's ``"sharded_tp"`` record), and the ranks' flash and WKV
-    launches are the path's."""
+    (1, 2) mesh computing on their heads and experts (and, in 18d, with
+    the config's ``seq_shard`` flipped: on their slice of the sequence
+    here) and the (1, 2)
+    dry run pass their checks (tokens, the kernels' heads, the split
+    caches' bytes, 18d's reduce-scatters, loss, grad norm, params,
+    arguments against the rules and the dry run's ``"sharded_tp"``
+    record), and the ranks' flash and WKV launches are the path's."""
     import pathlib
     import subprocess
 
@@ -941,6 +1062,9 @@ def test_chip_smoke_phase_18_rehearses_on_the_cpu(monkeypatch):
     for r in range(2):
         for tag in ("18a", "18b"):
             assert f"rank {r} {tag}: tokens equal the one rank's: True" in text
+        # the smoke config's seq_shard is off, so 18d runs the seq_sp form
+        assert (f"rank {r} 18d (seq_shard=True; 18a seq_shard=False): "
+                "tokens equal the one rank's: True") in text
         assert f"rank {r} 18c: loss" in text
 
 

@@ -604,3 +604,28 @@ def test_the_stacked_write_back_compares_memory_not_pointers():
             assert not _same_memory(buf[0], other)
             assert not _same_memory(buf[1], buf[2])
             assert not _same_memory(buf[1].view(torch.int32), buf[1])
+
+
+@pytest.mark.parametrize("seq_shard,shape,want", [
+    (True, "prefill_32k", "sharded_tp_seq"),
+    (True, "train_4k", "sharded_tp_seq"),
+    (False, "prefill_32k", "sharded_tp"),
+    (True, "decode_32k", "sharded_tp"),     # the rules drop seq_sp
+])
+def test_step_layout_names_the_seq_form(seq_shard, shape, want):
+    """seamless-m4t-medium's full config on pod_16x16: a record of the
+    ``seq_sp`` form (``seq_shard=True`` under ``tp_fsdp``, not at decode)
+    says ``"sharded_tp_seq"``, so a saved ``"sharded_tp"`` record of the
+    all-reduce form is not returned for it (``run_cell`` traces a cell
+    whose layout differs again); a sequence that does not divide by the
+    ``model`` axis keeps ``"sharded_tp"``."""
+    step_layout = dryrun.step_layout
+    cfg = get_config("seamless-m4t-medium").with_overrides(
+        seq_shard=seq_shard)
+    sh = SHAPES_BY_NAME[shape]
+    rules = build_rules(cfg, shape=sh)
+    sizes = {"data": 16, "model": 16}
+    assert step_layout(sizes, rules, sh.seq_len) == want
+    assert step_layout(sizes, rules, 16 * 7 + 1) == "sharded_tp"
+    assert step_layout({"data": 1, "model": 1}, rules, sh.seq_len) == \
+        "one device"

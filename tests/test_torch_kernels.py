@@ -470,8 +470,14 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
         kops.hash_features(meta.to(torch.int32), meta, 16)
     with pytest.raises(ValueError):
         kops.detector_scan("ddm", tdrift.ddm_init("meta"), meta[:, 0])
+    # ADWIN scans through the same entry: on the CPU its plain loop, no
+    # kernel launched; an unknown detector is refused
+    st, drifted = kops.detector_scan("adwin", tdrift.adwin_init(),
+                                     torch.zeros(3))
+    assert int(st.n_buckets[0]) == 3 and not bool(drifted)
+    assert set(kops.launch_counts().values()) == {0}
     with pytest.raises(KeyError):
-        kops.detector_scan("adwin", tdrift.adwin_init(), torch.zeros(3))
+        kops.detector_scan("cusum", tdrift.adwin_init(), torch.zeros(3))
 
 
 # ---------------------------------------------------------------------------

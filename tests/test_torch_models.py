@@ -142,7 +142,7 @@ def test_flash_argument_checks_accept_the_built_head_dims(D, dtype):
 
 def test_flash_argument_checks_refuse_what_no_kernel_takes():
     q, kv = torch.zeros((2, 3, 4, 64)), torch.zeros((2, 5, 2, 64))
-    for D in (8, 32, 96, 256):
+    for D in (8, 32, 96, 512):
         with pytest.raises(ValueError, match="head dim"):
             tfa.check_args(torch.zeros((2, 3, 4, D)),
                            torch.zeros((2, 5, 2, D)),

@@ -55,19 +55,42 @@ def _t(a):
 # the sizes each pad route runs at
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("fn,cases,top", [
-    (tfa.padded_head_dim, {8: 16, 16: 16, 17: 64, 32: 64, 64: 64, 96: 128,
-                           128: 128}, 128),
-    (twkv.padded_head_size, {1: 16, 8: 16, 16: 16, 32: 64, 48: 64, 64: 64},
-     64),
-    (tms.padded_state_size, {1: 4, 2: 4, 4: 4, 8: 16, 12: 16, 16: 16}, 16),
-])
-def test_pad_routes_take_the_next_built_size_and_refuse_above(fn, cases, top):
+PAD_ROUTES = [
+    (tfa.padded_head_dim, tfa.HEAD_DIMS,
+     {8: 16, 16: 16, 17: 64, 32: 64, 64: 64, 96: 128, 128: 128, 129: 256,
+      192: 256, 256: 256}, 256),
+    (twkv.padded_head_size, twkv.HEAD_SIZES,
+     {1: 16, 8: 16, 16: 16, 32: 64, 48: 64, 64: 64, 65: 128, 96: 128,
+      128: 128}, 128),
+    (tms.padded_state_size, tms.STATE_SIZES,
+     {1: 4, 2: 4, 4: 4, 8: 16, 12: 16, 16: 16, 17: 32, 24: 32, 32: 32,
+      33: 64, 48: 64, 64: 64}, 64),
+]
+
+
+@pytest.mark.parametrize("fn,built,cases,top", PAD_ROUTES)
+def test_pad_routes_take_the_next_built_size_and_refuse_above(fn, built,
+                                                               cases, top):
     for size, want in cases.items():
         assert fn(size) == want
     for size in (top + 1, 2 * top, 0):
         with pytest.raises(ValueError):
             fn(size)
+
+
+@pytest.mark.parametrize("fn,built,cases,top", PAD_ROUTES)
+def test_every_size_up_to_the_largest_reaches_a_built_kernel(fn, built,
+                                                             cases, top):
+    """Flash up to D 256, WKV up to head size 128 and Mamba up to 64
+    states: every size maps to the smallest built size at or above it;
+    the ``ValueError`` names the size, and only sizes above are refused."""
+    assert max(built) == top
+    for size in range(1, top + 1):
+        got = fn(size)
+        assert got in built and got >= size
+        assert got == min(b for b in built if b >= size)
+    with pytest.raises(ValueError, match=str(top + 1)):
+        fn(top + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ torch and the port only, so a spawned rank does not load JAX.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import pathlib
 
@@ -40,6 +41,10 @@ TRAIN_CASES = {
     "mla_moe": ("deepseek-v2-lite-16b", "ep_fsdp", "sgd", 1, None),
     "mla_tp": ("deepseek-v2-lite-16b", "ep_tp_fsdp", "sgd", 1, None),
     "vlm": ("llama-3.2-vision-90b", "tp_fsdp", "sgd", 1, None),
+    "dense_seq": ("qwen2-1.5b", "tp_fsdp", "sgd", 1, None),
+    "rwkv_seq": ("rwkv6-1.6b", "tp_fsdp", "sgd", 1, None),
+    "hybrid_seq": ("jamba-1.5-large-398b", "ep_tp_fsdp", "sgd", 1, None),
+    "vlm_seq": ("llama-3.2-vision-90b", "tp_fsdp", "sgd", 1, None),
 }
 # serving on shards: case -> (arch, recipe)
 SERVE_CASES = {
@@ -49,7 +54,18 @@ SERVE_CASES = {
     "mla_moe": ("deepseek-v2-lite-16b", "ep_fsdp"),
     "mla_tp": ("deepseek-v2-lite-16b", "ep_tp_fsdp"),
     "vlm": ("llama-3.2-vision-90b", "tp_fsdp"),
+    "encdec_seq": ("seamless-m4t-medium", "tp_fsdp"),
+    "encdec_seq_odd": ("seamless-m4t-medium", "tp_fsdp"),
+    "rwkv_seq": ("rwkv6-1.6b", "tp_fsdp"),
 }
+# the cases with ``seq_shard=True``: the act rules map ``seq_sp`` to
+# ``model``, so the residual stream between the layers is the rank's
+# slice of the sequence where it divides (dist/tp.py); each is the twin of
+# the case without ``_seq`` (the same config, params and batch)
+SEQ_SHARD = ("dense_seq", "rwkv_seq", "hybrid_seq", "vlm_seq",
+             "encdec_seq", "encdec_seq_odd")
+# a serve case's prompt tokens; 11 does not divide over the model axis
+SERVE_PROMPT = {"encdec_seq_odd": 11}
 SERVE_TOKENS = 5                 # the prefill's token and 4 decode steps
 # (failed ranks, prefer_model) for rebuild_mesh over the 4 ranks
 REBUILD_CASES = (((), 2), ((1,), 2), ((3,), 1), ((0, 2), 1), ((1, 2, 3), 4))
@@ -74,8 +90,9 @@ def make_opt(cfg, case: dict):
 
 def case_config(case: dict):
     from repro_torch.configs import get_config
+    seq = {"seq_shard": True} if case.get("seq_shard") else {}
     return get_config(case["arch"], smoke=True).with_overrides(
-        recipe=case["recipe"], remat="full")
+        recipe=case["recipe"], remat="full", **seq)
 
 
 def recording(opt, into: list):
@@ -92,39 +109,91 @@ def recording(opt, into: list):
 class GatherLog:
     """Every ``all_gather_into_tensor`` while entered: the ranks of its
     group, and whether a parameter's gather (``fsdp._Gather``) or an
-    activation's (``tp.gather_out``) made it."""
+    activation's (``tp.gather_out``; the sequence's: ``tp.gather_in``,
+    a ``gather_out`` called from it, and the backward of
+    ``tp.reduce_scatter_out`` and ``tp.seq_slice``) made it. Every
+    ``reduce_scatter_tensor`` and ``all_reduce`` too (``reductions``),
+    with what made it and ``phase`` at the call."""
+
+    MAKERS = ("_Gather.forward", "_GatherOut.forward",
+              "_ReduceScatterOut.forward", "_ReduceScatterOut.backward",
+              "_SeqSlice.backward", "_ReduceOut.forward",
+              "_CopyIn.backward")
+    CALL_SITES = ("gather_in",)       # named by their caller, not the maker
 
     def __init__(self):
         self.calls = []
+        self.reductions = []
+        self.phase = "all"
+
+    def _who(self):
+        import sys
+        f, who = sys._getframe(2), "other"
+        while f is not None:
+            name = f.f_code.co_qualname
+            if name in self.CALL_SITES:
+                return name
+            if who == "other" and name in self.MAKERS:
+                who = name
+            f = f.f_back
+        return who
 
     def __enter__(self):
-        import sys
-        self._real = real = tdist.all_gather_into_tensor
+        self._real = real = (tdist.all_gather_into_tensor,
+                             tdist.reduce_scatter_tensor, tdist.all_reduce)
 
-        def logged(out, src, group=None, *a, **k):
-            f, who = sys._getframe(1), "other"
-            while f is not None:
-                name = f.f_code.co_qualname
-                if name in ("_Gather.forward", "_GatherOut.forward"):
-                    who = name.split(".")[0]
-                    break
-                f = f.f_back
+        def gathered(out, src, group=None, *a, **k):
+            who = self._who()
+            if who.endswith(".forward") and who.startswith(
+                    ("_Gather.", "_GatherOut.")):
+                who = who.split(".")[0]
             self.calls.append((tuple(tdist.get_process_group_ranks(group)),
                                who))
-            return real(out, src, group, *a, **k)
-        tdist.all_gather_into_tensor = logged
+            return real[0](out, src, group, *a, **k)
+
+        def scattered(out, src, op=tdist.ReduceOp.SUM, group=None, *a,
+                      **k):
+            ranks = (tuple(tdist.get_process_group_ranks(group))
+                     if group is not None else None)
+            self.reductions.append((ranks, "reduce_scatter", self._who(),
+                                    self.phase))
+            return real[1](out, src, op, group, *a, **k)
+
+        def reduced(t, op=tdist.ReduceOp.SUM, group=None, *a, **k):
+            ranks = (tuple(tdist.get_process_group_ranks(group))
+                     if group is not None else None)
+            self.reductions.append((ranks, "all_reduce", self._who(),
+                                    self.phase))
+            return real[2](t, op, group, *a, **k)
+        (tdist.all_gather_into_tensor, tdist.reduce_scatter_tensor,
+         tdist.all_reduce) = gathered, scattered, reduced
         return self
 
     def __exit__(self, *exc):
-        tdist.all_gather_into_tensor = self._real
+        (tdist.all_gather_into_tensor, tdist.reduce_scatter_tensor,
+         tdist.all_reduce) = self._real
+
+    def _groups(self, mesh) -> dict:
+        return {tuple(tdist.get_process_group_ranks(mesh.get_group(a))): a
+                for a in mesh.mesh_dim_names}
 
     def by_axis(self, mesh) -> dict:
-        """``{(axis, who): calls}`` over the mesh's axis groups."""
-        groups = {tuple(tdist.get_process_group_ranks(mesh.get_group(a))): a
-                  for a in mesh.mesh_dim_names}
+        """``{(axis, who): calls}`` of the all-gathers over the mesh's
+        axis groups."""
+        groups = self._groups(mesh)
         out = {}
         for ranks, who in self.calls:
             key = (groups.get(ranks, "other"), who)
+            out[key] = out.get(key, 0) + 1
+        return out
+
+    def reductions_by_axis(self, mesh) -> dict:
+        """``{(axis, kind, who, phase): calls}`` of the reduce-scatters and
+        all-reduces."""
+        groups = self._groups(mesh)
+        out = {}
+        for ranks, kind, who, phase in self.reductions:
+            key = (groups.get(ranks, "other"), kind, who, phase)
             out[key] = out.get(key, 0) + 1
         return out
 
@@ -175,12 +244,13 @@ def train_case(case: dict, mesh_shape):
                              {"tokens": case["tokens"],
                               **case.get("extra", {})})
     gathers = log.by_axis(mesh)
+    reductions = log.reductions_by_axis(mesh)
     lay = fsdp.Layout(params, zoo.param_axes(cfg), build_rules(cfg), mesh)
     local = {k: tuple(v.to_local().shape) for k, v in _flat(p).items()}
     return {"params": dist.gather_tree(p), "local_shapes": local,
             "grads": dist.gather_tree(lay.placed(grads[0])),
             "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "gathers": gathers,
+            "gathers": gathers, "reductions": reductions,
             "state_local": {
                 k: tuple(v.to_local().shape) for k, v in _flat(s).items()}}
 
@@ -204,16 +274,38 @@ def serve_case(case: dict, mesh_shape, new_tokens: int):
         lo = mesh.get_local_rank("data") * n
         batch = {k: v[lo:lo + n] for k, v in case["batch"].items()}
         with torch.no_grad(), fsdp.sharded(mesh, rules, ("data",)), \
-                GatherLog() as log, RoutingLog() as routing:
+                GatherLog() as log, RoutingLog() as routing, \
+                _phases(log):
             tokens, caches = greedy(params, cfg, batch, case["max_len"],
                                     new_tokens, with_caches=True)
         gathers = log.by_axis(mesh)
+        reductions = log.reductions_by_axis(mesh)
     return {"rows": (lo, lo + n), "tokens": tokens, "gathers": gathers,
+            "reductions": reductions,
             "routing": routing.ids,
             "cache_shapes": {k: tuple(v.shape)
                              for k, v in _flat(caches).items()},
             "local_shapes": {k: tuple(v.shape)
                              for k, v in _flat(params).items()}}
+
+
+@contextlib.contextmanager
+def _phases(log: GatherLog):
+    """``log.phase`` "prefill" inside ``zoo.prefill``, "decode" after."""
+    from repro_torch.models import model_zoo as zoo
+    real = zoo.prefill
+
+    def prefill(*a, **k):
+        log.phase = "prefill"
+        try:
+            return real(*a, **k)
+        finally:
+            log.phase = "decode"
+    zoo.prefill = prefill
+    try:
+        yield
+    finally:
+        zoo.prefill = real
 
 
 def greedy(params, cfg, batch, max_len: int, new_tokens: int,
