@@ -36,11 +36,19 @@ path on the card, and checks what comes out. Phases:
    against its serial witness kernel on a many-drift stream
    and on the errors after the ``int8_ef`` codec, its chain's divide
    against IEEE ``/`` over random pairs, and EDDM and Page-Hinkley
-   against their plain loops; chain lengths and ns a chained event;
-   ADWIN's one-warp kernel bitwise its plain loop on the card on a
-   2,048-event many-drift prefix and its serial witness on the whole
-   planted-drift and many-drift batches, graph-timed with ns an event
-   (``detector_scan/adwin``, a row of its own in the ``kernels`` line);
+   against their plain loops, graph-timed (rows ``detector_scan/eddm``
+   and ``/ph``); chain lengths and ns a chained event; ADWIN's kernel
+   (``adwin_scan_kernel``: cut tests across the grid) bitwise its plain
+   loop on the card on prefixes of the many-drift (2,048 events) and the
+   ``int8_ef``-decoded (512) streams, level for level, and on the whole
+   planted-drift, many-drift and decoded batches level for level its
+   serial witness and ``ref.adwin_scan_restart_ref``, its state bitwise
+   theirs and its one-warp witness's (within rtol 1e-5 on the decoded
+   errors), from a carried state and carried over 128 calls of 512
+   events; graph-timed with ns an event beside both witnesses, its
+   rounds, events at DRIFT and rebases, and faster than the one-warp
+   witness (``detector_scan/adwin``, a row of its own in the
+   ``kernels`` line);
 3. the orchestrator on a dense 256-wide drifting stream, 12 batches of
    65,536 events, once with the ``int8_ef`` uplink codec and once with
    ``topk_int8_ef``, plus a small run compared with the same job on the
@@ -145,8 +153,10 @@ path on the card, and checks what comes out. Phases:
     the card against the CPU within 1e-4. It launches no hand kernel
     (no kernel has a backward). The kernels' pad routes (flash attention
     at head dims 32, 96 and 192, WKV at head sizes 32 and 96, Mamba at 8
-    and 24 states, each zero-padded to the next built size) are held to
-    their plain versions
+    and 24 states, each zero-padded to the next built size) and one size
+    above each largest built one (flash D 320 on the wide kernel, WKV hs
+    160 as blocks of 128, Mamba N 80 as groups of 64 and 16; rows of
+    their own) are held to their plain versions
     at the original size after phase 6's and phase 9's checks, flash's
     beside the fastest fused SDPA backend at the original size;
 13. the orchestrator's other modes on phase 3's dense job (12 x 65,536 x
@@ -338,6 +348,8 @@ DENSE_CODECS = (("int8_ef", 0.1), ("topk_int8_ef", 11.0))   # codec, budget
 DETECTOR_PLAIN_N = 16_384   # events the EDDM and PH plain loops check
 ADWIN_PLAIN_N = 2048        # events ADWIN's plain loop runs on the card
 ADWIN_ROW = "detector_scan/adwin"   # ADWIN's row of the kernels line
+# EDDM's and Page-Hinkley's rows (one thread; no path runs them)
+DETECTOR_ROWS = ("detector_scan/eddm", "detector_scan/ph")
 ADWIN_SMALL = (10, 512, 16)  # phase 19b's batches, events a batch, dim
 DIVIDE_PAIRS = 1 << 24      # pairs per draw for the DDM chain's divide check
 
@@ -536,7 +548,7 @@ def recorder(rows: dict, bw: float, flops: float, tensor: float):
 def kernel_checks(dev, g, record) -> None:
     """Slice 1's kernels at the orchestrator's shapes."""
     import torch
-    from repro_torch.kernels import detector_scan as ds, ef_codec, ref
+    from repro_torch.kernels import detector_scan as ds, ef_codec, ops, ref
     from repro_torch.streams import drift
 
     n_el = N_EVENTS * DIM
@@ -672,7 +684,8 @@ def kernel_checks(dev, g, record) -> None:
                                      f"{what} differs from its serial "
                                      "witness")
     # EDDM and Page-Hinkley (the one-thread kernel) against their plain
-    # loops on a host copy of the planted-drift stream's first part
+    # loops on a host copy of the planted-drift stream's first part, then
+    # graph-timed on the whole planted-drift batch (rows of their own)
     part = err[:DETECTOR_PLAIN_N]
     for det, init_fn in (("eddm", drift.eddm_init), ("ph", drift.ph_init)):
         st, flag = ds.detector_scan_cuda(det, init_fn(dev), part)
@@ -688,63 +701,121 @@ def kernel_checks(dev, g, record) -> None:
         if not same:
             raise AssertionError(f"detector scan ({det}) differs from its "
                                  "plain loop")
-    adwin_kernel_checks(dev, record, err, many)
+        start = init_fn(dev)
+        d_ms = graph_ms(lambda: ds.detector_scan_cuda(det, start, err), 3)
+        nops, nbytes = ops._scan_work(det, start, err)
+        record("detector_scan",
+               "src/repro_torch/kernels/csrc/detector_scan.cu",
+               "src/repro/core/pipeline.py:687",
+               max(abs(float(a) - float(b)) for a, b in zip(st, pst)), 0.0,
+               d_ms, p_ms, nbytes, nops, row=f"detector_scan/{det}")
+        log(f"    detector_scan/{det}: graph ms on {N_EVENTS} planted-drift "
+            f"events ({d_ms * 1e6 / N_EVENTS!r} ns an event); max_abs_err "
+            f"and plain_ms (host CPU) on the {DETECTOR_PLAIN_N}-event prefix")
+    adwin_kernel_checks(dev, record, err, many, nonbinary)
 
 
-def adwin_kernel_checks(dev, record, err, many) -> None:
-    """ADWIN's one-warp kernel bitwise its plain loop on the card on a
-    prefix of the many-drift stream (the loop launches some 300 kernels
-    an event), and bitwise its serial witness on the whole planted-drift
-    and many-drift batches (0/1 errors: whole-number bucket sums);
-    graph-timed with ns an event; the bound is the bytes (each error read
-    once, the state read and written once)."""
+def adwin_kernel_checks(dev, record, err, many, nonbinary) -> None:
+    """ADWIN's kernel (``adwin_scan_kernel``: cut tests across the grid,
+    a rebase only where a drift's drop removes a bucket) bitwise its
+    plain loop on the card on a prefix of the many-drift stream (the loop
+    launches some 300 kernels an event), level for level; on the whole
+    planted-drift, many-drift and ``int8_ef``-decoded batches against
+    its serial witness (every level, and the state bitwise on the 0/1
+    streams, within rtol 1e-5 on the decoded one), its one-warp witness
+    (the previous kernel: the state bitwise on the 0/1 streams) and
+    ``ref.adwin_scan_restart_ref`` on the card (every level, the state
+    bitwise); from a carried state mid-burst. Graph-timed beside both
+    witnesses, with its rounds, events at DRIFT and rebases; the bound
+    is the row's yardstick (``ops._adwin_work``)."""
     import torch
     from repro_torch.kernels import detector_scan as ds
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.streams import drift
 
-    def same(a, b):
-        (sa, fa), (sb, fb) = a, b
-        return bool(fa) == bool(fb) and all(
-            torch.equal(x.cpu(), y.cpu()) for x, y in zip(sa, sb))
+    def bitwise(a, b):
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+    def rel_err(a, b):
+        return max(float(((x.cpu().double() - y.cpu().double()).abs()
+                          / y.cpu().double().abs().clamp(min=1.0)).max())
+                   for x, y in zip(a, b))
+
+    def scan(state, e):
+        before = ds.adwin_stats(dev).clone()
+        st, flag, lv = ds.detector_scan_cuda("adwin", state, e, levels=True)
+        return st, flag, lv, (ds.adwin_stats(dev) - before).tolist()
 
     init = drift.adwin_init(dev)
     part = many[:ADWIN_PLAIN_N]
-    got = ds.detector_scan_cuda("adwin", init, part)
+    got, gflag, glv, _ = scan(init, part)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = ds.detector_scan_plain("adwin", init, part)
+    pst, plv = drift.run_detector(drift.adwin_step, init, part)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    part_ms = median_ms(lambda: ds.detector_scan_cuda("adwin", init, part), 5)
-    bitwise = same(got, plain)
+    pflag = bool((plv == drift.DRIFT).any())
+    ok = bitwise(got, pst) and bool(gflag) == pflag and torch.equal(glv, plv)
     # the row's error: the kernel against the plain loop on the prefix
-    err_plain = max([float(bool(got[1]) != bool(plain[1]))] + [
+    err_plain = max([float(bool(gflag) != pflag)] + [
         float((x.cpu().double() - y.cpu().double()).abs().max())
-        for x, y in zip(got[0], plain[0])])
+        for x, y in zip(got, pst)])
     log(f"  detector_scan (ADWIN) on {ADWIN_PLAIN_N} many-drift events: "
-        f"bitwise the plain loop on the card {bitwise} (drifted "
-        f"{bool(plain[1])}, n_buckets {plain[0].n_buckets.tolist()}); "
-        f"kernel {part_ms!r} ms, plain {plain_ms!r} ms (one run)")
-    if not bitwise:
+        f"bitwise the plain loop on the card, level for level {ok} "
+        f"(drifted {pflag}, {int((plv == drift.DRIFT).sum())} events at "
+        f"DRIFT, n_buckets {pst.n_buckets.tolist()}); plain {plain_ms!r} ms "
+        "(one run)")
+    if not ok:
         raise AssertionError("detector scan (adwin) differs from its plain "
                              "loop")
-    for what, e in (("planted drift", err), ("many drifts", many)):
-        got = ds.detector_scan_cuda("adwin", init, e)
-        wit = ds.detector_scan_serial_cuda("adwin", init, e)
-        ok = same(got, wit)
-        e_ms = graph_ms(lambda: ds.detector_scan_cuda("adwin", init, e), 3)
-        eager = median_ms(lambda: ds.detector_scan_cuda("adwin", init, e), 3)
+    nb_part = nonbinary[:ADWIN_PLAIN_N // 4]      # ~3 s of the loop
+    gst, gflag, glv, _ = scan(init, nb_part)
+    pst, plv = drift.run_detector(drift.adwin_step, init, nb_part)
+    ok = torch.equal(glv, plv) and bool(gflag) == bool(
+        (plv == drift.DRIFT).any()) and rel_err(gst, pst) <= 1e-5
+    log(f"  detector_scan (ADWIN) on {nb_part.numel()} int8_ef-decoded "
+        f"events: levels and flag the plain loop's {ok}, state bitwise "
+        f"{bitwise(gst, pst)} (rel err {rel_err(gst, pst)!r})")
+    if not ok:
+        raise AssertionError("detector scan (adwin) on decoded errors "
+                             "differs from its plain loop")
+    for what, e in (("planted drift", err), ("many drifts", many),
+                    ("int8_ef errors", nonbinary)):
+        binary = what != "int8_ef errors"
+        got, gflag, glv, (rounds, drifts, rebases) = scan(init, e)
+        wst, wflag, wlv = ds.detector_scan_serial_cuda("adwin", init, e,
+                                                       levels=True)
+        vst, vflag = ds.adwin_warp_witness_cuda(init, e)
+        # any window gives the same levels and state
+        rst, rlv = ref.adwin_scan_restart_ref(init, e, 2112)
+        levels_ok = torch.equal(glv, wlv) and torch.equal(glv, rlv)
+        flags_ok = bool(gflag) == bool(wflag) == bool(vflag) == bool(
+            (wlv == drift.DRIFT).any())
+        if binary:
+            state_ok = bitwise(got, wst) and bitwise(got, vst) and \
+                bitwise(got, rst)
+        else:
+            state_ok = rel_err(got, wst) <= 1e-5 and bitwise(got, rst)
+        e_ms = graph_ms(lambda: ds.detector_scan_cuda("adwin", init, e), 20)
+        eager = median_ms(lambda: ds.detector_scan_cuda("adwin", init, e), 5)
+        v_ms = graph_ms(lambda: ds.adwin_warp_witness_cuda(init, e), 2)
         w_ms = median_ms(lambda: ds.detector_scan_serial_cuda(
             "adwin", init, e), 1, warmup=0, trials=1)     # ~1 s a call
         log(f"  detector_scan (ADWIN) on {what} ({e.numel()} events): "
-            f"bitwise the serial witness {ok}; drifted {bool(got[1])}; graph "
-            f"ms {e_ms!r} [eager {eager!r}] ({e_ms * 1e6 / e.numel()!r} ns "
-            f"an event); the serial witness {w_ms!r} ms "
-            f"({w_ms * 1e6 / e.numel()!r} ns an event)")
-        if not ok:
+            f"levels the serial witness's and the ref's {levels_ok}, flags "
+            f"{flags_ok}, state {'bitwise' if binary else 'within 1e-5 of'} "
+            f"the witnesses {state_ok} (serial bitwise {bitwise(got, wst)}); "
+            f"{drifts} events at DRIFT, {rebases} rebases, {rounds} rounds; "
+            f"graph ms {e_ms!r} [eager {eager!r}] "
+            f"({e_ms * 1e6 / e.numel()!r} ns an event); one-warp witness "
+            f"graph ms {v_ms!r}; serial witness {w_ms!r} ms")
+        if not (levels_ok and flags_ok and state_ok):
             raise AssertionError(f"detector scan (adwin) on {what} differs "
-                                 "from its serial witness")
+                                 "from its witnesses")
+        if not e_ms < v_ms:
+            raise AssertionError(f"detector scan (adwin) on {what}: {e_ms!r} "
+                                 f"ms, not faster than its one-warp witness "
+                                 f"({v_ms!r} ms)")
         if what == "planted drift":
             nops, nbytes = ops._adwin_work(e)
             record("detector_scan",
@@ -753,6 +824,39 @@ def adwin_kernel_checks(dev, record, err, many) -> None:
                    e_ms, plain_ms, nbytes, nops, row=ADWIN_ROW)
             log(f"    {ADWIN_ROW}: ms on {e.numel()} events; max_abs_err and "
                 f"plain_ms on the {ADWIN_PLAIN_N}-event prefix")
+    # from a state carried mid-burst: the many-drift stream's first 517
+    # events (its first drift) continued by the whole batch
+    mid, _ = ds.detector_scan_serial_cuda("adwin", init, many[:517])
+    got, gflag, glv, (rounds, drifts, rebases) = scan(mid, many)
+    wst, wflag, wlv = ds.detector_scan_serial_cuda("adwin", mid, many,
+                                                   levels=True)
+    ok = bitwise(got, wst) and bool(gflag) == bool(wflag) and \
+        torch.equal(glv, wlv)
+    log(f"  detector_scan (ADWIN) from a carried state on many drifts: "
+        f"bitwise the serial witness, level for level {ok} ({drifts} events "
+        f"at DRIFT, {rebases} rebases, {rounds} rounds)")
+    if not ok:
+        raise AssertionError("detector scan (adwin) from a carried state "
+                             "differs from its serial witness")
+    # the state carried from call to call, as the drift op carries it:
+    # the many-drift batch in calls of phase 19b's 512 events (the final
+    # buckets mostly carried ones), against the serial witness's one call
+    st, flags, lvs = init, [], []
+    for part in many.split(ADWIN_SMALL[1]):
+        st, flag, lv = ds.detector_scan_cuda("adwin", st, part, levels=True)
+        flags.append(flag)
+        lvs.append(lv)
+    wst, wflag, wlv = ds.detector_scan_serial_cuda("adwin", init, many,
+                                                   levels=True)
+    ok = bitwise(st, wst) and torch.equal(torch.cat(lvs), wlv) and \
+        bool(torch.stack(flags).any()) == bool(wflag)
+    log(f"  detector_scan (ADWIN) over many drifts in {len(lvs)} calls of "
+        f"{ADWIN_SMALL[1]} events, the state carried: bitwise the serial "
+        f"witness's one call, level for level {ok}")
+    if not ok:
+        raise AssertionError("detector scan (adwin) with the state carried "
+                             "from call to call differs from its serial "
+                             "witness")
 
 
 NORM_TOL = 1e-4     # rtol and atol: raw moments (kernel) against centred
@@ -1357,6 +1461,18 @@ def serving_kernel_checks(dev, g, record):
 PAD_FLASH_DIMS = (32, 96, 192)   # -> 64, 128, 256
 PAD_WKV_HS = (32, 96)            # -> 64, 128
 PAD_MAMBA_N = (8, 24)            # -> 16, 32
+# one size above each kernel's largest built one: flash's wide kernel,
+# WKV as (key block, value block) heads of 128, Mamba as groups of <= 64
+# states (two launches at 80); rows of their own, with 0 launches
+ABOVE_FLASH_D, ABOVE_WKV_HS, ABOVE_MAMBA_N = 320, 160, 80
+# a head dim whose 16 rows of fp32 accumulator do not fit a block's shared
+# memory: the wide kernel keeps them in scratch (held, not timed)
+FLASH_SCRATCH_D = 4000
+ABOVE_ROWS = tuple(
+    [f"flash_attention/d{ABOVE_FLASH_D}{t}"
+     for t in ("", "/decode", "/causal", "/fp32")]
+    + [f"rwkv6_wkv/hs{ABOVE_WKV_HS}{t}" for t in ("", "/decode", "/fp32")]
+    + [f"mamba_scan/N{ABOVE_MAMBA_N}{t}" for t in ("", "/decode")])
 # the kernels' largest sizes, above every shipped config's: rows of their
 # own in the kernels line, with 0 launches (no main path runs them)
 WIDE_ROWS = ("flash_attention/d256", "flash_attention/decode/d256",
@@ -1368,10 +1484,15 @@ WIDE_ROWS = ("flash_attention/d256", "flash_attention/decode/d256",
 def pad_route_checks(dev, g, record, which):
     """The dispatching wrappers' pad routes on the card: flash attention
     at head dims 32, 96 and 192, WKV at head sizes 32 and 96, Mamba at 8
-    and 24 states, each zero-padded up to the next built size. Every call is one launch of
-    the kernel plus the pads' copies (its CUDA graph's node list), held
-    to the plain version at the original size with the tolerance of the
-    rows it extends; the row's bound is the original size's work."""
+    and 24 states, each zero-padded up to the next built size; and one
+    size above each largest built size: flash D 320 (the wide kernel),
+    WKV hs 160 (blocks of 128 as heads of one call), Mamba N 80 (groups
+    of 64 and 16 states, a launch each). Every call is one launch of
+    the kernel (Mamba N 80: two) plus the pads' copies (its CUDA graph's
+    node list), held to the plain version at the original size with the
+    tolerance of the rows it extends; the row's bound is the original
+    size's work. Flash at D 4,000 (its accumulator in scratch) is held
+    to its plain version too, untimed."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
@@ -1380,23 +1501,24 @@ def pad_route_checks(dev, g, record, which):
 
     bf16_eps = float(torch.finfo(torch.bfloat16).eps)
 
-    def one_kernel(row, fn, tag):
+    def one_kernel(row, fn, tag, want=1):
         nodes = kernels_in_graph(fn)
         hits = [n for n in nodes if tag in n]
         log(f"  {row}: one call's CUDA graph: {nodes}")
-        if len(hits) != 1:
+        if len(hits) != want:
             raise AssertionError(f"{row}: {len(hits)} {tag} kernels in one "
                                  f"call's graph: {nodes}")
 
     if "flash" in which:
         B, H, T = SERVE_BATCH, 16, PROMPT
-        for D in PAD_FLASH_DIMS:
+        for D, name in [(d, f"pad_d{d}") for d in PAD_FLASH_DIMS] + [
+                (ABOVE_FLASH_D, f"d{ABOVE_FLASH_D}")]:
             for tag, S, causal, dtype in (
                     ("", PROMPT, False, torch.bfloat16),
                     ("/decode", 1, False, torch.bfloat16),
                     ("/causal", PROMPT, True, torch.bfloat16),
                     ("/fp32", PROMPT, False, torch.float32)):
-                row = f"flash_attention/pad_d{D}{tag}"
+                row = f"flash_attention/{name}{tag}"
                 es = torch.finfo(dtype).bits // 8
                 q, k, v = flash_inputs(g, dev, dtype, B, S, T, H, H, D)
                 got = fa.flash_attention(q, k, v, causal=causal)
@@ -1427,14 +1549,33 @@ def pad_route_checks(dev, g, record, which):
                        tensor_ops=mm if es == 2 else 0, library_ms=lib_ms,
                        library=backend, row=row)
                 del q, k, v, got, want
+        for causal, dtype in ((True, torch.float32), (False, torch.bfloat16)):
+            q, k, v = flash_inputs(g, dev, dtype, 2, 17, 70, 4, 2,
+                                   FLASH_SCRATCH_D)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            err = float((got.float() - want.float()).abs().max())
+            tol = (bf16_eps if dtype == torch.bfloat16 else 1e-4) * float(
+                want.float().abs().max())
+            log(f"  flash_attention at D {FLASH_SCRATCH_D} ({dtype}, causal "
+                f"{causal}; the accumulator in scratch: "
+                f"{not fa._lib().flash_wide_in_smem(FLASH_SCRATCH_D)}): "
+                f"max_abs_err={err!r} tol={tol!r}")
+            if not err <= tol:
+                raise AssertionError(f"flash_attention at D {FLASH_SCRATCH_D}"
+                                     " disagrees with its plain version")
+            del q, k, v, got, want
     if "wkv" in which:
         B, chunk = SERVE_BATCH, WKV_CHUNK
-        for hs, tag, S, dtype in ((hs, tag, S, dtype) for hs in PAD_WKV_HS
-                                  for tag, S, dtype in (
-                                      ("", PROMPT, torch.bfloat16),
-                                      ("/decode", 1, torch.bfloat16),
-                                      ("/fp32", PROMPT, torch.float32))):
-            row = f"rwkv6_wkv/pad_hs{hs}{tag}"
+        sizes = [(hs, f"pad_hs{hs}") for hs in PAD_WKV_HS] + [
+            (ABOVE_WKV_HS, f"hs{ABOVE_WKV_HS}")]
+        for hs, name, tag, S, dtype in (
+                (hs, name, tag, S, dtype) for hs, name in sizes
+                for tag, S, dtype in (
+                    ("", PROMPT, torch.bfloat16),
+                    ("/decode", 1, torch.bfloat16),
+                    ("/fp32", PROMPT, torch.float32))):
+            row = f"rwkv6_wkv/{name}{tag}"
             es = torch.finfo(dtype).bits // 8
             args = wkv_inputs(g, dev, B, S, hs, dtype)
             o, h = ops.rwkv6_wkv(*args, chunk=chunk)
@@ -1463,9 +1604,12 @@ def pad_route_checks(dev, g, record, which):
             del args, o, h, po, ph
     if "mamba" in which:
         B, dI = MAMBA_B, MAMBA_DI
-        for N, tag, S in ((N, tag, S) for N in PAD_MAMBA_N
-                          for tag, S in (("", MAMBA_CHECK_S), ("/decode", 1))):
-            row = f"mamba_scan/pad_N{N}{tag}"
+        sizes = [(N, f"pad_N{N}") for N in PAD_MAMBA_N] + [
+            (ABOVE_MAMBA_N, f"N{ABOVE_MAMBA_N}")]
+        for N, name, tag, S in ((N, name, tag, S) for N, name in sizes
+                                for tag, S in (("", MAMBA_CHECK_S),
+                                               ("/decode", 1))):
+            row = f"mamba_scan/{name}{tag}"
             ins = mamba_inputs(g, dev, S, N)
             y, h = ops.mamba_scan(*ins, chunk=MAMBA_CHUNK)
             t0 = time.perf_counter()
@@ -1481,7 +1625,7 @@ def pad_route_checks(dev, g, record, which):
             if excess > 0.0:
                 raise AssertionError(f"{row}: outside rtol=atol={MAMBA_TOL}")
             call = lambda: ops.mamba_scan(*ins, chunk=MAMBA_CHUNK)
-            one_kernel(row, call, "mamba")
+            one_kernel(row, call, "mamba", len(ms.state_groups(N)))
             err = max(float((y - py).abs().max()), float((h - ph).abs().max()))
             tol = MAMBA_TOL * (1 + float(torch.maximum(py.abs().max(),
                                                        ph.abs().max())))
@@ -3534,7 +3678,7 @@ STRAT_K = 256
 TRAIN_MODES_STEPS = 3            # 13e: one eager step, then two replays
 # kernels a captured segment holds, by the wrapper counter they count in
 GRAPH_KERNELS = {"ddm_tiled_kernel": "detector_scan",
-                 "adwin_warp_kernel": "detector_scan"}
+                 "adwin_scan_kernel": "detector_scan"}
 
 
 def hand_kernel_names() -> list:
@@ -4186,7 +4330,7 @@ def adwin_phase(dev, batches) -> dict:
         log(f"    graph of {list(names)}: {len(nodes)} nodes, replays "
             f"{replays}; hand kernels {hand}")
         if "drift" in names:
-            drift_nodes = [n for n in nodes if "adwin_warp_kernel" in n]
+            drift_nodes = [n for n in nodes if "adwin_scan_kernel" in n]
     if not (same and masks and outs_ok and st_ok):
         raise AssertionError("adwin job: fuse='xla' differs from fuse='op'")
     if len(drift_nodes) != 1:
@@ -5898,9 +6042,10 @@ def main(argv=None) -> int:
                                if c.family == "vlm")
     vlm_rows = {f"flash_attention/vlm_b{SERVE_BATCH}{tag}": path_counts[
         vlm_path]["flash_attention"] for tag in ("", "_decode")}
-    # ADWIN's row: its launches on phase 19's path; the largest sizes'
-    # rows: none
-    path_rows = {**vlm_rows, **dict.fromkeys(WIDE_ROWS, 0),
+    # ADWIN's row: its launches on phase 19's path; the largest sizes',
+    # the sizes above them and EDDM's and PH's rows: none
+    path_rows = {**vlm_rows, **dict.fromkeys(WIDE_ROWS + ABOVE_ROWS
+                                             + DETECTOR_ROWS, 0),
                  ADWIN_ROW: path_counts["adwin"]["detector_scan"]}
     kernels = []
     for k, row in rows.items():

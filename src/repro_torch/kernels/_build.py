@@ -112,15 +112,16 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def device_stats(store: dict, device) -> "torch.Tensor":
-    """The int64 (2,) counters on ``device`` that a kernel adds to at each
-    launch (``store`` maps each device to its tensor), made at first use."""
+def device_stats(store: dict, device, size: int = 2) -> "torch.Tensor":
+    """The int64 (``size``,) counters on ``device`` that a kernel adds to
+    at each launch (``store`` maps each device to its tensor), made at
+    first use."""
     import torch
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if dev not in store:
-        store[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+        store[dev] = torch.zeros(size, dtype=torch.int64, device=dev)
     return store[dev]
 
 

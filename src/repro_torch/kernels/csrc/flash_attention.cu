@@ -874,6 +874,140 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// head dims above 256, either type, on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int WBQ = 16;   // query rows a block of the wide kernel
+constexpr int WDC = 32;   // head-dim chunk its products walk
+constexpr int WBK = 32;   // keys per KV tile
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_f(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// Bytes of flash_fwd_wide's shared memory at head dim D; acc_in_smem:
+// the output accumulator (WBQ x D floats) lives there too
+__host__ __device__ inline size_t wide_smem(int D, bool acc_in_smem) {
+  return sizeof(float) * (WBQ * WDC + WBK * (WDC + 1) + WBQ * WBK + 3 * WBQ +
+                          (acc_in_smem ? (size_t)WBQ * D : 0));
+}
+
+// grid (ceil(S / 16), H, B); 16 query rows of one (b, h) a block, any D.
+// S = Q K^T walks D in chunks of 32 (Q's and K's chunks staged in shared
+// memory, four scores a thread); the online softmax takes a row a warp
+// pass; O += P V walks D in chunks of 32 again, V's chunk staged, each
+// thread four (row, dim) accumulators. The accumulator (16 x D fp32) is in
+// shared memory, or, where it does not fit (acc != null), in acc, the
+// block's 16 x D floats of scratch.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_wide(Args a, int D, float* __restrict__ acc_g) {
+  extern __shared__ float smw[];
+  float* qc = smw;                       // [WBQ][WDC]
+  float* kc = qc + WBQ * WDC;            // [WBK][WDC + 1]: K's, then V's chunk
+  float* sc = kc + WBK * (WDC + 1);      // [WBQ][WBK]: scores, then P
+  float* rm = sc + WBQ * WBK;            // [WBQ]: m
+  float* rl = rm + WBQ;                  // [WBQ]: l
+  float* ra = rl + WBQ;                  // [WBQ]: this tile's alpha
+  const int q0 = blockIdx.x * WBQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  float* acc = acc_g == nullptr
+                   ? ra + WBQ
+                   : acc_g + (((size_t)b * gridDim.y + h) * gridDim.x +
+                              blockIdx.x) * WBQ * D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* qg = (const T*)a.q + b * a.qs.b + h * a.qs.h;
+  const T* kg = (const T*)a.k + b * a.ks.b + kvh * a.ks.h;
+  const T* vg = (const T*)a.v + b * a.vs.b + kvh * a.vs.h;
+  for (int i = tid; i < WBQ * D; i += THREADS) acc[i] = 0.f;
+  if (tid < WBQ) {
+    rm[tid] = NEG_INF;
+    rl[tid] = 0.f;
+  }
+  // this thread's scores: row sr, keys sk + 8 j
+  const int sr = tid / 8, sk = tid % 8;
+  int n_tiles = (a.T + WBK - 1) / WBK;
+  if (a.causal) n_tiles = min(n_tiles, (min(q0 + WBQ, a.S) - 1) / WBK + 1);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * WBK;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d0 = 0; d0 < D; d0 += WDC) {
+      __syncthreads();   // the chunks before are no longer read
+      for (int i = tid; i < WBQ * WDC; i += THREADS) {
+        const int r = i / WDC, d = d0 + i % WDC, qpos = q0 + r;
+        qc[i] = (qpos < a.S && d < D)
+                    ? to_f(qg[(long long)qpos * a.qs.s + d]) : 0.f;
+      }
+      for (int i = tid; i < WBK * WDC; i += THREADS) {
+        const int r = i / WDC, c = i % WDC, d = d0 + c, kpos = k0 + r;
+        kc[r * (WDC + 1) + c] = (kpos < a.T && d < D)
+            ? to_f(kg[(long long)kpos * a.ks.s + d]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < WDC; ++c) {
+        const float qv = qc[sr * WDC + c];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[j] += qv * kc[(sk + 8 * j) * (WDC + 1) + c];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kpos = k0 + sk + 8 * j, qpos = q0 + sr;
+      const bool valid = kpos < a.T && (!a.causal || kpos <= qpos);
+      sc[sr * WBK + sk + 8 * j] = valid ? s[j] * a.scale : NEG_INF;
+    }
+    __syncthreads();
+    // online softmax: warp w takes rows 4w .. 4w + 3, a key a lane
+    for (int rr = 0; rr < WBQ / (THREADS / 32); ++rr) {
+      const int row = warp * (WBQ / (THREADS / 32)) + rr;
+      const float x = sc[row * WBK + lane];
+      const float m_old = rm[row];
+      const float m_new = fmaxf(m_old, warp_max(x));
+      const float p = expf(x - m_new);
+      const float sum = warp_sum(p);
+      sc[row * WBK + lane] = p;
+      __syncwarp();
+      if (lane == 0) {
+        const float al = expf(m_old - m_new);
+        rl[row] = rl[row] * al + sum;
+        rm[row] = m_new;
+        ra[row] = al;
+      }
+    }
+    // O = O alpha + P V, V's chunks staged where K's were
+    for (int d0 = 0; d0 < D; d0 += WDC) {
+      __syncthreads();
+      for (int i = tid; i < WBK * WDC; i += THREADS) {
+        const int r = i / WDC, c = i % WDC, d = d0 + c, kpos = k0 + r;
+        kc[r * (WDC + 1) + c] = (kpos < a.T && d < D)
+            ? to_f(vg[(long long)kpos * a.vs.s + d]) : 0.f;
+      }
+      __syncthreads();
+      for (int i = tid; i < WBQ * WDC; i += THREADS) {
+        const int r = i / WDC, c = i % WDC, d = d0 + c;
+        if (d >= D) continue;
+        float o = acc[r * D + d] * ra[r];
+#pragma unroll 8
+        for (int j = 0; j < WBK; ++j) o += sc[r * WBK + j] * kc[j * (WDC + 1) + c];
+        acc[r * D + d] = o;
+      }
+    }
+  }
+  __syncthreads();
+  T* og = (T*)a.o;
+  for (int i = tid; i < WBQ * D; i += THREADS) {
+    const int r = i / D, d = i % D, qpos = q0 + r;
+    if (qpos < a.S)
+      from_f(og + (((size_t)b * a.S + qpos) * a.H + h) * D + d,
+             acc[i] / fmaxf(rl[r], 1e-30f));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -886,6 +1020,32 @@ int launch(K kernel, dim3 grid, size_t smem, const Args& a,
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<grid, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// head dims above 256: flash_fwd_wide, its accumulator in shared memory
+// where it fits (else in acc, ceil(S / 16) * 16 * H * B * D floats)
+int launch_wide(const Args& a, int D, int dtype, float* acc,
+                cudaStream_t st) {
+  const dim3 grid((a.S + WBQ - 1) / WBQ, a.H, a.B);
+  const size_t smem = wide_smem(D, acc == nullptr);
+  if (dtype == 0) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          flash_fwd_wide<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    flash_fwd_wide<float><<<grid, THREADS, smem, st>>>(a, D, acc);
+  } else {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          flash_fwd_wide<bf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    flash_fwd_wide<bf16><<<grid, THREADS, smem, st>>>(a, D, acc);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -909,7 +1069,9 @@ int launch_d(const Args& a, int dtype, cudaStream_t st) {
 
 // q (B, S, H, D), k and v (B, T, KV, D), each with element strides
 // (batch, position, head); o (B, S, H, D) contiguous. dtype: 0 = float32,
-// 1 = bfloat16; D in {16, 64, 128, 256}. kv_splits: 0 for the 64-row kernel; for
+// 1 = bfloat16; D in {16, 64, 128, 256}, or any multiple of 8 above 256
+// (flash_fwd_wide, kv_splits 0; part: null, or where its accumulator does
+// not fit shared memory, wide_acc_floats of scratch). kv_splits: 0 for the 64-row kernel; for
 // bf16 with (H / KV) * S <= 16, n >= 1 for the decode kernel with T split
 // over n blocks (n > 1 needs part, B*KV*n*16*(D+2) floats, and counters, B*KV
 // ints at zero). scale multiplies the scores: 1/sqrt(D) where it is 0, the
@@ -958,6 +1120,10 @@ extern "C" int flash_attention_fwd(
   a.counters = (int*)counters;
   a.scale = scale > 0.0f ? scale : 1.0f / sqrtf((float)D);
   cudaStream_t st = (cudaStream_t)stream;
+  if (D > 256) {
+    if (D % 8 != 0 || kv_splits != 0) return (int)cudaErrorInvalidValue;
+    return launch_wide(a, D, dtype, (float*)part, st);
+  }
   switch (D) {
     case 16:
       return launch_d<16>(a, dtype, st);
@@ -970,4 +1136,15 @@ extern "C" int flash_attention_fwd(
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Whether flash_fwd_wide keeps its accumulator at head dim D in shared
+// memory (1), or needs part (0).
+extern "C" int flash_wide_in_smem(int D) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return wide_smem(D, true) <= (size_t)optin ? 1 : 0;
 }

@@ -1,25 +1,34 @@
-"""The drift op's detector scan: the CUDA kernel of
-``csrc/detector_scan.cu`` beside its plain version, a loop of the
+"""The drift op's detector scan: the CUDA kernels of
+``csrc/detector_scan.cu`` beside their plain version, a loop of the
 ``streams/drift.py`` step functions.
 
 The JAX package scans DDM, EDDM, Page-Hinkley and ADWIN over a batch's
 error stream with ``jax.lax.scan`` (``core/pipeline.py`` drift_op); it
 has no Pallas kernel for it. A loop of torch steps on the card would
 launch some 25 kernels per event (ADWIN's some 300), so the scan is one
-kernel launch a call. It is bound by the latency of its dependent chain,
-not by bytes or operations. For DDM the kernel keeps only ``p`` on the
-chain (one thread per tile, with ``n`` and half of each divide computed
-ahead for the tile), computes ``s``, the running ``(p_min, s_min)`` pair
-and the levels for the whole tile in parallel, and restarts the chain
-after the first event at DRIFT (``kernels/ref.py::ddm_scan_restart_ref``
-spells it out); EDDM and Page-Hinkley walk one thread; ADWIN runs on one
-warp (lane 0 inserts and cascades, the warp takes the 60 cut points by
-shuffles and a ballot). The kernel and the plain loop agree bitwise,
-level for level: every step is repeated in fp32 without contracted
-multiply-adds (ADWIN on 0/1 errors, whose bucket sums are whole
-numbers; on other errors its prefix adds in another order).
-``detector_scan_serial_cuda`` walks every kind on one thread, the DDM
-and ADWIN kernels' witness off every main path, not counted.
+kernel launch a call. DDM's and ADWIN's kernels take off the chain all
+the work that does not feed the next step. For DDM the kernel keeps only
+``p`` on the chain (one thread per tile, with ``n`` and half of each
+divide computed ahead for the tile), computes ``s``, the running
+``(p_min, s_min)`` pair and the levels for the whole tile in parallel,
+and restarts the chain after the first event at DRIFT
+(``kernels/ref.py::ddm_scan_restart_ref`` spells it out). For ADWIN the
+bucket layout is a counter in closed form and every bucket a run of one
+stream, so each event's 60 cut tests are differences of one fp64 prefix
+sum and run across the grid, a warp an event; only a drift whose drop
+removes a bucket rebases the events after it (one cooperative launch,
+rounds of a window of events and a grid minimum;
+``kernels/ref.py::adwin_scan_restart_ref`` spells it out, and
+:func:`adwin_stats` counts its rounds, events at DRIFT and rebases).
+EDDM and Page-Hinkley walk one thread. The kernels and the plain loop
+agree bitwise, level for level: every step is repeated in fp32 without
+contracted multiply-adds (ADWIN on 0/1 errors, whose bucket sums are
+whole numbers; on other errors its cut tests' sums round once from fp64
+where the loop accumulates in fp32, and its final sums are rebuilt in
+the loop's order). ``detector_scan_serial_cuda`` walks every kind on one
+thread, the DDM and ADWIN kernels' witness; ``adwin_warp_witness_cuda``
+runs ADWIN's previous kernel (one warp); both are off every main path
+and not counted.
 
 :func:`detector_scan` launches the kernel for a CUDA tensor, runs the
 plain loop for a CPU tensor, and raises for any other device.
@@ -41,20 +50,23 @@ STEPS = {"ddm": drift_mod.ddm_step, "eddm": drift_mod.eddm_step,
          "ph": drift_mod.ph_step, "adwin": drift_mod.adwin_step}
 
 _P = ctypes.c_void_p
+_L = ctypes.c_longlong
 _STATS = {}    # device -> int64 (2,): events the DDM chain walked, restarts
+_ADWIN_STATS = {}   # device -> int64 (3,): rounds, events at DRIFT, rebases
 
 
 def _lib():
     lib = _build.library("detector_scan")
     if not getattr(lib, "_typed", False):
-        lib.detector_scan.argtypes = [_P, ctypes.c_longlong, ctypes.c_int,
-                                      _P, _P, _P, _P, _P]
+        lib.detector_scan.argtypes = [_P, _L, ctypes.c_int] + [_P] * 7
         lib.detector_scan.restype = ctypes.c_int
-        lib.detector_scan_serial.argtypes = [_P, ctypes.c_longlong,
-                                             ctypes.c_int, _P, _P, _P, _P]
+        lib.detector_scan_serial.argtypes = [_P, _L, ctypes.c_int] + [_P] * 5
         lib.detector_scan_serial.restype = ctypes.c_int
-        lib.detector_divide_check.argtypes = [_P, _P, ctypes.c_longlong,
-                                              _P, _P]
+        lib.adwin_warp_witness.argtypes = [_P, _L] + [_P] * 4
+        lib.adwin_warp_witness.restype = ctypes.c_int
+        lib.adwin_scratch_bytes.argtypes = [_L]
+        lib.adwin_scratch_bytes.restype = _L
+        lib.detector_divide_check.argtypes = [_P, _P, _L, _P, _P]
         lib.detector_divide_check.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -64,6 +76,12 @@ def chain_stats(device) -> torch.Tensor:
     """The card's running ``[events the DDM chain walked, restarts]``
     (int64), summed over the DDM kernel's launches on ``device``."""
     return _build.device_stats(_STATS, device)
+
+
+def adwin_stats(device) -> torch.Tensor:
+    """The card's running ``[rounds, events at DRIFT, rebases]`` (int64),
+    summed over the ADWIN kernel's launches on ``device``."""
+    return _build.device_stats(_ADWIN_STATS, device, 3)
 
 
 def detector_scan_plain(detector: str, state, err: torch.Tensor):
@@ -101,41 +119,79 @@ def _unpack(detector: str, state, st: torch.Tensor, ints: torch.Tensor):
     return type(state)(*[st[i] for i in range(len(state) - 1)], ints[0])
 
 
-def _launch(detector: str, state, err: torch.Tensor, serial: bool):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(detector: str, state, err: torch.Tensor, route: str,
+            levels: bool = False):
+    """Launch ``route`` ("path", "serial" or "warp", ADWIN's one-warp
+    witness) on ``err``'s device: ``(state, drifted)``, and each event's
+    level (int32) with ``levels`` (the path's ADWIN kernel and the serial
+    witness)."""
     kind = KINDS[detector]
     dev = err.device
     st, level = _pack(detector, state, dev)
     drifted = torch.empty(1, dtype=torch.int32, device=dev)
     e = err.float().contiguous()
+    n = e.numel()
     lib = _lib()
+    lv = scratch = None
+    if levels or (route == "path" and detector == "adwin"):
+        lv = torch.empty(n, dtype=torch.int32, device=dev)
+    if route == "path" and detector == "adwin":
+        scratch = torch.empty(lib.adwin_scratch_bytes(n), dtype=torch.uint8,
+                              device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if serial:
-            rc = lib.detector_scan_serial(e.data_ptr(), e.numel(), kind,
+        if route == "serial":
+            rc = lib.detector_scan_serial(e.data_ptr(), n, kind,
                                           st.data_ptr(), level.data_ptr(),
-                                          drifted.data_ptr(), stream)
+                                          drifted.data_ptr(), _ptr(lv),
+                                          stream)
+        elif route == "warp":
+            rc = lib.adwin_warp_witness(e.data_ptr(), n, st.data_ptr(),
+                                        level.data_ptr(), drifted.data_ptr(),
+                                        stream)
         else:
-            rc = lib.detector_scan(e.data_ptr(), e.numel(), kind,
-                                   st.data_ptr(), level.data_ptr(),
-                                   drifted.data_ptr(),
-                                   chain_stats(dev).data_ptr(), stream)
-    _build.check(rc, "detector_scan_serial" if serial else "detector_scan")
-    return _unpack(detector, state, st, level), drifted[0] != 0
+            stats = adwin_stats(dev) if detector == "adwin" else \
+                chain_stats(dev)
+            rc = lib.detector_scan(e.data_ptr(), n, kind, st.data_ptr(),
+                                   level.data_ptr(), drifted.data_ptr(),
+                                   stats.data_ptr(), _ptr(scratch),
+                                   _ptr(lv), stream)
+    _build.check(rc, {"path": "detector_scan", "serial":
+                      "detector_scan_serial", "warp": "adwin_warp_witness"}
+                 [route])
+    out = (_unpack(detector, state, st, level), drifted[0] != 0)
+    return out + (lv,) if levels else out
 
 
-def detector_scan_cuda(detector: str, state, err: torch.Tensor):
-    """The detector-scan kernel: ``(final state, any event at DRIFT)``."""
+def detector_scan_cuda(detector: str, state, err: torch.Tensor, *,
+                       levels: bool = False):
+    """The detector-scan kernel: ``(final state, any event at DRIFT)``,
+    and each event's level with ``levels`` (ADWIN only)."""
     _build.refuse_autograd("detector_scan", state, err)
-    out = _launch(detector, state, err, serial=False)
+    if levels and detector != "adwin":
+        raise ValueError("detector_scan_cuda: levels are ADWIN's only")
+    out = _launch(detector, state, err, "path", levels)
     LAUNCHES["detector_scan"] += 1
     return out
 
 
-def detector_scan_serial_cuda(detector: str, state, err: torch.Tensor):
+def detector_scan_serial_cuda(detector: str, state, err: torch.Tensor, *,
+                              levels: bool = False):
     """The serial witness kernel (every event on one thread's chain): the
-    same ``(final state, any event at DRIFT)``. Off the main path; not
-    counted."""
-    return _launch(detector, state, err, serial=True)
+    same ``(final state, any event at DRIFT)``, and each event's level
+    with ``levels``. Off the main path; not counted."""
+    return _launch(detector, state, err, "serial", levels)
+
+
+def adwin_warp_witness_cuda(state, err: torch.Tensor):
+    """ADWIN's previous kernel (one warp: lane 0 inserts, the warp tests
+    the 60 cut points by shuffles): the same ``(final state, any event at
+    DRIFT)``. Off the main path; not counted."""
+    return _launch("adwin", state, err, "warp")
 
 
 def divide_check_cuda(a: torch.Tensor, b: torch.Tensor):

@@ -12,14 +12,19 @@ copy (a tensor whose last axis is not contiguous, or whose rows are not
 reference's (BH, S, D) API, a view of the same entry point with
 H = KV = 1. fp32 or bf16, head dims :data:`HEAD_DIMS`, causal
 (start-aligned, as the TPU kernel) or not. The dispatching wrappers take
-any head dim up to the largest built one: q, k and v of an unbuilt dim
-are zero-padded up to the next built dim (:func:`padded_head_dim`), the
-kernel scales the scores by the original dim's 1/sqrt (so they do not
-change), and the padded columns of the output are sliced off
-(:func:`padded_call`). A head dim above the largest built one is
-refused.
+any head dim: q, k and v of an unbuilt dim are zero-padded up to the
+next built dim (:func:`padded_head_dim`), the kernel scales the scores
+by the original dim's 1/sqrt (so they do not change), and the padded
+columns of the output are sliced off (:func:`padded_call`). Above the
+largest built dim (256) the scores need the whole head dim, so no split
+outside a kernel can serve it: ``flash_fwd_wide`` takes any multiple of
+8 there (a dim that is not is padded up to one, for the rows' 16-byte
+alignment), fp32 or bf16, on the CUDA cores, walking the head dim in
+chunks of 32 for Q K^T and for P V with its output accumulator in shared
+memory (in scratch where 16 rows of it do not fit), with the same
+semantics as the other kernels.
 
-bf16 runs on the tensor cores: the 64-row kernel, or for a step of at most
+Up to 256, bf16 runs on the tensor cores: the 64-row kernel, or for a step of at most
 :data:`DECODE_ROWS` query rows a (batch, KV head) the grouped decode
 kernel, with T split across blocks where the batch's KV heads cannot fill
 the card (:func:`kv_splits`). fp32 runs on the CUDA cores.
@@ -49,6 +54,8 @@ LAUNCHES = {"flash_attention": 0}
 # attention head of Gemma's published configurations); every dim up to
 # 256 reaches a kernel
 HEAD_DIMS = (16, 64, 128, 256)
+WIDE_ALIGN = 8         # the wide kernel's head dims: multiples of 8 above 256
+WIDE_ROWS = 16         # query rows a block of the wide kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_K = 64           # keys per KV tile
 DECODE_ROWS = 16       # query rows (H / KV heads x S) of the decode kernel
@@ -71,6 +78,8 @@ def _lib():
             [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [ctypes.c_float]
             + [_P] * 3)
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_wide_in_smem.argtypes = [_I]
+        lib.flash_wide_in_smem.restype = _I
         lib._typed = True
     return lib
 
@@ -78,7 +87,8 @@ def _lib():
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """What the kernels take: q (B, S, H, D) and k, v (B, T, KV, D) alike,
     H a multiple of KV, fp32 or bf16 alike (else ``TypeError``), D in
-    :data:`HEAD_DIMS`, one device, a contiguous last axis, and rows that
+    :data:`HEAD_DIMS` or a multiple of :data:`WIDE_ALIGN` above them, one
+    device, a contiguous last axis, and rows that
     start 16 bytes aligned (else ``ValueError``). Returns each tensor's
     (batch, position, head) element strides for the kernel."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -93,8 +103,10 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if dt not in _DTYPES or k.dtype != dt or v.dtype != dt:
         raise TypeError(f"flash_attention takes fp32 or bf16 alike, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if D not in HEAD_DIMS and not (D > max(HEAD_DIMS)
+                                   and D % WIDE_ALIGN == 0):
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS} "
+                         f"nor a multiple of {WIDE_ALIGN} above them")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
     out = []
@@ -151,14 +163,14 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def padded_head_dim(D: int) -> int:
-    """The built head dim a call at ``D`` runs at: ``D`` where it is
-    built, else the smallest built dim above it. ``ValueError`` above the
-    largest."""
-    wider = [d for d in HEAD_DIMS if d >= D]
-    if D < 1 or not wider:
-        raise ValueError(f"flash_attention: head dim {D} above the largest "
-                         f"built {max(HEAD_DIMS)}")
-    return min(wider)
+    """The head dim a call at ``D`` runs at: ``D`` where it is built, else
+    the smallest built dim above it; above the largest, the next multiple
+    of :data:`WIDE_ALIGN` (the wide kernel's). ``ValueError`` below 1."""
+    if D < 1:
+        raise ValueError(f"flash_attention: head dim {D} is not positive")
+    if D > max(HEAD_DIMS):
+        return -(-D // WIDE_ALIGN) * WIDE_ALIGN
+    return min(d for d in HEAD_DIMS if d >= D)
 
 
 def _scale(D: int) -> float:
@@ -193,9 +205,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "device")
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
-    splits = kv_splits(B, S, T, H, KV, q.dtype, causal)
+    wide = D > max(HEAD_DIMS)
+    splits = 0 if wide else kv_splits(B, S, T, H, KV, q.dtype, causal)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     part = counters = None
+    if wide and not _lib().flash_wide_in_smem(D):
+        part = torch.empty(-(-S // WIDE_ROWS) * WIDE_ROWS * B * H * D,
+                           dtype=torch.float32, device=dev)
     if splits > 1:
         part = torch.empty(B * KV * splits * DECODE_ROWS * (D + 2),
                            dtype=torch.float32, device=dev)

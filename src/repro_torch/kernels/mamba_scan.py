@@ -23,8 +23,11 @@ A state size that is not built, up to the largest built one, runs
 zero-padded up to the next built size (:func:`padded_state_size`,
 :func:`padded_call`): B, C, A and h0 are padded on the state axis (a zero
 B and a zero h0 keep the padded states at 0, whatever exp(dt A) is), and
-h_last is sliced back. A state size above the largest built one is
-refused.
+h_last is sliced back. The states of the recurrence are independent, and
+y is a sum over them: a state size above the largest built one runs as
+groups of at most 64 states (:func:`state_groups`), each padded so, one
+launch a group, their y summed in fp32 and their h_last concatenated.
+Every size of 1 or more reaches a kernel.
 
 It launches the kernel for a CUDA tensor, runs the plain version for a
 CPU tensor, and raises for any other device. The kernel has no
@@ -54,27 +57,41 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def state_groups(N: int):
+    """The groups a call at ``N`` states runs as: ``(first state, states,
+    built size)`` a group, 64 states a group from the first and what
+    remains last, each at the smallest built size at or above it.
+    ``ValueError`` below 1."""
+    if N < 1:
+        raise ValueError(f"mamba_scan: state size {N} is not positive")
+    top = max(STATE_SIZES)
+    return [(s, min(top, N - s),
+             min(n for n in STATE_SIZES if n >= min(top, N - s)))
+            for s in range(0, N, top)]
+
+
 def padded_state_size(N: int) -> int:
-    """The built state size a call at ``N`` runs at: ``N`` where it is
-    built, else the smallest built size above it. ``ValueError`` above
-    the largest."""
-    wider = [n for n in STATE_SIZES if n >= N]
-    if N < 1 or not wider:
-        raise ValueError(f"mamba_scan: state size {N} above the largest "
-                         f"built {max(STATE_SIZES)}")
-    return min(wider)
+    """The states a call at ``N`` runs at, over its groups: ``N`` where it
+    is built, else the smallest built size above it; above the largest,
+    the groups' built sizes summed. ``ValueError`` below 1."""
+    return sum(p for _, _, p in state_groups(N))
 
 
 def padded_call(fn, dt, x, Bm, Cm, A, h0, **kw):
-    """``fn`` (a selective scan) at the built state size
-    :func:`padded_state_size` gives: B, C, A and h0 zero-padded on the
-    state axis, h_last sliced back (y is unchanged)."""
+    """``fn`` (a selective scan) at the built state sizes
+    :func:`state_groups` gives: each group's B, C, A and h0 zero-padded on
+    the state axis, one call a group, y summed over the groups in fp32
+    (no term of y is outside the states), h_last sliced back and
+    concatenated."""
     N = Bm.shape[-1]
-    p = padded_state_size(N) - N
-    if not p:
-        return fn(dt, x, Bm, Cm, A, h0, **kw)
-    y, h = fn(dt, x, *(F.pad(t, (0, p)) for t in (Bm, Cm, A, h0)), **kw)
-    return y, h[..., :N]
+    ys, hs = None, []
+    for s, n, p in state_groups(N):
+        part = (t[..., s:s + n] if n < N else t for t in (Bm, Cm, A, h0))
+        y, h = fn(dt, x, *(F.pad(t, (0, p - n)) if p > n else t
+                           for t in part), **kw)
+        ys = y if ys is None else ys + y
+        hs.append(h[..., :n] if p > n else h)
+    return ys, hs[0] if len(hs) == 1 else torch.cat(hs, dim=-1)
 
 
 def _lib():
@@ -138,7 +155,8 @@ def mamba_scan_witness_cuda(dt, x, Bm, Cm, A, h0, *, chunk: int = 128,
 
 def mamba_scan(dt, x, Bm, Cm, A, h0, *, chunk: int = 128, bd: int = 256):
     """The selective scan on dt's device: kernel on CUDA (zero-padded
-    where N is not built), plain version on the CPU."""
+    where N is not built, in groups of 64 states above 64), plain version
+    on the CPU."""
     if dt.device.type == "cuda":
         return padded_call(mamba_scan_cuda, dt, x, Bm, Cm, A, h0,
                            chunk=chunk, bd=bd)

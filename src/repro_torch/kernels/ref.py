@@ -6,12 +6,13 @@ Each is the plain version its CUDA kernel is held against: the kernel
 wrappers run these for tensors on the CPU, the tests hold them to the
 JAX oracles, and ``chip_smoke.py`` holds each kernel to them on the
 card. They run on any device. ``mg_update_chunked_ref``,
-``ddm_scan_restart_ref``, ``rwkv6_wkv_chunked_ref``,
+``ddm_scan_restart_ref``, ``adwin_scan_restart_ref``,
+``rwkv6_wkv_chunked_ref``,
 ``hash_features_grouped_ref``, ``fused_normalize_slices_ref`` and
 ``mamba_scan_lanes_ref`` spell out the kernel algorithms of the two
 chained scans, of the WKV tensor-core kernel, of the staged hash kernel,
 of the persistent normalize and of the lane-split Mamba scan for the CPU
-tests only; nothing on a main path calls them.
+tests (and ``chip_smoke.py``) only; nothing on a main path calls them.
 """
 
 from __future__ import annotations
@@ -661,3 +662,179 @@ def ddm_scan_restart_ref(state, err, tile: int):
             level = lv[-1]
             base += m
     return type(state)(n_, p_, smin_, pmin_, level), levels
+
+
+# ---------------------------------------------------------------------------
+# ADWIN: the drift scan's decomposition (closed-form layout, prefix sums,
+# first cut, rebase), bitwise on 0/1 errors
+# ---------------------------------------------------------------------------
+
+ADWIN_LEVELS, ADWIN_M, ADWIN_HALF = 12, 5, 6
+
+
+def adwin_layout(nb, k):
+    """The buckets a level after ``k`` inserts from ``nb`` used a level
+    (levels 0..11), in closed form: level l with ``d = 5 - nb[l]`` free
+    slots and ``a`` arrivals (``a = k`` at level 0) holds ``nb[l] + a``
+    and sends nothing up where ``a <= d``; else it sends ``(a - d + 1) // 2``
+    merged buckets up and holds 5 if ``a - d`` is even, 4 if odd. What
+    level 11 sends leaves the window. ``nb`` (12,) and ``k`` (m,) integer
+    tensors; returns (m, 12) int64."""
+    nb = torch.as_tensor(nb).to(torch.int64).reshape(-1)
+    a = torch.as_tensor(k).to(torch.int64).reshape(-1)
+    cnt = []
+    for level in range(ADWIN_LEVELS):
+        d = ADWIN_M - nb[level]
+        fits = a <= d
+        over = a - d
+        cnt.append(torch.where(fits, nb[level] + a, ADWIN_M - over % 2))
+        a = torch.where(fits, 0, (over + 1) // 2)
+    return torch.stack(cnt, dim=-1)
+
+
+def _adwin_flat_weights(cnt):
+    """Each of the 60 flat buckets' weight (levels 11..0, slots 0..4,
+    oldest first): 2^l in a used slot of level l, 0 in an empty one.
+    ``cnt`` (m, 12) -> (m, 60) int64."""
+    levels = torch.arange(ADWIN_LEVELS - 1, -1, -1, device=cnt.device)
+    slots = torch.arange(ADWIN_M, device=cnt.device)
+    used = slots[None, None, :] < cnt[:, levels, None]
+    return torch.where(used, (2 ** levels)[None, :, None], 0).reshape(
+        cnt.shape[0], -1)
+
+
+def _adwin_tree_sum(sums, weights):
+    """One bucket's sum in the order the merges formed it: leaves (oldest
+    first, weights non-increasing powers of two summing to a power of
+    two) joined pairwise, older + newer, from the lightest up. fp32."""
+    while sums.shape[0] > 1:
+        w = int(weights[-1])
+        run = int((weights == w).sum())
+        head = sums.shape[0] - run
+        pair = sums[head:].reshape(-1, 2)
+        sums = torch.cat([sums[:head], pair[:, 0] + pair[:, 1]])
+        weights = torch.cat([weights[:head],
+                             torch.full((run // 2,), 2 * w,
+                                        dtype=weights.dtype,
+                                        device=weights.device)])
+    return sums[0]
+
+
+def adwin_scan_restart_ref(state, err, window: int, stats=None):
+    """ADWIN over ``err`` by the drift-scan kernel's algorithm
+    (``csrc/detector_scan.cu``, ``adwin_scan_kernel``), spelled out in
+    torch: ``(final state, levels (n,) int32)``, bitwise
+    ``run_detector(adwin_step, ...)``'s on 0/1 errors.
+
+    Every bucket is a contiguous run of one stream: the carried buckets
+    (levels 11..0, slots 0..4; level l weighs 2^l, as every state
+    ``adwin_step`` builds from ``adwin_init`` does) then the batch's
+    events. Merges join neighbours and the overflow and a drift's drop
+    take the oldest, so the window is the stream's last W weight, W
+    following from the closed-form layout (:func:`adwin_layout`) of the
+    base (the carried ``n_buckets``, or the layout after the last drop)
+    and the inserts since. Each cut point's ``(n0, s0)`` is then a
+    difference of fp64 prefix sums over that stream, rounded to fp32
+    (whole numbers below 2^24 on 0/1 errors: exactly the plain loop's
+    cumsum), and tested as ``adwin_step`` tests it. Rounds test
+    ``window`` events at once from the base. A cut drops levels 6..11;
+    where the layout there holds no bucket at those levels the drop
+    changes nothing, so the events after it keep their base and their
+    tests (a drift lasts many events, and these are most of them). At
+    the first cut whose drop removes a bucket, its layout less levels
+    6..11 is the new base, and the events after it are tested again.
+    The final buckets' sums are rebuilt in the merges' order
+    (:func:`_adwin_tree_sum`), so the state is the plain loop's wherever
+    the levels are. ``stats``, if given, is a list ``[rounds, events at
+    DRIFT, rebases]`` added to. Errors are finite.
+    """
+    dev = err.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    e = err.to(**f32).reshape(-1)
+    n = e.shape[0]
+    levels_out = torch.zeros(n, dtype=torch.int32, device=dev)
+    nb0 = torch.as_tensor(state.n_buckets).to(device=dev,
+                                                dtype=torch.int64)
+    sums = torch.as_tensor(state.sums).to(**f32)
+    # the carried buckets, oldest first: weights, sums, start positions
+    cw = _adwin_flat_weights(nb0[None])[0]
+    used = cw > 0
+    c_w = cw[used]
+    c_s = sums.flip(0).reshape(-1)[used]
+    c_pos = torch.cumsum(c_w, 0) - c_w
+    Wc = int(c_w.sum())
+    # P[pos]: the stream's fp64 prefix sum before weight position pos
+    # (a carried bucket's positions share its start's prefix)
+    c_pre = torch.cumsum(c_s.double(), 0) - c_s.double()
+    S_c = c_s.double().sum()
+    P = torch.cat([torch.repeat_interleave(c_pre, c_w),
+                   S_c + torch.cat([torch.zeros(1, dtype=torch.float64,
+                                                device=dev),
+                                    torch.cumsum(e.double(), 0)])])
+    sizes = 2 ** torch.arange(ADWIN_LEVELS, device=dev)
+    nb, base, t0, rounds, rebases = nb0, 0, 0, 0, 0
+    while t0 < n:
+        t = torch.arange(t0, min(t0 + window, n), device=dev)
+        cnt = adwin_layout(nb, t - base + 1)
+        W = (cnt * sizes).sum(-1)
+        E = Wc + t + 1
+        start = E - W
+        n0i = torch.cumsum(_adwin_flat_weights(cnt), -1)
+        s0 = (P[start[:, None] + n0i] - P[start][:, None]).float()
+        total_s = (P[E] - P[start]).float()[:, None]
+        total_n = W.float()[:, None]
+        n0 = n0i.float()
+        # adwin_step's test, operation for operation
+        n1, s1 = total_n - n0, total_s - s0
+        valid = (n0 >= 1) & (n1 >= 1)
+        m0 = s0 / torch.clamp(n0, min=1.0)
+        m1 = s1 / torch.clamp(n1, min=1.0)
+        m = 1.0 / (1.0 / torch.clamp(n0, min=1.0)
+                   + 1.0 / torch.clamp(n1, min=1.0))
+        dp = torch.log(2.0 * torch.log(torch.clamp(total_n, min=2.0))
+                       / 0.002)
+        eps = torch.sqrt(dp / (2.0 * torch.clamp(m, min=1e-9)))
+        cut = (valid & (torch.abs(m0 - m1) > eps)).any(-1)
+        rounds += 1
+        hit = torch.nonzero(cut & (cnt[:, ADWIN_HALF:] > 0).any(-1))
+        r = int(hit[0, 0]) if len(hit) else t.shape[0] - 1
+        levels_out[t0:t0 + r + 1] = torch.where(cut[:r + 1], 2, 0)
+        if len(hit):
+            nb = cnt[r].clone()
+            nb[ADWIN_HALF:] = 0
+            rebases += 1
+            base = t0 + r + 1
+        t0 += r + 1
+    # the final state: the layout after the last event, each bucket's sum
+    # rebuilt from its leaves in the merges' order
+    cnt = adwin_layout(nb, torch.tensor([n - base], device=dev))[0]
+    fw = _adwin_flat_weights(cnt[None])[0]
+    start = Wc + n - int(fw.sum())
+    flat_c = torch.zeros(ADWIN_LEVELS * ADWIN_M, **f32)
+    flat_s = torch.zeros(ADWIN_LEVELS * ADWIN_M, **f32)
+    p = start
+    for f in range(ADWIN_LEVELS * ADWIN_M):
+        w = int(fw[f])
+        if not w:
+            continue
+        inc = (c_pos >= p) & (c_pos < p + w)
+        ev = e[max(p - Wc, 0):max(p + w - Wc, 0)]
+        flat_c[f] = float(w)
+        flat_s[f] = _adwin_tree_sum(
+            torch.cat([c_s[inc], ev]),
+            torch.cat([c_w[inc], torch.ones(ev.shape[0], dtype=torch.int64,
+                                            device=dev)]))
+        p += w
+    counts_out = flat_c.reshape(ADWIN_LEVELS, ADWIN_M).flip(0)
+    sums_out = flat_s.reshape(ADWIN_LEVELS, ADWIN_M).flip(0)
+    if n == 0:
+        level = torch.as_tensor(state.level).to(device=dev,
+                                                dtype=torch.int32)
+    else:
+        level = levels_out[-1]
+    if stats is not None:
+        stats[0] += rounds
+        stats[1] += int((levels_out == 2).sum())
+        stats[2] += rebases
+    return type(state)(counts_out, sums_out, cnt.to(torch.int32),
+                       level.reshape(())), levels_out

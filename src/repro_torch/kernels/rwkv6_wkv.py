@@ -29,8 +29,15 @@ zero-padded up to the next built size (:func:`padded_head_size`,
 :func:`padded_call`): r, k, v, lw, u and h0 are padded on the head axis
 (a zero key and a zero state keep the padded rows of the state at 0, a
 zero value the padded columns of o), and o and h_last are sliced back.
-A head size above the largest built one is refused. The plain version
-takes any shape. :func:`rwkv6_wkv_witness_cuda` runs the CUDA-core
+Above the largest built one (:data:`HEAD_SIZES`' 128) hs is padded to a
+multiple of 128 and split in blocks of 128 (:func:`blocked_call`): the
+state ``S[k, v]`` decays by key row and its value columns are
+independent, ``o[v] = sum_k r[k] (S[k, v] + u[k] k[k] v[v])``, so each
+(key block i, value block j) is a head of its own at size 128 (r, k, lw
+and u of block i, v of block j, h0 block [i, j]), all of them one launch
+of the kernel in fp32; o sums its key blocks in fp32 and rounds once to
+r's dtype, and block [i, j] of h_last is that head's. Every size of 1
+or more reaches a kernel. The plain version takes any shape. :func:`rwkv6_wkv_witness_cuda` runs the CUDA-core
 kernel on either dtype: the witness the tensor-core kernel is held
 against on the card (not counted in :data:`LAUNCHES`).
 
@@ -77,21 +84,59 @@ def kernel_chunk(chunk: int) -> int:
 
 
 def padded_head_size(hs: int) -> int:
-    """The built head size a call at ``hs`` runs at: ``hs`` where it is
-    built, else the smallest built size above it. ``ValueError`` above
-    the largest."""
-    wider = [h for h in HEAD_SIZES if h >= hs]
-    if hs < 1 or not wider:
-        raise ValueError(f"rwkv6_wkv: head size {hs} above the largest "
-                         f"built {max(HEAD_SIZES)}")
-    return min(wider)
+    """The head size a call at ``hs`` runs at: ``hs`` where it is built,
+    else the smallest built size above it; above the largest, the next
+    multiple of it (:func:`blocked_call`'s blocks). ``ValueError`` below
+    1."""
+    if hs < 1:
+        raise ValueError(f"rwkv6_wkv: head size {hs} is not positive")
+    top = max(HEAD_SIZES)
+    if hs > top:
+        return -(-hs // top) * top
+    return min(h for h in HEAD_SIZES if h >= hs)
+
+
+def blocked_call(fn, r, k, v, lw, u, h0, *, chunk: int):
+    """``fn`` (a model-layout WKV) at a head size above the largest built
+    one, as blocks of that size: hs zero-padded to
+    :func:`padded_head_size`, each (key block i, value block j) a head of
+    one fp32 call (heads ordered (h, i, j)), o summed over i in fp32 and
+    cast to r's dtype, h_last's blocks put back; both sliced to hs."""
+    B, S, H, hs = r.shape
+    top = max(HEAD_SIZES)
+    hp = padded_head_size(hs)
+    nb, p = hp // top, hp - hs
+    dtype = r.dtype
+    r, k, v, lw, u = (F.pad(t.float(), (0, p)) for t in (r, k, v, lw, u))
+    h0 = F.pad(h0.float(), (0, p, 0, p))
+
+    def by_key(t):       # (..., H, hp) -> (..., H * nb * nb, top), block i
+        lead = t.shape[:-2]
+        return t.reshape(*lead, H, nb, 1, top).expand(
+            *lead, H, nb, nb, top).reshape(*lead, H * nb * nb, top)
+
+    def by_value(t):     # block j
+        lead = t.shape[:-2]
+        return t.reshape(*lead, H, 1, nb, top).expand(
+            *lead, H, nb, nb, top).reshape(*lead, H * nb * nb, top)
+
+    hb = h0.reshape(B, H, nb, top, nb, top).permute(0, 1, 2, 4, 3, 5)
+    o, h = fn(by_key(r), by_key(k), by_value(v), by_key(lw), by_key(u),
+              hb.reshape(B, H * nb * nb, top, top), chunk=chunk)
+    o = o.float().reshape(B, S, H, nb, nb, top).sum(dim=3)
+    h = h.reshape(B, H, nb, nb, top, top).permute(0, 1, 2, 4, 3, 5)
+    return (o.reshape(B, S, H, hp)[..., :hs].to(dtype),
+            h.reshape(B, H, hp, hp)[..., :hs, :hs])
 
 
 def padded_call(fn, r, k, v, lw, u, h0, *, chunk: int):
-    """``fn`` (a model-layout WKV) at the built head size
-    :func:`padded_head_size` gives: every input zero-padded on the head
-    axis (both axes of h0), o and h_last sliced back."""
+    """``fn`` (a model-layout WKV) at the head size
+    :func:`padded_head_size` gives: up to the largest built size, every
+    input zero-padded on the head axis (both axes of h0), o and h_last
+    sliced back; above it, :func:`blocked_call`."""
     hs = r.shape[-1]
+    if hs > max(HEAD_SIZES):
+        return blocked_call(fn, r, k, v, lw, u, h0, chunk=chunk)
     p = padded_head_size(hs) - hs
     if not p:
         return fn(r, k, v, lw, u, h0, chunk=chunk)

@@ -142,11 +142,15 @@ def test_flash_argument_checks_accept_the_built_head_dims(D, dtype):
 
 def test_flash_argument_checks_refuse_what_no_kernel_takes():
     q, kv = torch.zeros((2, 3, 4, 64)), torch.zeros((2, 5, 2, 64))
-    for D in (8, 32, 96, 512):
+    for D in (8, 32, 96, 260):
         with pytest.raises(ValueError, match="head dim"):
             tfa.check_args(torch.zeros((2, 3, 4, D)),
                            torch.zeros((2, 5, 2, D)),
                            torch.zeros((2, 5, 2, D)))
+    # above 256 the wide kernel takes every multiple of 8
+    for D in (264, 512):
+        tfa.check_args(torch.zeros((2, 3, 4, D)), torch.zeros((2, 5, 2, D)),
+                       torch.zeros((2, 5, 2, D)))
     for dt in (torch.float16, torch.float64, torch.int32):
         with pytest.raises(TypeError):
             tfa.check_args(q.to(dt), kv.to(dt), kv.to(dt))
