@@ -33,11 +33,20 @@ path on the card, and checks what comes out. Phases:
    ``torch.topk``'s k-th largest, one call a CUDA graph of a memset and
    the select and apply kernels, timed from CUDA-graph replays beside
    ``torch.topk``'s threshold (``library_ms``); the DDM scan also
-   against its serial witness kernel on a many-drift stream
-   and on the errors after the ``int8_ef`` codec, its chain's divide
-   against IEEE ``/`` over random pairs, and EDDM and Page-Hinkley
-   against their plain loops, graph-timed (rows ``detector_scan/eddm``
-   and ``/ph``); chain lengths and ns a chained event; ADWIN's kernel
+   against its serial witness kernel, level for level, on a many-drift
+   stream and on the errors after the ``int8_ef`` codec, its chain's divide
+   against IEEE ``/`` over random pairs; EDDM's and Page-Hinkley's
+   tiled kernels (``eddm_tiled_kernel``: the chain over the errors only;
+   ``ph_tiled_kernel``: the mean and ``cum`` chains) level for level, the
+   state bitwise, against the one-thread witness on the planted-drift,
+   many-drift and ``int8_ef``-decoded batches, from carried states (in
+   the warm-up; ``n`` and ``since_last`` near 2^24, the counters stepped
+   one by one, and a stretch without errors) and carried over 128 calls
+   of 512 events, and against their plain loops on the host on the
+   whole planted-drift batch (a restart at least), graph-timed beside
+   the witness (rows
+   ``detector_scan/eddm`` and ``/ph``); chain lengths and ns a chained
+   event; ADWIN's kernel
    (``adwin_scan_kernel``: cut tests across the grid) bitwise its plain
    loop on the card on prefixes of the many-drift (2,048 events) and the
    ``int8_ef``-decoded (512) streams, level for level, and on the whole
@@ -270,12 +279,16 @@ path on the card, and checks what comes out. Phases:
     small job (10 x 512 x 16) on the card and the CPU with events, cuts,
     codecs and alarms equal and the prequential metrics within 1e-3;
     ``fuse="xla"`` against ``fuse="op"`` as phase 13a holds them, the
-    drift segment's graph holding ADWIN's kernel as one node. Each phase
-    logs the seconds since the start.
+    drift segment's graph holding ADWIN's kernel as one node;
+20. phase 19 for ``drift_detector="eddm"`` and ``"ph"`` (their tiled
+    kernels), beside DDM's job in the same call, without the alarm
+    check (a detector need not alarm on this drift). Each phase logs the
+    seconds since the start.
 
 The launch counts are set to 0 just before each main path (phases 3-5
 as one, each model of phases 6 and 14, phases 7, 8, 9, 10, 11, 12, 13,
-16 and 19, each launcher of phase 15, 17b and 18a-b and 18d in each
+16 and 19, each detector of phase 20, each launcher of phase 15, 17b
+and 18a-b and 18d in each
 rank's process) and
 read just after it; every kernel must have launched on a main path. A line
 ``{"kernels": [...]}`` reports each kernel, the line before the last
@@ -287,8 +300,8 @@ it.
 
 Two further modes measure without checking:
 
-    python3 chip_smoke.py --measure [--src DIR] [--wkv | --codec | --mamba]
-    python3 chip_smoke.py --compare ROOT [--runs 3] [--wkv | --codec | --mamba]
+    python3 chip_smoke.py --measure [--src DIR] [--wkv | --codec | --mamba | --scans]
+    python3 chip_smoke.py --compare ROOT [--runs 3] [--wkv | --codec | --mamba | --scans]
 
 ``--measure`` drives only the main paths of phases 3 (both codecs, after
 the same warm-up run), 4, 6-7 and 8, as the full run drives them but
@@ -312,7 +325,9 @@ and add-then-query at both widths, graph-timed and eager
 (``codec_measure``), with the witnesses where the tree has them. With
 ``--mamba`` both time only the Mamba scan at phase 9's three shapes,
 graph-timed and eager, with the witness where the tree has it
-(``mamba_measure``).
+(``mamba_measure``). With ``--scans`` both time only the drift scan's
+four kinds on phase 2's planted-drift and many-drift batches,
+graph-timed (``scans_measure``).
 """
 
 from __future__ import annotations
@@ -345,13 +360,17 @@ HASH_F = 32            # sparse features per event
 HASH_DIM = 1024        # hashed width
 N_BATCHES = 12
 DENSE_CODECS = (("int8_ef", 0.1), ("topk_int8_ef", 11.0))   # codec, budget
-DETECTOR_PLAIN_N = 16_384   # events the EDDM and PH plain loops check
 ADWIN_PLAIN_N = 2048        # events ADWIN's plain loop runs on the card
 ADWIN_ROW = "detector_scan/adwin"   # ADWIN's row of the kernels line
-# EDDM's and Page-Hinkley's rows (one thread; no path runs them)
-DETECTOR_ROWS = ("detector_scan/eddm", "detector_scan/ph")
-ADWIN_SMALL = (10, 512, 16)  # phase 19b's batches, events a batch, dim
+DETECTOR_JOBS = ("eddm", "ph")     # phase 20's detectors
+# their rows of the kernels line (tiled kernels; phase 20's launches)
+DETECTOR_ROWS = tuple(f"detector_scan/{d}" for d in DETECTOR_JOBS)
+ADWIN_SMALL = (10, 512, 16)  # phases 19b's and 20b's batches, events, dim
 DIVIDE_PAIRS = 1 << 24      # pairs per draw for the DDM chain's divide check
+# a chained step's dependent fp32 operations (the running mean's subtract,
+# the split divide's three FMAs, the add), 4 cycles each: the tiled
+# chains' floor a chained event at the card's largest SM clock
+CHAIN_STEP_CYCLES = 5 * 4
 
 SERVE_MODELS = ("seamless-m4t-medium", "rwkv6-1.6b", "qwen2-1.5b")
 N_REQUESTS = 16        # requests per served model
@@ -456,6 +475,15 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout
     return out.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    """The card's largest SM clock (``nvidia-smi``'s ``clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def median_ms(fn, reps: int, warmup: int = 1, trials: int = 3) -> float:
@@ -589,14 +617,18 @@ def kernel_checks(dev, g, record) -> None:
     err = (torch.rand((N_EVENTS,), generator=g, device=dev) < p).float()
     init = drift.ddm_init(dev)
     before = ds.chain_stats(dev).clone()
-    st, flag = ds.detector_scan_cuda("ddm", init, err)
+    st, flag, lv = ds.detector_scan_cuda("ddm", init, err, levels=True)
     walked, restarts = (ds.chain_stats(dev) - before).tolist()
     t0 = time.perf_counter()
-    pst, pflag = ds.detector_scan_plain("ddm", init, err)
+    pst, plv = drift.run_detector(ds.STEPS["ddm"], init, err)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    pflag = bool((plv == drift.DRIFT).any())
     diffs = [abs(float(a) - float(b)) for a, b in zip(st, pst)]
-    diffs.append(float(bool(flag) != bool(pflag)))
+    diffs.append(float(bool(flag) != pflag))
+    diffs.append(float((lv != plv).sum()))
+    log(f"  detector_scan (DDM) on the planted-drift batch: levels of "
+        f"{int((lv != plv).sum())} event(s) differ from the plain loop's")
     if not bool(flag):
         raise AssertionError("detector scan missed the planted drift")
     ms = median_ms(lambda: ds.detector_scan_cuda("ddm", init, err), 20)
@@ -641,17 +673,18 @@ def kernel_checks(dev, g, record) -> None:
         raise AssertionError("the codec's errors came out binary")
     for what, e in (("many drifts", many), ("int8_ef errors", nonbinary)):
         before = ds.chain_stats(dev).clone()
-        st, flag = ds.detector_scan_cuda("ddm", init, e)
+        st, flag, lv = ds.detector_scan_cuda("ddm", init, e, levels=True)
         walked, restarts = (ds.chain_stats(dev) - before).tolist()
-        wst, wflag = ds.detector_scan_serial_cuda("ddm", init, e)
-        same = bool(flag) == bool(wflag) and all(
+        wst, wflag, wlv = ds.detector_scan_serial_cuda("ddm", init, e,
+                                                       levels=True)
+        same = bool(flag) == bool(wflag) and torch.equal(lv, wlv) and all(
             torch.equal(a.reshape(()), b.reshape(()))
             for a, b in zip(st, wst))
         e_ms = median_ms(lambda: ds.detector_scan_cuda("ddm", init, e), 20)
         w_ms = median_ms(
             lambda: ds.detector_scan_serial_cuda("ddm", init, e), 5)
-        log(f"  detector_scan (DDM) on {what}: bitwise the serial witness "
-            f"{same}; drifted {bool(flag)}, {restarts} restart(s), chain "
+        log(f"  detector_scan (DDM) on {what}: bitwise the serial witness, "
+            f"level for level {same}; drifted {bool(flag)}, {restarts} restart(s), chain "
             f"{walked} events; {e_ms!r} ms ({e_ms * 1e6 / walked!r} ns a "
             f"chained event), witness {w_ms!r} ms")
         if not same:
@@ -669,50 +702,179 @@ def kernel_checks(dev, g, record) -> None:
                                               device=dev))
         for what, e in (("planted drift", err), ("many drifts", many)):
             before = ds.chain_stats(dev).clone()
-            st, flag = ds.detector_scan_cuda("ddm", carried, e)
+            st, flag, lv = ds.detector_scan_cuda("ddm", carried, e,
+                                                 levels=True)
             walked, restarts = (ds.chain_stats(dev) - before).tolist()
-            wst, wflag = ds.detector_scan_serial_cuda("ddm", carried, e)
-            same = bool(flag) == bool(wflag) and all(
-                torch.equal(a.reshape(()), b.reshape(()))
-                for a, b in zip(st, wst))
+            wst, wflag, wlv = ds.detector_scan_serial_cuda(
+                "ddm", carried, e, levels=True)
+            same = bool(flag) == bool(wflag) and torch.equal(lv, wlv) and \
+                all(torch.equal(a.reshape(()), b.reshape(()))
+                    for a, b in zip(st, wst))
             log(f"  detector_scan (DDM) from n0 = {n0!r} on {what}: bitwise "
-                f"the serial witness {same}; drifted {bool(flag)}, "
+                f"the serial witness, level for level {same}; drifted {bool(flag)}, "
                 f"{restarts} restart(s), chain {walked} events, final n "
                 f"{float(st.n)!r}")
             if not same:
                 raise AssertionError(f"detector scan from n0 = {n0!r} on "
                                      f"{what} differs from its serial "
                                      "witness")
-    # EDDM and Page-Hinkley (the one-thread kernel) against their plain
-    # loops on a host copy of the planted-drift stream's first part, then
-    # graph-timed on the whole planted-drift batch (rows of their own)
-    part = err[:DETECTOR_PLAIN_N]
+    eddm_ph_kernel_checks(dev, record, err, many, nonbinary)
+    adwin_kernel_checks(dev, record, err, many, nonbinary)
+
+
+def eddm_ph_kernel_checks(dev, record, err, many, nonbinary) -> None:
+    """EDDM's and Page-Hinkley's tiled kernels (``eddm_tiled_kernel``,
+    whose chain walks only the errors; ``ph_tiled_kernel``, the mean and
+    ``cum`` chains on one thread) against their plain loops on the host
+    on the whole planted-drift batch (at least one restart each), and
+    against the one-thread witness (``detector_scan_serial``) on the whole
+    planted-drift, many-drift and ``int8_ef``-decoded batches, from
+    carried states (in the warm-up; the counters near 2^24, so that they
+    step one by one, also over a stretch without errors) and with the
+    state carried over 128 calls of 512 events: every level equal, the
+    state bitwise. Graph-timed beside the witness, with the events the
+    chain walked and its restarts (``chain_stats``)."""
+    import torch
+    from repro_torch.kernels import detector_scan as ds
+    from repro_torch.kernels import ops
+    from repro_torch.streams import drift
+
+    def same_bits(a, b):
+        return all(bitwise(x.cpu().reshape(1), y.cpu().reshape(1))
+                   for x, y in zip(a, b))
+
+    def scan(det, state, e):
+        before = ds.chain_stats(dev).clone()
+        st, flag, lv = ds.detector_scan_cuda(det, state, e, levels=True)
+        walked, restarts = (ds.chain_stats(dev) - before).tolist()
+        return st, flag, lv, walked, restarts
+
+    def held(det, state, e, what):
+        st, flag, lv, walked, restarts = scan(det, state, e)
+        wst, wflag, wlv = ds.detector_scan_serial_cuda(det, state, e,
+                                                       levels=True)
+        drifts = int((wlv == drift.DRIFT).sum())
+        ok = same_bits(st, wst) and torch.equal(lv, wlv) and \
+            bool(flag) == bool(wflag) == (drifts > 0)
+        log(f"  detector_scan ({det}) on {what} ({e.numel()} events): "
+            f"bitwise the serial witness, level for level {ok}; {drifts} "
+            f"event(s) at DRIFT, {restarts} restart(s), chain {walked} "
+            f"events")
+        if not ok:
+            raise AssertionError(f"detector scan ({det}) on {what} differs "
+                                 "from its serial witness")
+        return walked, restarts
+
+    def state_of(det, values):
+        cls = drift.EDDMState if det == "eddm" else drift.PHState
+        return cls(*(torch.tensor(v, dtype=torch.float32, device=dev)
+                     for v in values),
+                   torch.tensor(0, dtype=torch.int32, device=dev))
+
+    clock = max_sm_clock_hz()
+    quiet = many.clone()
+    quiet[:5000] = 0.0          # two tiles and more without an error
+    big = 2.0 ** 24
+    near = {"eddm": (big - 1000.0, big - 200.0, 9.0, 90.0 * (big - 1000.0),
+                     28.0),
+            "ph": (big - 1000.0, 0.25, 3.0, -2.0)}
+    fractional = {"eddm": (7.5, 3.5, 9.0, 80.0, 20.0),
+                  "ph": (7.5, 0.3, 1.0, -0.5)}
     for det, init_fn in (("eddm", drift.eddm_init), ("ph", drift.ph_init)):
-        st, flag = ds.detector_scan_cuda(det, init_fn(dev), part)
+        init = init_fn(dev)
+        st, flag, lv, walked, restarts = scan(det, init, err)
         t0 = time.perf_counter()
-        pst, pflag = ds.detector_scan_plain(det, init_fn(), part.cpu())
+        pst, plv = drift.run_detector(ds.STEPS[det], init_fn(), err.cpu())
         p_ms = (time.perf_counter() - t0) * 1e3
-        same = bool(flag) == bool(pflag) and all(
-            torch.equal(a.cpu().reshape(()), b.reshape(()))
-            for a, b in zip(st, pst))
-        log(f"  detector_scan ({det}) on {DETECTOR_PLAIN_N} events: bitwise "
-            f"the plain loop on the host CPU {same} (drifted "
-            f"{bool(pflag)}; plain {p_ms!r} ms, one run)")
+        pflag = bool((plv == drift.DRIFT).any())
+        same = same_bits(st, pst) and torch.equal(lv.cpu(), plv) and \
+            bool(flag) == pflag
+        err_plain = max([float(bool(flag) != pflag),
+                         float((lv.cpu() != plv).sum())] + [
+            abs(float(a) - float(b)) for a, b in zip(st, pst)])
+        log(f"  detector_scan ({det}) on the planted-drift batch "
+            f"({err.numel()} events): bitwise the plain loop on the host "
+            f"CPU, level for level {same} (drifted {pflag}, {restarts} "
+            f"restart(s), chain {walked} events; plain {p_ms!r} ms, one "
+            f"run)")
         if not same:
             raise AssertionError(f"detector scan ({det}) differs from its "
                                  "plain loop")
-        start = init_fn(dev)
-        d_ms = graph_ms(lambda: ds.detector_scan_cuda(det, start, err), 3)
-        nops, nbytes = ops._scan_work(det, start, err)
-        record("detector_scan",
-               "src/repro_torch/kernels/csrc/detector_scan.cu",
-               "src/repro/core/pipeline.py:687",
-               max(abs(float(a) - float(b)) for a, b in zip(st, pst)), 0.0,
-               d_ms, p_ms, nbytes, nops, row=f"detector_scan/{det}")
-        log(f"    detector_scan/{det}: graph ms on {N_EVENTS} planted-drift "
-            f"events ({d_ms * 1e6 / N_EVENTS!r} ns an event); max_abs_err "
-            f"and plain_ms (host CPU) on the {DETECTOR_PLAIN_N}-event prefix")
-    adwin_kernel_checks(dev, record, err, many, nonbinary)
+        if restarts < 1:
+            raise AssertionError(f"detector scan ({det}): no restart where "
+                                 "it is held to its plain loop")
+        for what, e in (("planted drift", err), ("many drifts", many),
+                        ("int8_ef errors", nonbinary)):
+            walked, restarts = held(det, init, e, what)
+            k_ms = graph_ms(lambda: ds.detector_scan_cuda(det, init, e), 20)
+            w_ms = graph_ms(
+                lambda: ds.detector_scan_serial_cuda(det, init, e), 3)
+            floor_ms = walked * CHAIN_STEP_CYCLES / clock * 1e3
+            log(f"    {det} on {what}: graph ms {k_ms!r} "
+                f"({k_ms * 1e6 / max(walked, 1)!r} ns a chained event, "
+                f"{walked} chained, {restarts} restart(s); the chain's floor "
+                f"{floor_ms!r} ms at {CHAIN_STEP_CYCLES} cycles a step and "
+                f"{clock / 1e9!r} GHz); the one-thread witness {w_ms!r} ms "
+                f"({w_ms / k_ms!r}x)")
+            if what == "planted drift":
+                nops, nbytes = ops._scan_work(det, init, e)
+                record("detector_scan",
+                       "src/repro_torch/kernels/csrc/detector_scan.cu",
+                       "src/repro/core/pipeline.py:687", err_plain, 0.0,
+                       k_ms, p_ms, nbytes, nops, row=f"detector_scan/{det}")
+                log(f"    detector_scan/{det}: ms, max_abs_err and plain_ms "
+                    f"(host CPU) on the {e.numel()} planted-drift events")
+        # carried states: the witness's after 300 many-drift events (EDDM
+        # in its 50 errors' warm-up), a fractional counter, and counters
+        # near 2^24 (past it c + 1 rounds back to c)
+        mid, _ = ds.detector_scan_serial_cuda(det, init, many[:300])
+        for tag, start in (("in the warm-up", mid),
+                           ("a fractional counter",
+                            state_of(det, fractional[det])),
+                           ("counters near 2^24", state_of(det, near[det]))):
+            for what, e in (("planted drift", err), ("many drifts", many),
+                            ("a quiet stretch", quiet)):
+                held(det, start, e, f"{what}, from {tag}")
+        # the state carried from call to call, as the drift op carries it
+        st, flags, lvs = init, [], []
+        for piece in many.split(ADWIN_SMALL[1]):
+            st, flag, lv = ds.detector_scan_cuda(det, st, piece, levels=True)
+            flags.append(flag)
+            lvs.append(lv)
+        wst, wflag, wlv = ds.detector_scan_serial_cuda(det, init, many,
+                                                       levels=True)
+        ok = same_bits(st, wst) and torch.equal(torch.cat(lvs), wlv) and \
+            bool(torch.stack(flags).any()) == bool(wflag)
+        log(f"  detector_scan ({det}) over many drifts in {len(lvs)} calls "
+            f"of {ADWIN_SMALL[1]} events, the state carried: bitwise the "
+            f"serial witness's one call, level for level {ok}")
+        if not ok:
+            raise AssertionError(f"detector scan ({det}) with the state "
+                                 "carried from call to call differs from "
+                                 "its serial witness")
+
+
+def scans_measure(dev) -> dict:
+    """The drift scan alone in the tree under test, for ``--measure
+    --scans``: each kind's path kernel (DDM, EDDM, PH, ADWIN) graph-timed
+    on phase 2's planted-drift and many-drift batches (65,536 events)."""
+    import torch
+    from repro_torch.kernels import detector_scan as ds
+    from repro_torch.streams import drift
+    g = torch.Generator(device=dev).manual_seed(1234)
+    at = torch.arange(N_EVENTS, device=dev)
+    streams = {
+        "planted": torch.where(at < N_EVENTS // 2, 0.1, 0.5),
+        "many": torch.where((at // 500) % 2 == 0, 0.05, 0.6)}
+    streams = {k: (torch.rand((N_EVENTS,), generator=g, device=dev)
+                   < p).float() for k, p in streams.items()}
+    out = {}
+    for det in ("ddm", "eddm", "ph", "adwin"):
+        init = getattr(drift, f"{det}_init")(dev)
+        for what, e in streams.items():
+            out[f"{det}_{what}_ms"] = graph_ms(
+                lambda: ds.detector_scan_cuda(det, init, e), 20)
+    return out
 
 
 def adwin_kernel_checks(dev, record, err, many, nonbinary) -> None:
@@ -3678,6 +3840,8 @@ STRAT_K = 256
 TRAIN_MODES_STEPS = 3            # 13e: one eager step, then two replays
 # kernels a captured segment holds, by the wrapper counter they count in
 GRAPH_KERNELS = {"ddm_tiled_kernel": "detector_scan",
+                 "eddm_tiled_kernel": "detector_scan",
+                 "ph_tiled_kernel": "detector_scan",
                  "adwin_scan_kernel": "detector_scan"}
 
 
@@ -4248,65 +4412,71 @@ def modes_phase(dev, batches) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 19: ADWIN on the dense job (the drift op's fourth detector)
+# phases 19-20: the drift op's other detectors on the dense job
 # ---------------------------------------------------------------------------
 
-def adwin_phase(dev, batches) -> dict:
-    """Phase 19: phase 3's dense job (12 x 65,536 x 256, ``int8_ef``) with
-    ``drift_detector="adwin"`` on the card: (a) one ``detector_scan``
-    launch a batch, the planted drift raising an alarm, the learner
-    recovering; (b) the same script's small job (10 x 512 x 16) on the
-    card and on the CPU: events, cuts, codecs and drift alarms equal,
-    the prequential metrics within 1e-3; (c) ``fuse="xla"`` against
-    ``fuse="op"`` as phase 13a holds them: JobMetrics equal, masks
-    bitwise, outputs and states within its tolerance, the drift
-    segment's graph holding ADWIN's kernel as one node. Returns the
-    launch counts of the phase (graph replays counted as launches)."""
+def detector_job(dev, batches, detector: str, kernel: str, tag: str,
+                 alarm: bool) -> dict:
+    """Phase 3's dense job (12 x 65,536 x 256, ``int8_ef``) with
+    ``drift_detector=detector`` on the card: (a) one ``detector_scan``
+    launch a batch, events and codecs right, no NaN, the learner
+    recovering, and with ``alarm`` the planted drift raising an alarm;
+    (b) the same script's small job (``ADWIN_SMALL``) on the card and on
+    the CPU: events, cuts, codecs and drift alarms equal, the prequential
+    metrics within 1e-3; (c) ``fuse="xla"`` against ``fuse="op"`` as
+    phase 13a holds them: JobMetrics equal, masks bitwise, outputs and
+    states within its tolerance, the drift segment's graph holding
+    ``kernel`` as exactly one node. Logs under ``tag`` (19, 20); returns
+    the launch counts from 0 (graph replays counted as launches)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
 
     ops.reset_launch_counts()
     orch, m, secs = run_dense(batches, "int8_ef", 0.1, dev.type,
-                              detector="adwin")
+                              detector=detector)
     counts = ops.launch_counts()
     launched = {k: v for k, v in counts.items() if v}
-    log(f"  19a: events={m.events} events_per_s={m.events / secs!r} "
+    log(f"  {tag}a: events={m.events} detector={detector} "
+        f"events_per_s={m.events / secs!r} "
         f"ms_per_batch={secs * 1e3 / len(batches)!r} "
         f"drift_alarms={m.drift_alarms} cuts={sorted(set(m.cuts))} "
         f"codecs={sorted(set(m.codecs))} preq={m.preq} launches={launched}")
     if m.events != len(batches) * N_EVENTS or set(m.codecs) != {"int8_ef"}:
-        raise AssertionError("adwin job: wrong events or codec trajectory")
+        raise AssertionError(f"{detector} job: wrong events or codec "
+                             "trajectory")
     if counts["detector_scan"] != len(batches):
-        raise AssertionError(f"adwin job: {counts['detector_scan']} detector "
-                             f"scans for {len(batches)} batches")
-    if m.drift_alarms < 1:
-        raise AssertionError("adwin job: the planted drift raised no alarm")
+        raise AssertionError(f"{detector} job: {counts['detector_scan']} "
+                             f"detector scans for {len(batches)} batches")
+    if alarm and m.drift_alarms < 1:
+        raise AssertionError(f"{detector} job: the planted drift raised no "
+                             "alarm")
     if not (0.6 < m.preq["ewma_accuracy"] <= 1.0):
-        raise AssertionError(f"adwin job: the learner did not recover: "
-                             f"{m.preq}")
-    check_no_nan(orch.states, "adwin")
+        raise AssertionError(f"{detector} job: the learner did not "
+                             f"recover: {m.preq}")
+    check_no_nan(orch.states, detector)
     del orch
 
     small = dense_batches(*ADWIN_SMALL)
     _, mg, _ = run_dense(small, "int8_ef", 0.1, dev.type, sample_rate=1.0,
-                         detector="adwin")
+                         detector=detector)
     _, mc, _ = run_dense(small, "int8_ef", 0.1, "cpu", sample_rate=1.0,
-                         detector="adwin")
+                         detector=detector)
     same = (mg.events == mc.events and mg.cuts == mc.cuts
             and mg.codecs == mc.codecs and mg.drift_alarms == mc.drift_alarms)
     gap = max(abs(mg.preq[k] - mc.preq[k]) for k in
               ("accuracy", "logloss", "ewma_accuracy"))
-    log(f"  19b: small job, card vs CPU: events/cuts/codecs/drift_alarms "
-        f"equal={same} (drift_alarms {mg.drift_alarms}) max preq "
-        f"gap={gap!r} (tol 1e-3)")
+    log(f"  {tag}b: small job, card vs CPU: "
+        f"events/cuts/codecs/drift_alarms equal={same} (drift_alarms "
+        f"{mg.drift_alarms}) max preq gap={gap!r} (tol 1e-3) "
+        f"detector={detector}")
     if not same or gap > 1e-3:
-        raise AssertionError("adwin job: card and CPU runs disagree")
+        raise AssertionError(f"{detector} job: card and CPU runs disagree")
     for k, v in ops.launch_counts().items():
         counts[k] = v
 
     runs = {fuse: modes_run(batches, fuse, dev.type, record=True,
-                            detector="adwin") for fuse in ("op", "xla")}
+                            detector=detector) for fuse in ("op", "xla")}
     (oa, ma, sa, _), (ox, mx, sx, _) = runs["op"], runs["xla"]
     same = all(getattr(ma, f) == getattr(mx, f) for f in (
         "events", "cuts", "plan_identities", "codecs", "drift_alarms")) \
@@ -4319,29 +4489,61 @@ def adwin_phase(dev, batches) -> dict:
     st_ok, st_bit, st_ex = trees_close(ox.states, oa.states)
     graphs = segment_graphs(ox.pipeline)
     replayed = graph_launches(graphs)
-    log(f"  19c: fuse='xla' vs 'op': JobMetrics equal={same} masks "
-        f"bitwise={masks} outputs within={outs_ok} (bitwise {outs_bit}, "
-        f"excess {outs_ex!r}) states within={st_ok} (bitwise {st_bit}, "
-        f"excess {st_ex!r}); ms a batch {sa * 1e3 / len(batches)!r} (op), "
-        f"{sx * 1e3 / len(batches)!r} (xla)")
+    log(f"  {tag}c: fuse='xla' vs 'op': JobMetrics "
+        f"equal={same} masks bitwise={masks} outputs within={outs_ok} "
+        f"(bitwise {outs_bit}, excess {outs_ex!r}) states within={st_ok} "
+        f"(bitwise {st_bit}, excess {st_ex!r}); ms a batch "
+        f"{sa * 1e3 / len(batches)!r} (op), {sx * 1e3 / len(batches)!r} "
+        f"(xla) detector={detector}")
     drift_nodes = []
+    mangled = f"{len(kernel)}{kernel}"
     for names, (replays, nodes) in graphs.items():
         hand = [n for n in nodes if any(t in n for t in GRAPH_KERNELS)]
         log(f"    graph of {list(names)}: {len(nodes)} nodes, replays "
             f"{replays}; hand kernels {hand}")
         if "drift" in names:
-            drift_nodes = [n for n in nodes if "adwin_scan_kernel" in n]
+            drift_nodes = [n for n in nodes if mangled in n or n == kernel]
     if not (same and masks and outs_ok and st_ok):
-        raise AssertionError("adwin job: fuse='xla' differs from fuse='op'")
+        raise AssertionError(f"{detector} job: fuse='xla' differs from "
+                             "fuse='op'")
     if len(drift_nodes) != 1:
-        raise AssertionError(f"adwin job: the drift segment's graph holds "
-                             f"{len(drift_nodes)} ADWIN kernel nodes")
+        raise AssertionError(f"{detector} job: the drift segment's graph "
+                             f"holds {len(drift_nodes)} {kernel} nodes")
     for k, v in ops.launch_counts().items():
         counts[k] = v + replayed.get(k, 0)
     del runs
     torch.cuda.empty_cache()
-    log(f"  phase 19 launches: {counts}")
+    log(f"  phase {tag} ({detector}) launches: {counts}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 19: ADWIN on the dense job (the drift op's fourth detector)
+# ---------------------------------------------------------------------------
+
+def adwin_phase(dev, batches) -> dict:
+    """Phase 19: :func:`detector_job` with ``drift_detector="adwin"``
+    (``adwin_scan_kernel``), the planted drift raising an alarm."""
+    return detector_job(dev, batches, "adwin", "adwin_scan_kernel", "19",
+                        alarm=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: EDDM and Page-Hinkley on the dense job
+# ---------------------------------------------------------------------------
+
+def detector_jobs_phase(dev, batches) -> dict:
+    """Phase 20: :func:`detector_job` for each of ``DETECTOR_JOBS`` (their
+    tiled kernels), after DDM's job in the same call as the yardstick; no
+    alarm is required (a detector need not alarm on this drift). Returns
+    ``{detector: launch counts}``, each from 0."""
+    _, m, secs = run_dense(batches, "int8_ef", 0.1, dev.type)
+    log(f"  20 (ddm, the yardstick): events_per_s={m.events / secs!r} "
+        f"ms_per_batch={secs * 1e3 / len(batches)!r} "
+        f"drift_alarms={m.drift_alarms}")
+    return {det: detector_job(dev, batches, det, f"{det}_tiled_kernel", "20",
+                              alarm=False)
+            for det in DETECTOR_JOBS}
 
 
 # ---------------------------------------------------------------------------
@@ -5750,8 +5952,8 @@ def measure(dev) -> dict:
 
 
 def compare(other: pathlib.Path, runs: int, mode=None) -> int:
-    """``--measure`` (with ``mode``, ``--measure --wkv``, ``--codec`` or
-    ``--mamba``) for ``other``'s port and this checkout's in turns, each
+    """``--measure`` (with ``mode``, ``--measure --wkv``, ``--codec``,
+    ``--mamba`` or ``--scans``) for ``other``'s port and this checkout's in turns, each
     run a process of its own."""
     trees = {"other": other.resolve() / "src", "this": SRC}
     order = []
@@ -5807,10 +6009,14 @@ def main(argv=None) -> int:
     ap.add_argument("--mamba", action="store_true",
                     help="with --measure or --compare: time only the Mamba "
                          "scan and its witness at phase 9's three shapes")
+    ap.add_argument("--scans", action="store_true",
+                    help="with --measure or --compare: time only the drift "
+                         "scan's four kinds on phase 2's two batches")
     args = ap.parse_args(argv)
-    modes = [m for m in ("wkv", "codec", "mamba") if getattr(args, m)]
+    modes = [m for m in ("wkv", "codec", "mamba", "scans")
+             if getattr(args, m)]
     if len(modes) > 1:
-        ap.error("--wkv, --codec and --mamba are separate modes")
+        ap.error("--wkv, --codec, --mamba and --scans are separate modes")
     try:
         import torch
     except ImportError:
@@ -5833,8 +6039,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.measure:
         fn = {"wkv": wkv_measure, "codec": codec_measure,
-              "mamba": mamba_measure}.get(modes[0] if modes else None,
-                                          measure)
+              "mamba": mamba_measure, "scans": scans_measure}.get(
+                  modes[0] if modes else None, measure)
         log(json.dumps(fn(torch.device("cuda"))))
         return 0
 
@@ -6010,6 +6216,15 @@ def main(argv=None) -> int:
     log(f"phase 19: orchestrator, dense job with drift_detector='adwin' "
         f"({N_BATCHES} x {N_EVENTS} events, dim {DIM}, int8_ef)")
     path_counts["adwin"] = adwin_phase(dev, batches)
+
+    # -- phase 20: EDDM and Page-Hinkley on the dense job -----------------------
+    free_card()
+    since(t_all)
+    log(f"phase 20: orchestrator, dense job with drift_detector in "
+        f"{DETECTOR_JOBS} ({N_BATCHES} x {N_EVENTS} events, dim {DIM}, "
+        f"int8_ef)")
+    for det, c in detector_jobs_phase(dev, batches).items():
+        path_counts[f"drift/{det}"] = c
     since(t_all)
 
     counts = {k: sum(c[k] for c in path_counts.values())
@@ -6042,11 +6257,15 @@ def main(argv=None) -> int:
                                if c.family == "vlm")
     vlm_rows = {f"flash_attention/vlm_b{SERVE_BATCH}{tag}": path_counts[
         vlm_path]["flash_attention"] for tag in ("", "_decode")}
-    # ADWIN's row: its launches on phase 19's path; the largest sizes',
-    # the sizes above them and EDDM's and PH's rows: none
-    path_rows = {**vlm_rows, **dict.fromkeys(WIDE_ROWS + ABOVE_ROWS
-                                             + DETECTOR_ROWS, 0),
-                 ADWIN_ROW: path_counts["adwin"]["detector_scan"]}
+    # ADWIN's, EDDM's and PH's rows: their launches on phases 19 and 20
+    # (one counter for every kind: DDM's row takes the rest); the largest
+    # sizes' and the sizes above them: none
+    detector_rows = {ADWIN_ROW: path_counts["adwin"]["detector_scan"],
+                     **{row: path_counts[f"drift/{det}"]["detector_scan"]
+                        for row, det in zip(DETECTOR_ROWS, DETECTOR_JOBS)}}
+    path_rows = {**vlm_rows, **dict.fromkeys(WIDE_ROWS + ABOVE_ROWS, 0),
+                 **detector_rows, "detector_scan": counts["detector_scan"]
+                 - sum(detector_rows.values())}
     kernels = []
     for k, row in rows.items():
         if k != row["name"] and k != WKV_CHUNK64_ROW and \

@@ -12,7 +12,16 @@ the work that does not feed the next step. For DDM the kernel keeps only
 divide computed ahead for the tile), computes ``s``, the running
 ``(p_min, s_min)`` pair and the levels for the whole tile in parallel,
 and restarts the chain after the first event at DRIFT
-(``kernels/ref.py::ddm_scan_restart_ref`` spells it out). For ADWIN the
+(``kernels/ref.py::ddm_scan_restart_ref`` spells it out). Page-Hinkley
+and EDDM run on the same skeleton (one template, a kind each):
+Page-Hinkley with two chains on the thread (the running mean, DDM's
+``p`` chain, and ``cum``'s three adds), ``cum_min`` a prefix minimum
+across the tile; EDDM's chain walks only the errors (an event
+with ``e <= 0.5`` only advances ``since_last``): the block compacts them,
+takes each one's distance since the previous error and ``n_err``, one
+thread walks ``mean_d`` and ``var_d``, and ``best`` is a prefix maximum
+across them (``kernels/ref.py::ph_scan_restart_ref`` and
+``eddm_scan_restart_ref``). For ADWIN the
 bucket layout is a counter in closed form and every bucket a run of one
 stream, so each event's 60 cut tests are differences of one fp64 prefix
 sum and run across the grid, a warp an event; only a drift whose drop
@@ -20,13 +29,12 @@ removes a bucket rebases the events after it (one cooperative launch,
 rounds of a window of events and a grid minimum;
 ``kernels/ref.py::adwin_scan_restart_ref`` spells it out, and
 :func:`adwin_stats` counts its rounds, events at DRIFT and rebases).
-EDDM and Page-Hinkley walk one thread. The kernels and the plain loop
-agree bitwise, level for level: every step is repeated in fp32 without
-contracted multiply-adds (ADWIN on 0/1 errors, whose bucket sums are
-whole numbers; on other errors its cut tests' sums round once from fp64
-where the loop accumulates in fp32, and its final sums are rebuilt in
-the loop's order). ``detector_scan_serial_cuda`` walks every kind on one
-thread, the DDM and ADWIN kernels' witness; ``adwin_warp_witness_cuda``
+The kernels and the plain loop agree bitwise, level for level: every
+step is repeated in fp32 without contracted multiply-adds (ADWIN on 0/1
+errors, whose bucket sums are whole numbers; on other errors its cut
+tests' sums round once from fp64 where the loop accumulates in fp32, and
+its final sums are rebuilt in the loop's order). ``detector_scan_serial_cuda`` walks every kind on one
+thread, the tiled and ADWIN kernels' witness; ``adwin_warp_witness_cuda``
 runs ADWIN's previous kernel (one warp); both are off every main path
 and not counted.
 
@@ -51,7 +59,7 @@ STEPS = {"ddm": drift_mod.ddm_step, "eddm": drift_mod.eddm_step,
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
-_STATS = {}    # device -> int64 (2,): events the DDM chain walked, restarts
+_STATS = {}    # device -> int64 (2,): events the tiled chains walked, restarts
 _ADWIN_STATS = {}   # device -> int64 (3,): rounds, events at DRIFT, rebases
 
 
@@ -73,8 +81,9 @@ def _lib():
 
 
 def chain_stats(device) -> torch.Tensor:
-    """The card's running ``[events the DDM chain walked, restarts]``
-    (int64), summed over the DDM kernel's launches on ``device``."""
+    """The card's running ``[events the chains walked, restarts]``
+    (int64), summed over the tiled kernels' launches on ``device`` (DDM,
+    EDDM, whose chain walks its errors, and Page-Hinkley)."""
     return _build.device_stats(_STATS, device)
 
 
@@ -127,7 +136,7 @@ def _launch(detector: str, state, err: torch.Tensor, route: str,
             levels: bool = False):
     """Launch ``route`` ("path", "serial" or "warp", ADWIN's one-warp
     witness) on ``err``'s device: ``(state, drifted)``, and each event's
-    level (int32) with ``levels`` (the path's ADWIN kernel and the serial
+    level (int32) with ``levels`` (every kind's path kernel and the serial
     witness)."""
     kind = KINDS[detector]
     dev = err.device
@@ -170,10 +179,9 @@ def _launch(detector: str, state, err: torch.Tensor, route: str,
 def detector_scan_cuda(detector: str, state, err: torch.Tensor, *,
                        levels: bool = False):
     """The detector-scan kernel: ``(final state, any event at DRIFT)``,
-    and each event's level with ``levels`` (ADWIN only)."""
+    and each event's level with ``levels`` (the drift op asks for none;
+    ADWIN's kernel writes them anyway)."""
     _build.refuse_autograd("detector_scan", state, err)
-    if levels and detector != "adwin":
-        raise ValueError("detector_scan_cuda: levels are ADWIN's only")
     out = _launch(detector, state, err, "path", levels)
     LAUNCHES["detector_scan"] += 1
     return out

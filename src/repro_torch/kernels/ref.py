@@ -665,6 +665,158 @@ def ddm_scan_restart_ref(state, err, tile: int):
 
 
 # ---------------------------------------------------------------------------
+# Page-Hinkley and EDDM on DDM's tiled chain, bitwise
+# ---------------------------------------------------------------------------
+
+def _counter(c0, count: int):
+    """``c0`` after 1, ..., ``count`` steps of ``c + 1.0`` in fp32, as the
+    kernels form it: ``c0 + (j + 1)`` where that is exact (``c0`` whole,
+    non-negative and at most ``2^24 - count``), else step by step (past
+    2^24 the step rounds back)."""
+    c0 = c0.reshape(())
+    whole = bool(c0 >= 0) and bool(c0 == torch.trunc(c0)) and \
+        float(c0) <= 16777216.0 - count
+    if whole:
+        return c0 + torch.arange(1, count + 1, dtype=c0.dtype,
+                                 device=c0.device)
+    out = torch.empty(count, dtype=c0.dtype, device=c0.device)
+    c = c0
+    for j in range(count):
+        c = c + 1.0
+        out[j] = c
+    return out
+
+
+def _prefix_fold(seed, v, op):
+    """``op(seed, v[0])``, ``op(op(seed, v[0]), v[1])``, ...: the inclusive
+    prefix of an associative ``op`` (``torch.minimum``, ``torch.maximum``)
+    as a log-step scan, each combine's earlier operand first."""
+    v = torch.cat([seed.reshape(1), v])
+    n, d = v.shape[0], 1
+    while d < n:
+        v = torch.cat([v[:d], op(v[:-d], v[d:])])
+        d *= 2
+    return v[1:]
+
+
+def ph_scan_restart_ref(state, err, tile: int):
+    """Page-Hinkley over ``err`` by the drift-scan kernel's algorithm
+    (``csrc/detector_scan.cu`` ``ph_tiled_kernel``), spelled out in torch:
+    ``(final state, levels (n,) int32)``, bitwise
+    ``run_detector(ph_step, ...)``'s.
+
+    Per tile: (1) ``n`` in closed form (:func:`_counter`); (2) the two
+    chains step by step, as if nothing reset: ``mean += (x - mean) / n``
+    and ``cum = cum + x - mean - 0.005``; (3) ``cum_min`` as a prefix
+    minimum seeded by the carried one, each level ``cum - cum_min > 50``;
+    (4) at the first event at DRIFT the state resets to zeros and the next
+    tile starts right after it."""
+    dev = err.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    e = err.to(**f32).reshape(-1)
+    n_, mean_, cum_, cmin_ = (torch.as_tensor(t, **f32).reshape(())
+                              for t in state[:4])
+    level = torch.as_tensor(state.level, dtype=torch.int32, device=dev)
+    levels = torch.zeros(e.shape[0], dtype=torch.int32, device=dev)
+    base = 0
+    while base < e.shape[0]:
+        et = e[base:base + tile]
+        m = et.shape[0]
+        N = _counter(n_, m)
+        C = torch.empty(m, **f32)
+        mm, cc = mean_, cum_
+        for i in range(m):
+            mm = mm + (et[i] - mm) / N[i]
+            cc = cc + et[i] - mm - 0.005
+            C[i] = cc
+        cmin = _prefix_fold(cmin_, C, torch.minimum)
+        lv = torch.where(C - cmin > 50.0, 2, 0).to(torch.int32)
+        drift = torch.nonzero(lv == 2)
+        r = int(drift[0, 0]) if len(drift) else m
+        levels[base:base + min(r + 1, m)] = lv[:r + 1]
+        if r < m:
+            n_ = mean_ = cum_ = cmin_ = torch.zeros((), **f32)
+            level = lv[r]
+            base += r + 1
+        else:
+            n_, mean_, cum_, cmin_ = N[-1], mm, C[-1], cmin[-1]
+            level = lv[-1]
+            base += m
+    return type(state)(n_, mean_, cum_, cmin_, level), levels
+
+
+def eddm_scan_restart_ref(state, err, tile: int):
+    """EDDM over ``err`` by the drift-scan kernel's algorithm
+    (``csrc/detector_scan.cu`` ``eddm_tiled_kernel``), spelled out in
+    torch: ``(final state, levels (n,) int32)``, bitwise
+    ``run_detector(eddm_step, ...)``'s.
+
+    An event with ``e <= 0.5`` only advances ``since_last`` and takes
+    level 0, so per tile: (1) the errors' positions (the compaction);
+    each one's ``since``, the difference of its position and the previous
+    error's, the first's the carried ``since_last`` stepped to it
+    (:func:`_counter`); ``n_err`` in closed form; (2) the chain over the
+    errors only, step by step, as if nothing reset: ``delta = since -
+    mean_d``, ``mean_d += delta / n``, ``var_d += delta * (since -
+    mean_d)``; (3) ``sd``, ``metric`` and ``best``, a prefix maximum
+    seeded by the carried one, the ratio and each error's level (0 while
+    ``n < 50``); (4) at the first error at DRIFT the state resets and the
+    next tile starts right after it. A tile with no error leaves all but
+    ``since_last`` (carried plus the tile's events) as it was."""
+    dev = err.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    e = err.to(**f32).reshape(-1)
+    n_, since_, mean_, var_, best_ = (torch.as_tensor(t, **f32).reshape(())
+                                      for t in state[:5])
+    level = torch.as_tensor(state.level, dtype=torch.int32, device=dev)
+    levels = torch.zeros(e.shape[0], dtype=torch.int32, device=dev)
+    base = 0
+    while base < e.shape[0]:
+        et = e[base:base + tile]
+        m = et.shape[0]
+        pos = torch.nonzero(et > 0.5).reshape(-1)
+        k = pos.shape[0]
+        if k == 0:
+            since_ = _counter(since_, m)[-1]
+            level = torch.zeros((), dtype=torch.int32, device=dev)
+            base += m
+            continue
+        S = torch.cat([_counter(since_, int(pos[0]) + 1)[-1:],
+                       torch.diff(pos).to(**f32)])
+        N = _counter(n_, k)
+        MEAN = torch.empty(k, **f32)
+        VAR = torch.empty(k, **f32)
+        mm, vv = mean_, var_
+        for j in range(k):
+            delta = S[j] - mm
+            mm = mm + delta / N[j]
+            vv = vv + delta * (S[j] - mm)
+            MEAN[j], VAR[j] = mm, vv
+        sd = torch.sqrt(VAR / torch.clamp(N, min=1.0))
+        metric = MEAN + 2 * sd
+        best = _prefix_fold(best_, metric, torch.maximum)
+        ratio = metric / torch.clamp(best, min=1e-9)
+        lvk = torch.where(ratio < 0.85, 2, torch.where(ratio < 0.92, 1, 0))
+        lvk = torch.where(N < 50, 0, lvk).to(torch.int32)
+        lv = torch.zeros(m, dtype=torch.int32, device=dev)
+        lv[pos] = lvk
+        drift = torch.nonzero(lvk == 2)
+        r = int(pos[drift[0, 0]]) if len(drift) else m
+        levels[base:base + min(r + 1, m)] = lv[:r + 1]
+        if r < m:
+            n_ = since_ = mean_ = var_ = torch.zeros((), **f32)
+            best_ = torch.full((), -1e9, **f32)
+            level = lv[r]
+            base += r + 1
+        else:
+            n_, mean_, var_, best_ = N[-1], MEAN[-1], VAR[-1], best[-1]
+            since_ = torch.tensor(float(m - 1 - int(pos[-1])), **f32)
+            level = lv[-1]
+            base += m
+    return type(state)(n_, since_, mean_, var_, best_, level), levels
+
+
+# ---------------------------------------------------------------------------
 # ADWIN: the drift scan's decomposition (closed-form layout, prefix sums,
 # first cut, rebase), bitwise on 0/1 errors
 # ---------------------------------------------------------------------------

@@ -502,6 +502,60 @@ def test_chip_smoke_phase_19_rehearses_on_the_cpu(monkeypatch):
     assert "19c: fuse='xla' vs 'op': JobMetrics equal=True" in text
 
 
+def test_chip_smoke_phase_20_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s phase 20 (the dense job with EDDM, then with
+    Page-Hinkley, after DDM's) end to end on the CPU at a small size: one
+    scan a batch (the plain version counted as the kernel), card against
+    CPU (both the CPU here), and fuse="xla" against "op" with the segments
+    emulated (the detector's tiled kernel the drift segment's made-up
+    node)."""
+    import pathlib
+
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    monkeypatch.syspath_prepend(root)
+    import chip_smoke as cs
+    from repro_torch.kernels import detector_scan as tds
+    from repro_torch.kernels import ops
+
+    monkeypatch.setattr(cs, "N_EVENTS", 256)
+    monkeypatch.setattr(cs, "DIM", 16)
+    monkeypatch.setattr(cs, "N_BATCHES", 6)
+    monkeypatch.setattr(cs, "ADWIN_SMALL", (4, 128, 16))
+    lines = []
+    monkeypatch.setattr(cs, "log", lambda *a: lines.append(" ".join(
+        str(x) for x in a)))
+    running = {}
+    real_modes = cs.modes_run
+
+    def modes_run(*a, detector="ddm", **k):
+        running["kernel"] = f"{detector}_tiled_kernel"
+        return real_modes(*a, detector=detector, **k)
+    monkeypatch.setattr(cs, "modes_run", modes_run)
+    monkeypatch.setattr(cs, "graph_node_names", lambda raw: (
+        [f"_ZN12_GLOBAL__N_1{len(running['kernel'])}{running['kernel']}"
+         "EPKfxPfPiS3_PxS3_", "memset"]
+        if "drift" in raw else ["elementwise"]))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    _emulate_graphs(monkeypatch)
+    real = ops.detector_scan
+
+    def counted(*a, **k):
+        tds.LAUNCHES["detector_scan"] += 1
+        return real(*a, **k)
+    monkeypatch.setattr(ops, "detector_scan", counted)
+    batches = cs.dense_batches(cs.N_BATCHES, cs.N_EVENTS, cs.DIM)
+    out = cs.detector_jobs_phase(torch.device("cpu"), batches)
+    assert set(out) == set(cs.DETECTOR_JOBS) == {"eddm", "ph"}
+    assert all(c["detector_scan"] >= 3 * len(batches) for c in out.values())
+    text = "\n".join(lines)
+    for det in cs.DETECTOR_JOBS:
+        assert "20b: small job, card vs CPU: events/cuts/codecs/" \
+            "drift_alarms equal=True" in text
+        assert f"(xla) detector={det}" in text
+    assert text.count("20c: fuse='xla' vs 'op': JobMetrics equal=True") == 2
+
+
 def test_chip_smoke_counts_every_hand_kernel_in_a_graph():
     """A hand kernel (a ``__global__`` of the port's sources) in a captured
     graph counts its replays under its wrapper's counter; one without a

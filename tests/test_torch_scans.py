@@ -302,7 +302,7 @@ def test_ddm_ties_case_keeps_the_carried_pair():
 
 @pytest.mark.parametrize("detector", ["eddm", "ph"])
 def test_detector_scan_runs_eddm_and_ph_plain_on_cpu_and_raises_elsewhere(
-        detector):
+        detector, monkeypatch):
     init = {"eddm": tdrift.eddm_init, "ph": tdrift.ph_init}[detector]
     kops.reset_launch_counts()
     err = _t(_alternating(1, n=400))
@@ -314,6 +314,15 @@ def test_detector_scan_runs_eddm_and_ph_plain_on_cpu_and_raises_elsewhere(
     with pytest.raises(ValueError, match="no kernel for device"):
         kops.detector_scan(detector, init("meta"),
                            torch.empty(8, device="meta"))
+    # the kernel's wrapper passes levels=True on for every tiled kind
+    # (their kernels write each event's level), DDM's too
+    seen = []
+    monkeypatch.setattr(ds, "_launch", lambda *a: seen.append(a) or "ran")
+    assert ds.detector_scan_cuda(detector, init(), err, levels=True) == "ran"
+    assert ds.detector_scan_cuda("ddm", tdrift.ddm_init(), err,
+                                 levels=True) == "ran"
+    assert [(a[0],) + a[3:] for a in seen] == [
+        (detector, "path", True), ("ddm", "path", True)]
 
 
 @pytest.mark.parametrize("k,kc", [(0, 0), (1025, 1025), (4, 5)],
