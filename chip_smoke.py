@@ -158,9 +158,9 @@ path on the card, and checks what comes out. Phases:
     (2 layers) placed by ``place_frontier`` on the edge serving
     cluster, its losses and state bitwise the standalone step's on the
     card; an ``AsyncCheckpointer`` save at step 3 of 6 (smoke config)
-    with the next step updating in place, resumed bitwise; 3 steps on
-    the card against the CPU within 1e-4. It launches no hand kernel
-    (no kernel has a backward). The kernels' pad routes (flash attention
+    with the next step updating in place, resumed bitwise (its 3 steps
+    on the card against the CPU are phase 21b's). It launches no hand
+    kernel (no kernel has a backward). The kernels' pad routes (flash attention
     at head dims 32, 96 and 192, WKV at head sizes 32 and 96, Mamba at 8
     and 24 states, each zero-padded to the next built size) and one size
     above each largest built one (flash D 320 on the wide kernel, WKV hs
@@ -195,18 +195,22 @@ path on the card, and checks what comes out. Phases:
     launches: each replay launches every hand kernel its graph holds, and
     a hand kernel (a ``__global__`` of the port's sources) in a captured
     graph without a counter fails the phase;
-14. the families of slice 13 served as phase 6 serves its models:
-    granite-moe-1b-a400m and deepseek-v2-lite-16b in full,
-    llama-3.2-vision-90b cut to 5 layers (the gated cross layer at
-    index 4) and jamba-1.5-large-398b to 2 (Mamba + MoE, attention +
-    dense), each cut logged: tok/s, peak GiB, launches (flash on the
-    vision path and nothing else on any), kernel against chunked
-    prefill logits (vision's gates opened, its patches drawn from a
-    seed), one profiled decode step (launches, idle share), a negative
-    control (the vision check must fail with flash's output rolled over
-    the batch), and the MoE routing of granite's and deepseek's smoke
-    configs on the card against the CPU (ids, keep masks and the sort
-    bitwise, near ties logged, logits within 1e-4);
+14. the families of slice 13, and the dense models no other phase
+    serves, served as phase 6 serves its models:
+    granite-moe-1b-a400m, deepseek-v2-lite-16b, nemotron-4-15b (squared
+    ReLU, decoder-only LayerNorm, 256,000 tokens) and qwen1.5-4b (full
+    multi-head attention, QKV bias) in full, llama-3.2-vision-90b cut to
+    5 layers (the gated cross layer at index 4), jamba-1.5-large-398b to
+    2 (Mamba + MoE, attention + dense) and mistral-large-123b to 16, each
+    cut logged: tok/s, peak GiB, launches (flash on the vision path and
+    nothing else on any), kernel against chunked prefill logits
+    (vision's gates opened, its patches drawn from a seed), one profiled
+    decode step (launches, idle share), a negative control (the vision
+    check must fail with flash's output rolled over the batch), and the
+    smoke configs of granite, deepseek and the three dense models
+    prefilled in fp32 on the card against the CPU (logits within 1e-4;
+    the MoE routing's ids, keep masks and sort bitwise, near ties
+    logged);
 15. the launchers and the mesh: (a) ``python -m repro_torch.launch.serve``
     (its ``main``) for rwkv6-1.6b at full width with phase 6's traffic,
     its greedy tokens equal to ``ServeEngine``'s driven directly on the
@@ -282,12 +286,28 @@ path on the card, and checks what comes out. Phases:
     drift segment's graph holding ADWIN's kernel as one node;
 20. phase 19 for ``drift_detector="eddm"`` and ``"ph"`` (their tiled
     kernels), beside DDM's job in the same call, without the alarm
-    check (a detector need not alarm on this drift). Each phase logs the
-    seconds since the start.
+    check (a detector need not alarm on this drift);
+21. a train step on the card for every registered model no other phase
+    trains, at full width, 3 steps of 8 x 512 on one seeded batch
+    (tokens, and frames or patches; ``make_optimizer`` and
+    ``make_train_step``, the config's remat and microbatches):
+    seamless-m4t-medium (AdamW, fp32 master) and qwen1.5-4b (Adafactor)
+    in full, nemotron-4-15b at 8 layers, mistral-large-123b at 4 and
+    llama-3.2-vision-90b at 5 (Adafactor), deepseek-v2-lite-16b at 4
+    (AdamW; layer 0 dense, 3 MoE), each cut logged; jamba-1.5-large-398b
+    does not fit one card and is logged so. Losses finite and falling,
+    grad norms finite and above 0, every parameter finite on the card,
+    every leaf that had a gradient moved; ms a step, tok/s, MFU, peak
+    GiB beside the reckoning (6 or 18 B a parameter), the draw's peak;
+    (b) every registered model's smoke config 3 steps on the card
+    against the CPU, losses within 1e-4 (an MoE model's routing equal
+    but at a near tie; from a step where it parts there, logged, not
+    held). No hand kernel launches. Each phase logs the seconds since
+    the start.
 
 The launch counts are set to 0 just before each main path (phases 3-5
 as one, each model of phases 6 and 14, phases 7, 8, 9, 10, 11, 12, 13,
-16 and 19, each detector of phase 20, each launcher of phase 15, 17b
+16, 19 and 21, each detector of phase 20, each launcher of phase 15, 17b
 and 18a-b and 18d in each
 rank's process) and
 read just after it; every kernel must have launched on a main path. A line
@@ -421,7 +441,7 @@ MAMBA_TOL = 1e-5       # rtol and atol, fp32 against the per-step plain scan
 # bf16: max |difference| <= LOGITS_RTOL * max |chunked logits|
 LOGITS_RTOL = 5e-2
 
-# phase 14: the families served at full width; two cut in depth to fit
+# phase 14: the families served at full width; three cut in depth to fit
 # one card (80 GB): (arch, config overrides, why)
 FAMILY_MODELS = (
     ("granite-moe-1b-a400m", {}, None),
@@ -432,6 +452,14 @@ FAMILY_MODELS = (
     ("jamba-1.5-large-398b", {"n_layers": 2, "attn_period": 2},
      "398B parameters do not fit one card, and one full-width MoE layer "
      "is ~9.7B: layer 0 Mamba + MoE, layer 1 attention + dense"),
+    # the dense decoders no other phase serves: squared ReLU, decoder-only
+    # LayerNorm and a 256,000-token vocabulary; full multi-head attention
+    # with QKV bias; 96 heads on 8 at d_model 12,288
+    ("nemotron-4-15b", {}, None),
+    ("qwen1.5-4b", {}, None),
+    ("mistral-large-123b", {"n_layers": 16},
+     "123B parameters (~246 GB in bf16) do not fit one card; every layer "
+     "is the same dense block at full width, 16 are 45.9 GB"),
 )
 VLM_GATE = 1.0          # the vision gates, opened for the checks
 # the vision checks' image patches: N(0, VLM_PATCH_SCALE^2). The seeded
@@ -441,9 +469,10 @@ VLM_GATE = 1.0          # the vision gates, opened for the checks
 # flash output (each request given another's) moved the prefill logits
 # by 0.8% of their largest, under the 5% the check allows
 VLM_PATCH_SCALE = 32.0
-MOE_CPU_MODELS = ("granite-moe-1b-a400m", "deepseek-v2-lite-16b")
-MOE_CPU_B, MOE_CPU_S = 4, 64
-MOE_CPU_TOL = 1e-4      # rtol and atol, fp32 logits, card against CPU
+PREFILL_CPU_MODELS = ("granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+                      "nemotron-4-15b", "qwen1.5-4b", "mistral-large-123b")
+PREFILL_CPU_B, PREFILL_CPU_S = 4, 64
+PREFILL_CPU_TOL = 1e-4  # rtol and atol, fp32 logits, card against CPU
 MOE_NEAR_TIE = 1e-6     # K-th and (K+1)-th router probabilities closer
 
 # phases 10-11: the port's counterparts of examples/dynamic_topology.py and
@@ -2404,7 +2433,7 @@ def serving_phases(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the MoE, MLA, hybrid and vision families served
+# phase 14: the MoE, MLA, hybrid, vision and dense families served
 # ---------------------------------------------------------------------------
 
 def family_configs():
@@ -2527,15 +2556,15 @@ class RoutingRecorder:
             self._dispatch
 
 
-def moe_card_vs_cpu(dev) -> None:
-    """A smoke-size fp32 prefill of granite and deepseek on the card and
-    on the CPU from the same weights (fp32 caches, so that no bf16
-    rounding of a key flips between the two): expert ids, keep masks and
-    the dispatch's sort bitwise, logits within rtol = atol = MOE_CPU_TOL,
-    except at a near tie (a token whose K-th and (K+1)-th router probabilities
-    lie within MOE_NEAR_TIE, where fp32 products may round the other
-    way), which is logged and whose sequence is left out of the logits
-    comparison."""
+def prefill_card_vs_cpu(dev) -> None:
+    """A smoke-size fp32 prefill of each of PREFILL_CPU_MODELS on the card
+    and on the CPU from the same weights (fp32 caches, so that no bf16
+    rounding of a key flips between the two): logits within rtol = atol
+    = PREFILL_CPU_TOL; for the MoE models expert ids, keep masks and the
+    dispatch's sort bitwise, except at a near tie (a token whose K-th and
+    (K+1)-th router probabilities lie within MOE_NEAR_TIE, where fp32
+    products may round the other way), which is logged and whose
+    sequence is left out of the logits comparison."""
     from dataclasses import replace
     import numpy as np
     import torch
@@ -2543,21 +2572,22 @@ def moe_card_vs_cpu(dev) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import model_zoo as zoo
 
-    for arch in MOE_CPU_MODELS:
+    for arch in PREFILL_CPU_MODELS:
         cfg = replace(get_config(arch, smoke=True), kv_cache_dtype="float32")
         cpu_params = zoo.init_params(cfg, seed=0, device="cpu")
         card_params = tree_map(lambda t: t.to(dev), cpu_params)
         rng = np.random.default_rng(2)
         toks = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, size=(MOE_CPU_B, MOE_CPU_S)).astype(np.int32))
+            0, cfg.vocab_size, size=(PREFILL_CPU_B, PREFILL_CPU_S)
+        ).astype(np.int32))
         logits, layers = {}, {}
         for where, params in (("cpu", cpu_params), ("card", card_params)):
             with RoutingRecorder() as rec:
                 lg, _ = zoo.prefill(params, cfg, {"tokens": toks.to(
-                    params["embed"]["tok"].device)}, MOE_CPU_S,
+                    params["embed"]["tok"].device)}, PREFILL_CPU_S,
                     impl="kernel")
             logits[where], layers[where] = lg.float().cpu(), rec.layers
-        near = torch.zeros(MOE_CPU_B * MOE_CPU_S, dtype=torch.bool)
+        near = torch.zeros(PREFILL_CPU_B * PREFILL_CPU_S, dtype=torch.bool)
         for a, b in zip(layers["cpu"], layers["card"]):
             near |= a["near"] | b["near"]
         ok = ~near
@@ -2571,26 +2601,31 @@ def moe_card_vs_cpu(dev) -> None:
                     and torch.equal(a["order"], b["order"])):
                 raise AssertionError(f"{arch} layer {i}: keep masks or the "
                                      "stable sort differ")
-        rows = ~near.reshape(MOE_CPU_B, MOE_CPU_S).any(-1)
+        rows = ~near.reshape(PREFILL_CPU_B, PREFILL_CPU_S).any(-1)
         real = slice(0, cfg.vocab_size)
         a, b = logits["card"][rows][..., real], logits["cpu"][rows][..., real]
-        excess = float(((a - b).abs() - MOE_CPU_TOL * (1 + b.abs())).max())
+        excess = float(((a - b).abs()
+                        - PREFILL_CPU_TOL * (1 + b.abs())).max())
         ties = torch.nonzero(near).reshape(-1).tolist()
+        routed = (f"expert ids, keep masks and sort bitwise; near ties "
+                  f"{ties}; " if layers["cpu"] else "")
         log(f"  {arch} (smoke, fp32, {len(layers['cpu'])} MoE layers, "
-            f"{MOE_CPU_B} x {MOE_CPU_S} tokens): expert ids, keep masks "
-            f"and sort bitwise; near ties {ties}; logits max |card - cpu| "
+            f"{PREFILL_CPU_B} x {PREFILL_CPU_S} tokens): {routed}logits max "
+            f"|card - cpu| "
             f"{float((a - b).abs().max())!r} of max |cpu| "
-            f"{float(b.abs().max())!r} (rtol = atol = {MOE_CPU_TOL})")
+            f"{float(b.abs().max())!r} (rtol = atol = {PREFILL_CPU_TOL})")
         if not excess <= 0:
             raise AssertionError(f"{arch}: card and CPU logits differ")
 
 
 def families_phase(dev) -> dict:
     """Phase 14: granite-moe-1b-a400m, deepseek-v2-lite-16b,
-    llama-3.2-vision-90b and jamba-1.5-large-398b served at full width as
-    phase 6 serves its models, each one main path; the vision model's
-    flash launches and its negative control; then the MoE routing on the
-    card against the CPU. Returns each path's launch counts."""
+    llama-3.2-vision-90b, jamba-1.5-large-398b, nemotron-4-15b,
+    qwen1.5-4b and mistral-large-123b served at full width as phase 6
+    serves its models, each one main path; the vision model's flash
+    launches and its negative control; then the smoke configs' prefill
+    (and the MoE routing) on the card against the CPU. Returns each
+    path's launch counts."""
     import numpy as np
     import torch
     from repro_torch.models import model_zoo as zoo
@@ -2619,7 +2654,7 @@ def families_phase(dev) -> dict:
         paths[f"serve/{arch}"] = counts
         # the path's kernels: flash in vision's gated cross-attention,
         # nothing anywhere else (self-attention and MLA refuse flash, the
-        # Mamba mixer runs its own scan, as the reference's do)
+        # Mamba mixer runs its own scan, as the reference's do; fault 5)
         want = {"flash_attention"} if cfg.family == "vlm" else set()
         if {k for k, v in counts.items() if v} != want:
             raise AssertionError(f"{arch}: launches {counts}, expected "
@@ -2641,9 +2676,9 @@ def families_phase(dev) -> dict:
         free_card()
         log(f"  after {arch}: {torch.cuda.memory_allocated() / 2 ** 30!r} "
             f"GiB held")
-    log(f"phase 14: MoE routing on the card against the CPU "
-        f"({', '.join(MOE_CPU_MODELS)} smoke configs)")
-    moe_card_vs_cpu(dev)
+    log(f"phase 14: fp32 prefill and MoE routing on the card against the "
+        f"CPU ({', '.join(PREFILL_CPU_MODELS)} smoke configs)")
+    prefill_card_vs_cpu(dev)
     return paths
 
 
@@ -3749,11 +3784,54 @@ def checkpoint_resume_check(dev) -> None:
         raise AssertionError("checkpoint: the resumed run differs")
 
 
-def card_vs_cpu_check(dev) -> None:
-    """qwen2-1.5b's smoke config, CPU_STEPS AdamW steps from the same
+def train_batch(cfg, B: int, S: int, rng, device="cpu") -> dict:
+    """A B x S batch of tokens drawn from ``rng`` (numpy), then, for an
+    enc-dec model, B x S frames and, for a vision model, its patches,
+    N(0, 1): the same inputs on every device."""
+    import numpy as np
+    import torch
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)
+                                    ).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((B, S, cfg.frontend_dim),
+                                              dtype=np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.frontend_len, cfg.frontend_dim), dtype=np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def routing_parts(cpu_layers, card_layers, what: str) -> bool:
+    """Whether one step's MoE routing parts between the CPU and the card
+    (the recorders' layers of that step): a token's expert ids may differ
+    only at a near tie (else AssertionError), and where no id differs the
+    keep masks and the dispatch's sort must be equal."""
+    import torch
+    parted = False
+    for i, (a, b) in enumerate(zip(cpu_layers, card_layers)):
+        differ = (a["ids"] != b["ids"]).any(-1)
+        if (differ & ~(a["near"] | b["near"])).any():
+            raise AssertionError(f"{what} layer {i}: expert ids differ "
+                                 "away from a near tie")
+        if differ.any():
+            parted = True
+        elif not parted and not (torch.equal(a["keep"], b["keep"])
+                                 and torch.equal(a["order"], b["order"])):
+            raise AssertionError(f"{what} layer {i}: keep masks or the "
+                                 "stable sort differ")
+    return parted
+
+
+def card_vs_cpu_check(dev, arch: str = "qwen2-1.5b",
+                      opt_name: str = "adamw") -> None:
+    """``arch``'s smoke config, CPU_STEPS ``opt_name`` steps from the same
     weights (drawn on the CPU: a generator on the card draws other
-    numbers from the same seed) on the same tokens on the card and on
-    the CPU: losses within CPU_TOL relative."""
+    numbers from the same seed) on the same batches on the card and on
+    the CPU: losses within CPU_TOL relative. An MoE model's routing is
+    recorded at every step on both: ids equal but at a near tie
+    (MOE_NEAR_TIE); from a step whose routing parts at one (it changes
+    that step's gradients, so every later step's weights) the gaps are
+    logged and not held."""
     import numpy as np
     import torch
     from repro_torch._tree import tree_map
@@ -3762,29 +3840,39 @@ def card_vs_cpu_check(dev) -> None:
     from repro_torch.train.optim import make_optimizer
     from repro_torch.train.train_step import make_train_step
 
-    cfg = get_config("qwen2-1.5b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     rng = np.random.default_rng(21)
-    toks = [rng.integers(0, cfg.vocab_size, (TRAIN_B, CKPT_S)).astype(np.int32)
-            for _ in range(CPU_STEPS)]
+    batches = [train_batch(cfg, TRAIN_B, CKPT_S, rng)
+               for _ in range(CPU_STEPS)]
     start = zoo.init_params(cfg, seed=0, device="cpu")
-    losses = {}
-    for where in (dev, torch.device("cpu")):
-        opt = make_optimizer(cfg, "adamw", lr=3e-3, total_steps=CPU_STEPS,
+    losses, routes = {"card": [], "cpu": []}, {"card": [], "cpu": []}
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        opt = make_optimizer(cfg, opt_name, lr=3e-3, total_steps=CPU_STEPS,
                              warmup=1)
         params = tree_map(lambda t: t.to(where, copy=True), start)
         state, step = opt.init(params), 0
         step_fn = make_train_step(cfg, opt)
-        run = losses.setdefault(where.type, [])
-        for t in toks:
-            params, state, step, m = step_fn(
-                params, state, step, {"tokens": torch.from_numpy(t).to(where)})
-            run.append(float(m["loss"]))
-    card, cpu = losses[dev.type], losses["cpu"][-CPU_STEPS:]
-    gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
-    log(f"  card vs CPU (smoke config, {CPU_STEPS} steps): losses "
-        f"{card!r} vs {cpu!r}, largest relative gap {gap!r} (tol {CPU_TOL})")
+        for b in batches:
+            with RoutingRecorder() as rec:
+                params, state, step, m = step_fn(
+                    params, state, step,
+                    {k: v.to(where) for k, v in b.items()})
+            losses[tag].append(float(m["loss"]))
+            routes[tag].append(rec.layers)
+    card, cpu = losses["card"], losses["cpu"]
+    held = next((i for i in range(CPU_STEPS) if routing_parts(
+        routes["cpu"][i], routes["card"][i], f"{arch} step {i}")),
+        CPU_STEPS)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    gap = max(gaps[:held], default=0.0)
+    parted = (f"; the routing parts at a near tie at step {held}, gaps "
+              f"from it logged, not held: {gaps[held:]!r}"
+              if held < CPU_STEPS else "")
+    log(f"  card vs CPU ({arch} smoke config, {opt_name}, {CPU_STEPS} "
+        f"steps): losses {card!r} vs {cpu!r}, largest relative gap "
+        f"{gap!r} (tol {CPU_TOL}){parted}")
     if not gap <= CPU_TOL:
-        raise AssertionError("training: card and CPU losses disagree")
+        raise AssertionError(f"{arch}: card and CPU losses disagree")
 
 
 def training_phase(dev) -> dict:
@@ -3810,8 +3898,8 @@ def training_phase(dev) -> dict:
     train_op_check(dev)
     log("phase 12d: async checkpoint and bitwise resume on the card")
     checkpoint_resume_check(dev)
-    log("phase 12e: the card against the CPU")
-    card_vs_cpu_check(dev)
+    # (the card against the CPU, qwen2-1.5b's smoke config among every
+    # model's: phase 21b)
     counts = ops.launch_counts()
     log(f"  phase 12 launches: {counts}")
     if any(counts.values()):
@@ -5889,6 +5977,256 @@ def train_rank_checks(tag, trains, ref, dry_out, want_args, whole,
                                  f"against the card's {t['peak']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: a train step on the card for every model that fits one
+# ---------------------------------------------------------------------------
+
+# bytes a parameter a step holds before any activation: bf16 weights and
+# the fp32 gradients the step accumulates; AdamW adds its fp32 master and
+# two fp32 moments, Adafactor's factored moments are ~0
+OPT_BYTES = {"adamw": 2 + 4 + 12, "adafactor": 2 + 4}
+# every model no other phase trains on the card (qwen2-1.5b: 12a, 16b,
+# 17a; rwkv6-1.6b: 12b; granite-moe-1b-a400m: 15b, 18c) and that fits
+# one, at full width: (arch, config overrides, optimizer, why); a depth
+# cut keeps every layer kind of the model
+TRAIN_CARD_MODELS = (
+    ("seamless-m4t-medium", {}, "adamw", None),
+    ("qwen1.5-4b", {}, "adafactor",
+     "AdamW with its fp32 master (71 GB with the gradients) leaves no room "
+     "for the 2.5 GB fp32 logits"),
+    ("nemotron-4-15b", {"n_layers": 8}, "adafactor",
+     "32 layers are 94 GB even under Adafactor; every layer is the same "
+     "dense block at full width"),
+    ("mistral-large-123b", {"n_layers": 4}, "adafactor",
+     "123B parameters do not fit one card; every layer is the same dense "
+     "block at full width"),
+    ("deepseek-v2-lite-16b", {"n_layers": 4}, "adamw",
+     "at 27 layers the fp32 gradients alone are 64.6 GB; layer 0 dense "
+     "and 3 MoE layers keep both kinds"),
+    ("llama-3.2-vision-90b", {"n_layers": 5}, "adafactor",
+     "phase 14's cut: 4 self-attention layers and the gated cross layer "
+     "at index 4"),
+)
+# never trained on the card here, and why
+NOT_ON_ONE_CARD = {
+    "jamba-1.5-large-398b":
+        "at phase 14's cut (2 layers, 11.91B parameters) the bf16 weights "
+        "and fp32 gradients are 71.5 GB and Adafactor's update needs an "
+        "fp32 temporary of one (16, 8192, 24576) expert stack, 12.0 GiB: "
+        "78.6 GiB before any activation; every cut that keeps the MoE layer "
+        "is this size",
+}
+TRAIN_CARD_STEPS = 3             # on one fixed TRAIN_B x TRAIN_S batch
+
+
+def train_reckoning(cfg, opt_name: str) -> int:
+    """The bytes a train step of ``cfg`` under ``opt_name`` holds before
+    any activation: ``cfg.param_counts()`` times OPT_BYTES."""
+    return cfg.param_counts()["total"] * OPT_BYTES[opt_name]
+
+
+def train_card_configs():
+    """``(config, optimizer, reduced)`` of phase 21's models: each at full
+    width, its depth cut where ``reduced`` says how and why."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    out = []
+    for arch, over, opt_name, why in TRAIN_CARD_MODELS:
+        cfg = get_config(arch)
+        cuts = {k: f"{getattr(cfg, k)} -> {v}" for k, v in over.items()}
+        out.append((replace(cfg, **over), opt_name,
+                    {**cuts, "why": why} if why else {}))
+    return out
+
+
+def train_card_optimizer(arch: str) -> str:
+    """The optimizer of ``arch``'s phase-21 row, else AdamW (the
+    configs' own)."""
+    return next((o for a, _, o, _ in TRAIN_CARD_MODELS if a == arch),
+                "adamw")
+
+
+def optimizer_leaves(params, state) -> list:
+    """The tensors a step moves, leaf for leaf: the optimizer's fp32
+    master where it keeps one (AdamW), else the parameters."""
+    from repro_torch._tree import tree_leaves
+    return tree_leaves(state["master"] if isinstance(state, dict)
+                       and "master" in state else params)
+
+
+def unmoved_leaves(paths, grad, moved, held, states_moved) -> tuple:
+    """``(failed, below_ulp)``: the leaves (by path) that had a gradient
+    and did not move. A bf16 leaf the optimizer keeps no fp32 copy of
+    cannot take an update below half its ulp (a norm's scale at 1.0 moves
+    only by more than 2^-9 down, 2^-8 up; Adafactor's first step moves
+    each element by the learning rate): such a leaf is ``below_ulp``
+    where its optimizer state moved (the step reached it), else
+    ``failed``; an fp32 one always fails."""
+    import torch
+    failed, below = [], []
+    for p, g, mv, t in zip(paths, grad, moved, held):
+        if not g or mv:
+            continue
+        ok = t.dtype != torch.float32 and states_moved(p)
+        (below if ok else failed).append(p)
+    return failed, below
+
+
+def train_card(dev, cfg, opt_name: str, reduced: dict) -> dict:
+    """TRAIN_CARD_STEPS steps of ``cfg`` (seed-0 weights drawn on the card,
+    the config's remat and microbatches) under ``opt_name`` on one fixed
+    TRAIN_B x TRAIN_S batch (seeded tokens, and frames or patches):
+    losses finite and the third below the first, grad norms finite and
+    above 0, every parameter finite and on the card, every leaf that had
+    a gradient at a step moved (:func:`optimizer_leaves`, held against a
+    copy on the host). Logs ms a step (the median after the first),
+    tok/s, MFU from the active parameters, ``max_memory_allocated``
+    beside :func:`train_reckoning`, and the weight draw's peak."""
+    import numpy as np
+    import torch
+    from repro_torch._tree import (tree_flatten, tree_flatten_with_path,
+                                   tree_leaves)
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.train.optim import (Optimizer, cosine_schedule,
+                                         make_optimizer)
+    from repro_torch.train.train_step import make_train_step
+
+    arch = cfg.name
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated(dev)
+    counts = cfg.param_counts()
+    reckoned = train_reckoning(cfg, opt_name)
+    log(f"phase 21: {arch} ({cfg.family}, {counts['total']} parameters, "
+        f"{counts['active']} active, {cfg.n_layers} layers, remat="
+        f"{cfg.remat} microbatches={cfg.microbatches}, {opt_name}), weights "
+        f"drawn in {draw_s:.2f} s, {draw_peak / 2 ** 30!r} GiB at the draw's "
+        f"peak" + (f"; reduced: {reduced}" if reduced else ""))
+    batch = train_batch(cfg, TRAIN_B, TRAIN_S, np.random.default_rng(21),
+                        dev)
+    # phase 12's peak, warm-up 0 (step 1 trains), a cosine over the steps.
+    # At phase 15b's 3e-3 Adafactor fits qwen1.5-4b's batch in one step
+    # (12.43 -> 0.013), and the next update, whose RMS Adafactor holds at
+    # 1 however small the gradient, throws the loss to 15.49
+    sched = cosine_schedule(TRAIN_LR, 0, TRAIN_CARD_STEPS)
+    lrs = [float(sched(i)) for i in range(TRAIN_CARD_STEPS)]
+    if not lrs[0] > 0:
+        raise AssertionError(f"{arch}: the learning rate is 0 at step 1")
+    inner = make_optimizer(cfg, opt_name, lr=sched)
+    had_grad = []
+
+    def update(grads, state, params, step):
+        nz = torch.stack([torch.count_nonzero(g) > 0
+                          for g in tree_flatten(grads)[0]])
+        had_grad.append(nz)
+        return inner.update(grads, state, params, step)
+    opt = Optimizer(inner.init, update, inner.state_axes)
+    state = opt.init(params)
+    before = [t.to("cpu", copy=True)
+              for t in optimizer_leaves(params, state)]
+    # the state of an optimizer with no fp32 copy: what a bf16 leaf that
+    # cannot move is held to (AdamW's master moves every leaf)
+    state_before = {} if "master" in state else {
+        sp: t.to("cpu", copy=True)
+        for sp, t in tree_flatten_with_path(state)[0]}
+    step_fn = make_train_step(cfg, opt)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    losses, gnorms, step_s = [], [], []
+    for _ in range(TRAIN_CARD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, step, m = step_fn(params, state, step, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    leaves = [t for t in tree_leaves((params, state))
+              if isinstance(t, torch.Tensor)]
+    if not all(t.device.type == dev.type for t in leaves) or not all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(params)
+            if t.is_floating_point()):
+        raise AssertionError(f"{arch}: a parameter is off the card or not "
+                             "finite")
+    grad = torch.stack(had_grad).any(0).tolist()
+    held = optimizer_leaves(params, state)
+    moved = [not torch.equal(b, a.to("cpu")) for b, a in zip(before, held)]
+    paths = [p for p, _ in tree_flatten_with_path(params)[0]]
+    state_after = dict(tree_flatten_with_path(state)[0])
+    still, below_ulp = unmoved_leaves(
+        paths, grad, moved, held, lambda p: any(
+            not torch.equal(t, state_after[sp].to("cpu"))
+            for sp, t in state_before.items() if p in sp))
+    no_grad = [p for p, g in zip(paths, grad) if not g]
+    steady = statistics.median(step_s[1:])
+    tokens = TRAIN_B * TRAIN_S
+    out = {"n_layers": cfg.n_layers, "optimizer": opt_name,
+           "median_ms": steady * 1e3, "tok_per_s": tokens / steady,
+           "mfu": 6.0 * counts["active"] * tokens / (steady
+                                                     * BF16_DENSE_PEAK),
+           "peak_bytes": peak, "reckoned_bytes": reckoned,
+           "draw_peak_bytes": draw_peak}
+    log(f"    losses={losses!r} grad_norms={gnorms!r} lr={lrs!r}")
+    log(f"    step_ms={[t * 1e3 for t in step_s]!r} median_ms="
+        f"{out['median_ms']!r} tok_per_s={out['tok_per_s']!r} "
+        f"mfu={out['mfu']!r}")
+    log(f"    max_memory_allocated {peak / 2 ** 30!r} GiB ({peak} B) against "
+        f"the reckoning's {reckoned / 2 ** 30!r} GiB ({reckoned} B, "
+        f"{OPT_BYTES[opt_name]} B a parameter) before activations; "
+        f"{sum(moved)} of {len(moved)} leaves moved; below half a bf16 ulp "
+        f"(no fp32 copy; their optimizer state moved): {below_ulp}; no "
+        f"gradient at any step: {no_grad}")
+    log(f"    {nvidia_smi_line()}")
+    bad = [i for i, (l, g) in enumerate(zip(losses, gnorms))
+           if not (math.isfinite(l) and math.isfinite(g) and g > 0)]
+    if bad:
+        raise AssertionError(f"{arch}: non-finite loss or grad norm <= 0 at "
+                             f"steps {bad}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+    if still:
+        raise AssertionError(f"{arch}: leaves with a gradient did not move: "
+                             f"{still}")
+    del params, state, m, opt, inner, step_fn, batch, before, leaves, held
+    del state_before, state_after
+    free_card()
+    return out
+
+
+def card_training_phase(dev) -> dict:
+    """Phase 21: :func:`train_card` for each of TRAIN_CARD_MODELS, then
+    (21b) :func:`card_vs_cpu_check` for every entry of ``ARCH_IDS`` at its
+    smoke config under :func:`train_card_optimizer`. The launch counts
+    from 0 around it: training takes the chunked paths (the CUDA routes
+    refuse tensors that require grad), so every count stays 0. Returns
+    them."""
+    import torch
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    rows = {}
+    for cfg, opt_name, reduced in train_card_configs():
+        t0 = time.perf_counter()
+        rows[cfg.name] = train_card(dev, cfg, opt_name, reduced)
+        log(f"    {cfg.name}: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 21: not trained on one card: {NOT_ON_ONE_CARD}")
+    log(f"phase 21b: the card against the CPU, every model's smoke config "
+        f"({CPU_STEPS} steps)")
+    for arch in ARCH_IDS:
+        card_vs_cpu_check(dev, arch, train_card_optimizer(arch))
+    counts = ops.launch_counts()
+    log(f"  phase 21 launches: {counts}")
+    if any(counts.values()):
+        raise AssertionError("training launched a hand kernel")
+    log(f"  card training: {json.dumps(rows)}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def free_card() -> None:
     """Collect garbage, then return the cache's free blocks to the card.
     A reference cycle can hold a model's tensors until the collector
@@ -6180,10 +6518,10 @@ def main(argv=None) -> int:
     since(t_all)
     path_counts["modes"] = modes_phase(dev, batches)
 
-    # -- phase 14: the MoE, MLA, hybrid and vision families served -------------
+    # -- phase 14: the MoE, MLA, hybrid, vision and dense families served ------
     torch.cuda.empty_cache()
     since(t_all)
-    log(f"phase 14: the MoE, MLA, hybrid and vision families served "
+    log(f"phase 14: the MoE, MLA, hybrid, vision and dense families served "
         f"({N_REQUESTS} requests x {PROMPT} tokens, {NEW_TOKENS} greedy new "
         f"tokens, batch {SERVE_BATCH})")
     path_counts.update(families_phase(dev))
@@ -6225,6 +6563,13 @@ def main(argv=None) -> int:
         f"int8_ef)")
     for det, c in detector_jobs_phase(dev, batches).items():
         path_counts[f"drift/{det}"] = c
+
+    # -- phase 21: a train step on the card for every model that fits -------
+    free_card()
+    since(t_all)
+    log(f"phase 21: {TRAIN_CARD_STEPS} train steps of {TRAIN_B} x {TRAIN_S} "
+        f"tokens for every model no other phase trains")
+    path_counts["card_training"] = card_training_phase(dev)
     since(t_all)
 
     counts = {k: sum(c[k] for c in path_counts.values())

@@ -38,19 +38,35 @@ _PROFILER_OWN = ("Activity Buffer Request",)
 
 def _device_events(prof):
     """``(ms, count, name)`` of every kernel and copy the profiler traced
-    on the card. The host ops that launched them (``aten::*``) also carry
-    device time and are left out, so nothing is counted twice."""
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA \
-                or evt.key in _PROFILER_OWN:
+    on the card, summed by name as ``key_averages()`` sums them. The host
+    ops that launched them (``aten::*``) also carry device time and are
+    left out, so nothing is counted twice. Read from the raw kineto
+    events, skipped and named as the profiler's parse does: building its
+    function events and their tree takes minutes on a trace of ~10^5
+    launches (rwkv6-1.6b's train step)."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    us, count, names = {}, {}, {}
+    for e in res.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if us > 0:
-            rows.append((float(us) / 1e3, evt.count, evt.key))
-    return sorted(rows, reverse=True)
+        raw = e.name()
+        if raw not in names:
+            names[raw] = _rewrite_name(name=raw, with_wildcard=True)
+        name = names[raw]
+        if name in _PROFILER_OWN or _filter_name(raw) or getattr(
+                e, "is_hidden_event", lambda: False)():
+            continue
+        # a FunctionEvent's self device time: its interval in us, 0 if
+        # it is async
+        t = 0.0 if e.is_async() or e.start_thread_id() != \
+            e.end_thread_id() else \
+            (e.end_ns() - t0) / 1000 - (e.start_ns() - t0) / 1000
+        us[name] = us.get(name, 0) + t
+        count[name] = count.get(name, 0) + 1
+    return sorted(((float(t) / 1e3, count[k], k) for k, t in us.items()
+                   if t > 0), reverse=True)
 
 
 def op_breakdown(orch, batches, first_step: int) -> dict:

@@ -63,8 +63,11 @@ def _init_leaf(spec: Spec, gen: Optional[torch.Generator], dtype,
     s = spec.scale if spec.scale is not None else 1.0 / math.sqrt(
         _fan_in(spec.shape))
     if spec.init == "normal":
-        return (torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                            device=device) * s).to(dtype)
+        # scaled in place: the draw's peak is the fp32 leaf and its cast,
+        # not two fp32 copies (a stacked leaf of a large config is tens
+        # of GB in fp32)
+        return torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                           device=device).mul_(s).to(dtype)
     raise ValueError(f"unknown init {spec.init!r}")
 
 

@@ -42,7 +42,8 @@ from repro_torch.models import rwkv as trwkv
 
 ARCHS = ("qwen2-1.5b", "rwkv6-1.6b", "seamless-m4t-medium",
          "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
-         "jamba-1.5-large-398b", "llama-3.2-vision-90b")
+         "jamba-1.5-large-398b", "llama-3.2-vision-90b",
+         "mistral-large-123b", "nemotron-4-15b", "qwen1.5-4b")
 # fp32 end to end on the smoke configs; logits are O(1..60)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -42,7 +42,8 @@ from repro_torch.serve import sampling as tsampling
 
 ARCHS = ("qwen2-1.5b", "rwkv6-1.6b", "seamless-m4t-medium",
          "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
-         "jamba-1.5-large-398b", "llama-3.2-vision-90b")
+         "jamba-1.5-large-398b", "llama-3.2-vision-90b",
+         "mistral-large-123b", "nemotron-4-15b", "qwen1.5-4b")
 _CACHE = {}
 
 
@@ -81,6 +82,8 @@ def _serve(pkg, cfg, params, prompts, impl, new_tokens=5, **kw):
     ("rwkv6-1.6b", "pallas", "kernel"),
     ("seamless-m4t-medium", "pallas", "kernel"),
     ("qwen2-1.5b", "chunked", "chunked"),
+    # squared ReLU and LayerNorm in a decoder-only stack
+    ("nemotron-4-15b", "chunked", "chunked"),
 ])
 def test_greedy_tokens_equal_the_reference(arch, jimpl, timpl, monkeypatch):
     monkeypatch.setenv("REPRO_FORCE_PALLAS_INTERPRET", "1")

@@ -73,7 +73,8 @@ from repro_torch.train.train_step import (clip_by_global_norm, global_norm,
 
 ARCHS = ("qwen2-1.5b", "rwkv6-1.6b", "seamless-m4t-medium",
          "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
-         "jamba-1.5-large-398b", "llama-3.2-vision-90b")
+         "jamba-1.5-large-398b", "llama-3.2-vision-90b",
+         "mistral-large-123b", "nemotron-4-15b", "qwen1.5-4b")
 GRAD_TOL = 1e-4          # of each leaf's largest |grad|, fp32
 ZERO_GRAD_TOL = 1e-6     # of the tree's largest |grad|: leaves zero in exact math
 BF16_ULPS = 4.0
