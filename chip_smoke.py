@@ -276,7 +276,25 @@ path on the card, and checks what comes out. Phases:
     residual stream the rank's slice of the sequence (its layers'
     output products reduce-scattered, the norms' outputs all-gathered),
     tokens equal to the one rank's, the bytes each rank sends into each
-    collective logged beside (a)'s;
+    collective logged beside (a)'s; (e) jamba-1.5-large-398b at phase
+    14's cut (2 layers) and (f) deepseek-v2-lite-16b (27 layers) served
+    as (a) under ``ep_tp_fsdp`` with their configs' ``seq_shard``
+    (True): a rank holds half of the heads, KV heads, ``ff``, vocabulary
+    and experts and of Mamba's ``dinner`` channels, MLA's latent whole;
+    each rank draws its shards leaf by leaf (``draw_local``), the ranks
+    taking turns; the MoE routing recorded on both sides, a flip allowed
+    only within its layer's derived near-tie bound or downstream of one
+    (``routing_flips``), tokens as in (a) or downstream of such a flip,
+    each step's logits within LOGITS_RTOL on the rows whose tokens agree
+    up to it, each cache leaf's bytes the act rules' split (the split
+    leaves by name halved), the params the param rules' shapes,
+    reduce-scatters exactly where ``seq_shard`` is set, no hand kernel
+    launched; their smoke configs in fp32 on the same ranks in both
+    ``seq_shard`` forms, tokens bitwise the one rank's and expert ids
+    equal but at a MOE_NEAR_TIE near tie; (g) deepseek at phase 21's cut
+    (4 layers) under ``ep_tp_fsdp``, one AdamW step with (c)'s checks
+    against the one rank's and its (1, 2) dry run's
+    (``"sharded_tp_seq"``);
 19. phase 3's dense job (12 x 65,536 x 256, ``int8_ef``) with
     ``drift_detector="adwin"``: one ADWIN kernel launch a batch, the
     planted drift's alarm, the learner recovering; the same script's
@@ -308,8 +326,7 @@ path on the card, and checks what comes out. Phases:
 The launch counts are set to 0 just before each main path (phases 3-5
 as one, each model of phases 6 and 14, phases 7, 8, 9, 10, 11, 12, 13,
 16, 19 and 21, each detector of phase 20, each launcher of phase 15, 17b
-and 18a-b and 18d in each
-rank's process) and
+and each serving run of phase 18 in each rank's process) and
 read just after it; every kernel must have launched on a main path. A line
 ``{"kernels": [...]}`` reports each kernel, the line before the last
 gives the card's name and power limit, and the last line is
@@ -2522,8 +2539,9 @@ def vlm_flash_check(cfg, params, batch) -> None:
 
 class RoutingRecorder:
     """Records, at every MoE layer, each token's expert ids, the keep
-    mask of its assignments and whether its K-th and (K+1)-th router
-    probabilities lie within MOE_NEAR_TIE."""
+    mask of its assignments, whether its K-th and (K+1)-th router
+    probabilities lie within MOE_NEAR_TIE, and its router probabilities
+    (fp32, (tokens, experts))."""
 
     def __init__(self):
         self.layers = []
@@ -2540,11 +2558,13 @@ class RoutingRecorder:
             srt = torch.sort(probs, dim=-1, descending=True).values
             near = (srt[..., k - 1] - srt[..., k]) <= MOE_NEAR_TIE
             rec.layers.append({"ids": idx.reshape(-1, k).cpu(),
-                               "near": near.reshape(-1).cpu()})
+                               "near": near.reshape(-1).cpu(),
+                               "probs": probs.reshape(
+                                   -1, probs.shape[-1]).float().cpu()})
             return vals, idx
 
-        def dispatch(cfg, C, xf, expert_ids):
-            out = rec._dispatch(cfg, C, xf, expert_ids)
+        def dispatch(cfg, C, xf, expert_ids, *experts):
+            out = rec._dispatch(cfg, C, xf, expert_ids, *experts)
             rec.layers[-1]["keep"] = out[3].cpu()
             rec.layers[-1]["order"] = out[2].cpu()
             return out
@@ -5130,7 +5150,7 @@ from repro_torch.dist.sharding import build_rules
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_world, make_local_mesh
 fake_world({ranks})
-cfg = get_config({arch!r})
+cfg = get_config({arch!r}).with_overrides(**{overrides!r})
 shape = InputShape("train_{b}x{s}", {s}, {b}, "train")
 rec = dryrun.trace_cell(cfg, shape, make_local_mesh({data}, {model},
                         device={device!r}), build_rules(cfg, shape=shape),
@@ -5156,23 +5176,33 @@ def shard_state_shapes(cfg, opt):
         return opt.init(zoo.param_shapes(cfg))
 
 
-def shard_bytes(cfg, opt, rules, mesh_shape=SHARD_MESH) -> int:
-    """A rank's exact argument bytes in 17a (18c), reckoned from the rules
-    on a stand-in of the (2, 1) ((1, 2)) mesh: its shards of the params
-    and the AdamW state, the step, its rows of the batch."""
-    from repro_torch._tree import tree_flatten
-    from repro_torch.dist.api import is_axes, logical_to_spec
-    from repro_torch.models import model_zoo as zoo
+def rule_shape(shape, axes, table, mesh_shape) -> tuple:
+    """A leaf's ``shape`` as a rank of a ``mesh_shape`` (data, model) mesh
+    holds it by the rules ``table`` (param or act) on its logical
+    ``axes``, reckoned on a stand-in of the mesh."""
+    from repro_torch.dist.api import logical_to_spec
 
     class StandIn:
         shape = dict(zip(("data", "model"), mesh_shape))
 
+    out = list(shape)
+    for i, part in enumerate(logical_to_spec(axes, table, StandIn, shape)):
+        for a in ((part,) if isinstance(part, str) else part or ()):
+            out[i] //= StandIn.shape[a]
+    return tuple(out)
+
+
+def shard_bytes(cfg, opt, rules, mesh_shape=SHARD_MESH) -> int:
+    """A rank's exact argument bytes in 17a (18c, 18g), reckoned from the
+    rules on a stand-in of the (2, 1) ((1, 2)) mesh: its shards of the
+    params and the AdamW state, the step, its rows of the batch."""
+    from repro_torch._tree import tree_flatten
+    from repro_torch.dist.api import is_axes
+    from repro_torch.models import model_zoo as zoo
+
     def local(t, ax, table):
-        spec = logical_to_spec(ax, table, StandIn, t.shape)
-        split = math.prod(StandIn.shape[a] for part in spec if part
-                          for a in ((part,) if isinstance(part, str)
-                                    else part))
-        return t.numel() // split * t.element_size()
+        return math.prod(rule_shape(t.shape, ax, table, mesh_shape)) * \
+            t.element_size()
 
     axes = zoo.param_axes(cfg)
     total = 4                                            # the int32 step
@@ -5198,11 +5228,12 @@ def serve_prompts(cfg):
 def greedy_tokens(params, cfg, batch):
     """``zoo.prefill``, then SHARD_DECODES greedy ``zoo.decode_step``s,
     all with ``impl="kernel"``: (B, 1 + SHARD_DECODES) tokens on the
-    host, the bytes of the caches' leaves that a model rank splits by
-    heads (``TP_SPLIT_CACHE``: self- and cross-attention K and V, the
-    RWKV state), and each step's logits on the host (B, steps, V)."""
+    host, each cache leaf's ``(shape, logical axes, bytes)`` by path
+    (what ``split_cache_check`` holds to the act rules' split), and each
+    step's logits on the host (B, steps, V)."""
     import torch
-    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch._tree import tree_flatten, tree_flatten_with_path
+    from repro_torch.dist.api import is_axes
     from repro_torch.models import model_zoo as zoo
     logits, caches = zoo.prefill(params, cfg, batch, MAX_LEN, impl="kernel")
     out, steps = [], []
@@ -5214,43 +5245,48 @@ def greedy_tokens(params, cfg, batch):
         if i < SHARD_DECODES:
             logits, caches = zoo.decode_step(params, cfg, caches, tok,
                                              impl="kernel")
-    nbytes = sum(t.numel() * t.element_size() for path, t in
-                 tree_flatten_with_path(caches)[0]
-                 if path.endswith(TP_SPLIT_CACHE))
-    return torch.cat(out, dim=1).cpu(), nbytes, torch.stack(steps, dim=1)
+    leaves = tree_flatten_with_path(caches)[0]
+    axes = tree_flatten(zoo.cache_axes(caches), is_leaf=is_axes)[0]
+    cache = {path: (tuple(t.shape), ax, t.numel() * t.element_size())
+             for (path, t), ax in zip(leaves, axes)}
+    return torch.cat(out, dim=1).cpu(), cache, torch.stack(steps, dim=1)
 
 
 def shard_train_reference(dev, work: pathlib.Path, arch=SHARD_TRAIN_ARCH,
-                          tag="17a") -> dict:
-    """17a's (18c's) one-rank step: ``arch``'s seed-0 weights at full
-    width, one AdamW step of TRAIN_B x TRAIN_S tokens on the card with no
-    mesh. The tokens and the updated params go to ``work`` for the ranks
-    (on the host: the card is freed for them)."""
+                          tag="17a", overrides=None) -> dict:
+    """17a's (18c's, 18g's) one-rank step: ``arch``'s seed-0 weights at
+    full width (``overrides`` of its config, where given), one AdamW step
+    of TRAIN_B x TRAIN_S tokens on the card with no mesh. The tokens and
+    the updated params go to ``work`` for the ranks (on the host: the
+    card is freed for them)."""
     import torch
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_config
     from repro_torch.models import model_zoo as zoo
     from repro_torch.train.train_step import make_train_step
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).with_overrides(**(overrides or {}))
     opt = shard_optimizer(cfg)
     g = torch.Generator(device=dev).manual_seed(17)
     tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S), device=dev,
                            generator=g, dtype=torch.int32)
     params = zoo.init_params(cfg, seed=0, device=dev)
     state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params, state, _, m = make_train_step(cfg, opt)(
         params, state, 0, {"tokens": tokens})
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-           "ms": ms}
+           "ms": ms, "peak": torch.cuda.max_memory_allocated(dev)}
     torch.save(tokens.cpu(), work / f"{tag}_tokens.pt")
     torch.save(tree_map(lambda t: t.cpu(), params),
                work / f"{tag}_ref_params.pt")
     log(f"  {tag} one rank: loss {out['loss']!r} grad_norm "
-        f"{out['grad_norm']!r}, step {ms!r} ms (first step on the card)")
+        f"{out['grad_norm']!r}, step {ms!r} ms (first step on the card), "
+        f"max_memory_allocated {out['peak']!r} B")
     del params, state, m
     free_card()
     return out
@@ -5278,13 +5314,47 @@ def shard_serve_reference(dev):
     return tokens
 
 
+def draw_local(cfg, mesh, rules, dev):
+    """This rank's shards of ``cfg``'s seed-0 weights, bitwise
+    ``zoo.init_params`` then the params' ``fsdp.Layout.local``
+    (``params.materialize`` keeping ``Layout.local_leaf``: each leaf
+    drawn whole on the card from its per-path seed, its shard kept, the
+    whole value freed before the next), the ranks taking turns (a
+    barrier), so that the card holds one rank's draw of one whole leaf
+    at a time. Returns the shards, the layout, and the draw's peak bytes
+    and seconds."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.dist import fsdp
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import params as pmod
+
+    layout = fsdp.Layout(zoo.param_shapes(cfg), zoo.param_axes(cfg), rules,
+                         mesh)
+    for r in range(tdist.get_world_size()):
+        if r == tdist.get_rank():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            params = pmod.materialize(zoo.model_specs(cfg), 0,
+                                      zoo.dtype_of(cfg.param_dtype), dev,
+                                      layout.local_leaf)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            free_card()
+        tdist.barrier()
+    return params, layout, peak, secs
+
+
 def shard_train_rank(dev, work: pathlib.Path, arch=SHARD_TRAIN_ARCH,
-                     mesh_shape=SHARD_MESH, tag="17a") -> dict:
-    """17a (18c) on one rank: the seed-0 weights drawn whole, then only
-    this rank's shards kept (DTensors of them), the AdamW state made from
-    the shards, the rank's rows of the batch; one step on the shards. Its
-    arguments, peak, loss, grad norm, and each updated param against the
-    one-rank step's (2 x lr plus one bf16 ulp of it)."""
+                     mesh_shape=SHARD_MESH, tag="17a", overrides=None) -> dict:
+    """17a (18c, 18g) on one rank: this rank's shards of the seed-0
+    weights (``draw_local``; ``overrides`` of the config, where given),
+    DTensors of them, the AdamW state made from the shards, the rank's
+    rows of the batch; one step on the shards. Its arguments, peaks,
+    loss, grad norm, and each updated param against the one-rank step's
+    (2 x lr plus one bf16 ulp of it)."""
     import torch
     from torch.distributed.tensor import distribute_tensor
     from repro_torch import dist
@@ -5297,16 +5367,12 @@ def shard_train_rank(dev, work: pathlib.Path, arch=SHARD_TRAIN_ARCH,
     from repro_torch.models import model_zoo as zoo
     from repro_torch.train.train_step import make_train_step
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).with_overrides(**(overrides or {}))
     opt = shard_optimizer(cfg)
     axes = zoo.param_axes(cfg)
     with mesh_context(cfg, *mesh_shape, device=dev.type) as mesh:
         rules = dist.current_rules()
-        full = zoo.init_params(cfg, seed=0, device=dev)
-        p_lay = fsdp.Layout(full, axes, rules, mesh)
-        local = p_lay.local(full)
-        del full
-        free_card()
+        local, p_lay, draw_peak, _ = draw_local(cfg, mesh, rules, dev)
         s_lay = fsdp.Layout(shard_state_shapes(cfg, opt),
                             opt.state_axes(axes), rules, mesh)
         params, state = p_lay.placed(local), s_lay.placed(opt.init(local))
@@ -5341,12 +5407,13 @@ def shard_train_rank(dev, work: pathlib.Path, arch=SHARD_TRAIN_ARCH,
             checked += b.numel()
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "arg_bytes": arg_bytes, "peak": peak, "ms": ms,
-            "excess": excess, "over": over, "checked": checked}
+            "draw_peak": draw_peak, "excess": excess, "over": over,
+            "checked": checked}
 
 
 def shard_serve_rank(dev) -> dict:
-    """17b on one rank: seamless-m4t-medium's seed-0 weights drawn whole,
-    then only this rank's shards kept; prefill of its rows of the prompts
+    """17b on one rank: this rank's shards of seamless-m4t-medium's
+    seed-0 weights (``draw_local``); prefill of its rows of the prompts
     and SHARD_DECODES greedy decode steps on the shards, each layer
     gathered as it runs, the flash kernel in its cross-attention. The
     launch counts are from 0 just before."""
@@ -5357,17 +5424,12 @@ def shard_serve_rank(dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import mesh_context
-    from repro_torch.models import model_zoo as zoo
     from repro_torch.serve.engine import wave_inputs
 
     cfg = get_config(SHARD_SERVE_ARCH)
     with mesh_context(cfg, *SHARD_MESH, device=dev.type) as mesh:
         rules = dist.current_rules()
-        full = zoo.init_params(cfg, seed=0, device=dev)
-        params = fsdp.Layout(full, zoo.param_axes(cfg), rules,
-                             mesh).local(full)
-        del full
-        free_card()
+        params = draw_local(cfg, mesh, rules, dev)[0]
         n = SERVE_BATCH // SHARD_MESH[0]
         lo = mesh.get_local_rank("data") * n
         batch = wave_inputs(cfg, serve_prompts(cfg)[lo:lo + n], dev)
@@ -5412,20 +5474,24 @@ def sharded_rank(rank: int, store: str, work: str, device: str) -> None:
         tdist.destroy_process_group()
 
 
-def shard_processes(work: pathlib.Path, device: str, arch=SHARD_TRAIN_ARCH,
+def shard_processes(work: pathlib.Path, device: str,
+                    dry=(("dry", SHARD_TRAIN_ARCH, {}),),
                     mesh_shape=SHARD_MESH, rank_fn="sharded_rank") -> dict:
-    """The two ranks (``rank_fn`` of this module) and the dry run of 17a's
-    (2, 1) cell (18c's (1, 2) one) over a fake world of two (a process of
-    its own: a fake world cannot share a process with a real group), each
-    writing its output to ``work``."""
+    """The two ranks (``rank_fn`` of this module; none where None) and
+    the dry runs ``dry`` ((name, arch, config overrides): 17a's (2, 1)
+    cell, 18c's and 18g's (1, 2) ones) each over a fake world of two (a
+    process of its own: a fake world cannot share a process with a real
+    group), each writing its output to ``work``."""
     import os
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join([str(SRC), str(ROOT)]))
-    script = SHARD_DRY_SCRIPT.format(
-        ranks=math.prod(mesh_shape), arch=arch, b=TRAIN_B,
-        s=TRAIN_S, data=mesh_shape[0], model=mesh_shape[1], device=device)
-    cmds = {"dry": [sys.executable, "-c", script]}
-    for r in range(math.prod(mesh_shape)):
+    cmds = {}
+    for name, arch, overrides in dry:
+        cmds[name] = [sys.executable, "-c", SHARD_DRY_SCRIPT.format(
+            ranks=math.prod(mesh_shape), arch=arch, overrides=overrides,
+            b=TRAIN_B, s=TRAIN_S, data=mesh_shape[0], model=mesh_shape[1],
+            device=device)]
+    for r in range(math.prod(mesh_shape) if rank_fn else 0):
         cmds[r] = [sys.executable, "-c",
                    f"import chip_smoke; chip_smoke.{rank_fn}({r}, "
                    f"{str(work / 'store')!r}, {str(work)!r}, {device!r})"]
@@ -5529,11 +5595,46 @@ TP_SERVE_ARCHS = ("seamless-m4t-medium",     # tp_fsdp: flash on 8 heads
 TP_TRAIN_ARCH = "granite-moe-1b-a400m"       # ep_fsdp: 16 of 32 experts
 TP_KERNELS = {"seamless-m4t-medium": "flash_attention",
               "rwkv6-1.6b": "rwkv6_wkv"}
-TP_SPLIT_CACHE = (".k", ".v", ".wkv")        # cache leaves split by heads
 # 18d: seamless-m4t-medium with its config's seq_shard flipped: 18a runs
 # the full config's (True: the prefill's residual stream the rank's slice
 # of the sequence, reduce-scattered and all-gathered), 18d the other form
 TP_SEQ_ARCH = "seamless-m4t-medium"
+# 18e-18f: the two families whose layers need the model axis, served at
+# full width under ep_tp_fsdp with their full configs' seq_shard (True):
+# (tag, arch, config overrides, why). A rank holds half of the heads, KV
+# heads, ff, vocabulary and experts and of jamba's Mamba dinner channels;
+# MLA's latent projections (w_dkv, w_kr), its norm and its cache (c_kv,
+# k_rope) stay whole. No hand kernel runs on either: MLA's keys and
+# values differ in width (the flash gate refuses them, fault 15),
+# self-attention never reaches flash (fault 5) and the Mamba mixer runs
+# the reference's chunked scan
+TP_SPLIT_SERVE = (
+    ("18e", "jamba-1.5-large-398b",
+     {a: o for a, o, _ in FAMILY_MODELS}["jamba-1.5-large-398b"],
+     "phase 14's cut: layer 0 Mamba + MoE, layer 1 attention + dense"),
+    ("18f", "deepseek-v2-lite-16b", {"recipe": "ep_tp_fsdp"},
+     "the config's ep_fsdp leaves MLA whole; ep_tp_fsdp splits its heads "
+     "and the shared experts' ff"),
+)
+# 18g: deepseek's MLA and expert splits trained, one AdamW step at phase
+# 21's cut (layer 0 dense, 3 MoE): its 27 layers need ~194 GB of AdamW
+# state. (tag, arch, config overrides, the dry run's step layout): the
+# full config's seq_shard (True), named so that a smoke config takes the
+# same form, so the record must say "sharded_tp_seq"
+TP_SPLIT_TRAIN = ("18g", "deepseek-v2-lite-16b",
+                  {"n_layers": 4, "recipe": "ep_tp_fsdp", "seq_shard": True},
+                  "sharded_tp_seq")
+# the cache leaves a rank of each phase-18 model holds half of, by name
+# (the others whole): what the act rules' split (act_split) is held to
+TP_CACHE_SPLIT = {"seamless-m4t-medium": ["k", "v"],
+                  "rwkv6-1.6b": ["wkv"],
+                  "jamba-1.5-large-398b": ["conv", "h", "k", "v"],
+                  "deepseek-v2-lite-16b": []}
+# the fp32 twins of 18e-18f: the models' smoke configs under the same
+# recipe with fp32 caches, in both seq_shard forms: tokens bitwise the one
+# rank's, expert ids equal but at a MOE_NEAR_TIE near tie
+TP_TWIN_ARCHS = ("jamba-1.5-large-398b", "deepseek-v2-lite-16b")
+TP_TWIN = {"recipe": "ep_tp_fsdp", "kv_cache_dtype": "float32"}
 
 
 class LinkBytes:
@@ -5594,17 +5695,20 @@ class HeadLog:
             setattr(ops, k, fn)
 
 
-def tie_divergences(got, want, logits, what: str) -> list:
+def tie_divergences(got, want, logits, what: str, downstream=None) -> list:
     """Each row of ``got`` (B, n tokens) held to ``want``, the one rank's,
     whose logits a step are ``logits`` (B, n, V): equal up to the row's
     first difference, where the rank's token's logit in the one rank's
     step must be within one bf16 ulp of that step's largest (a tie at
     the logits' resolution: the head's product is bf16, so rwkv6's and
     seamless's logits tie exactly or within an ulp at some steps, and an
-    ulp of another summation order flips the argmax there). After it the
-    row decodes another history and is not held. Returns ``(row, step,
-    gap)`` for each row that diverged at a tie; raises for any other
-    difference."""
+    ulp of another summation order flips the argmax there), or, with
+    ``downstream`` (each row's first token index downstream of a near-tie
+    routing flip, ``routing_flips``; None: none), the row is downstream
+    of such a flip there. After it the row decodes another history and
+    is not held. Returns ``(row, step, gap)`` for each row that diverged
+    at a tie (``(row, step, gap, "routing")`` downstream of a flip);
+    raises for any other difference."""
     out = []
     for b in range(got.shape[0]):
         diff = (got[b] != want[b]).nonzero()
@@ -5615,6 +5719,10 @@ def tie_divergences(got, want, logits, what: str) -> list:
         top = float(step.max())
         ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 0.0
         gap = top - float(step[int(got[b, i])])
+        if downstream is not None and downstream[b] is not None and \
+                i >= downstream[b]:
+            out.append((b, i, gap, "routing"))
+            continue
         if not gap <= ulp:
             raise AssertionError(
                 f"{what}: row {b} step {i}: token {int(got[b, i])} against "
@@ -5624,87 +5732,229 @@ def tie_divergences(got, want, logits, what: str) -> list:
     return out
 
 
-def tp_serve_reference(dev, arch: str) -> dict:
-    """18a's (18b's) one-rank serving: ``arch``'s seed-0 weights, prefill
-    of the SERVE_BATCH prompts and SHARD_DECODES greedy steps: tokens on
-    the host, the split cache leaves' bytes, the seconds."""
+def keep_by_token(layer: dict, k: int):
+    """A RoutingRecorder layer's keep mask by token: (tokens, k), each
+    assignment's in the router's order (the dispatch keeps it sorted by
+    expert)."""
     import torch
-    from repro_torch.configs import get_config
+    keep = torch.empty_like(layer["keep"])
+    keep[layer["order"]] = layer["keep"]
+    return keep.reshape(-1, k)
+
+
+def logit_moves(one, rank):
+    """Each token's router log-probabilities' moves between two runs
+    (``rank`` less ``one``, (tokens, experts); NaN where either
+    probability is 0): a move common to every expert is the softmax's
+    normalizer, so a pair of experts' logit gap moved by the difference
+    of their moves."""
+    import torch
+    both = (one > 0) & (rank > 0)
+    return torch.where(both, torch.log(rank) - torch.log(one), math.nan)
+
+
+def move_range(moves):
+    """The largest difference of two experts' moves, a token: how far
+    the run moved any logit gap of that token."""
+    import torch
+    hi = torch.where(moves.isnan(), -math.inf, moves).amax(-1)
+    lo = torch.where(moves.isnan(), math.inf, moves).amin(-1)
+    return (hi - lo).clamp(min=0)
+
+
+def routing_flips(want_layers, got_layers, got, want, k: int, what: str):
+    """A bf16 run's MoE routing on the ranks (``got_layers``, tokens
+    ``got``) against the one rank's (``want_layers``, ``want``), the
+    RoutingRecorder calls in order: the prefill's MoE layers, then each
+    decode step's. A row-parallel product's output is an fp32 sum of two
+    partials where one rank makes one product, so the hidden state and
+    with it the router's bf16 logits move by a rounding, which may swap
+    two experts whose logits nearly tie. The bound is derived from the
+    moves the run shows, in logits (log-probabilities: the softmax's
+    normalizer cancels from a gap): a token's ids may first differ at a
+    place where the one rank's logit gap of that expert and the next is
+    within the largest move of any two of the token's other experts'
+    gaps, or of any two experts' gaps on the layer's tokens whose ids
+    agree and which no earlier difference reaches (the layer's bound).
+    A difference at a prefill position reaches the later positions of
+    its row at the later layers (causal mixers), and every later step of
+    the row; where a difference reaches a token its ids may differ.
+    A token whose ids agree may keep or drop an assignment otherwise
+    than the one rank only in a call with a flip (capacity couples the
+    tokens), and is then a difference too. Returns the flips ``(step,
+    layer, row, position, logit gap, the token's bound, reached)`` (step
+    0 the prefill), each row's first token index downstream of a flip
+    (or None), the layer's bound and the flips by layer; raises for any
+    other difference."""
+    import torch
+    B = got.shape[0]
+    n = len(want_layers) // (1 + SHARD_DECODES)
+    if len(got_layers) != len(want_layers) or \
+            n * (1 + SHARD_DECODES) != len(want_layers):
+        raise AssertionError(f"{what}: {len(got_layers)} MoE calls against "
+                             f"the one rank's {len(want_layers)}")
+    S = want_layers[0]["ids"].shape[0] // B          # prompt tokens a row
+    dirty = torch.zeros((B, S), dtype=torch.bool)    # the prefill's reach
+    row_dirty = torch.zeros(B, dtype=torch.bool)     # a decode step's
+    downstream = [None] * B             # tokens from this index may part
+    bound = [0.0] * n
+    flips = []
+    for j, (a, b) in enumerate(zip(want_layers, got_layers)):
+        step, layer = divmod(j, n)
+        if step:                        # the step's input: token step - 1
+            row_dirty |= dirty.any(-1) | (got[:, step - 1]
+                                          != want[:, step - 1])
+            clean, row = ~row_dirty, torch.arange(B)
+            pos = torch.full((B,), S + step - 1)
+        else:
+            clean = ~dirty.reshape(-1)
+            row, pos = torch.arange(B * S) // S, torch.arange(B * S) % S
+        differ = (a["ids"] != b["ids"]).any(-1)
+        moved = (keep_by_token(a, k) != keep_by_token(b, k)).any(-1) & ~differ
+        moves = logit_moves(a["probs"], b["probs"])
+        agree = ~differ & clean
+        if agree.any():
+            bound[layer] = max(bound[layer],
+                               float(move_range(moves[agree]).max()))
+        if moved.any() and not differ.any():
+            raise AssertionError(f"{what}: step {step} layer {layer}: keep "
+                                 "masks differ where no expert id does")
+        srt, idx = torch.sort(a["probs"], dim=-1, descending=True,
+                              stable=True)
+        for i in differ.nonzero().reshape(-1).tolist():
+            place = int((a["ids"][i] != b["ids"][i]).nonzero()[0])
+            pair = idx[i, place:place + 2]
+            gap = float(torch.log(srt[i, place]) - torch.log(srt[i, place + 1]))
+            others = moves[i].clone()
+            others[pair] = math.nan
+            own = float(move_range(others))
+            flips.append((step, layer, int(row[i]), int(pos[i]), gap, own,
+                          not bool(clean[i])))
+        for i in (differ | moved).nonzero().reshape(-1).tolist():
+            r = int(row[i])
+            if step:
+                row_dirty[r] = True
+            else:
+                dirty[r, int(pos[i]):] = True
+            if downstream[r] is None:
+                downstream[r] = step
+    by_layer = [0] * n
+    for step, layer, r, p, gap, own, reached in flips:
+        by_layer[layer] += 1
+        if not reached and not gap <= max(own, bound[layer]):
+            raise AssertionError(
+                f"{what}: step {step} layer {layer} row {r} position {p}: "
+                f"expert ids differ at a logit gap of {gap!r}, over the "
+                f"token's other moves {own!r} and the layer's bound "
+                f"{bound[layer]!r}")
+    return flips, downstream, bound, by_layer
+
+
+def tp_serve_reference(dev, cfg) -> dict:
+    """A phase-18 serving case on one rank: ``cfg``'s seed-0 weights,
+    prefill of the SERVE_BATCH prompts and SHARD_DECODES greedy steps:
+    tokens and each step's logits on the host, the cache leaves, the MoE
+    routing (``RoutingRecorder``, probabilities too), the seconds, the
+    draw's and the serving's peaks, the launch counts."""
+    import torch
+    from repro_torch.kernels import ops
     from repro_torch.models import model_zoo as zoo
     from repro_torch.serve.engine import wave_inputs
 
-    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     params = zoo.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    draw_peak = torch.cuda.max_memory_allocated(dev)
     batch = wave_inputs(cfg, serve_prompts(cfg), dev)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with torch.no_grad():
-        tokens, nbytes, logits = greedy_tokens(params, cfg, batch)
+    with torch.no_grad(), RoutingRecorder() as rec:
+        tokens, cache, logits = greedy_tokens(params, cfg, batch)
+    torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
     del params, batch
     free_card()
-    return {"tokens": tokens, "cache_bytes": nbytes, "logits": logits,
-            "s": secs}
+    return {"tokens": tokens, "cache": cache, "logits": logits,
+            "routing": rec.layers, "s": secs, "draw_peak": draw_peak,
+            "peak": peak, "launches": ops.launch_counts()}
 
 
-def tp_serve_rank(dev, arch: str, flip_seq_shard: bool = False) -> dict:
-    """18a (18b) on one rank: ``arch``'s seed-0 weights drawn whole, then
-    only this rank's shards kept (its heads, ``ff`` and vocab under
-    ``tp_fsdp``); prefill and SHARD_DECODES greedy steps on every prompt
-    (the data axis is 1), the layers computing on the rank's slice with
-    their all-reduces over ``model`` (where the config sets
-    ``seq_shard``, the prefill's residual stream the rank's slice of the
-    sequence, its output products reduce-scattered); with
-    ``flip_seq_shard`` (18d) the config's ``seq_shard`` flipped. The
-    launch counts are from 0 just before; the heads each kernel ran at;
-    the bytes the rank sent into each collective."""
+def tp_serve_rank(dev, cfg) -> dict:
+    """A phase-18 serving case on one rank: this rank's shards of
+    ``cfg``'s seed-0 weights (``draw_local``: its heads, ``ff`` and vocab
+    under ``tp_fsdp``; its experts too under ``ep_*``, and Mamba's
+    ``dinner`` channels under ``ep_tp_fsdp``); prefill and SHARD_DECODES
+    greedy steps on every prompt (the data axis is 1), the layers
+    computing on the rank's slice with their reductions over ``model``
+    (where the config sets ``seq_shard``, the prefill's residual stream
+    the rank's slice of the sequence, its output products
+    reduce-scattered). The launch counts from 0 just before; the heads
+    each kernel ran at; the bytes the rank sent into each collective;
+    the MoE routing; each param's shape; each step's logits; the draw's
+    and the serving's peaks."""
     import torch
     from repro_torch import dist
-    from repro_torch.configs import get_config
+    from repro_torch._tree import tree_flatten_with_path
     from repro_torch.dist import fsdp
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import mesh_context
-    from repro_torch.models import model_zoo as zoo
     from repro_torch.serve.engine import wave_inputs
 
-    cfg = get_config(arch)
-    if flip_seq_shard:
-        cfg = cfg.with_overrides(seq_shard=not cfg.seq_shard)
     with mesh_context(cfg, *TP_MESH, device=dev.type) as mesh:
         rules = dist.current_rules()
-        full = zoo.init_params(cfg, seed=0, device=dev)
-        params = fsdp.Layout(full, zoo.param_axes(cfg), rules,
-                             mesh).local(full)
-        del full
-        free_card()
+        params, _, draw_peak, draw_s = draw_local(cfg, mesh, rules, dev)
         batch = wave_inputs(cfg, serve_prompts(cfg), dev)
         arg_bytes = dryrun.argument_bytes(params)
+        shapes = {path: tuple(t.shape)
+                  for path, t in tree_flatten_with_path(params)[0]}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         with torch.no_grad(), fsdp.sharded(mesh, rules, ("data",)), \
-                HeadLog() as heads, LinkBytes() as link:
-            tokens, nbytes, _ = greedy_tokens(params, cfg, batch)
+                HeadLog() as heads, LinkBytes() as link, \
+                RoutingRecorder() as rec:
+            tokens, cache, logits = greedy_tokens(params, cfg, batch)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = ops.launch_counts()
-    return {"tokens": tokens, "cache_bytes": nbytes, "launches": counts,
+    return {"tokens": tokens, "cache": cache, "logits": logits,
+            "routing": rec.layers, "launches": counts,
             "heads": {k: sorted(v) for k, v in heads.heads.items()},
-            "s": secs, "arg_bytes": arg_bytes,
+            "s": secs, "arg_bytes": arg_bytes, "shapes": shapes,
+            "draw_peak": draw_peak, "draw_s": draw_s,
             "peak": torch.cuda.max_memory_allocated(dev),
             "link_bytes": link.bytes, "link_calls": link.calls,
             "seq_shard": cfg.seq_shard}
 
 
+def tp_split_cases() -> list:
+    """18e-18f and their fp32 twins, ``(tag, arch, config)``."""
+    from repro_torch.configs import get_config
+    out = [(tag, arch, get_config(arch).with_overrides(**o))
+           for tag, arch, o, _ in TP_SPLIT_SERVE]
+    for arch in TP_TWIN_ARCHS:
+        for seq in (False, True):
+            out.append((f"twin {arch} seq_shard={seq}", arch,
+                        get_config(arch, smoke=True).with_overrides(
+                            seq_shard=seq, **TP_TWIN)))
+    return out
+
+
 def tp_rank(rank: int, store: str, work: str, device: str) -> None:
     """One of phase 18's two ranks: a process of its own on the one card,
     joined with the other through a ``file://`` store with gloo. 18a,
-    18b, then 18c; what it holds goes to ``work/rank<rank>.pt``."""
+    18b, 18d, 18c, 18e, 18f and the fp32 twins, then 18g; what it holds
+    goes to ``work/rank<rank>.pt``."""
     import datetime
     import torch
     import torch.distributed as tdist
+    from repro_torch.configs import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5717,12 +5967,20 @@ def tp_rank(rank: int, store: str, work: str, device: str) -> None:
         work = pathlib.Path(work)
         out = {}
         for arch in TP_SERVE_ARCHS:
-            out[arch] = tp_serve_rank(dev, arch)
+            out[arch] = tp_serve_rank(dev, get_config(arch))
             free_card()
-        out["seq"] = tp_serve_rank(dev, TP_SEQ_ARCH, flip_seq_shard=True)
+        cfg = get_config(TP_SEQ_ARCH)
+        out["seq"] = tp_serve_rank(dev, cfg.with_overrides(
+            seq_shard=not cfg.seq_shard))
         free_card()
         out["train"] = shard_train_rank(dev, work, TP_TRAIN_ARCH, TP_MESH,
                                         "18c")
+        free_card()
+        for tag, _, cfg in tp_split_cases():
+            out[tag] = tp_serve_rank(dev, cfg)
+            free_card()
+        tag, arch, overrides, _ = TP_SPLIT_TRAIN
+        out[tag] = shard_train_rank(dev, work, arch, TP_MESH, tag, overrides)
         torch.save(out, work / f"rank{rank}.pt")
     finally:
         tdist.destroy_process_group()
@@ -5802,13 +6060,97 @@ def tp_kernel_checks(dev, g, record) -> None:
     torch.cuda.empty_cache()
 
 
+def act_split(cfg, cache: dict) -> dict:
+    """Each of one rank's cache leaves (``greedy_tokens``' ``(shape,
+    axes, bytes)`` by path) as a rank of the (1, 2) mesh holds it by the
+    act rules of ``cfg``'s recipe: ``path -> (bytes, split)`` (K and V
+    split by KV heads, the WKV state by heads, Mamba's conv and SSM
+    states by ``dinner``; MLA's latent, the lengths and the memory
+    whole)."""
+    from repro_torch.dist.sharding import build_rules
+    act = build_rules(cfg)["act"]
+    out = {}
+    for path, (shape, axes, nbytes) in cache.items():
+        local = rule_shape(shape, axes, act, TP_MESH)
+        n = math.prod(shape)
+        out[path] = (nbytes // n * math.prod(local) if n else nbytes,
+                     local != shape)
+    return out
+
+
+def split_cache_check(what: str, arch: str, cfg, got: dict,
+                      want: dict) -> tuple:
+    """A rank's cache leaves against the one rank's (``greedy_tokens``'
+    ``(shape, axes, bytes)`` by path): each leaf's bytes ``act_split``'s,
+    the split leaves those ``TP_CACHE_SPLIT`` names for ``arch``, and
+    together exactly 1/m of the one rank's bytes of them. Returns the
+    bytes of the split leaves on the rank and on the one rank, and the
+    names of the split and of the whole leaves."""
+    import re
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: cache leaves {sorted(got)} against "
+                             f"the one rank's {sorted(want)}")
+    mine = ones = 0
+    split, whole = set(), set()
+    for path, (expect, cut) in act_split(cfg, want).items():
+        if got[path][2] != expect:
+            raise AssertionError(f"{what}: cache leaf {path}: {got[path][2]} "
+                                 f"B, not the act rules' {expect} B of the "
+                                 f"one rank's {want[path][2]}")
+        name = re.findall(r"\w+", path)[-1]
+        if cut:
+            mine, ones = mine + expect, ones + want[path][2]
+            split.add(name)
+        else:
+            whole.add(name)
+    if sorted(split) != TP_CACHE_SPLIT[arch] or TP_MESH[1] * mine != ones:
+        raise AssertionError(f"{what}: cache leaves split {sorted(split)} "
+                             f"({mine} B of the one rank's {ones} B), not "
+                             f"{TP_CACHE_SPLIT[arch]} halved")
+    return mine, ones, sorted(split), sorted(whole - split)
+
+
+def rank_shapes_check(what: str, cfg, shapes: dict) -> int:
+    """A rank's param shapes (by path) those the param rules of ``cfg``'s
+    recipe give on the (1, 2) mesh. Returns the leaves split."""
+    from repro_torch._tree import tree_flatten, tree_flatten_with_path
+    from repro_torch.dist.api import is_axes
+    from repro_torch.dist.sharding import build_rules
+    from repro_torch.models import model_zoo as zoo
+    table = build_rules(cfg)["param"]
+    want = {path: rule_shape(t.shape, ax, table, TP_MESH)
+            for (path, t), ax in zip(
+                tree_flatten_with_path(zoo.param_shapes(cfg))[0],
+                tree_flatten(zoo.param_axes(cfg), is_leaf=is_axes)[0])}
+    bad = [k for k in want if shapes.get(k) != want[k]]
+    if bad or set(shapes) != set(want):
+        raise AssertionError(f"{what}: param shapes not the rules': "
+                             f"{[(k, shapes.get(k), want[k]) for k in bad]}")
+    return sum(want[k] != tuple(t.shape) for k, t in tree_flatten_with_path(
+        zoo.param_shapes(cfg))[0])
+
+
+def seq_collectives_check(what: str, run: dict) -> None:
+    """A run reduce-scatters over ``model`` exactly where its config sets
+    ``seq_shard``."""
+    if bool(run["link_calls"]["reduce_scatter_tensor"]) != run["seq_shard"]:
+        raise AssertionError(f"{what}: {run['link_calls']} collectives with "
+                             f"seq_shard={run['seq_shard']}")
+
+
 def tp_phase(dev) -> dict:
     """Phase 18: tensor- and expert-parallel compute (``dist/tp.py``) on
     two ranks of a (1, 2) mesh on the one card, held to one rank: 18a
     seamless-m4t-medium and 18b rwkv6-1.6b served under ``tp_fsdp``
     (flash on 8 heads, WKV on 16 a rank; tokens, split cache bytes half),
     18c granite-moe-1b-a400m's AdamW step under ``ep_fsdp`` (16 of 32
-    experts a rank) and its dry run on a (1, 2) fake world. Returns the
+    experts a rank) and its dry run on a (1, 2) fake world, 18d 18a in
+    the other ``seq_shard`` form; 18e jamba-1.5-large-398b (2 layers)
+    and 18f deepseek-v2-lite-16b (27) served under ``ep_tp_fsdp`` in
+    bf16 (Mamba's ``dinner``, MLA's heads, the experts split; routing
+    flips only at near ties), their fp32 twins at smoke size in both
+    ``seq_shard`` forms (tokens bitwise), and 18g deepseek's AdamW step
+    at 4 layers under ``ep_tp_fsdp`` with its dry run. Returns the
     launch counts of the ranks' serving paths."""
     import shutil
     import tempfile
@@ -5819,18 +6161,30 @@ def tp_phase(dev) -> dict:
     from repro_torch.dist.sharding import build_rules
     from repro_torch.models import model_zoo as zoo
 
+    cases = tp_split_cases()
+    g_tag, g_arch, g_over, g_layout = TP_SPLIT_TRAIN
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_phase18_"))
     procs = {}
     try:
+        # the dry runs trace on the host while this process runs the one
+        # rank's references on the card, not beside the ranks, whose
+        # collectives all cross the host
+        procs = shard_processes(work, dev.type,
+                                (("dry", TP_TRAIN_ARCH, {}),
+                                 (f"dry{g_tag}", g_arch, g_over)),
+                                TP_MESH, None)
         refs = {}
         for tag, arch in zip(("18a", "18b"), TP_SERVE_ARCHS):
             log(f"phase {tag}: {arch} (tp_fsdp), prefill of {SERVE_BATCH} x "
                 f"{PROMPT} tokens and {SHARD_DECODES} greedy decode steps "
                 f"(impl='kernel'): one rank, then two ranks of a {TP_MESH} "
                 "mesh on the card (gloo), each on its heads")
-            refs[arch] = tp_serve_reference(dev, arch)
+            cfg = get_config(arch)
+            refs[arch] = tp_serve_reference(dev, cfg)
+            split = sum(refs[arch]["cache"][k][2] for k, (_, cut) in
+                        act_split(cfg, refs[arch]["cache"]).items() if cut)
             log(f"  {tag} one rank: {refs[arch]['s']!r} s; split cache "
-                f"leaves {refs[arch]['cache_bytes']!r} B")
+                f"leaves {split!r} B")
         log(f"phase 18d: {TP_SEQ_ARCH} (tp_fsdp) as 18a with its config's "
             "seq_shard flipped (where set, the ranks' prefill keeps the "
             "residual stream as its slice of the sequence: reduce-scatter, "
@@ -5839,9 +6193,31 @@ def tp_phase(dev) -> dict:
             f"step of {TRAIN_B} x {TRAIN_S} tokens: one rank, then the two "
             "ranks, each on its experts")
         ref = shard_train_reference(dev, work, TP_TRAIN_ARCH, "18c")
+        whys = {tag: (arch, why) for tag, arch, _, why in TP_SPLIT_SERVE}
+        for tag, _, cfg in cases:
+            if tag in whys:
+                log(f"phase {tag}: {whys[tag][0]} ({cfg.recipe}, "
+                    f"seq_shard={cfg.seq_shard}, {cfg.n_layers} layers: "
+                    f"{whys[tag][1]}), {cfg.param_dtype} at d_model "
+                    f"{cfg.d_model}, prefill of {SERVE_BATCH} x {PROMPT} "
+                    f"tokens and {SHARD_DECODES} greedy decode steps "
+                    "(impl='kernel'): one rank, then the two ranks, each on "
+                    "its slice")
+            else:
+                log(f"phase 18 {tag}: the smoke config, {cfg.param_dtype} "
+                    f"(caches {cfg.kv_cache_dtype}), {cfg.recipe}: one rank, "
+                    "then the two ranks")
+            refs[tag] = tp_serve_reference(dev, cfg)
+            rf = refs[tag]
+            log(f"  {tag} one rank: {rf['s']!r} s (routing recorded); draw "
+                f"max_memory_allocated {rf['draw_peak']!r} B, serving "
+                f"{rf['peak']!r} B")
+        log(f"phase {g_tag}: {g_arch} ({g_over}) at full width, one AdamW "
+            f"step of {TRAIN_B} x {TRAIN_S} tokens: one rank, then the two "
+            "ranks, each on its heads, experts and ff")
+        ref_g = shard_train_reference(dev, work, g_arch, g_tag, g_over)
         t0 = time.perf_counter()
-        procs = shard_processes(work, dev.type, TP_TRAIN_ARCH, TP_MESH,
-                                "tp_rank")
+        procs.update(shard_processes(work, dev.type, (), TP_MESH, "tp_rank"))
         outs = shard_wait(procs, work, "18")
         wall = time.perf_counter() - t0
         ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
@@ -5852,7 +6228,7 @@ def tp_phase(dev) -> dict:
                 p.kill()
                 p.wait()
         shutil.rmtree(work, ignore_errors=True)
-    log(f"  the ranks and the dry run: {wall!r} s of wall time")
+    log(f"  the ranks: {wall!r} s of wall time")
 
     counts = {}
     m = TP_MESH[1]
@@ -5865,25 +6241,24 @@ def tp_phase(dev) -> dict:
             same = torch.equal(sv["tokens"], rf["tokens"])
             ties = tie_divergences(sv["tokens"], rf["tokens"], rf["logits"],
                                    f"{tag} rank {r}")
+            mine, ones, halved, _ = split_cache_check(
+                f"{tag} rank {r}", arch, cfg, sv["cache"], rf["cache"])
             launched = {k: v for k, v in sv["launches"].items() if v}
             log(f"  rank {r} {tag}: tokens equal the one rank's: {same}; "
                 f"rows diverging at a bf16 tie of the one rank's logits "
                 f"(row, step, gap): {ties}; "
                 f"{sv['s']!r} s (one rank {rf['s']!r} s); split cache "
-                f"leaves {sv['cache_bytes']!r} B (one rank "
-                f"{rf['cache_bytes']!r} B); heads a call {sv['heads']}; "
-                f"arguments {sv['arg_bytes']!r} B, max_memory_allocated "
-                f"{sv['peak']!r} B; launches {launched}")
+                f"leaves {halved} {mine!r} B (one rank {ones!r} B); heads a "
+                f"call "
+                f"{sv['heads']}; arguments {sv['arg_bytes']!r} B, "
+                f"max_memory_allocated {sv['peak']!r} B (draw "
+                f"{sv['draw_peak']!r} B); launches {launched}")
             if not sv["launches"].get(kernel):
                 raise AssertionError(f"{tag} rank {r}: no {kernel} launch")
             if sv["heads"][kernel] != want_heads:
                 raise AssertionError(f"{tag} rank {r}: {kernel} ran at "
                                      f"{sv['heads'][kernel]} heads, not "
                                      f"{want_heads}")
-            if m * sv["cache_bytes"] != rf["cache_bytes"]:
-                raise AssertionError(f"{tag} rank {r}: split cache leaves "
-                                     f"{sv['cache_bytes']} B, not 1/{m} of "
-                                     f"{rf['cache_bytes']}")
             for k, v in sv["launches"].items():
                 counts[k] = counts.get(k, 0) + v
 
@@ -5905,12 +6280,8 @@ def tp_phase(dev) -> dict:
             f"{twin['link_bytes']} in {twin['link_calls']}); "
             f"max_memory_allocated {sv['peak']!r} B (18a {twin['peak']!r} "
             f"B); launches {launched}")
-        for tag, run in (("18a", twin), ("18d", sv)):
-            if bool(run["link_calls"]["reduce_scatter_tensor"]) != \
-                    run["seq_shard"]:
-                raise AssertionError(
-                    f"{tag} rank {r}: {run['link_calls']} collectives with "
-                    f"seq_shard={run['seq_shard']}")
+        seq_collectives_check(f"18a rank {r}", twin)
+        seq_collectives_check(f"18d rank {r}", sv)
         if sv["seq_shard"] == twin["seq_shard"]:
             raise AssertionError("18d did not flip 18a's seq_shard")
         if not sv["launches"].get(TP_KERNELS[TP_SEQ_ARCH]):
@@ -5927,9 +6298,107 @@ def tp_phase(dev) -> dict:
     train_rank_checks("18c", [out["train"] for out in ranks], ref,
                       outs["dry"], shard_bytes(cfg, opt, rules, TP_MESH),
                       whole, "sharded_tp", TP_MESH)
+
+    # 18e-18f and the fp32 twins: the Mamba and MLA splits against one
+    # rank; no hand kernel on these paths
+    for tag, arch, cfg in cases:
+        rf = refs[tag]
+        if any(rf["launches"].values()):
+            raise AssertionError(f"{tag} one rank: hand kernels launched "
+                                 f"{rf['launches']}")
+        for r, out in enumerate(ranks):
+            sv, what = out[tag], f"{tag} rank {r}"
+            split = rank_shapes_check(what, cfg, sv["shapes"])
+            mine, ones, halved, kept = split_cache_check(
+                what, arch, cfg, sv["cache"], rf["cache"])
+            seq_collectives_check(what, sv)
+            if cfg.mla is not None and not {"c_kv", "k_rope"} <= set(kept):
+                raise AssertionError(f"{what}: MLA's latent cache not whole")
+            if tag in whys:
+                routed = tp_bf16_checks(what, cfg, sv, rf)
+            else:
+                same = torch.equal(sv["tokens"], rf["tokens"])
+                parted = routing_parts(rf["routing"], sv["routing"], what)
+                if not same:
+                    raise AssertionError(f"{what}: tokens {sv['tokens']} "
+                                         f"against {rf['tokens']}")
+                routed = (f"tokens bitwise the one rank's: {same}; expert "
+                          f"ids equal but at a near tie ({MOE_NEAR_TIE}), "
+                          f"{len(sv['routing'])} MoE calls, parted at one: "
+                          f"{parted}")
+            log(f"  rank {r} {tag}: {routed}; params {split} leaves split "
+                f"as the rules give; cache leaves split {halved} "
+                f"({mine!r} B of the one rank's {ones!r} B), whole {kept}; "
+                f"link bytes by collective {sv['link_bytes']} in "
+                f"{sv['link_calls']} calls (seq_shard={sv['seq_shard']}); "
+                f"{sv['s']!r} s (one rank {rf['s']!r} s); arguments "
+                f"{sv['arg_bytes']!r} B; max_memory_allocated: draw "
+                f"{sv['draw_peak']!r} B in {sv['draw_s']!r} s, serving "
+                f"{sv['peak']!r} B; hand-kernel launches "
+                f"{sum(sv['launches'].values())}")
+            if any(sv["launches"].values()):
+                raise AssertionError(f"{what}: hand kernels launched "
+                                     f"{sv['launches']}")
+
+    cfg = get_config(g_arch).with_overrides(**g_over)
+    opt = shard_optimizer(cfg)
+    rules = build_rules(cfg, shape=shape)
+    whole = sum(t.numel() * t.element_size() for t in tree_leaves(
+        (zoo.param_shapes(cfg), shard_state_shapes(cfg, opt))))
+    train_rank_checks(g_tag, [out[g_tag] for out in ranks], ref_g,
+                      outs[f"dry{g_tag}"], shard_bytes(cfg, opt, rules,
+                                                       TP_MESH),
+                      whole, g_layout, TP_MESH)
     log(f"  phase 18 launches: {counts}")
     log(f"    {nvidia_smi_line()}")
     return counts
+
+
+def tp_bf16_checks(what: str, cfg, sv: dict, rf: dict) -> str:
+    """18e's and 18f's checks of a rank's bf16 serving against the one
+    rank's: routing flips only at near ties (``routing_flips``), tokens
+    equal but at a logit tie or downstream of such a flip
+    (``tie_divergences``), and each step's logits within LOGITS_RTOL of
+    the one rank's largest that step on every row whose tokens agree up
+    to the step (the prefill's: every row); it fails where a step holds
+    no row. Returns the log's text."""
+    import torch
+    flips, down, bound, by_layer = routing_flips(
+        rf["routing"], sv["routing"], sv["tokens"], rf["tokens"],
+        cfg.moe.top_k, what)
+    ties = tie_divergences(sv["tokens"], rf["tokens"], rf["logits"], what,
+                           down)
+    # step i's logits follow the prompt and tokens 0 .. i - 1
+    same = (sv["tokens"] == rf["tokens"]).int().cumprod(1).bool()
+    held = torch.cat([torch.ones_like(same[:, :1]), same[:, :-1]], 1)
+    rows = held.sum(0).tolist()
+    steps = []
+    for i in range(held.shape[1]):
+        got = sv["logits"][held[:, i], i].float()
+        want = rf["logits"][held[:, i], i].float()
+        scale = float(rf["logits"][:, i].float().abs().max())
+        diff = float((got - want).abs().max()) if rows[i] else math.nan
+        steps.append((diff, scale))
+        if not diff <= LOGITS_RTOL * scale:
+            raise AssertionError(f"{what}: step {i}: logits {diff!r} from "
+                                 f"the one rank's on its {rows[i]} rows "
+                                 f"whose tokens agree (max |logit| "
+                                 f"{scale!r}, rtol {LOGITS_RTOL})")
+    near = [(st, ly, r, pos, gap, own) for st, ly, r, pos, gap, own, d
+            in flips if not d]
+    return (f"tokens equal the one rank's: "
+            f"{bool(torch.equal(sv['tokens'], rf['tokens']))}; rows parting "
+            f"(row, step, the one rank's logit gap, 'routing' where "
+            f"downstream of a near-tie flip): {ties}; "
+            f"routing flips by layer {by_layer} "
+            f"({sum(d for *_, d in flips)} reached by an earlier one), "
+            f"near-tie flips (step, layer, row, position, the one rank's "
+            f"logit gap, the token's other gaps' largest move) {near}, "
+            f"bound by layer (the largest move of a logit gap on its "
+            f"agreeing tokens no flip reaches) {bound}; rows downstream of "
+            f"a flip from token {down}; logits held on {rows} rows a step "
+            f"(tokens agreeing up to it), max |difference| and the one "
+            f"rank's max |logit| a step {steps} (tol {LOGITS_RTOL})")
 
 
 def train_rank_checks(tag, trains, ref, dry_out, want_args, whole,
@@ -5952,6 +6421,7 @@ def train_rank_checks(tag, trains, ref, dry_out, want_args, whole,
             f"{ref['grad_norm']!r}); step {t['ms']!r} ms; arguments "
             f"{t['arg_bytes']!r} B (the rules' {want_args!r}, the dry run's "
             f"{rec['memory']['argument_size_in_bytes']!r}); "
+            f"draw max_memory_allocated {t['draw_peak']!r} B; step "
             f"max_memory_allocated {t['peak']!r} B, less the arguments "
             f"{t['peak'] - t['arg_bytes']!r} B (whole params and state "
             f"{whole!r} B); traced peak {traced!r} B, gap {gap!r} (tol "

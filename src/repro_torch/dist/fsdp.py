@@ -308,24 +308,27 @@ class Layout:
         (redistributed first where its placements are not the leaf's:
         a collective), a plain leaf's slice (a copy, so the caller's full
         value is never written)."""
+        leaves = tree_flatten(tree)[0]
+        return tree_unflatten(self.treedef, [self.local_leaf(i, x) for i, x
+                                             in enumerate(leaves)])
+
+    def local_leaf(self, i: int, x):
+        """This rank's shard of leaf ``i`` (``x``), as :meth:`local`
+        takes it."""
         from torch.distributed.tensor import DTensor
 
-        leaves = tree_flatten(tree)[0]
-        out = []
-        for x, pl, steps in zip(leaves, self.placements, self._steps):
-            if isinstance(x, DTensor):
-                if x.device_mesh != self.mesh:
-                    raise ValueError("a leaf lives on another mesh than the "
-                                     "step's")
-                if list(x.placements) != pl:
-                    x = x.redistribute(self.mesh, pl)
-                out.append(x.to_local())
-                continue
-            for dim, axis in reversed(steps):     # outer mesh dim first
-                n = x.shape[dim] // mesh_sizes(self.mesh)[axis]
-                x = x.narrow(dim, self.mesh.get_local_rank(axis) * n, n)
-            out.append(x.clone() if steps else x)
-        return tree_unflatten(self.treedef, out)
+        if isinstance(x, DTensor):
+            if x.device_mesh != self.mesh:
+                raise ValueError("a leaf lives on another mesh than the "
+                                 "step's")
+            if list(x.placements) != self.placements[i]:
+                x = x.redistribute(self.mesh, self.placements[i])
+            return x.to_local()
+        steps = self._steps[i]
+        for dim, axis in reversed(steps):         # outer mesh dim first
+            n = x.shape[dim] // mesh_sizes(self.mesh)[axis]
+            x = x.narrow(dim, self.mesh.get_local_rank(axis) * n, n)
+        return x.clone() if steps else x
 
     def placed(self, tree):
         """DTensors on the mesh from this rank's shards (no

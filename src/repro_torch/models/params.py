@@ -19,12 +19,15 @@ convert the JAX package's with :func:`repro_torch.convert.params_from_numpy`.
 
 from __future__ import annotations
 
+import functools
 import math
 import zlib
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch._tree import tree_flatten, tree_unflatten
 
 
 @dataclass(frozen=True)
@@ -88,16 +91,25 @@ def _map_with_path(fn, tree, path: Tuple[str, ...] = ()):
     return fn("/".join(path), tree)
 
 
-def materialize(tree, seed: int, dtype=torch.float32, device="cpu"):
+def materialize(tree, seed: int, dtype=torch.float32, device="cpu",
+                keep=None):
     """Materialize a Spec tree into parameters on ``device``
-    (deterministic per path)."""
+    (deterministic per path). ``keep(i, value)``, where given, is what
+    leaf ``i`` (in pytree order) keeps of its drawn value, taken before
+    the next leaf is drawn (a rank's shard: the whole value is freed at
+    once); the tree then comes back in pytree order."""
     def leaf(path, spec):
         gen = None
         if spec.init == "normal":
             gen = torch.Generator(device=device)
             gen.manual_seed(leaf_seed(seed, path))
         return _init_leaf(spec, gen, dtype, device)
-    return _map_with_path(leaf, tree)
+    if keep is None:
+        return _map_with_path(leaf, tree)
+    draws, treedef = tree_flatten(_map_with_path(
+        lambda path, spec: functools.partial(leaf, path, spec), tree))
+    return tree_unflatten(treedef, [keep(i, draw())
+                                    for i, draw in enumerate(draws)])
 
 
 def shape_tree(tree, dtype=torch.float32):

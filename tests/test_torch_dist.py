@@ -667,7 +667,7 @@ def _expected_local(axes_tree, shape_tree, rules):
     return out
 
 
-MOE = ("moe", "hybrid", "mla_moe", "mla_tp")
+MOE = ("moe", "hybrid", "mla_moe", "mla_tp", "hybrid_seq", "mla_tp_seq")
 GRAD_TOL = 1e-4      # a gradient leaf's error, of its largest element
 
 
@@ -929,7 +929,8 @@ def test_seq_shard_train_step_reduce_scatters_the_residual(world):
     """With ``seq_shard=True`` under ``tp_fsdp`` and ``ep_tp_fsdp`` (each
     ``_seq`` train case: its twin's config, params and batch; dense,
     rwkv6's time and channel mix, jamba's Mamba, attention and experts,
-    the vision model's gated cross-attention) the residual stream is the
+    the vision model's gated cross-attention, deepseek's MLA on its heads
+    with the latent whole) the residual stream is the
     rank's slice of the 32-token sequence: each layer's output products
     reduce-scatter over ``model`` (the backward all-gathers their
     gradients) and the norms' outputs are all-gathered over ``model``
@@ -939,7 +940,7 @@ def test_seq_shard_train_step_reduce_scatters_the_residual(world):
     reduce-scatters. Nothing is reduce-scattered over ``model`` without
     ``seq_shard``."""
     names = [n for n in ranks.TRAIN_CASES if n in ranks.SEQ_SHARD]
-    assert len(names) == 4, names
+    assert len(names) == 5, names
     for res, name in ((r, n) for r in world["res"] for n in names):
         seq, twin = res[name], res[_twin(name)]
         rs = _count(seq["reductions"], "model", "reduce_scatter",
@@ -961,8 +962,9 @@ def test_seq_shard_train_step_reduce_scatters_the_residual(world):
 
 
 def test_seq_shard_serving_scatters_prefill_and_keeps_decode_whole(world):
-    """Serving with ``seq_shard=True``: seamless-m4t-medium's and
-    rwkv6's 12-token prefills (seamless's encoder and decoder) reduce-
+    """Serving with ``seq_shard=True``: seamless-m4t-medium's, rwkv6's,
+    jamba's (Mamba, attention, experts) and deepseek's (MLA on its heads,
+    experts) 12-token prefills (seamless's encoder and decoder) reduce-
     scatter their layers' output products over ``model`` and all-gather
     the norms' outputs; their decode steps (one position, which does not
     divide) all-reduce as before and reduce-scatter nothing; an 11-token
@@ -970,7 +972,8 @@ def test_seq_shard_serving_scatters_prefill_and_keeps_decode_whole(world):
     all-reduce. The ``seq_shard`` off cases reduce-scatter nothing over
     ``model``."""
     for res, name in ((r, n) for r in world["res"]
-                      for n in ("encdec_seq", "rwkv_seq")):
+                      for n in ("encdec_seq", "rwkv_seq", "hybrid_seq",
+                                "mla_tp_seq")):
         enc = res["serve/" + name]["reductions"]
         assert _count(enc, "model", "reduce_scatter",
                       "_ReduceScatterOut.forward", "prefill") > 0, enc
@@ -1029,11 +1032,18 @@ def test_chip_smoke_phase_18_rehearses_on_the_cpu(monkeypatch):
     phase starts): the one-rank references, the two gloo ranks of the
     (1, 2) mesh computing on their heads and experts (and, in 18d, with
     the config's ``seq_shard`` flipped: on their slice of the sequence
-    here) and the (1, 2)
-    dry run pass their checks (tokens, the kernels' heads, the split
-    caches' bytes, 18d's reduce-scatters, loss, grad norm, params,
-    arguments against the rules and the dry run's ``"sharded_tp"``
-    record), and the ranks' flash and WKV launches are the path's."""
+    here) and the (1, 2) dry runs pass their checks (tokens, the
+    kernels' heads, the split caches' bytes, 18d's reduce-scatters,
+    loss, grad norm, params, arguments against the rules and the dry
+    run's ``"sharded_tp"`` record), and the ranks' flash and WKV
+    launches are the path's. 18e-18g at smoke size: jamba's Mamba and
+    deepseek's MLA split served under ``ep_tp_fsdp`` (tokens, routing
+    flips, each step's logits on every row, jamba's K, V, conv and SSM
+    states halved, deepseek's latent cache whole, the params the rules'
+    shapes), deepseek's 4-layer step on the ranks and its dry run's
+    ``"sharded_tp_seq"`` record (loss), and the fp32 twins in both
+    ``seq_shard`` forms (tokens bitwise, routing, reduce-scatters only
+    in the ``seq_sp`` form)."""
     import pathlib
     import subprocess
 
@@ -1060,12 +1070,82 @@ def test_chip_smoke_phase_18_rehearses_on_the_cpu(monkeypatch):
                    if k not in ("flash_attention", "rwkv6_wkv"))
     text = "\n".join(lines)
     for r in range(2):
-        for tag in ("18a", "18b"):
-            assert f"rank {r} {tag}: tokens equal the one rank's: True" in text
+        for tag, split in (("18a", "['k', 'v']"), ("18b", "['wkv']")):
+            line = next(ln for ln in lines if f"rank {r} {tag}: " in ln)
+            assert "tokens equal the one rank's: True" in line
+            assert f"split cache leaves {split}" in line
         # the smoke config's seq_shard is off, so 18d runs the seq_sp form
         assert (f"rank {r} 18d (seq_shard=True; 18a seq_shard=False): "
                 "tokens equal the one rank's: True") in text
         assert f"rank {r} 18c: loss" in text
+        assert f"rank {r} 18g: loss" in text
+        for tag, split, whole in (
+                ("18e", "['conv', 'h', 'k', 'v']", "['length']"),
+                ("18f", "[]", "['c_kv', 'k_rope', 'length']")):
+            line = next(ln for ln in lines if f"rank {r} {tag}: " in ln)
+            assert "tokens equal the one rank's: True" in line
+            assert "routing flips by layer [" in line
+            held = [cs.SERVE_BATCH] * (1 + cs.SHARD_DECODES)
+            assert f"logits held on {held} rows a step" in line
+            assert f"cache leaves split {split}" in line
+            assert f"whole {whole}" in line
+            assert "hand-kernel launches 0" in line
+        for arch in cs.TP_TWIN_ARCHS:
+            for seq in (False, True):
+                line = next(ln for ln in lines if
+                            f"rank {r} twin {arch} seq_shard={seq}: " in ln)
+                assert "tokens bitwise the one rank's: True" in line
+                assert "parted at one: False" in line
+                rs = int(line.split("'reduce_scatter_tensor': ")[2]
+                         .split(",")[0])
+                assert (rs > 0) == seq, line
+
+
+@pytest.mark.parametrize("arch,recipe", [
+    ("seamless-m4t-medium", "tp_fsdp"), ("rwkv6-1.6b", "tp_fsdp"),
+    ("jamba-1.5-large-398b", "ep_tp_fsdp"),
+    ("deepseek-v2-lite-16b", "ep_tp_fsdp")])
+def test_phase_18_cache_split_is_held_to_the_named_leaves(monkeypatch, arch,
+                                                          recipe):
+    """``chip_smoke.split_cache_check`` on a smoke config's cache after
+    one greedy step: a rank's leaves at the act rules' split pass, the
+    split leaves ``TP_CACHE_SPLIT``'s names and exactly half the one
+    rank's bytes (MLA's latent whole); where the rules stopped splitting
+    a named leaf (the rank's leaf then whole too), it fails."""
+    import pathlib
+    import re
+
+    monkeypatch.syspath_prepend(str(pathlib.Path(__file__).resolve()
+                                    .parents[1]))
+    import chip_smoke as cs
+    from repro_torch.serve.engine import wave_inputs
+
+    for k, v in {"PROMPT": 8, "MAX_LEN": 32, "SHARD_DECODES": 1,
+                 "SERVE_BATCH": 2}.items():
+        monkeypatch.setattr(cs, k, v)
+    cfg = tget(arch, smoke=True).with_overrides(recipe=recipe)
+    params = tzoo.init_params(cfg, 0, "cpu")
+    _, want, _ = cs.greedy_tokens(params, cfg, wave_inputs(
+        cfg, cs.serve_prompts(cfg), torch.device("cpu")))
+
+    def rank_of(split):
+        return {p: (None, None, b) for p, (b, _) in split(cfg, want).items()}
+
+    mine, ones, split, whole = cs.split_cache_check(
+        arch, arch, cfg, rank_of(cs.act_split), want)
+    assert split == cs.TP_CACHE_SPLIT[arch] and 2 * mine == ones
+    if cfg.mla is not None:
+        assert {"c_kv", "k_rope"} <= set(whole) and not split
+        return
+    real = cs.act_split
+
+    def unsplit(cfg, cache):
+        return {p: (cache[p][2], False)
+                if re.findall(r"\w+", p)[-1] == split[0] else v
+                for p, v in real(cfg, cache).items()}
+    monkeypatch.setattr(cs, "act_split", unsplit)
+    with pytest.raises(AssertionError, match="halved"):
+        cs.split_cache_check(arch, arch, cfg, rank_of(unsplit), want)
 
 
 def test_row_parallel_partials_are_fp32_products_of_bf16_operands():

@@ -45,6 +45,7 @@ TRAIN_CASES = {
     "rwkv_seq": ("rwkv6-1.6b", "tp_fsdp", "sgd", 1, None),
     "hybrid_seq": ("jamba-1.5-large-398b", "ep_tp_fsdp", "sgd", 1, None),
     "vlm_seq": ("llama-3.2-vision-90b", "tp_fsdp", "sgd", 1, None),
+    "mla_tp_seq": ("deepseek-v2-lite-16b", "ep_tp_fsdp", "sgd", 1, None),
 }
 # serving on shards: case -> (arch, recipe)
 SERVE_CASES = {
@@ -57,12 +58,14 @@ SERVE_CASES = {
     "encdec_seq": ("seamless-m4t-medium", "tp_fsdp"),
     "encdec_seq_odd": ("seamless-m4t-medium", "tp_fsdp"),
     "rwkv_seq": ("rwkv6-1.6b", "tp_fsdp"),
+    "hybrid_seq": ("jamba-1.5-large-398b", "ep_tp_fsdp"),
+    "mla_tp_seq": ("deepseek-v2-lite-16b", "ep_tp_fsdp"),
 }
 # the cases with ``seq_shard=True``: the act rules map ``seq_sp`` to
 # ``model``, so the residual stream between the layers is the rank's
 # slice of the sequence where it divides (dist/tp.py); each is the twin of
 # the case without ``_seq`` (the same config, params and batch)
-SEQ_SHARD = ("dense_seq", "rwkv_seq", "hybrid_seq", "vlm_seq",
+SEQ_SHARD = ("dense_seq", "rwkv_seq", "hybrid_seq", "vlm_seq", "mla_tp_seq",
              "encdec_seq", "encdec_seq_odd")
 # a serve case's prompt tokens; 11 does not divide over the model axis
 SERVE_PROMPT = {"encdec_seq_odd": 11}
